@@ -8,9 +8,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. card: name and power limit (``nvidia-smi``); build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a; calibrate the
    per-transfer and per-launch times the H100 cost profile quotes.
-2. kernels at the serving path's shapes, each held bit for bit against its
-   plain PyTorch version, with CUDA-event times, the bound (bytes / 3.35
-   TB/s), the plain version's time and a one-call PyTorch yardstick.
+2. kernels, each held bit for bit against its plain PyTorch version, with
+   CUDA-event times, the bound (bytes / 3.35 TB/s), the plain version's time
+   and a one-call PyTorch yardstick: the merge and the copy at the serving
+   path's shapes, the quantize pair at the training path's hop shape, and
+   the merge again at the training path's rounds (an accumulate and an
+   overwrite round of the f32 int8 and the bf16 tuned allreduce plans on
+   the embedding bucket).
 3. serving, default policy: minitron-8b at full width (8 of 32 layers,
    bf16, seeded random weights) on an emulated data axis of 4 ranks;
    ``Engine(distribute=True, double_buffer=True)`` broadcasts the weights,
@@ -20,26 +24,56 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    replicas with the pinned pipelined chain and the compiled executor.
 5. a small-input reference: the port's f32 smoke model on the card against
    the same model on the CPU.
+6. training: minitron-8b at full width (1 of 32 layers, bf16, seeded
+   weights) on 4 emulated data ranks, global batch 8 x 512 tokens, 3 steps
+   in each sync mode from the same weights and batches: grad_allreduce,
+   param_bcast, tuned_allreduce (compiled executor: fused_combine), and
+   compressed_allreduce over bf16 (the passthrough), int8 and fp8 wires
+   (compiled: the quantize kernels); then param_bcast and tuned_allreduce
+   again with the synced gradient rows compared. Checks: equal step-0
+   losses, bit-equal synced rows in those two, the bf16 wire's parameters
+   bit-identical to tuned_allreduce's, the bf16-wire modes' last losses and
+   per-step grad norms close to grad_allreduce's (the plain mean, which runs
+   none of the port's kernels), int8's last loss within 5e-3 of
+   tuned_allreduce's, finite losses; then one f32 smoke param_bcast run on
+   the card against the CPU.
 
 Launch counts are zeroed right before phase 3 and read right after phase 4
-(the serving path); the launches that compare kernels with their plain
-versions are not counted. The last three lines of output are the kernels
-JSON, the card, and ``{"ok": true, "device": ...}``.
+(the serving path), and zeroed again right before phase 6 and read right
+after its eight runs (the training path); the launches that compare kernels
+with their plain versions are not counted. The last three lines of output
+are the kernels JSON, the card, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BATCH, PROMPT, STEPS, RANKS, LAYERS = 4, 128, 32, 4, 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 8, 512, 3, 1
+TRAIN_MODES = (  # (label, RunConfig fields)
+    ("grad_allreduce", {"sync_mode": "grad_allreduce"}),
+    ("param_bcast", {"sync_mode": "param_bcast"}),
+    ("tuned_allreduce", {"sync_mode": "tuned_allreduce", "compiled_collectives": True}),
+    ("compressed_bf16", {"sync_mode": "compressed_allreduce", "wire_format": "bf16",
+                         "compiled_collectives": True}),
+    ("compressed_int8", {"sync_mode": "compressed_allreduce", "wire_format": "int8",
+                         "compiled_collectives": True}),
+    ("compressed_fp8", {"sync_mode": "compressed_allreduce", "wire_format": "fp8",
+                        "compiled_collectives": True}),
+)
+TRAIN_RUN = {"learning_rate": 1e-3, "warmup_steps": 1, "total_steps": TRAIN_STEPS, "seed": 0}
+ROW_CHECKED = ("param_bcast", "tuned_allreduce")  # rerun with the synced rows compared
 
 
 def log(msg: str) -> None:
@@ -167,6 +201,53 @@ def check_fused_combine(torch) -> dict:
     return line
 
 
+def check_fused_combine_training(torch) -> None:
+    """fused_combine_update at the training path's round shapes, bit for
+    bit against its plain version: on the embedding bucket, one accumulate
+    and one overwrite round of the int8 compressed allreduce plan (f32 at
+    the plan's odd chunk width) and of the tuned bf16 allreduce plan, each
+    with the start/lo/hi rows of its lowered plan's round tables."""
+    import numpy as np
+
+    from repro_torch.comm import plan_cached
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import combine_update as cu
+
+    cfg = get_config("minitron-8b")
+    N = cfg.padded_vocab * cfg.d_model
+    algo = RunConfig().allreduce_algo
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for label, dt, fmt in (("compressed int8", torch.float32, "int8"),
+                           ("tuned", torch.bfloat16, None)):
+        esize = 4 if dt == torch.float32 else 2
+        plan = plan_cached("allreduce", N * esize, RANKS, algo=algo, wire_format=fmt)
+        low = plan.lowered()
+        K = low.num_chunks
+        C = -(-N // K)
+        buf = torch.randn((RANKS, K, C), generator=gen, device="cuda").to(dt)
+        ref = buf.clone()
+        for combine, name in ((1, "accumulate"), (0, "overwrite")):
+            cls, r = next((c, r) for c in low.classes for r in range(low.num_rounds)
+                          if int(c.combine[r]) == combine and (c.hi[r] > c.lo[r]).any())
+            tab = torch.from_numpy(np.stack([cls.recv_start[r], cls.lo[r], cls.hi[r]])).to(
+                device="cuda", dtype=torch.int32)
+            recv = torch.randn((RANKS, cls.block, C), generator=gen, device="cuda").to(dt)
+            cu.fused_combine_update(buf, recv, tab[0], tab[1], tab[2], combine)
+            cu.fused_combine_update_plain(ref, recv, tab[0], tab[1], tab[2], combine)
+            torch.cuda.synchronize()
+            assert same_bits(torch, buf, ref), \
+                f"fused_combine_update {label} {name} round differs from plain"
+            ms = time_ms(torch, lambda: cu.fused_combine_update(buf, recv, tab[0], tab[1],
+                                                                tab[2], combine), reps=10)
+            ref.copy_(buf)
+            rows = int((cls.hi[r] - cls.lo[r]).sum())
+            bound = rows * C * esize * (3 if combine else 2) / HBM_BYTES_PER_S * 1e3
+            log(f"kernel fused_combine_update ({RANKS}, {K}, {C}) {str(dt)[6:]} {label} "
+                f"{plan.algo} {name} round ({rows} rows): bit-equal, {ms:.4f} ms "
+                f"(bound {bound:.4f} ms)")
+        del buf, ref, recv
+
+
 def check_chunked_copy(torch) -> dict:
     from repro_torch.kernels.chunked_copy import chunked_copy, chunked_copy_plain
 
@@ -195,6 +276,97 @@ def check_chunked_copy(torch) -> dict:
     log(f"kernel chunked_copy ({N},) bf16: bit-equal, {ms:.4f} ms "
         f"(bound {line['bound_ms']:.4f} ms, plain {plain_ms:.4f} ms, clone {library_ms:.4f} ms)")
     return line
+
+
+def _quant_bits_equal(torch, a, b) -> tuple[bool, int]:
+    """(bit-equal where not both NaN, count of both-NaN positions whose
+    payload bits differ)."""
+    nan = (a.float().isnan() & b.float().isnan())
+    view = {1: torch.uint8, 4: torch.int32}[a.element_size()]
+    same = a.view(view) == b.view(view)
+    return bool((same | nan).all()), int((nan & ~same).sum())
+
+
+def embed_wire_block() -> tuple[int, int]:
+    """(rows, width) of one compressed hop on the training path's largest
+    bucket, the embedding's: the planner's int8 allreduce plan chunks it,
+    and a class round quantizes the rows its active pairs merge."""
+    from repro_torch.comm import plan_cached
+    from repro_torch.configs import get_config
+
+    cfg = get_config("minitron-8b")
+    N = cfg.padded_vocab * cfg.d_model
+    plan = plan_cached("allreduce", N * 4, RANKS, wire_format="int8")
+    low = plan.lowered()
+    rows = max(sum(int(cls.hi[s, d] - cls.lo[s, d]) for _src, d in cls.perm)
+               for cls in low.classes for s in range(low.num_rounds))
+    return rows, -(-N // plan.schedule.num_chunks)
+
+
+def check_quantize(torch) -> list[dict]:
+    """quantize_blocks / dequantize_blocks against their plain versions, bit
+    for bit, int8 and fp8: a ragged width, the training path's odd width,
+    an all-zero block, +-1e30 and 1e-30, a NaN block, zero rows; then
+    times at the embedding bucket's hop shape (the kernels JSON lines)."""
+    from repro_torch.kernels import quantize as qk
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, C = embed_wire_block()
+    small = torch.randn((3, 1000), generator=gen, device="cuda") * 3
+    small[1, :256] = 0.0
+    small[2, 0], small[2, 1], small[2, 2:10] = 1e30, -1e30, 1e-30
+    small[0, 300] = float("nan")
+    wide = torch.randn((rows, C), generator=gen, device="cuda")
+    wide[0, 256:512] = 0.0
+    wide[1, 1:3] = 1e30
+    wide[-1, C - 5] = float("nan")
+    nan_payload = 0
+    for fmt in ("int8", "fp8"):
+        for x in (small, small[:, 1:], small[:0], wide):
+            v, s = qk.quantize_blocks(x, fmt)
+            pv, ps = qk.quantize_blocks_plain(x, fmt)
+            torch.cuda.synchronize()
+            for a, b in ((v, pv), (s, ps)):
+                ok, differ = _quant_bits_equal(torch, a, b)
+                assert ok and a.shape == b.shape, f"quantize_blocks {fmt} {tuple(x.shape)} differs"
+                nan_payload += differ
+            d = qk.dequantize_blocks(v, s, out_cols=x.shape[1])
+            pd = qk.dequantize_blocks_plain(pv, ps, out_cols=x.shape[1])
+            torch.cuda.synchronize()
+            ok, differ = _quant_bits_equal(torch, d, pd)
+            assert ok and d.shape == pd.shape, f"dequantize_blocks {fmt} {tuple(x.shape)} differs"
+            nan_payload += differ
+    log(f"kernel quantize/dequantize int8+fp8 at (3, 1000), (3, 999), (0, 1000), "
+        f"({rows}, {C}): bit-equal to plain ({nan_payload} NaN positions with other "
+        "payload bits)")
+
+    one_way = rows * C * (4 + 1 + 4 / 256)  # f32 in, a byte and 1/256 scale out
+    v, s = qk.quantize_blocks(wide, "int8")
+    pv, ps = qk.quantize_blocks_plain(wide, "int8")
+    out = torch.empty_like(wide)
+    d = qk.dequantize_blocks(v, s, out_cols=C, out=out)
+    pd = qk.dequantize_blocks_plain(pv, ps, out_cols=C)
+    torch.cuda.synchronize()
+    lines = []
+    for name, err, fn, plain, src in (
+        ("quantize_blocks", max_abs_err(torch, v, pv), lambda: qk.quantize_blocks(wide, "int8"),
+         lambda: qk.quantize_blocks_plain(wide, "int8"), "quantize.py:73"),
+        ("dequantize_blocks", max_abs_err(torch, d, pd),
+         lambda: qk.dequantize_blocks(v, s, out_cols=C, out=out),
+         lambda: qk.dequantize_blocks_plain(pv, ps, out_cols=C), "quantize.py:101"),
+    ):
+        ms = time_ms(torch, fn, reps=10)
+        plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+        line = {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/quantize.cu",
+                "replaces": f"src/repro/kernels/{src}",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": one_way / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "library_ms": None, "shape": [rows, C], "dtype": "float32/int8"}
+        log(f"kernel {name} ({rows}, {C}) int8: {ms:.4f} ms (bound {line['bound_ms']:.4f} ms, "
+            f"plain {plain_ms:.4f} ms)")
+        lines.append(line)
+    return lines
 
 
 def replicas_equal(torch, stacked, root=None) -> bool:
@@ -338,6 +510,129 @@ def small_reference(torch) -> float:
     return err
 
 
+def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False):
+    """One Trainer run of TRAIN_STEPS steps from the seeded weights.
+    Returns the final parameters and the run's record."""
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.launch_counts()
+    trainer = Trainer(cfg, RunConfig(**TRAIN_RUN, **fields), mesh=mesh, check_rows=check_rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, hist = trainer.train(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                                      log_every=1)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    after = kernels.launch_counts()
+    del opt, trainer
+    losses = [h["loss"] for h in hist]
+    assert all(math.isfinite(x) for x in losses), (fields, losses)
+    step_s = (hist[-1]["time_s"] - hist[0]["time_s"]) / (TRAIN_STEPS - 1)
+    record = {
+        "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+        "first_step_s": hist[0]["time_s"], "step_s": step_s,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "run_s": total_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": {k: after[k] - before[k] for k in after},
+        "params": sum(t.numel() for t in tree_leaves(params)),
+    }
+    if check_rows:
+        record["grad_rows_differ"] = [int(h["grad_rows_differ"]) for h in hist]
+    return params, record
+
+
+def train(torch) -> dict:
+    """Phase 6: each sync mode trains 3 steps from the same seeded weights
+    and batches; then param_bcast and tuned_allreduce again with the synced
+    rows compared (``check_rows``, left out of the timed runs because it
+    adds passes over the synced gradients). Returns per-mode numbers;
+    raises on any failed check."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
+    mesh = make_mesh(RANKS, device="cuda")
+    out, tuned = {}, None
+    runs = [(label, fields, False) for label, fields in TRAIN_MODES]
+    runs += [(label + "+check_rows", dict(TRAIN_MODES)[label], True) for label in ROW_CHECKED]
+    for label, fields, check_rows in runs:
+        params, r = train_mode(torch, cfg, mesh, fields, check_rows)
+        if label == "tuned_allreduce":
+            tuned = tree_leaves(params)
+        elif label == "compressed_bf16":
+            assert all(same_bits(torch, a, b) for a, b in zip(tuned, tree_leaves(params))), \
+                "the bf16 wire's parameters differ from tuned_allreduce's"
+            tuned = None
+        del params
+        out[label] = r
+        log(f"train {label}: losses {['%.4f' % x for x in r['losses']]}, grad norms "
+            f"{['%.4f' % x for x in r['grad_norms']]}, step {r['step_s']:.3f} s "
+            f"(first {r['first_step_s']:.3f} s), {r['tokens_per_s']:.0f} tok/s, peak "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB, "
+            + (f"rows differ {r['grad_rows_differ']}, " if check_rows else "")
+            + f"launches {r['launches']}")
+    ref = out["tuned_allreduce"]["losses"]
+    for label, r in out.items():
+        assert abs(r["losses"][0] - ref[0]) <= 1e-3, ("step-0 loss", label, r["losses"], ref)
+    for label in ROW_CHECKED:
+        rows = out[label + "+check_rows"]["grad_rows_differ"]
+        assert not any(rows), (label, "synced rows differ", rows)
+    # grad_allreduce's plain mean is the one sync that runs none of the
+    # port's kernels: the bf16-wire modes must track it. Bounds set from
+    # the readings of the proof run (NVIDIA H100 80GB HBM3, 700 W): last
+    # losses within 1.7e-4, grad norms within 3.8e-5 relative at every step.
+    base = out["grad_allreduce"]
+    for label in ("param_bcast", "tuned_allreduce", "compressed_bf16"):
+        r = out[label]
+        d_loss = abs(r["losses"][-1] - base["losses"][-1])
+        d_norm = max(abs(a - b) / b for a, b in zip(r["grad_norms"], base["grad_norms"]))
+        log(f"train {label} against grad_allreduce: last loss differs by {d_loss:.3e} "
+            f"(bound 1e-3), grad norms by {d_norm:.3e} relative at most (bound 2e-4)")
+        assert d_loss <= 1e-3 and d_norm <= 2e-4, (label, r["losses"], r["grad_norms"],
+                                                   base["losses"], base["grad_norms"])
+    d_int8 = abs(out["compressed_int8"]["losses"][-1] - ref[-1])
+    log(f"train compressed_int8 against tuned_allreduce: last loss differs by {d_int8:.3e} "
+        "(bound 5e-3; the reference's own test allows 0.05)")
+    assert d_int8 <= 5e-3, (out["compressed_int8"]["losses"], ref)
+    return out
+
+
+def small_train_reference(torch) -> list[float]:
+    """One f32 smoke param_bcast run of 2 steps on the card against the
+    same run on the CPU, from one initial state (saved as a checkpoint by
+    the CPU trainer and restored by both)."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("minitron-8b-smoke"), dtype="float32")
+    run = RunConfig(sync_mode="param_bcast", **TRAIN_RUN)
+    losses = {}
+    with tempfile.TemporaryDirectory() as d:
+        for dev in ("cpu", "cuda"):
+            tr = Trainer(cfg, run, mesh=make_mesh(RANKS, device=dev), ckpt_dir=d, device=dev)
+            if dev == "cpu":
+                params, opt = tr.init_state()
+                checkpoint.save_checkpoint(d, 0, params)
+                checkpoint.save_checkpoint(os.path.join(d, "opt"), 0, opt)
+            losses[dev] = [h["loss"] for h in tr.train(batch=8, seq=32, steps=2,
+                                                       log_every=1)[2]]
+    err = [abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"])]
+    assert all(e <= 1e-4 for e in err), (losses, err)
+    log(f"reference: smoke f32 param_bcast losses, card vs CPU, max abs diff {max(err):.3e} "
+        "(tol 1e-4)")
+    return err
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is missing beside this script", file=sys.stderr)
@@ -365,7 +660,10 @@ def main() -> int:
     cal = calibrate(torch)
     log(f"calibrate: ts {cal['ts_s']:.3e} s, t_launch {cal['t_launch_s']:.3e} s")
 
-    lines = [check_fused_combine(torch), check_chunked_copy(torch)]
+    lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch)]
+    check_fused_combine_training(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()
     serving, engine = serve(torch)
@@ -376,13 +674,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before phase 4")
     compiled = compiled_replay(torch, root, mesh)
-    counts = kernels.launch_counts()
-    for line in lines:
-        line["launches"] = counts[line["name"]]
-        assert line["launches"] > 0, f"{line['name']} never launched on the serving path"
+    serve_counts = kernels.launch_counts()
+    del root, mesh
 
     small_reference(torch)
     log(f"serving numbers: {json.dumps({'serve': serving, 'compiled': compiled})}")
+
+    kernels.reset_launch_counts()
+    training = train(torch)
+    train_counts = kernels.launch_counts()
+    # each kernel on the path that runs it: the merge on both, the staging
+    # copy on the serving path, the quantize pair on the training path
+    paths = {"fused_combine": ("serve", "train"), "chunked_copy": ("serve",),
+             "quantize_blocks": ("train",), "dequantize_blocks": ("train",)}
+    counts = {"serve": serve_counts, "train": train_counts}
+    for line in lines:
+        line["launches_by_path"] = {p: counts[p][line["name"]] for p in paths[line["name"]]}
+        for p, k in line["launches_by_path"].items():
+            assert k > 0, f"{line['name']} never launched on the {p} path"
+        line["launches"] = line["launches_by_path"][paths[line["name"]][-1]]
+    small_train_reference(torch)
+    log(f"training numbers: {json.dumps(training)}")
     print(json.dumps({"kernels": lines}))
     print(f"card: {name_power}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,12 +5,28 @@ Layering, as in the reference:
     core.schedules (IR)  ->  comm.schedules (per-op builders)
                          ->  comm.plan      (CollectivePlan: decide + build)
                          ->  comm.executors (replay on a rank-stacked buffer)
-                         ->  comm.api       (apply_plan, pbcast)
+                         ->  comm.api       (apply_plan, pbcast, preduce,
+                                             pallreduce, *_tree)
                          ->  comm.streams   (stream entries)
 """
 from ..core.tuner import OPS, Decision, Tuner, default_tuner
-from .api import apply_plan, pbcast
-from .compress import WireFormat, normalize_wire_format, wire_chunk_bytes
+from .api import (
+    apply_plan,
+    hierarchical_allreduce_axes,
+    pallreduce,
+    pallreduce_tree,
+    pbcast,
+    pbcast_tree,
+    preduce,
+)
+from .compress import (
+    CompressedWire,
+    CompressionState,
+    WireFormat,
+    normalize_wire_format,
+    roundtrip,
+    wire_chunk_bytes,
+)
 from .executors import execute_collective, execute_compiled, execute_inkernel
 from .plan import (
     CollectivePlan,
@@ -31,6 +47,9 @@ __all__ = [
     "WireFormat",
     "normalize_wire_format",
     "wire_chunk_bytes",
+    "CompressedWire",
+    "CompressionState",
+    "roundtrip",
     "CollectivePlan",
     "plan_collective",
     "plan_cached",
@@ -43,6 +62,11 @@ __all__ = [
     "execute_inkernel",
     "apply_plan",
     "pbcast",
+    "preduce",
+    "pallreduce",
+    "pbcast_tree",
+    "pallreduce_tree",
+    "hierarchical_allreduce_axes",
     "StreamEntry",
     "StreamGraph",
     "graph_key",

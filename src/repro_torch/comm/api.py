@@ -9,18 +9,36 @@ payload ``M`` is one row's bytes, so the plans are the reference's plans.
 The executors update the communicated buffer in place. Where the flat
 buffer divides into the schedule's chunks and ``x`` is contiguous, that
 buffer is ``x`` itself, so the caller's tensor holds the result; always use
-the returned value.
+the returned value. A compressed plan is the exception: it runs on an f32
+copy of ``x`` (the reference's cast to the f32 wire domain), so ``x`` is
+left as it was — the error-feedback update reads it after the sync.
+
+``*_tree`` variants communicate a rank-stacked pytree through same-dtype
+buckets (:mod:`repro_torch.core.bucketing`).
 """
 from __future__ import annotations
 
+import functools
+from typing import Any, Sequence
+
 import torch
 
+from ..core import bucketing
+from ..core.tree import tree_map
 from ..core.tuner import Tuner
-from .compress import normalize_wire_format
+from .compress import CompressedWire, normalize_wire_format
 from .executors import execute_collective, execute_compiled, execute_inkernel
 from .plan import ONE_SHOT, CollectivePlan, plan_cached
 
-__all__ = ["apply_plan", "pbcast"]
+__all__ = [
+    "apply_plan",
+    "pbcast",
+    "preduce",
+    "pallreduce",
+    "pbcast_tree",
+    "pallreduce_tree",
+    "hierarchical_allreduce_axes",
+]
 
 # unrolled-executor round budget before the auto policy switches to the
 # compiled replay (the reference's policy, kept so both packages route every
@@ -101,21 +119,45 @@ def _resolve_exec_path(
     return "compiled" if _use_compiled(plan, fused=fused, compiled=compiled) else "unrolled"
 
 
-def _chunked(flat: torch.Tensor, k: int, *, combiner: str | None = None):
+# Reduce-family combiners the comm layer understands; the schedule
+# executors combine by sum only, and zero pad tails are only the identity
+# for sum.
+_COMBINERS = ("sum", "max", "min")
+
+
+def _check_combiner(combiner: str, op: str) -> None:
+    if combiner not in _COMBINERS:
+        raise ValueError(f"unknown combiner {combiner!r} for {op}; have {_COMBINERS}")
+    if combiner != "sum":
+        raise NotImplementedError(
+            f"{op} with combiner {combiner!r} routes through the one-shot max/min "
+            "collectives in the reference, not ported yet: ROADMAP A.3")
+
+
+def _chunked(flat: torch.Tensor, k: int, *, combiner: str | None = None,
+             dtype: torch.dtype | None = None):
     """Pad + reshape a rank-stacked flat buffer ``(n, size)`` to
     ``(n, k, ceil(size/k))``. ``k`` is honored even when it exceeds the
     element count (tiny buffers pad up), because the schedule's chunk count
     is load-bearing for the executor. Zero padding is the identity for SUM
-    only, so any other declared combiner refuses a pad tail."""
+    only, so any other declared combiner refuses a pad tail. With ``dtype``
+    the result is always a new buffer of that dtype (one cast copy, pad
+    included); otherwise it is ``flat`` itself unless a pad tail forces a
+    copy."""
     n, size = flat.shape
     k = max(1, k)
     chunk_elems = max(1, -(-size // k))
     pad = k * chunk_elems - size
-    if pad:
-        if combiner is not None and combiner != "sum":
-            raise ValueError(
-                f"zero pad is only the identity for the 'sum' combiner, got {combiner!r}"
-            )
+    if pad and combiner is not None and combiner != "sum":
+        raise ValueError(
+            f"zero pad is only the identity for the 'sum' combiner, got {combiner!r}"
+        )
+    if dtype is not None:
+        out = torch.empty((n, k * chunk_elems), dtype=dtype, device=flat.device)
+        out[:, :size] = flat
+        out[:, size:] = 0
+        flat = out
+    elif pad:
         flat = torch.cat([flat, flat.new_zeros((n, pad))], dim=1)
     return flat.reshape(n, k, chunk_elems), pad
 
@@ -164,29 +206,31 @@ def apply_plan(
         return x if plan.op != "allgather" else x[:, None]
     if plan.algo in ONE_SHOT:
         return _one_shot(plan, x)
-    if plan.wire_format.compressed:
-        raise NotImplementedError(
-            f"wire format {plan.wire_format.value!r} needs the quantize kernels, "
-            "not ported yet: ROADMAP B.5"
-        )
     if plan.op not in ("bcast", "reduce", "allreduce", "allgather", "reduce_scatter"):
         raise NotImplementedError(f"ragged op {plan.op!r} is not ported yet: ROADMAP A.8")
     sched = plan.schedule
     run = _EXECUTORS[_resolve_exec_path(plan, fused=fused, compiled=compiled,
                                         inkernel=inkernel)]
+    wire_dtype = None
+    if plan.wire_format.compressed:
+        # the inkernel path is vetoed above; both remaining executors take
+        # the wire seam, on an f32 copy of x (the reference's cast); the
+        # result comes back in x's dtype
+        run = functools.partial(run, wire=CompressedWire(plan.wire_format))
+        wire_dtype = torch.float32
     n = plan.n
     flat = x.reshape(n, -1)
     ranks = torch.arange(n, device=x.device)
     if plan.op == "allgather":
-        buf = flat.new_zeros((n, n, flat.shape[1]))
-        buf[ranks, ranks] = flat
-        return run(sched, buf).reshape((n, n) + tuple(x.shape[1:]))
+        buf = torch.zeros((n, n, flat.shape[1]), dtype=wire_dtype or x.dtype, device=x.device)
+        buf[ranks, ranks] = flat.to(buf.dtype)
+        return run(sched, buf).reshape((n, n) + tuple(x.shape[1:])).to(x.dtype)
     if plan.op == "reduce_scatter":
-        buf, _pad = _chunked(flat, n, combiner="sum")
-        return run(sched, buf)[ranks, ranks]
+        buf, _pad = _chunked(flat, n, combiner="sum", dtype=wire_dtype)
+        return run(sched, buf)[ranks, ranks].to(x.dtype)
     combiner = "sum" if plan.op in ("reduce", "allreduce") else None
-    buf, pad = _chunked(flat, sched.num_chunks, combiner=combiner)
-    return _unchunked(run(sched, buf), pad, x.shape)
+    buf, pad = _chunked(flat, sched.num_chunks, combiner=combiner, dtype=wire_dtype)
+    return _unchunked(run(sched, buf), pad, x.shape).to(x.dtype)
 
 
 def pbcast(
@@ -203,14 +247,138 @@ def pbcast(
     wire_format: str | None = None,
 ) -> torch.Tensor:
     """Broadcast row ``root`` of the rank-stacked ``x`` to every row (every
-    rank passes a same-shape buffer and receives the root's)."""
+    rank passes a same-shape buffer and receives the root's).
+
+    ``wire_format`` ('bf16'|'fp8'|'int8', default the full-precision
+    passthrough) compresses every hop; compressed payloads travel in the f32
+    wire domain (``M`` counts 4 bytes per element) and the result comes back
+    in ``x``'s dtype."""
     n = x.shape[0]
     if n == 1:
         return x
-    fmt = normalize_wire_format(wire_format)
-    M = x[0].numel() * (4 if fmt.compressed else x.element_size())
+    _check_one_shot(algo, wire_format)
     plan = plan_cached(
-        "bcast", M, n, root=root, algo=algo, num_chunks=num_chunks,
-        tuner=tuner, inter_pod=inter_pod, wire_format=wire_format,
+        "bcast", _payload_bytes(x, wire_format), n, root=root, algo=algo,
+        num_chunks=num_chunks, tuner=tuner, inter_pod=inter_pod, wire_format=wire_format,
     )
     return apply_plan(plan, x, fused=fused, compiled=compiled, inkernel=inkernel)
+
+
+def _payload_bytes(x: torch.Tensor, wire_format) -> int:
+    """One rank's bytes ``M``: f32 (4 per element) under a compressed wire."""
+    return x[0].numel() * (4 if normalize_wire_format(wire_format).compressed
+                           else x.element_size())
+
+
+def _check_one_shot(algo: str, wire_format) -> None:
+    fmt = normalize_wire_format(wire_format)
+    if algo in ONE_SHOT and fmt.compressed:
+        raise ValueError(f"wire_format={fmt.value!r} requires a schedule-backed algo; "
+                         f"the one-shot {algo!r} has no compression seam")
+
+
+def preduce(x: torch.Tensor, *, root: int = 0, algo: str = "auto") -> torch.Tensor:
+    """Reduce-to-root (sum) over the rank axis of ``x``. Non-root rows hold
+    partial sums by design (MPI_Reduce semantics): only row ``root`` is
+    meaningful."""
+    n = x.shape[0]
+    if n == 1:
+        return x
+    plan = plan_cached("reduce", x[0].numel() * x.element_size(), n, root=root, algo=algo)
+    return apply_plan(plan, x)
+
+
+def pallreduce(
+    x: torch.Tensor,
+    *,
+    algo: str = "auto",
+    tuner: Tuner | None = None,
+    inter_pod: bool = False,
+    combiner: str = "sum",
+    compiled: bool | None = None,
+    wire_format: str | None = None,
+) -> torch.Tensor:
+    """All-reduce (sum) over the rank axis of ``x`` through the tuned plan
+    layer. ``algo``: 'auto', 'reduce_then_bcast', 'fused_rsb',
+    'ring_allreduce', or the one-shot 'xla_psum'. ``wire_format``
+    compresses every hop (combine arithmetic stays f32)."""
+    _check_combiner(combiner, "pallreduce")
+    n = x.shape[0]
+    if n == 1:
+        return x
+    _check_one_shot(algo, wire_format)
+    plan = plan_cached("allreduce", _payload_bytes(x, wire_format), n, algo=algo,
+                       tuner=tuner, inter_pod=inter_pod, wire_format=wire_format)
+    return apply_plan(plan, x, compiled=compiled)
+
+
+def _check_unstaged(stage: bool, op: str) -> None:
+    if stage:
+        raise NotImplementedError(
+            f"{op}(stage=True), staging each bucket through chunked_copy, is read by "
+            "no ported caller yet: ROADMAP A.3")
+
+
+def _tree_collective(op_fn, tree, *, bucket_bytes, **kw):
+    spec = bucketing.plan_buckets(_rank_view(tree), bucket_bytes)
+    out = [op_fn(b, **kw) if b.shape[-1] else b for b in bucketing.pack_buckets(tree, spec)]
+    return bucketing.unpack_buckets(out, spec)
+
+
+def _rank_view(tree):
+    """One rank's leaves (row 0): the per-rank shapes buckets are planned on."""
+    return tree_map(lambda t: t[0], tree)
+
+
+def pbcast_tree(
+    tree: Any,
+    *,
+    root: int = 0,
+    algo: str = "auto",
+    tuner: Tuner | None = None,
+    bucket_bytes: int = 4 << 20,
+    stage: bool = False,
+) -> Any:
+    """Broadcast a rank-stacked pytree via same-dtype buckets, each tuned
+    independently."""
+    _check_unstaged(stage, "pbcast_tree")
+    return _tree_collective(pbcast, tree, bucket_bytes=bucket_bytes, root=root, algo=algo,
+                            tuner=tuner)
+
+
+def pallreduce_tree(
+    tree: Any,
+    axes: Sequence,
+    *,
+    algo: str = "auto",
+    tuner: Tuner | None = None,
+    bucket_bytes: int = 4 << 20,
+    inter_pod_axes: Sequence = (),
+    stage: bool = False,
+    compiled: bool | None = None,
+    wire_format: str | None = None,
+) -> Any:
+    """Bucketed all-reduce of a rank-stacked pytree over the mesh axes
+    ``axes`` (:func:`hierarchical_allreduce_axes` order). The emulated mesh
+    has one data axis, so ``axes`` names at most one; ``wire_format``
+    applies to every bucket."""
+    _check_unstaged(stage, "pallreduce_tree")
+    axes = tuple(axes)
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"hierarchical allreduce over {axes}: the emulated mesh has one data "
+            "axis; multi-level meshes are ROADMAP A.16")
+    if not axes:
+        return tree
+    return _tree_collective(
+        pallreduce, tree, bucket_bytes=bucket_bytes, algo=algo, tuner=tuner,
+        inter_pod=axes[0] in tuple(inter_pod_axes), compiled=compiled, wire_format=wire_format,
+    )
+
+
+def hierarchical_allreduce_axes(mesh) -> tuple:
+    """Axis order for hierarchical allreduce: intra-pod data axes first,
+    then the inter-pod level (the reverse of ``topology.bcast_axes``)."""
+    from ..dist import topology
+
+    return tuple(reversed(topology.bcast_axes(mesh)))

@@ -1,5 +1,5 @@
 """Config registry of the port: the architectures its slices serve."""
-from .base import ModelConfig
+from .base import ModelConfig, RunConfig
 
 from . import minitron_8b
 
@@ -19,4 +19,5 @@ __all__ = [
     "ARCHS",
     "get_config",
     "ModelConfig",
+    "RunConfig",
 ]

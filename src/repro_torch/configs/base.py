@@ -1,11 +1,11 @@
-"""Model architecture configuration. Run settings and input shapes come with
-the trainer slice (ROADMAP A.4)."""
+"""Model architecture and run configuration. Input shapes (``ShapeSpec``)
+come with the dry-run tooling (ROADMAP A.13)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "RunConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,3 +126,37 @@ class ModelConfig:
             vocab_pad_to=64,
         )
 
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Training run settings: the fields of the reference's ``RunConfig``
+    that the port's trainer reads, with the reference's defaults."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    optimizer: str = "adamw"
+    # data-parallel sync mode: 'grad_allreduce' (the plain mean over the
+    # rank axis), 'param_bcast' (the paper's CA-CNTK pattern: reduce to the
+    # root, then the tuned broadcast), 'tuned_allreduce' (bucketed, per-op
+    # tuned allreduce plans) or 'compressed_allreduce' (the same plans over
+    # a compressed wire with error feedback)
+    sync_mode: str = "grad_allreduce"
+    bcast_algo: str = "auto"
+    # allreduce algorithm of the tuned/compressed modes: 'auto' consults the
+    # tuner, or pin 'reduce_then_bcast' | 'fused_rsb' | 'ring_allreduce' |
+    # 'xla_psum'
+    allreduce_algo: str = "auto"
+    # collective executor of the tuned/compressed modes: True the compiled
+    # replay (fused_combine per round), False the unrolled replay, None the
+    # tuned round-count policy
+    compiled_collectives: Optional[bool] = None
+    # wire format of sync_mode='compressed_allreduce': 'bf16' (passthrough),
+    # 'fp8' or 'int8' (1 byte per element + one f32 scale per 256)
+    wire_format: str = "bf16"
+    bcast_bucket_bytes: int = 4 << 20
+    num_microbatches: int = 1
+    remat: bool = True
+    seed: int = 0

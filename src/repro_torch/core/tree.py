@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map"]
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map", "tree_paths"]
 
 _LEAF = "leaf"
 
@@ -31,6 +31,19 @@ def _walk(node, leaves: list):
         return (type(node).__name__, None, tuple(_walk(c, leaves) for c in node))
     leaves.append(node)
     return _LEAF
+
+
+def _paths(node, prefix: tuple, out: list):
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _paths(node[k], prefix + (str(k),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, c in enumerate(node):
+            _paths(c, prefix + (str(i),), out)
+    else:
+        out.append("/".join(prefix))
 
 
 def _build(d, it):
@@ -68,3 +81,12 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     leaves, treedef = tree_flatten(tree)
     others = [tree_flatten(r)[0] for r in rest]
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_paths(tree: Any) -> list[str]:
+    """Each leaf's path in flatten order, joined with '/': dict keys and
+    sequence indices, as the reference's checkpoint keys
+    (``jax.tree_util.tree_flatten_with_path``)."""
+    out: list[str] = []
+    _paths(tree, (), out)
+    return out

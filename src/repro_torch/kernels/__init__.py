@@ -2,17 +2,20 @@
 
   chunked_copy    — chunked flat-buffer copy (bucket staging)
   combine_update  — fused row-mode merge of the compiled executor
+  quantize        — per-256-block quantize / dequantize of the compressed wire
 
 Sources live in ``csrc/`` and are built by :mod:`._build` at first use.
 """
-from . import chunked_copy, combine_update
+from . import chunked_copy, combine_update, quantize
 
-__all__ = ["chunked_copy", "combine_update", "launch_counts", "reset_launch_counts"]
+__all__ = ["chunked_copy", "combine_update", "quantize", "launch_counts", "reset_launch_counts"]
 
 _WRAPPERS = {
     "chunked_copy": (chunked_copy.chunked_copy,),
     # both combine entry points launch the one merge kernel
     "fused_combine": (combine_update.fused_combine, combine_update.fused_combine_update),
+    "quantize_blocks": (quantize.quantize_blocks,),
+    "dequantize_blocks": (quantize.dequantize_blocks,),
 }
 
 

@@ -19,9 +19,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..dist.topology import DP_AXES
+from ..dist.topology import DP_AXES, dp_axes
 
-__all__ = ["EmulatedMesh", "make_mesh", "resolve_device"]
+__all__ = ["EmulatedMesh", "make_mesh", "resolve_device", "dp_axes"]
 
 
 def resolve_device(device) -> torch.device:

@@ -1,0 +1,67 @@
+"""Training launcher of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b-smoke \
+        --sync-mode compressed_allreduce --wire-format int8 --device cuda
+
+Trains on an emulated data axis of ``--ranks`` ranks on one device (the
+card by default; ``--device cpu`` runs the plain PyTorch path). Sync modes:
+``grad_allreduce`` (plain mean), ``param_bcast`` (the paper's reduce to
+root + tuned broadcast), ``tuned_allreduce`` and ``compressed_allreduce``.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import RunConfig
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.train.trainer import SYNC_MODES, Trainer
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgdm", "lion"])
+    ap.add_argument("--sync-mode", default="grad_allreduce", choices=list(SYNC_MODES))
+    ap.add_argument("--bcast-algo", default="auto")
+    ap.add_argument("--allreduce-algo", default="auto")
+    ap.add_argument("--wire-format", default="bf16", choices=["bf16", "int8", "fp8"])
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ranks", type=int, default=4, help="emulated data-parallel ranks")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--data", default=None, help="packed int32 token .npy file")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    run = RunConfig(
+        learning_rate=args.lr,
+        warmup_steps=args.warmup,
+        total_steps=args.steps,
+        optimizer=args.optimizer,
+        sync_mode=args.sync_mode,
+        bcast_algo=args.bcast_algo,
+        allreduce_algo=args.allreduce_algo,
+        wire_format=args.wire_format,
+        num_microbatches=args.microbatches,
+        seed=args.seed,
+    )
+    mesh = make_mesh(args.ranks, device=args.device)
+    print(f"arch={cfg.name} ranks={mesh.size} device={mesh.device} sync={run.sync_mode} "
+          f"wire={run.wire_format}", flush=True)
+    Trainer(cfg, run, mesh=mesh, data_path=args.data, ckpt_dir=args.ckpt_dir,
+            device=args.device).train(
+        batch=args.batch, seq=args.seq, steps=args.steps, log_every=args.log_every,
+        ckpt_every=args.ckpt_every)
+
+
+if __name__ == "__main__":
+    main()

@@ -74,8 +74,9 @@ def init_block_cache(cfg, kind: str, window: Optional[int], batch: int,
 def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
                 mode: str, cache: dict | None = None, cur_pos: int | None = None,
                 max_len: int = 0, prefix_len: int = 0):
-    """Returns (x, cache): the prefill-built cache (grown to ``max_len``) or
-    the decode cache with the new token appended in place."""
+    """Returns (x, cache): None in train mode, the prefill-built cache
+    (grown to ``max_len``) or the decode cache with the new token appended
+    in place."""
     _check_kind(kind)
     spec = attn_spec_for(cfg, window)
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
@@ -89,7 +90,7 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
     x = x + y
     if "mlp" in p:
         x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg.act)
-    return x, {"attn": ac}
+    return x, (None if mode == "train" else {"attn": ac})
 
 
 def _grow_cache(cache: dict, max_len: int) -> dict:

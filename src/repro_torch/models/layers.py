@@ -33,6 +33,7 @@ __all__ = [
     "init_embedding",
     "embed_tokens",
     "unembed",
+    "cross_entropy_loss",
 ]
 
 
@@ -213,15 +214,15 @@ def attention(
     x: torch.Tensor,
     spec: AttnSpec,
     *,
-    mode: str = "prefill",         # prefill | decode
+    mode: str = "prefill",         # train | prefill | decode
     prefix_len: int = 0,
     cache: dict | None = None,
     cur_pos: int | None = None,    # absolute position of the new token
 ):
-    """Returns (out, cache): the prefill-built cache, or ``cache`` with the
-    new token appended in place."""
+    """Returns (out, cache): None in train mode, the prefill-built cache, or
+    ``cache`` with the new token appended in place."""
     B, T, _D = x.shape
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         positions = torch.arange(T, device=x.device)[None, :]
         q, k, v = _qkv(p, spec, x)
         if spec.use_rope:
@@ -231,7 +232,7 @@ def attention(
             out = _chunked_sdpa(q, k, v, spec, prefix_len)
         else:
             out = _sdpa(q, k, v, full_mask(T, spec, x.device, prefix_len), spec)
-        return _out_proj(out, p["wo"]), _fill_cache(k, v)
+        return _out_proj(out, p["wo"]), (_fill_cache(k, v) if mode == "prefill" else None)
 
     # ---- decode: T == 1, append to cache ----
     if mode != "decode" or cache is None or cur_pos is None:
@@ -303,3 +304,15 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
     table = p.get("unembed", p["tokens"])
     return torch.einsum("btd,vd->btv", x, table).float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """logits (B, T, V) f32, labels (B, T) int. Returns the mean nll."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,4 +1,4 @@
-"""Model facade: init / prefill / decode / cache."""
+"""Model facade: init / loss / prefill / decode / cache."""
 from __future__ import annotations
 
 from typing import Any
@@ -7,6 +7,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..launch.mesh import resolve_device
+from .layers import cross_entropy_loss
 from .transformer import apply_lm, init_decode_cache, init_lm
 
 __all__ = ["Model"]
@@ -25,6 +26,21 @@ class Model:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return init_lm(gen, self.cfg)
+
+    def forward(self, params, batch: dict, *, remat: bool = False):
+        """Train-mode forward. Returns (logits (B, T, V) f32, aux): the
+        dense family has no auxiliary loss, so aux is a 0-d f32 zero."""
+        logits, _ = apply_lm(params, self.cfg, tokens=batch["tokens"], mode="train",
+                             remat=remat)
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+    def loss(self, params, batch: dict, *, remat: bool = False):
+        """``(nll + aux, {"nll": nll, "aux": aux})`` over ``batch['tokens']``
+        and ``batch['labels']`` (B, T)."""
+        logits, aux = self.forward(params, batch, remat=remat)
+        labels = torch.clamp(batch["labels"], max=self.cfg.padded_vocab - 1)
+        nll = cross_entropy_loss(logits, labels, batch.get("loss_mask"))
+        return nll + aux, {"nll": nll, "aux": aux}
 
     def prefill(self, params, batch: dict, *, max_len: int):
         """``batch['tokens']`` (B, T) int. Returns (logits (B, T, V) f32,

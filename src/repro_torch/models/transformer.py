@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.tree import tree_map
 from .blocks import apply_block, init_block, init_block_cache
@@ -69,11 +70,32 @@ def init_lm(gen: torch.Generator, cfg) -> dict:
     }
 
 
+def _train_superblock(x, stack, l: int, cfg, layout: StackLayout):
+    """Superblock ``l`` in train mode (the reference's scan body)."""
+    for i in range(layout.period):
+        p = tree_map(lambda t: t[l], stack["blocks"][i])
+        x, _ = apply_block(p, x, cfg, layout.kinds[i], layout.windows[i], mode="train")
+    return x
+
+
 def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
-                 cur_pos=None, max_len: int = 0):
-    """Returns (x, caches) with caches ``{'blocks': [...], 'tail': [...]}``."""
+                 cur_pos=None, max_len: int = 0, remat: bool = False):
+    """Returns (x, caches) with caches ``{'blocks': [...], 'tail': [...]}``,
+    or ``None`` in train mode. ``remat`` (train mode) recomputes each
+    superblock in the backward pass instead of keeping its activations: the
+    reference's ``jax.checkpoint`` around its scan body."""
     P = layout.period
     kinds, wins = layout.kinds, layout.windows
+    if mode == "train":
+        for l in range(layout.num_super):
+            if remat:
+                x = checkpoint(_train_superblock, x, stack, l, cfg, layout, use_reentrant=False)
+            else:
+                x = _train_superblock(x, stack, l, cfg, layout)
+        for j, tp in enumerate(stack["tail"]):
+            i = (layout.num_super * P + j) % P
+            x, _ = apply_block(tp, x, cfg, kinds[i], wins[i], mode="train")
+        return x, None
     slot_caches: list[list] = [[] for _ in range(P)]
     for l in range(layout.num_super):
         for i in range(P):
@@ -99,16 +121,19 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
 
 
 def apply_lm(params, cfg, *, tokens: torch.Tensor, mode: str = "prefill",
-             caches=None, cur_pos: int | None = None, max_len: int = 0):
-    """prefill: ``tokens`` (B, T); decode: ``tokens`` (B, 1) + ``caches`` +
-    ``cur_pos``. Returns (logits_f32, caches)."""
+             caches=None, cur_pos: int | None = None, max_len: int = 0,
+             remat: bool = False):
+    """train/prefill: ``tokens`` (B, T); decode: ``tokens`` (B, 1) +
+    ``caches`` + ``cur_pos``. Returns (logits_f32, caches); caches are None
+    in train mode."""
     _check_arch(cfg)
     layout = StackLayout(cfg)
     dt = _dtype(cfg)
     scale = torch.tensor(cfg.d_model**0.5, dtype=dt, device=tokens.device)
     x = embed_tokens(params["embed"], tokens) * scale
     x, new_caches = _apply_stack(params["decoder"], x, cfg, layout, mode=mode,
-                                 caches=caches, cur_pos=cur_pos, max_len=max_len)
+                                 caches=caches, cur_pos=cur_pos, max_len=max_len,
+                                 remat=remat)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), new_caches
 

@@ -1,0 +1,352 @@
+"""Train-step factories on the emulated data axis.
+
+Four data-parallel synchronization modes, as in the reference's
+``train/train_step.py``:
+
+* ``grad_allreduce`` (:func:`make_train_step`) — the baseline: the plain
+  mean of the per-rank gradients over the rank axis (the reference lets
+  GSPMD insert the all-reduce).
+* ``param_bcast`` (:func:`make_bcast_train_step`) — the paper's CA-CNTK
+  pattern: per-leaf reduce to the root over the reversed binomial tree,
+  then the tuned bucketed broadcast (``core.bcast.pbcast_tree``).
+* ``tuned_allreduce`` (:func:`make_tuned_allreduce_train_step`) — bucketed
+  allreduce through the ``comm`` plan layer, per-bucket tuned algorithm.
+* ``compressed_allreduce`` (:func:`make_compressed_allreduce_train_step`)
+  — the same plans over a compressed wire, with error feedback.
+
+How ranks are emulated. The reference's ``local_step`` runs once per rank
+inside ``shard_map``. Here rank ``r`` computes its loss and gradients on
+its shard ``torch.tensor_split(batch, n)[r]``, one rank after another, and
+the gradients fill rank-stacked ``(n, *shape)`` leaves that go through the
+same bucketing, plans and executors as the reference's step. Parameters and
+optimizer state are held ONCE: the reference's update is deterministic and
+identical on every rank, so the port applies it once, from row 0 of the
+synced gradients. With ``check_rows=True`` the ``comm`` modes' steps also
+report ``grad_rows_differ``, the elements of rows 1..n-1 of the synced
+gradients whose bits differ from row 0's: zero for the bf16-wire modes,
+where every rank would apply the same update. The check makes n-1 more
+passes over the synced gradients, so it is off unless asked for. Under a
+compressed wire the rows legitimately differ (the owner of a chunk keeps
+full precision, every other rank gets a dequantized copy); row 0 is rank
+0's view, which is also what ``jax.device_get`` returns for the
+reference's replicated output.
+
+Steps update ``params`` and ``opt_state`` in place and return them with the
+step's metrics ``(params, opt_state, out)``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..comm import hierarchical_allreduce_axes, pallreduce, pallreduce_tree
+from ..comm.compress import CompressionState, normalize_wire_format
+from ..configs.base import RunConfig
+from ..core import bucketing
+from ..core.bcast import pbcast_tree, preduce_sum
+from ..core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..core.tuner import Tuner
+from ..dist import topology
+from ..launch.mesh import dp_axes
+from ..optim.optimizers import Optimizer, clip_by_global_norm
+
+__all__ = [
+    "make_train_step",
+    "make_bcast_train_step",
+    "make_tuned_allreduce_train_step",
+    "make_compressed_allreduce_train_step",
+    "with_error_feedback",
+]
+
+
+def _microbatches(batch: dict, k: int) -> list[dict]:
+    parts = {key: torch.chunk(v, k) for key, v in batch.items()}
+    return [{key: parts[key][i] for key in parts} for i in range(k)]
+
+
+def _grad_fn(model, run_cfg: RunConfig):
+    """``compute(params, batch) -> (loss, metrics, grads)``: ``grads`` is
+    the list of gradient leaves in flatten order, from
+    ``torch.autograd.grad`` over the parameter leaves (the functional form
+    of ``jax.value_and_grad``). With microbatches, the f32 mean of each
+    microbatch's gradients, as the reference accumulates them."""
+    def one(params, mb):
+        leaves, treedef = tree_flatten(params)
+        ps = [p.detach().requires_grad_(True) for p in leaves]
+        loss, metrics = model.loss(tree_unflatten(treedef, ps), mb, remat=run_cfg.remat)
+        grads = torch.autograd.grad(loss, ps)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+    def compute(params, batch):
+        k = run_cfg.num_microbatches
+        if k == 1:
+            return one(params, batch)
+        acc, losses, metricss = None, [], []
+        for mb in _microbatches(batch, k):
+            loss, metrics, grads = one(params, mb)
+            if acc is None:
+                acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device) for g in grads]
+            for a, g in zip(acc, grads):
+                a.add_(g.float() / k)
+            losses.append(loss)
+            metricss.append(metrics)
+        return _mean(losses), {key: _mean([m[key] for m in metricss]) for key in metricss[0]}, acc
+
+    return compute
+
+
+def _mean(values: list) -> torch.Tensor:
+    return torch.stack(values).mean()
+
+
+def _per_rank(compute, params, batch: dict, n: int, write) -> tuple:
+    """Rank by rank: loss, metrics and gradients on the rank's shard of the
+    batch; ``write(r, grads)`` stores rank ``r``'s gradient leaves. Returns
+    the mean loss and metrics over ranks (the reference's ``pmean``)."""
+    b = next(iter(batch.values())).shape[0]
+    if b % n:
+        raise ValueError(f"global batch {b} does not divide over {n} data ranks")
+    parts = {key: torch.tensor_split(v, n) for key, v in batch.items()}
+    losses, metricss = [], []
+    for r in range(n):
+        loss, metrics, grads = compute(params, {key: parts[key][r] for key in parts})
+        write(r, grads)
+        del grads
+        losses.append(loss)
+        metricss.append(metrics)
+    return _mean(losses), {key: _mean([m[key] for m in metricss]) for key in metricss[0]}
+
+
+def _stacked_writer(n: int):
+    """Rank-stacked gradient leaves ``(n, *shape)`` and the writer that
+    fills row ``r``."""
+    stacked: list[torch.Tensor] = []
+
+    def write(r: int, grads) -> None:
+        if not stacked:
+            stacked.extend(torch.empty((n,) + tuple(g.shape), dtype=g.dtype, device=g.device)
+                           for g in grads)
+        for s, g in zip(stacked, grads):
+            s[r].copy_(g)
+
+    return stacked, write
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _tree_rows_differ(tree, check_rows: bool):
+    """``_rows_differ`` summed over the leaves of a synced tree, or None
+    when the check is off."""
+    return sum(_rows_differ(t) for t in tree_leaves(tree)) if check_rows else None
+
+
+def _rows_differ(stacked: torch.Tensor) -> torch.Tensor:
+    """Elements of rows 1..n-1 whose bits differ from row 0's."""
+    bits = _bits(stacked)
+    out = torch.zeros((), dtype=torch.int64, device=stacked.device)
+    for r in range(1, stacked.shape[0]):
+        out += (bits[r] != bits[0]).sum()
+    return out
+
+
+def _finish(grads, params, opt_state, optimizer: Optimizer, lr_fn, loss, metrics,
+            rows_differ=None):
+    """Clip, step the optimizer once (in place), and report."""
+    grads, gnorm = clip_by_global_norm(grads, 1.0)
+    lr = lr_fn(opt_state["step"])
+    params, opt_state = optimizer.update(grads, opt_state, params, lr)
+    out = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+    if rows_differ is not None:
+        out["grad_rows_differ"] = rows_differ
+    out.update(metrics)
+    return params, opt_state, out
+
+
+def _data_ranks(mesh, mode: str) -> int:
+    dp = dp_axes(mesh)
+    if len(dp) != 1 or topology.tp_size(mesh) != 1:
+        raise ValueError(f"{mode} runs on a pure data-parallel mesh with one data axis, "
+                         f"not {tuple(mesh.axis_names)}")
+    return topology.axis_sizes(mesh)[dp[0]]
+
+
+def make_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: Callable,
+                    mesh=None):
+    """The ``grad_allreduce`` baseline: the plain mean of the per-rank
+    gradients over the rank axis (one rank without ``mesh``)."""
+    n = 1 if mesh is None else _data_ranks(mesh, "grad_allreduce")
+    compute = _grad_fn(model, run_cfg)
+
+    def train_step(params, opt_state, batch):
+        treedef = tree_flatten(params)[1]
+        stacked, write = _stacked_writer(n)
+        loss, metrics = _per_rank(compute, params, batch, n, write)
+        grads = tree_unflatten(treedef, [s.mean(0) for s in stacked])
+        del stacked
+        return _finish(grads, params, opt_state, optimizer, lr_fn, loss, metrics)
+
+    return train_step
+
+
+def make_bcast_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: Callable,
+                          mesh, *, tuner: Tuner | None = None, root: int = 0,
+                          check_rows: bool = False):
+    """The paper's sync mode: per-leaf reduce to ``root`` over the reversed
+    binomial tree, the mean taken there, then the tuned bucketed broadcast
+    of the root's gradients to every rank."""
+    n = _data_ranks(mesh, "param_bcast")
+    if run_cfg.bcast_algo == "ring_allreduce":
+        raise NotImplementedError(
+            "bcast_algo='ring_allreduce' (the explicit ring of core/algorithms.py) is "
+            "not ported yet: ROADMAP A.3")
+    compute = _grad_fn(model, run_cfg)
+
+    def train_step(params, opt_state, batch):
+        treedef = tree_flatten(params)[1]
+        stacked, write = _stacked_writer(n)
+        loss, metrics = _per_rank(compute, params, batch, n, write)
+        reduced = [preduce_sum(s, root=root).div_(n) for s in stacked]
+        del stacked
+        synced = pbcast_tree(tree_unflatten(treedef, reduced), root=root,
+                             algo=run_cfg.bcast_algo, tuner=tuner,
+                             bucket_bytes=run_cfg.bcast_bucket_bytes)
+        del reduced
+        rows_differ = _tree_rows_differ(synced, check_rows)
+        grads = tree_map(lambda t: t[0], synced)
+        del synced
+        return _finish(grads, params, opt_state, optimizer, lr_fn, loss, metrics, rows_differ)
+
+    return train_step
+
+
+def make_tuned_allreduce_train_step(model, run_cfg: RunConfig, optimizer: Optimizer,
+                                    lr_fn: Callable, mesh, *, tuner: Tuner | None = None,
+                                    check_rows: bool = False):
+    """Gradient sync through the ``comm`` plan layer: per-rank gradients
+    packed into same-dtype buckets and all-reduced bucket by bucket, each
+    bucket's algorithm and chunking a tuned ``CollectivePlan``
+    (``run_cfg.allreduce_algo`` pins one; ``compiled_collectives`` routes
+    the replay)."""
+    return _make_comm_sync_step(model, run_cfg, mesh, _tree_allreduce(run_cfg, tuner),
+                                optimizer, lr_fn, mode="tuned_allreduce", check_rows=check_rows)
+
+
+def _tree_allreduce(run_cfg: RunConfig, tuner, wire_format: str | None = None):
+    """The bucketed tuned allreduce of the ``comm`` sync modes."""
+    def sync(grads, axes, inter_pod_axes):
+        return pallreduce_tree(
+            grads, axes, algo=run_cfg.allreduce_algo, tuner=tuner,
+            bucket_bytes=run_cfg.bcast_bucket_bytes, inter_pod_axes=inter_pod_axes,
+            compiled=run_cfg.compiled_collectives, wire_format=wire_format,
+        )
+
+    return sync
+
+
+def with_error_feedback(optimizer: Optimizer, n: int = 1) -> Optimizer:
+    """Wrap ``optimizer`` so its state carries the error-feedback residual
+    at ``state['ef']``: f32 zeros like the parameters, one row per data
+    rank (``(n, *shape)``; each rank keeps its own residual). ``update``
+    leaves it alone: the compressed step updates it in place."""
+    def init(params):
+        state = dict(optimizer.init(params))
+        state["ef"] = CompressionState.init(params, n)
+        return state
+
+    def update(grads, state, params, lr):
+        inner = {k: v for k, v in state.items() if k != "ef"}
+        params, inner = optimizer.update(grads, inner, params, lr)
+        state.update(inner)
+        return params, state
+
+    return Optimizer(optimizer.name + "+ef", init, update)
+
+
+def make_compressed_allreduce_train_step(model, run_cfg: RunConfig, optimizer: Optimizer,
+                                         lr_fn: Callable, mesh, *,
+                                         tuner: Tuner | None = None, check_rows: bool = False):
+    """Gradient sync over a compressed wire with error feedback (EF-SGD):
+
+        c_t = g_t + e_t            # compensate
+        sync = allreduce(Q(c_t))   # every hop quantized
+        e_{t+1} = c_t - Q(c_t)     # this rank's first-hop error
+
+    ``optimizer`` must be wrapped by :func:`with_error_feedback` with the
+    mesh's rank count. Rank ``r``'s ``c`` is built in place in row ``r`` of
+    the residual as its backward finishes (no stacked gradient tree lives
+    beside it); buckets sync one at a time on f32 copies, and only row 0 of
+    each is kept; then every row becomes its new residual in place.
+
+    ``wire_format='bf16'`` is the passthrough: no compensation, the bf16
+    gradients sync exactly as in ``tuned_allreduce`` (bit-identical
+    parameters) and the residual stays zero."""
+    fmt = normalize_wire_format(run_cfg.wire_format)
+    if not fmt.compressed:
+        return _make_comm_sync_step(model, run_cfg, mesh,
+                                    _tree_allreduce(run_cfg, tuner, fmt.value),
+                                    optimizer, lr_fn, mode="compressed_allreduce",
+                                    check_rows=check_rows)
+
+    n = _data_ranks(mesh, "compressed_allreduce")
+    axes = [a for a in hierarchical_allreduce_axes(mesh)
+            if topology.axis_sizes(mesh).get(a, 1) > 1]
+    inter = topology.inter_pod_axes(mesh)
+    compute = _grad_fn(model, run_cfg)
+
+    def train_step(params, opt_state, batch):
+        residual = opt_state["ef"]
+        res_leaves = tree_leaves(residual)
+
+        def write(r, grads):
+            for e, g in zip(res_leaves, grads):
+                e[r].add_(g)  # c = g + e, in f32
+
+        loss, metrics = _per_rank(compute, params, batch, n, write)
+        spec = bucketing.plan_buckets(tree_map(lambda t: t[0], residual),
+                                      run_cfg.bcast_bucket_bytes)
+        rows = []
+        rows_differ = torch.zeros((), dtype=torch.int64, device=loss.device) if check_rows else None
+        for b in bucketing.pack_buckets(residual, spec):
+            if b.shape[-1] and axes:
+                b = pallreduce(b, algo=run_cfg.allreduce_algo, tuner=tuner,
+                               inter_pod=axes[0] in inter,
+                               compiled=run_cfg.compiled_collectives, wire_format=fmt.value)
+                if check_rows:
+                    rows_differ += _rows_differ(b)
+            rows.append(b[0].div(n))
+            del b
+        grads = bucketing.unpack_buckets(rows, spec)
+        del rows
+        for e in res_leaves:
+            CompressionState.update_(e, fmt)
+        return _finish(grads, params, opt_state, optimizer, lr_fn, loss, metrics, rows_differ)
+
+    return train_step
+
+
+def _make_comm_sync_step(model, run_cfg: RunConfig, mesh, sync, optimizer: Optimizer,
+                         lr_fn: Callable, *, mode: str, check_rows: bool):
+    """Shared body of the ``comm`` gradient-sync modes: the per-rank
+    gradients, rank-stacked, go through ``sync(grads, axes,
+    inter_pod_axes)``; the update reads row 0 divided by the rank count."""
+    n = _data_ranks(mesh, mode)
+    sizes = topology.axis_sizes(mesh)
+    axes = [a for a in hierarchical_allreduce_axes(mesh) if sizes.get(a, 1) > 1]
+    inter = topology.inter_pod_axes(mesh)
+    compute = _grad_fn(model, run_cfg)
+
+    def train_step(params, opt_state, batch):
+        treedef = tree_flatten(params)[1]
+        stacked, write = _stacked_writer(n)
+        loss, metrics = _per_rank(compute, params, batch, n, write)
+        synced = sync(tree_unflatten(treedef, stacked), axes, inter)
+        del stacked
+        rows_differ = _tree_rows_differ(synced, check_rows)
+        grads = tree_map(lambda t: t[0] / n, synced)
+        del synced
+        return _finish(grads, params, opt_state, optimizer, lr_fn, loss, metrics, rows_differ)
+
+    return train_step

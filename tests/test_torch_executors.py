@@ -102,9 +102,11 @@ def test_unported_paths_raise():
     sched = ts.build("binomial", 4, 0)
     with pytest.raises(NotImplementedError, match="B.6"):
         executors.execute_inkernel(sched, torch.zeros((4, 1, 3)))
+    with pytest.raises(NotImplementedError, match="A.3"):
+        comm.pallreduce(torch.zeros((4, 8)), combiner="max")
+    with pytest.raises(NotImplementedError, match="A.16"):
+        comm.pallreduce_tree({"w": torch.zeros((4, 8))}, ("pod", "data"))
     plan = comm.plan_collective("bcast", 4096, 4, algo="binomial", wire_format="int8")
-    with pytest.raises(NotImplementedError, match="B.5"):
-        comm.apply_plan(plan, torch.zeros((4, 256, 4)))
     with pytest.raises(ValueError):
         comm.apply_plan(plan, torch.zeros((3, 1024)))  # 3 rank rows for n=4
 

@@ -40,3 +40,44 @@ def test_cuda_kernels_match_plain(dt):
     for v in (x, x[1:]):
         assert torch.equal(chunked_copy(v).view(bits), chunked_copy_plain(v).view(bits))
     torch.cuda.synchronize()
+
+
+def _same_or_both_nan(a, b) -> bool:
+    """Bit-equal, where a NaN may carry any payload on either side."""
+    if a.dtype == torch.float8_e4m3fn:
+        nan = a.float().isnan() & b.float().isnan()
+    else:
+        nan = a.isnan() & b.isnan()
+    bits = {1: torch.int8, 4: torch.int32}[a.element_size()]
+    return bool(((a.view(bits) == b.view(bits)) | nan).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantize_kernels_match_plain(fmt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import quantize as qk
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((5, 1000), generator=gen, device="cuda") * 3
+    x[1, :256] = 0.0
+    x[2, 0], x[2, 1], x[2, 2:10] = 1e30, -1e30, 1e-30
+    x[3, 300] = float("nan")
+    x[4, :256] = (torch.arange(256, device="cuda") - 128) * 0.5
+    rows = torch.tensor([4, 0, 2], dtype=torch.int64, device="cuda")
+    for src, kw in ((x, {}), (x[:, 1:], {}), (x, {"rows": rows}), (x[:0], {})):
+        v, s = qk.quantize_blocks(src, fmt, **kw)
+        pv, ps = qk.quantize_blocks_plain(src, fmt, **kw)
+        assert v.shape == pv.shape and s.shape == ps.shape
+        assert _same_or_both_nan(v, pv) and _same_or_both_nan(s, ps)
+        cols = src.shape[1]
+        d = qk.dequantize_blocks(v, s, out_cols=cols)
+        pd = qk.dequantize_blocks_plain(pv, ps, out_cols=cols)
+        assert _same_or_both_nan(d, pd)
+        if v.shape[0]:
+            out = torch.zeros((7, cols), device="cuda")
+            land = torch.arange(v.shape[0], dtype=torch.int64, device="cuda") + 1
+            qk.dequantize_blocks(v, s, out_cols=cols, out=out, rows=land)
+            assert _same_or_both_nan(out[1:1 + v.shape[0]], pd)
+    torch.cuda.synchronize()
