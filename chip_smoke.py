@@ -6,15 +6,17 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: name and power limit (``nvidia-smi``); build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a; calibrate the
-   per-transfer and per-launch times the H100 cost profile quotes.
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a, one process per
+   source, all at once; calibrate the per-transfer and per-launch times the
+   H100 cost profile quotes.
 2. kernels, each held bit for bit against its plain PyTorch version, with
    CUDA-event times, the bound (bytes / 3.35 TB/s), the plain version's time
-   and a one-call PyTorch yardstick: the merge and the copy at the serving
-   path's shapes, the quantize pair at the training path's hop shape, and
-   the merge again at the training path's rounds (an accumulate and an
-   overwrite round of the f32 int8 and the bf16 tuned allreduce plans on
-   the embedding bucket).
+   and a one-call PyTorch yardstick where one exists: the merge and the copy
+   at the serving path's shapes, the quantize pair at the training path's
+   hop shape, the merge again at the training path's rounds, and the
+   in-kernel replay (also against the numpy simulator) at small shapes over
+   every builder and at the path shapes, beside the compiled executor's
+   replay of the same plan.
 3. serving, default policy: minitron-8b at full width (8 of 32 layers,
    bf16, seeded random weights) on an emulated data axis of 4 ranks;
    ``Engine(distribute=True, double_buffer=True)`` broadcasts the weights,
@@ -22,6 +24,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    re-run of the same loop times prefill and the decode steps apart.
 4. compiled replay: the same weights broadcast again from NaN-filled
    replicas with the pinned pipelined chain and the compiled executor.
+4b. tuned in-kernel replay: a tuner table built on the card (each serving
+   bucket's analytic plan, timed as one in-kernel replay, recorded with
+   ``exec_path='inkernel'``, saved, loaded), then
+   ``distribute_weights(tuner=...)`` from NaN-filled replicas: replicas
+   bit-equal to phase 3's, one in-kernel launch per bucket plan, no merge
+   launches.
 5. a small-input reference: the port's f32 smoke model on the card against
    the same model on the CPU.
 6. training: minitron-8b at full width (1 of 32 layers, bf16, seeded
@@ -30,19 +38,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    param_bcast, tuned_allreduce (compiled executor: fused_combine), and
    compressed_allreduce over bf16 (the passthrough), int8 and fp8 wires
    (compiled: the quantize kernels); then param_bcast and tuned_allreduce
-   again with the synced gradient rows compared. Checks: equal step-0
-   losses, bit-equal synced rows in those two, the bf16 wire's parameters
-   bit-identical to tuned_allreduce's, the bf16-wire modes' last losses and
-   per-step grad norms close to grad_allreduce's (the plain mean, which runs
-   none of the port's kernels), int8's last loss within 5e-3 of
-   tuned_allreduce's, finite losses; then one f32 smoke param_bcast run on
-   the card against the CPU.
+   again with the synced gradient rows compared; then tuned_allreduce with
+   ``RunConfig.tuner_table`` naming two tables that differ only in
+   ``exec_path`` (compiled, then inkernel). Checks: equal step-0 losses,
+   bit-equal synced rows in the two reruns, the bf16 wire's parameters
+   bit-identical to tuned_allreduce's, the in-kernel table's parameters
+   bit-identical to the compiled table's (with no merge launch and one
+   in-kernel launch per bucket plan and step), the bf16-wire modes' last
+   losses and per-step grad norms close to grad_allreduce's (the plain
+   mean, which runs none of the port's kernels), int8's last loss within
+   5e-3 of tuned_allreduce's, finite losses; then one f32 smoke
+   param_bcast run on the card against the CPU.
 
-Launch counts are zeroed right before phase 3 and read right after phase 4
-(the serving path), and zeroed again right before phase 6 and read right
-after its eight runs (the training path); the launches that compare kernels
-with their plain versions are not counted. The last three lines of output
-are the kernels JSON, the card, and ``{"ok": true, "device": ...}``.
+Launch counts are zeroed right before each path and read right after it:
+phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
+path) and phase 6's runs (the training path); the launches that compare
+kernels with their plain versions, and the replays timed to fill the tuner
+tables, are not counted. The last three lines of output are the kernels
+JSON, the card, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -369,6 +382,178 @@ def check_quantize(torch) -> list[dict]:
     return lines
 
 
+def _small_schedules(n: int, K: int) -> list:
+    """Every builder of the port at (n, K), and for n == 3 two hand-made
+    schedules in which ranks swap a chunk (overwrite and accumulate): the
+    class-rounds that stage through the landing scratch."""
+    from repro_torch.comm import schedules as tcs
+    from repro_torch.core import schedules as ts
+
+    out = [
+        ts.build("direct", n), ts.build("chain", n),
+        ts.build("pipelined_chain", n, 1 % n, num_chunks=K), ts.build("binomial", n),
+        tcs.build_op("reduce", "binomial_reduce", n, 0),
+        tcs.build_op("reduce", "pipelined_reduce_chain", n, 0, num_chunks=K),
+        tcs.build_op("allreduce", "fused_rsb", n, 0, num_chunks=K),
+        tcs.build_op("allgather", "ring_allgather", n, 0),
+        tcs.build_op("reduce_scatter", "ring_reduce_scatter", n, 0),
+    ]
+    if n >= 3:
+        out.append(tcs.build_op("allreduce", "ring_allreduce", n, 0))
+    if n >= 4:
+        out.append(ts.build("bidir_chain", n, 0, num_chunks=K))
+    if n >= 4 and n & (n - 1) == 0:
+        out += [ts.build("scatter_allgather", n), ts.build("knomial", n, k=4)]
+    if n == 3:
+        T = ts.Transfer
+        for comb in (False, True):
+            out.append(ts.Schedule("swap", 3, 0, 2, (
+                ts.Round((T(0, 1, 0, 1, comb), T(1, 0, 0, 1, comb))),
+                ts.Round((T(1, 2, 0, 2, comb),)),
+                ts.Round((T(2, 0, 1, 1, comb), T(0, 2, 1, 1, comb), T(1, 0, 0, 1, comb))),
+            ), kind="allreduce" if comb else "bcast"))
+    return out
+
+
+def _mark_kept_rows(torch, buf, tables) -> int:
+    """-0.0 (and NaN, where the replay only copies or the type is f32) in
+    the first columns of every row that no class-round writes. The bf16
+    sum of a NaN rounds to another payload in PyTorch than in the kernel,
+    so bf16 NaNs go only where nothing accumulates. Returns the rows
+    marked."""
+    written = set()
+    for c, perm in enumerate(tables.perms):
+        for s in range(tables.num_rounds):
+            for _src, dst in perm:
+                r0 = int(tables.recv_start[c, s, dst])
+                written.update((dst, r0 + i) for i in range(int(tables.lo[c, s, dst]),
+                                                             int(tables.hi[c, s, dst])))
+    nan_ok = buf.dtype == torch.float32 or not tables.combine.any()
+    kept = [(r, k) for r in range(tables.n) for k in range(tables.num_chunks)
+            if (r, k) not in written]
+    for r, k in kept:
+        buf[r, k, 0] = -0.0
+        if nan_ok and buf.shape[2] > 2:
+            buf[r, k, 1] = float("nan")
+            bits(torch, buf)[r, k, 2] = 0x7FC3 if buf.dtype == torch.bfloat16 else 0x7FC01234
+    return len(kept)
+
+
+def _sim_check(torch, low, x, cols) -> None:
+    """Replay integer-valued ``x`` (exact in f32 and bf16) with the kernel
+    and hold the columns ``cols`` against the port's numpy simulator; the
+    replay acts on whole rows, so any column subset is a full check."""
+    from repro_torch.core.simulator import simulate_lowered
+    from repro_torch.kernels.inkernel_collective import inkernel_replay_shared
+
+    before = x[:, :, cols].float().cpu().numpy()
+    inkernel_replay_shared(low, x)
+    torch.cuda.synchronize()
+    want = simulate_lowered(low, list(before))
+    got = x[:, :, cols].float().cpu().numpy()
+    for r in range(x.shape[0]):
+        assert (got[r] == want[r]).all(), (low.name, r, "kernel differs from simulate_lowered")
+
+
+def check_inkernel(torch) -> dict:
+    """inkernel_replay against its plain version and the numpy simulator,
+    bit for bit: every builder at n in {2, 3, 4, 8}, K in {1, 4, 5}, widths
+    37 (element path) and 64 (vector path), bf16 and f32, with -0.0 and NaN
+    in kept rows, and the swap schedules; then at the path shapes (the
+    serving chain of phase 4, phase 4b's analytic plan and the training
+    fused_rsb plan on the embedding bucket), with the compiled executor's
+    replay of the same plan on the same buffer timed beside it. The
+    training plan is the kernel's line in the kernels JSON."""
+    import ctypes
+
+    from repro_torch.comm import plan_cached
+    from repro_torch.comm.executors import execute_compiled
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedules import lower_schedule, pack_tables
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import inkernel_collective as ik
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lib = _build.load("inkernel_collective")
+    lib.repro_inkernel_grid.argtypes = [ctypes.c_int, ctypes.c_int]
+    grids = {f"{d}/{'vec' if v else 'elem'}": lib.repro_inkernel_grid(code, v)
+             for d, code in (("f32", 0), ("bf16", 1)) for v in (1, 0)}
+    log(f"kernel inkernel_replay: cooperative grids (blocks of 256) {grids}")
+    cases = staged = marked = 0
+    for n in (2, 3, 4, 8):
+        for K in (1, 4, 5):
+            for sched in _small_schedules(n, K):
+                low = lower_schedule(sched)
+                tables = pack_tables(low)
+                staged += int((ik.round_modes(tables) == ik.STAGED).sum())
+                for dt in (torch.bfloat16, torch.float32):
+                    for cols in (37, 64):
+                        shape = (n, low.num_chunks, cols)
+                        buf = torch.randn(shape, generator=gen, device="cuda").to(dt)
+                        marked += _mark_kept_rows(torch, buf, tables)
+                        k = ik.inkernel_replay_shared(low, buf.clone())
+                        p = ik.inkernel_replay_shared_plain(low, buf.clone())
+                        torch.cuda.synchronize()
+                        assert same_bits(torch, k, p), (sched.name, n, K, dt, cols)
+                        ints = torch.empty(shape, device="cuda", dtype=dt).random_(-4, 5,
+                                                                                  generator=gen)
+                        _sim_check(torch, low, ints, list(range(cols)))
+                        cases += 1
+    assert staged > 0, "no small case exercised the staged path"
+    log(f"kernel inkernel_replay: {cases} small cases bit-equal to plain and to "
+        f"simulate_lowered ({staged} staged class-rounds, {marked} kept rows marked)")
+
+    cfg = get_config("minitron-8b")
+    N = cfg.padded_vocab * cfg.d_model
+    line = None
+    for label, op, algo in (("serving chain (phase 4)", "bcast", "pipelined_chain"),
+                            ("serving analytic (phase 4b)", "bcast", "auto"),
+                            ("training fused_rsb (phase 6)", "allreduce", "auto")):
+        plan = plan_cached(op, N * 2, RANKS, algo=algo)
+        low = plan.lowered()
+        tables = pack_tables(low)
+        K, C = low.num_chunks, -(-N // low.num_chunks)
+        buf = torch.randn((RANKS, K, C), generator=gen, device="cuda", dtype=torch.bfloat16)
+        kept = _mark_kept_rows(torch, buf, tables)
+        k = ik.inkernel_replay_shared(low, buf.clone())
+        p = ik.inkernel_replay_shared_plain(low, buf.clone())
+        torch.cuda.synchronize()
+        assert same_bits(torch, k, p), f"inkernel_replay {label} differs from plain"
+        err = 0.0  # bit-equal (a float copy of 4.2e9 elements would not fit beside them)
+        del p
+        c = execute_compiled(low, buf.clone())
+        torch.cuda.synchronize()
+        assert same_bits(torch, k, c), f"inkernel_replay {label} differs from execute_compiled"
+        del c, buf
+        ms = time_ms(torch, lambda: ik.inkernel_replay_shared(low, k), reps=5, warmup=1)
+        compiled_ms = time_ms(torch, lambda: execute_compiled(low, k), reps=3, warmup=1)
+        plain_ms = time_ms(torch, lambda: ik.inkernel_replay_shared_plain(low, k),
+                           reps=2, warmup=1)
+        k.random_(-4, 5, generator=gen)
+        _sim_check(torch, low, k, list(range(64)) + list(range(C - 64, C)))
+        del k
+        torch.cuda.empty_cache()
+        moved = ik.replay_bytes(tables, C, 2)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        modes = ik.round_modes(tables)
+        ran, stage = int((modes != ik.SKIP).sum()), int((modes == ik.STAGED).sum())
+        log(f"kernel inkernel_replay {label}: {plan.algo}, ({RANKS}, {K}, {C}) bf16, "
+            f"{low.num_rounds} rounds x {low.num_classes} classes ({ran} class-rounds, "
+            f"{stage} staged, {ran - 1 + stage} grid barriers), {kept} kept rows marked: "
+            f"bit-equal to plain, to execute_compiled and (64 + 64 columns) to "
+            f"simulate_lowered; {ms:.4f} ms (bound {bound:.4f} ms for {moved / 1e9:.3f} GB, "
+            f"compiled {compiled_ms:.4f} ms, plain {plain_ms:.4f} ms)")
+        if op == "allreduce":
+            line = {"name": "inkernel_replay", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/inkernel_collective.cu",
+                    "replaces": "src/repro/kernels/inkernel_collective.py:136",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+                    "compiled_ms": compiled_ms, "plan": f"{plan.algo} K={K}",
+                    "shape": [RANKS, K, C], "dtype": "bfloat16"}
+    return line
+
+
 def replicas_equal(torch, stacked, root=None) -> bool:
     from repro_torch.core.tree import tree_leaves
 
@@ -459,9 +644,10 @@ def time_prefill_decode(torch, engine, tokens) -> tuple[float, float]:
     return prefill_s, decode_s
 
 
-def compiled_replay(torch, root, mesh) -> dict:
+def compiled_replay(torch, root, mesh) -> tuple[dict, dict]:
     """``root``: phase 3's root replica (a copy; the engine is gone). Row 0
-    of the new stack is that copy, so the replicas are held against it."""
+    of the new stack is that copy, so the replicas are held against it.
+    Returns the phase's numbers and the distributed tree."""
     from repro_torch import kernels
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.serve import distribute_weights, replicate
@@ -485,7 +671,77 @@ def compiled_replay(torch, root, mesh) -> dict:
     rounds = sum(p.lowered().num_rounds for ps in plans.values() for p in ps)
     log(f"compiled: pipelined_chain over {len(plans['data'])} buckets, {rounds} rounds, "
         f"{launched} fused_combine launches, {secs:.3f} s, replicas bit-equal to phase 3")
-    return {"distribute_s": secs, "fused_combine_launches": launched, "rounds": rounds}
+    return {"distribute_s": secs, "fused_combine_launches": launched, "rounds": rounds}, out
+
+
+def record_inkernel_table(torch, tuner, buckets, op: str, extras: list[dict]) -> list:
+    """For each bucket ``(bytes, elements, dtype)``: the analytic plan's
+    algo and chunk count, one timed in-kernel replay of it on a scratch
+    buffer of the bucket's chunked shape (after one warm-up replay), and a
+    ``record`` into each tuner of ``tuner`` with the matching ``extras``.
+    Returns ``(algo, chunks, rounds, classes, ms)`` per bucket."""
+    from repro_torch.comm import plan_cached
+    from repro_torch.kernels.inkernel_collective import inkernel_replay_shared
+
+    rows = []
+    for M, elems, dtype in buckets:
+        plan = plan_cached(op, M, RANKS)
+        low = plan.lowered()
+        buf = torch.zeros((RANKS, low.num_chunks, -(-elems // low.num_chunks)), dtype=dtype,
+                          device="cuda")
+        ms = time_ms(torch, lambda: inkernel_replay_shared(low, buf), reps=1, warmup=1)
+        del buf
+        for t, ex in zip(tuner, extras):
+            t.record(M, RANKS, plan.algo, plan.num_chunks, ms * 1e-3, op=op, extras=ex)
+        rows.append((plan.algo, plan.num_chunks, low.num_rounds, low.num_classes, ms))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tuned_inkernel(torch, stacked, mesh) -> dict:
+    """Phase 4b: a tuner table built on the card (every serving bucket's
+    analytic plan, timed as one in-kernel replay, recorded with
+    ``exec_path='inkernel'``, saved and loaded back), then
+    ``distribute_weights(tuner=...)`` from NaN-filled replicas. ``stacked``
+    is phase 4's result: row 0 holds phase 3's weights. Launch counts are
+    zeroed right before the distribution and read right after."""
+    from repro_torch import kernels
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.core.tuner import Tuner
+    from repro_torch.serve import distribute_weights
+    from repro_torch.serve.engine import plan_distribution
+
+    spec, _plans = plan_distribution(stacked, mesh)
+    tuner = Tuner()
+    buckets = list(zip(spec.bucket_bytes(), spec.bucket_sizes, spec.bucket_dtypes))
+    rows = record_inkernel_table(torch, [tuner], buckets, "bcast", [{"exec_path": "inkernel"}])
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "serve_table.json")
+        tuner.save(path)
+        loaded = Tuner.load(path)
+    root = tree_map(lambda t: t[0], stacked)
+    for leaf in tree_leaves(stacked):
+        leaf[1:].fill_(float("nan"))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, plans = distribute_weights(stacked, mesh, tuner=loaded, double_buffer=True,
+                                    return_plans=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    replayed = sum(1 for p in plans["data"] if p.lowered() is not None
+                   and p.lowered().num_rounds > 0)
+    assert all(p.decision.exec_path == "inkernel" for p in plans["data"]), plans
+    assert counts["fused_combine"] == 0, counts
+    assert counts["inkernel_replay"] == replayed > 0, (counts, replayed)
+    assert replicas_equal(torch, out, root), "in-kernel replicas differ from phase 3's"
+    log(f"tuned in-kernel: table of {len(tuner.table)} entries from {len(rows)} buckets "
+        f"(algo, chunks, rounds, classes, replay ms: {rows}); distribution {secs:.3f} s, "
+        f"{counts['inkernel_replay']} inkernel_replay launches for {replayed} bucket plans, "
+        f"{counts['chunked_copy']} chunked_copy, 0 fused_combine; replicas bit-equal to "
+        "phase 3")
+    return {"distribute_s": secs, "counts": counts, "plans": replayed, "buckets": rows}
 
 
 def small_reference(torch) -> float:
@@ -547,11 +803,46 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False):
     return params, record
 
 
-def train(torch) -> dict:
+def train_tables(torch, d: str) -> tuple[dict, int]:
+    """Two tuner tables for phase 6 from the same measured points: every
+    training bucket's analytic allreduce plan, timed as one in-kernel replay
+    on the card, recorded once with ``exec_path='compiled'`` and once with
+    ``'inkernel'``; saved under ``d``. Returns the paths by exec path and
+    the bucket plans a step replays."""
+    from repro_torch.comm import plan_cached
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import bucketing
+    from repro_torch.core.tuner import Tuner
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
+    params = Model(cfg).init(seed=0, device="cuda")
+    spec = bucketing.plan_buckets(params, RunConfig(**TRAIN_RUN).bcast_bucket_bytes)
+    del params
+    torch.cuda.empty_cache()
+    tuners = {"compiled": Tuner(), "inkernel": Tuner()}
+    buckets = list(zip(spec.bucket_bytes(), spec.bucket_sizes, spec.bucket_dtypes))
+    rows = record_inkernel_table(torch, list(tuners.values()), buckets, "allreduce",
+                                 [{"exec_path": e} for e in tuners])
+    paths = {}
+    for exec_path, t in tuners.items():
+        paths[exec_path] = os.path.join(d, f"train_{exec_path}.json")
+        t.save(paths[exec_path])
+    loaded = Tuner.load(paths["inkernel"])
+    plans = [plan_cached("allreduce", M, RANKS, tuner=loaded) for M, _e, _d in buckets if M]
+    replayed = sum(1 for p in plans if p.lowered().num_rounds > 0)
+    log(f"train tables: {len(buckets)} buckets (algo, chunks, rounds, classes, replay ms: "
+        f"{rows}); {replayed} bucket plans a step")
+    return paths, replayed
+
+
+def train(torch, table_runs: list, plans_per_step: int) -> dict:
     """Phase 6: each sync mode trains 3 steps from the same seeded weights
     and batches; then param_bcast and tuned_allreduce again with the synced
     rows compared (``check_rows``, left out of the timed runs because it
-    adds passes over the synced gradients). Returns per-mode numbers;
+    adds passes over the synced gradients); then ``table_runs``, the
+    tuned_allreduce runs whose tuner tables route every bucket plan to the
+    compiled and to the in-kernel executor. Returns per-mode numbers;
     raises on any failed check."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves
@@ -559,9 +850,10 @@ def train(torch) -> dict:
 
     cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
     mesh = make_mesh(RANKS, device="cuda")
-    out, tuned = {}, None
+    out, tuned, tabled = {}, None, None
     runs = [(label, fields, False) for label, fields in TRAIN_MODES]
     runs += [(label + "+check_rows", dict(TRAIN_MODES)[label], True) for label in ROW_CHECKED]
+    runs += [(label, fields, False) for label, fields in table_runs]
     for label, fields, check_rows in runs:
         params, r = train_mode(torch, cfg, mesh, fields, check_rows)
         if label == "tuned_allreduce":
@@ -570,6 +862,16 @@ def train(torch) -> dict:
             assert all(same_bits(torch, a, b) for a, b in zip(tuned, tree_leaves(params))), \
                 "the bf16 wire's parameters differ from tuned_allreduce's"
             tuned = None
+        elif label == "table_compiled":
+            tabled = tree_leaves(params)
+            assert r["launches"]["inkernel_replay"] == 0 < r["launches"]["fused_combine"], r
+        elif label == "table_inkernel":
+            assert all(same_bits(torch, a, b) for a, b in zip(tabled, tree_leaves(params))), \
+                "the in-kernel table's parameters differ from the compiled table's"
+            tabled = None
+            assert r["launches"]["fused_combine"] == 0, r
+            assert r["launches"]["inkernel_replay"] == plans_per_step * TRAIN_STEPS, \
+                (r["launches"], plans_per_step)
         del params
         out[label] = r
         log(f"train {label}: losses {['%.4f' % x for x in r['losses']]}, grad norms "
@@ -660,7 +962,8 @@ def main() -> int:
     cal = calibrate(torch)
     log(f"calibrate: ts {cal['ts_s']:.3e} s, t_launch {cal['t_launch_s']:.3e} s")
 
-    lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch)]
+    lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch),
+             check_inkernel(torch)]
     check_fused_combine_training(torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -673,21 +976,35 @@ def main() -> int:
     del engine  # frees the four replicas before phase 4 builds its own
     torch.cuda.empty_cache()
     log(f"memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before phase 4")
-    compiled = compiled_replay(torch, root, mesh)
+    compiled, stacked = compiled_replay(torch, root, mesh)
     serve_counts = kernels.launch_counts()
-    del root, mesh
+    del root
+    tuned = tuned_inkernel(torch, stacked, mesh)
+    tuned_counts = tuned.pop("counts")
+    log(f"serving: tuned in-kernel distribution {tuned['distribute_s']:.3f} s beside the "
+        f"compiled pipelined chain's {compiled['distribute_s']:.3f} s")
+    del stacked, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
 
     small_reference(torch)
-    log(f"serving numbers: {json.dumps({'serve': serving, 'compiled': compiled})}")
+    numbers = {"serve": serving, "compiled": compiled, "tuned_inkernel": tuned}
+    log(f"serving numbers: {json.dumps(numbers)}")
 
-    kernels.reset_launch_counts()
-    training = train(torch)
-    train_counts = kernels.launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        tables, plans_per_step = train_tables(torch, d)
+        table_runs = [(f"table_{e}", {"sync_mode": "tuned_allreduce", "tuner_table": tables[e]})
+                      for e in ("compiled", "inkernel")]
+        kernels.reset_launch_counts()
+        training = train(torch, table_runs, plans_per_step)
+        train_counts = kernels.launch_counts()
     # each kernel on the path that runs it: the merge on both, the staging
-    # copy on the serving path, the quantize pair on the training path
+    # copy on the serving path, the quantize pair on the training path, the
+    # in-kernel replay on the tuned serving path (phase 4b) and in training
     paths = {"fused_combine": ("serve", "train"), "chunked_copy": ("serve",),
-             "quantize_blocks": ("train",), "dequantize_blocks": ("train",)}
-    counts = {"serve": serve_counts, "train": train_counts}
+             "quantize_blocks": ("train",), "dequantize_blocks": ("train",),
+             "inkernel_replay": ("serve_tuned", "train")}
+    counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts}
     for line in lines:
         line["launches_by_path"] = {p: counts[p][line["name"]] for p in paths[line["name"]]}
         for p, k in line["launches_by_path"].items():

@@ -12,7 +12,8 @@ to the same effect.
   permutation per lane class). Per round and class it gathers the send
   blocks into the receivers' slots and merges them with one launch of the
   fused combine-update kernel (:mod:`repro_torch.kernels.combine_update`).
-* :func:`execute_inkernel` — the one-launch persistent replay; not ported.
+* :func:`execute_inkernel` — the whole lowered schedule in one launch of
+  the in-kernel replay (:mod:`repro_torch.kernels.inkernel_collective`).
 
 An exchange between ranks is a device-memory copy between rows of the
 stacked buffer: the ``lax.ppermute`` of the reference restricted to the
@@ -36,6 +37,7 @@ import torch
 
 from ..core.schedules import LoweredSchedule, Schedule, lower_schedule
 from ..kernels.combine_update import fused_combine_update
+from ..kernels.inkernel_collective import inkernel_replay_shared
 
 __all__ = ["execute_collective", "execute_compiled", "execute_inkernel"]
 
@@ -166,7 +168,18 @@ def execute_compiled(schedule: Schedule | LoweredSchedule,
 
 def execute_inkernel(schedule: Schedule | LoweredSchedule,
                      buf: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(
-        "the in-kernel executor (one persistent launch per schedule) is not "
-        "ported yet: ROADMAP B.6 (inkernel_replay_shared)"
+    """In-kernel replay: ONE launch of
+    :func:`~repro_torch.kernels.inkernel_collective.inkernel_replay_shared`
+    for the whole lowered schedule, on the rank-stacked buffer in place —
+    the emulated mesh is the reference's shared buffer. Bit-identical to
+    :func:`execute_compiled` and :func:`execute_collective`. Takes no
+    ``wire``: ``comm.api._resolve_exec_path`` keeps compressed plans off
+    this path. The reference's device-initiated multi-card replay
+    (``_rdma_replay``) is not ported (ROADMAP B.7)."""
+    lowered = (
+        schedule if isinstance(schedule, LoweredSchedule) else lower_schedule(schedule)
     )
+    _check(buf, lowered.n, lowered.num_chunks)
+    if lowered.num_rounds == 0:
+        return buf
+    return inkernel_replay_shared(lowered, buf)

@@ -157,6 +157,10 @@ class RunConfig:
     # 'fp8' or 'int8' (1 byte per element + one f32 scale per 256)
     wire_format: str = "bf16"
     bcast_bucket_bytes: int = 4 << 20
+    # a saved tuner table (Tuner.save) for the param_bcast, tuned and
+    # compressed sync modes; None prices every plan analytically. An entry's
+    # exec_path ('inkernel'|'compiled'|'unrolled') routes its plans
+    tuner_table: Optional[str] = None
     num_microbatches: int = 1
     remat: bool = True
     seed: int = 0

@@ -24,6 +24,7 @@ __all__ = [
     "optimal_chunk_bytes",
     "optimal_chunk_bytes_fused",
     "skew_ratio",
+    "t_exec_path",
     "ALGO_COSTS",
 ]
 
@@ -75,6 +76,25 @@ H100_SXM = Hardware(
     hbm_bw=3.35e12,
     t_launch=2.841e-05,
 )
+
+
+def t_exec_path(path: str, num_rounds: int, num_classes: int, hw: Hardware) -> float:
+    """Launch-boundary overhead of one executor choice (s), added to the
+    wire-time closed forms:
+
+      * ``unrolled`` — one exchange and one merge per lane class per round;
+      * ``compiled`` — a gather and a merge launch per round;
+      * ``inkernel`` — one launch for the whole schedule.
+    """
+    rounds = max(int(num_rounds), 0)
+    classes = max(int(num_classes), 1)
+    if path == "inkernel":
+        return hw.t_launch
+    if path == "compiled":
+        return 2.0 * rounds * hw.t_launch
+    if path == "unrolled":
+        return 2.0 * rounds * classes * hw.t_launch
+    raise ValueError(f"exec path must be 'inkernel'|'compiled'|'unrolled', got {path!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,11 @@
 Selects an algorithm and chunk size per (op, message size, rank count,
 path class), the way MVAPICH2-GDR's tuning tables do, from the analytic
 cost models (Eqs. 1-6) on the target :class:`~.cost_model.Hardware`. An
-optional empirical ``table`` keyed like the reference's overrides the
-analytic choice inside its bucket; recording and loading tables
-(``record``/``load``/``OnlineTuner``) are not ported yet.
+optional empirical ``table`` overrides the analytic choice inside its
+bucket. ``record``/``calibrate`` fill it from measurements and
+``save``/``load`` persist it as JSON in the reference's format and keys, so
+a table saved by either package loads into the other. ``OnlineTuner`` is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -13,12 +15,22 @@ import dataclasses
 import hashlib
 import json
 import math
-from typing import Callable, Sequence
+import os
+from typing import Callable, Iterable, Sequence
 
 from . import cost_model
 from .cost_model import H100_SXM, Hardware
 
-__all__ = ["Decision", "Tuner", "default_tuner", "OPS", "RAGGED_OPS"]
+__all__ = ["Decision", "Tuner", "TunerTableError", "default_tuner", "OPS", "RAGGED_OPS",
+           "WIRE_FORMATS", "RECORD_DIMENSIONS"]
+
+
+class TunerTableError(ValueError):
+    """A persisted tuner table is unreadable or violates the schema.
+
+    Subclasses ``ValueError`` so ``except ValueError`` callers keep working;
+    the message names the offending file (and entry key, when one exists)."""
+
 
 # collective ops the tuner prices; 'bcast' keeps the legacy table-key format
 OPS = ("bcast", "reduce", "allreduce", "allgather", "reduce_scatter",
@@ -113,6 +125,40 @@ _OP_CANDIDATES: dict[str, dict[str, Callable[[int, int], bool]]] = {
 }
 
 
+WIRE_FORMATS = ("bf16", "fp8", "int8")
+_EXEC_PATHS = ("inkernel", "compiled", "unrolled")
+
+
+def _dim_overlap_depth(v):
+    return max(1, int(v))
+
+
+def _dim_fused_path(v):
+    return bool(v)
+
+
+def _dim_exec_path(v):
+    if v not in _EXEC_PATHS:
+        raise ValueError(f"exec_path must be 'inkernel'|'compiled'|'unrolled', got {v!r}")
+    return str(v)
+
+
+def _dim_wire_format(v):
+    if v not in WIRE_FORMATS:
+        raise ValueError(f"wire_format must be one of {WIRE_FORMATS}, got {v!r}")
+    return str(v)
+
+
+# the optional per-point decision dimensions Tuner.record accepts through
+# its ``extras`` dict: name -> validator/normalizer
+RECORD_DIMENSIONS: dict[str, Callable] = {
+    "overlap_depth": _dim_overlap_depth,
+    "fused_path": _dim_fused_path,
+    "exec_path": _dim_exec_path,
+    "wire_format": _dim_wire_format,
+}
+
+
 class Tuner:
     def __init__(
         self,
@@ -129,7 +175,10 @@ class Tuner:
         self.allow = tuple(allow) if allow is not None else tuple(_CANDIDATES)
         # empirical table: {f"{n}:{bucket}": {"algo":..., "num_chunks":...}}
         self.table = dict(table or {})
-        self._fingerprint: str | None = None
+        # mutation counter behind the memoized fingerprint (record,
+        # record_overlap and record_stream bump it)
+        self._version = 0
+        self._fingerprint: tuple[int, str] | None = None
 
     # -- analytic path ------------------------------------------------------
 
@@ -267,10 +316,12 @@ class Tuner:
         """Content hash of everything a tuned decision can depend on: the
         empirical table plus the tuner's configuration, so host-side plan
         caches (:func:`repro_torch.comm.plan.plan_cached`) keyed on it never
-        share a plan between two tuners. Computed once: the port's tuner has
-        no mutating methods."""
-        if self._fingerprint is not None:
-            return self._fingerprint
+        share a plan between two tuners, or replay one built before a
+        ``record``. Memoized on the mutation counter: change the table
+        through ``record``/``record_overlap``/``record_stream``, not by
+        writing ``self.table`` directly, or the memo goes stale."""
+        if self._fingerprint is not None and self._fingerprint[0] == self._version:
+            return self._fingerprint[1]
         payload = json.dumps(
             {
                 "hw": self.hw.name,
@@ -282,8 +333,101 @@ class Tuner:
             sort_keys=True,
             default=repr,
         )
-        self._fingerprint = hashlib.sha1(payload.encode()).hexdigest()
-        return self._fingerprint
+        fp = hashlib.sha1(payload.encode()).hexdigest()
+        self._fingerprint = (self._version, fp)
+        return fp
+
+    def record(self, M: int, n: int, algo: str, num_chunks: int, measured_s: float, *,
+               inter_pod: bool = False, op: str = "bcast",
+               sizes: Sequence[int] | None = None, extras: dict | None = None) -> None:
+        """Record one measured point. Optional decision dimensions ride in
+        ``extras`` (:data:`RECORD_DIMENSIONS`: ``overlap_depth``,
+        ``fused_path``, ``exec_path``, ``wire_format``); an unknown key or
+        a bad value raises ``ValueError`` even when the measurement is
+        discarded.
+
+        Improvement-only: a slower measurement never displaces a faster one
+        at the same key. A dimension left unset carries over from the
+        previous entry only when that entry was for the same algorithm."""
+        extras = dict(extras or {})
+        unknown = set(extras) - set(RECORD_DIMENSIONS)
+        if unknown:
+            raise ValueError(f"unknown record dimension(s) {sorted(unknown)}; known "
+                             f"dimensions are {sorted(RECORD_DIMENSIONS)}")
+        extras = {k: RECORD_DIMENSIONS[k](v) for k, v in extras.items() if v is not None}
+        key = self._key(M, n, inter_pod, op, self._flat_sizes(sizes))
+        prev = self.table.get(key)
+        # depth-only entries (record_overlap before any measurement) carry
+        # no measured_s and never block a real measurement
+        if prev is None or "measured_s" not in prev or measured_s < prev["measured_s"]:
+            entry = {"algo": algo, "num_chunks": num_chunks, "measured_s": measured_s}
+            for dim in RECORD_DIMENSIONS:
+                val = extras.get(dim)
+                if val is None and prev is not None and dim in prev \
+                        and prev.get("algo") == algo:
+                    val = prev[dim]
+                if val is not None:
+                    entry[dim] = val
+            self.table[key] = entry
+            self._version += 1
+
+    def record_overlap(self, M: int, n: int, depth: int, *, inter_pod: bool = False,
+                       op: str = "allreduce") -> None:
+        """Attach a tuned in-flight bucket window to the (op, M, n) entry.
+        With no measured entry there yet, a depth-only entry is stored:
+        ``select`` still prices analytically and only annotates the
+        Decision with the depth."""
+        entry = self.table.setdefault(self._key(M, n, inter_pod, op), {})
+        entry["overlap_depth"] = max(1, int(depth))
+        self._version += 1
+
+    def record_stream(self, name: str, *, overlap_depth: int | None = None,
+                      priority: int | None = None) -> None:
+        """Record a per-stream scheduling decision under ``stream:<name>``:
+        an in-flight window and/or an arbitration priority. Structure
+        choices, not timings: they survive ``allow_dryrun`` loads.
+        Re-recording an unchanged decision leaves the fingerprint as it
+        was."""
+        key = f"stream:{name}"
+        entry = dict(self.table.get(key, {}))
+        if overlap_depth is not None:
+            entry["overlap_depth"] = max(1, int(overlap_depth))
+        if priority is not None:
+            entry["priority"] = int(priority)
+        if not entry or entry == self.table.get(key):
+            return
+        self.table[key] = entry
+        self._version += 1
+
+    def stream_decision(self, name: str) -> dict:
+        """A copy of the ``stream:<name>`` entry (possibly empty)."""
+        return dict(self.table.get(f"stream:{name}", {}))
+
+    def calibrate(self, measure: Callable[[str, int, int, int], float], sizes: Iterable[int],
+                  n: int, *, inter_pod: bool = False, op: str = "bcast") -> None:
+        """Populate the table: ``measure(algo, M, n, num_chunks) -> seconds``
+        for every applicable algorithm and its chunk-count options."""
+        if op == "bcast":
+            candidates = {a: _CANDIDATES[a] for a in self.allow if a in _CANDIDATES}
+        else:
+            candidates = _OP_CANDIDATES[op]
+        for M in sizes:
+            for algo, applicable in candidates.items():
+                if not applicable(M, n):
+                    continue
+                if algo in ("pipelined_chain", "pipelined_reduce_chain", "fused_rsb"):
+                    chunk_opts = sorted({max(1, min(self.max_chunks, math.ceil(M / c)))
+                                         for c in (M, M // 4, M // 16, M // 64) if c and c > 0})
+                elif algo in ("scatter_allgather", "ring_allreduce", "ring_allgather",
+                              "doubling_allgather", "ring_reduce_scatter"):
+                    chunk_opts = [n]
+                elif algo == "reduce_then_bcast":
+                    chunk_opts = [self.select(M, n, inter_pod=inter_pod).num_chunks]
+                else:
+                    chunk_opts = [1]
+                for k in chunk_opts:
+                    self.record(M, n, algo, k, measure(algo, M, n, k), inter_pod=inter_pod,
+                                op=op)
 
     # -- public -------------------------------------------------------------
 
@@ -340,6 +484,101 @@ class Tuner:
         else:
             dec = self._analytic_op(op, M, n, inter_pod)
         return dataclasses.replace(dec, overlap_depth=depth) if depth is not None else dec
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, path: str, *, dryrun: bool = False) -> None:
+        """Persist the table. ``dryrun=True`` brands the artifact as
+        simulator-derived: :meth:`load` refuses to seed empirical decisions
+        from it."""
+        payload = {
+            "hw": self.hw.name,
+            "max_chunks": self.max_chunks,
+            "knomial_k": self.knomial_k,
+            "table": self.table,
+        }
+        if dryrun:
+            payload["dryrun"] = True
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=1, sort_keys=True)
+
+    @classmethod
+    def load(cls, path: str, hw: Hardware = H100_SXM, *, allow_dryrun: bool = False) -> "Tuner":
+        """Load a saved table, schema-checked entry by entry; a rotten table
+        raises :class:`TunerTableError` here, not deep inside a step.
+        ``num_chunks`` is clamped to the table's ``max_chunks`` at read
+        time. A table branded ``dryrun`` raises unless ``allow_dryrun``;
+        even then its measured entries are dropped, and only depth-only
+        and ``stream:<name>`` entries (structure choices, not timings)
+        remain."""
+        try:
+            with open(path) as f:
+                payload = json.load(f)
+        except json.JSONDecodeError as e:
+            raise TunerTableError(
+                f"{path}: corrupt or truncated JSON (line {e.lineno} col {e.colno}: "
+                f"{e.msg}) — regenerate the table") from e
+        except OSError as e:
+            raise TunerTableError(f"{path}: unreadable tuner table: {e}") from e
+        if not isinstance(payload, dict):
+            raise TunerTableError(f"{path}: expected a JSON object with a 'table' field, "
+                                  f"got {type(payload).__name__}")
+        table = payload.get("table", {})
+        if not isinstance(table, dict):
+            raise TunerTableError(f"{path}: 'table' must be an object")
+        max_chunks = payload.get("max_chunks", 64)
+        for key, entry in table.items():
+            _check_entry(path, key, entry)
+            if "num_chunks" in entry:
+                entry["num_chunks"] = min(entry["num_chunks"], max_chunks)
+        if payload.get("dryrun"):
+            if not allow_dryrun:
+                raise TunerTableError(
+                    f"{path}: table is branded dryrun (simulator stand-ins, not device "
+                    "measurements) and cannot seed empirical tuner decisions; pass "
+                    "allow_dryrun=True to schema-check it (measured entries are "
+                    "dropped, depth-only entries kept)")
+            table = {k: e for k, e in table.items()
+                     if set(e) == {"overlap_depth"} or k.startswith("stream:")}
+        return cls(hw, max_chunks=max_chunks, knomial_k=payload.get("knomial_k", 4),
+                   table=table)
+
+
+def _check_entry(path: str, key: str, entry) -> None:
+    """The schema gate of :meth:`Tuner.load` for one table entry."""
+    def bad(msg):
+        return TunerTableError(f"{path}: entry {key!r} {msg}")
+
+    if not isinstance(entry, dict):
+        raise bad(f"must be an object, got {entry!r}")
+    if "overlap_depth" in entry and (
+            not isinstance(entry["overlap_depth"], int) or entry["overlap_depth"] < 1):
+        raise bad("overlap_depth must be a positive int")
+    if "fused_path" in entry and not isinstance(entry["fused_path"], bool):
+        raise bad("fused_path must be a bool")
+    if "exec_path" in entry and entry["exec_path"] not in _EXEC_PATHS:
+        raise bad(f"exec_path must be 'inkernel'|'compiled'|'unrolled', "
+                  f"got {entry['exec_path']!r}")
+    if "wire_format" in entry and entry["wire_format"] not in WIRE_FORMATS:
+        raise bad(f"wire_format must be one of {WIRE_FORMATS}, got {entry['wire_format']!r}")
+    if key.startswith("stream:"):
+        if not set(entry) <= {"overlap_depth", "priority"}:
+            raise TunerTableError(f"{path}: stream entry {key!r} may only carry "
+                                  f"overlap_depth/priority, got {sorted(entry)}")
+        if "priority" in entry and not isinstance(entry["priority"], int):
+            raise TunerTableError(f"{path}: stream entry {key!r} priority must be an int")
+        return
+    if set(entry) == {"overlap_depth"}:
+        return  # depth-only entry (record_overlap, no measurement)
+    if not {"algo", "num_chunks", "measured_s"} <= set(entry):
+        raise bad(f"must have algo/num_chunks/measured_s, got {entry!r}")
+    if entry["algo"] not in set(cost_model.ALGO_COSTS) | {"noop", "xla_psum", "xla_allgather"}:
+        raise bad(f"has unknown algo {entry['algo']!r}")
+    if not isinstance(entry["num_chunks"], int) or entry["num_chunks"] < 1:
+        raise bad("num_chunks must be a positive int")
+    if not isinstance(entry["measured_s"], (int, float)) or not math.isfinite(entry["measured_s"]):
+        raise bad("measured_s must be finite")
 
 
 _DEFAULT: Tuner | None = None

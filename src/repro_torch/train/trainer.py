@@ -16,6 +16,7 @@ import time
 from typing import Optional
 
 from ..configs.base import ModelConfig, RunConfig
+from ..core.tuner import Tuner
 from ..data.pipeline import batches, make_source
 from ..launch.mesh import make_mesh, resolve_device
 from ..models import Model
@@ -72,11 +73,13 @@ class Trainer:
         args = (self.model, self.run, self.optimizer, self.lr_fn, self.mesh)
         if self.run.sync_mode == "grad_allreduce":
             return make_train_step(*args)
+        # measured decisions (Tuner.save format) when the run names a table
+        tuner = Tuner.load(self.run.tuner_table) if self.run.tuner_table else None
         return {
             "param_bcast": make_bcast_train_step,
             "tuned_allreduce": make_tuned_allreduce_train_step,
             "compressed_allreduce": make_compressed_allreduce_train_step,
-        }[self.run.sync_mode](*args, check_rows=self.check_rows)
+        }[self.run.sync_mode](*args, tuner=tuner, check_rows=self.check_rows)
 
     def init_state(self, seed: Optional[int] = None):
         """Parameters from a ``torch.Generator`` seeded with ``seed`` (the

@@ -99,9 +99,6 @@ def test_pbcast_overwrites_nan_replicas(algo, dt):
 
 
 def test_unported_paths_raise():
-    sched = ts.build("binomial", 4, 0)
-    with pytest.raises(NotImplementedError, match="B.6"):
-        executors.execute_inkernel(sched, torch.zeros((4, 1, 3)))
     with pytest.raises(NotImplementedError, match="A.3"):
         comm.pallreduce(torch.zeros((4, 8)), combiner="max")
     with pytest.raises(NotImplementedError, match="A.16"):

@@ -81,3 +81,34 @@ def test_quantize_kernels_match_plain(fmt):
             qk.dequantize_blocks(v, s, out_cols=cols, out=out, rows=land)
             assert _same_or_both_nan(out[1:1 + v.shape[0]], pd)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_inkernel_replay_matches_plain(dt):
+    """One launch per replay, bit-equal to the plain replay, on an odd and
+    an aligned width, over a chain, a fused allreduce and a schedule in
+    which two ranks swap a chunk (the staged class-rounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.comm import schedules as tcs
+    from repro_torch.core import schedules as ts
+    from repro_torch.kernels import inkernel_collective as ik
+
+    T = ts.Transfer
+    swap = ts.Schedule("swap", 3, 0, 2, (ts.Round((T(0, 1, 0, 1, True), T(1, 0, 0, 1, True))),
+                                         ts.Round((T(1, 2, 0, 2),))), kind="allreduce")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bits = {2: torch.int16, 4: torch.int32}[torch.empty((), dtype=dt).element_size()]
+    for sched in (ts.build("pipelined_chain", 4, 1, num_chunks=5),
+                  tcs.build_op("allreduce", "fused_rsb", 4, 0, num_chunks=6), swap):
+        low = ts.lower_schedule(sched)
+        for cols in (1029, 1024):
+            buf = torch.randn((sched.n, sched.num_chunks, cols), generator=gen,
+                              device="cuda").to(dt)
+            before = ik.inkernel_replay_shared.launches
+            k = ik.inkernel_replay_shared(low, buf.clone())
+            assert ik.inkernel_replay_shared.launches == before + 1
+            p = ik.inkernel_replay_shared_plain(low, buf.clone())
+            assert torch.equal(k.view(bits), p.view(bits)), (sched.name, cols)
+    torch.cuda.synchronize()

@@ -148,7 +148,8 @@ def test_distribute_weights_fills_every_replica(f32, n, monkeypatch):
     # on the CPU they take the plain versions, so no CUDA launch is counted
     assert calls["copy"] > 0 and calls["merge"] > 0
     assert launch_counts() == {"chunked_copy": 0, "fused_combine": 0,
-                               "quantize_blocks": 0, "dequantize_blocks": 0}
+                               "quantize_blocks": 0, "dequantize_blocks": 0,
+                               "inkernel_replay": 0}
 
 
 def test_default_policy_plans_and_graph(f32):

@@ -229,6 +229,64 @@ def test_compressed_allreduce_tracks_tuned_allreduce(tmp_path):
         assert torch.equal(a, b)
 
 
+def _exec_path_table(path: str, exec_path: str) -> None:
+    """A tuner table that pins every allreduce bucket of the smoke model to
+    its analytic plan, routed to ``exec_path``."""
+    from repro_torch.core import bucketing
+    from repro_torch.core.tuner import Tuner
+
+    tr = _port_trainer("tuned_allreduce")
+    params, _ = tr.init_state()
+    analytic, table = Tuner(), Tuner()
+    for M in bucketing.plan_buckets(params, tr.run.bcast_bucket_bytes).bucket_bytes():
+        dec = analytic.select(M, 4, op="allreduce")
+        table.record(M, 4, dec.algo, dec.num_chunks, 1e-3, op="allreduce",
+                     extras={"exec_path": exec_path})
+    table.save(path)
+
+
+def test_tuner_table_routes_the_trainer_to_the_inkernel_executor(tmp_path, monkeypatch):
+    """``RunConfig.tuner_table``: a table pinning 'inkernel' trains to
+    parameters bit-identical to the same table pinning 'compiled', and
+    every bucket plan of the run goes to the executor its table names."""
+    from repro_torch.comm import api as tapi
+
+    calls = {"inkernel": 0, "compiled": 0, "unrolled": 0}
+    for name, fn in list(tapi._EXECUTORS.items()):
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setitem(tapi._EXECUTORS, name, counted)
+    out = {}
+    for exec_path in ("compiled", "inkernel"):
+        table = str(tmp_path / f"{exec_path}.json")
+        _exec_path_table(table, exec_path)
+        before = dict(calls)
+        tr = _port_trainer("tuned_allreduce", tuner_table=table)
+        out[exec_path] = tr.train(batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
+        used = {k: calls[k] - before[k] for k in calls}
+        assert used[exec_path] > 0 and sum(used.values()) == used[exec_path], used
+    (pc, _, hc), (pi, _, hi) = out["compiled"], out["inkernel"]
+    for a, b in zip(tree_leaves(pc), tree_leaves(pi)):
+        assert torch.equal(a, b)
+    assert [h["loss"] for h in hc] == [h["loss"] for h in hi]
+
+
+def test_inkernel_table_trainer_tracks_reference_full_batch_steps(reference_run, tmp_path):
+    """The slice end to end: the reference's initial state, a tuner table
+    routing every bucket to the in-kernel executor, 3 steps on 4 emulated
+    ranks, losses within 1e-4 of the reference's full-batch steps."""
+    ckpt, _, ref_losses = reference_run
+    table = str(tmp_path / "inkernel.json")
+    _exec_path_table(table, "inkernel")
+    _, _, hist = _port_trainer("tuned_allreduce", ckpt, check_rows=True,
+                               tuner_table=table).train(batch=BATCH, seq=SEQ, steps=STEPS,
+                                                        log_every=1)
+    losses = [h["loss"] for h in hist]
+    assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= 1e-4, (losses, ref_losses)
+    assert all(h["grad_rows_differ"] == 0 for h in hist)
+
+
 def test_compressed_step_follows_reference_error_feedback():
     """Step by step on 4 emulated ranks, each rank's new residual is
     ``e' = update(compensate(g_r, e_r))`` with ``g_r`` the reference
