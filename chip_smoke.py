@@ -16,7 +16,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    hop shape, the merge again at the training path's rounds, and the
    in-kernel replay (also against the numpy simulator) at small shapes over
    every builder and at the path shapes, beside the compiled executor's
-   replay of the same plan.
+   replay of the same plan; flash attention (it sums in another order: f32
+   within the reference test's 2e-4, bf16 within one bf16 rounding of the
+   plain version's f32 result) at the reference's cases and at phase 4c's
+   layer shapes, with the flops bound and one
+   scaled_dot_product_attention call as yardstick; mix and scaled_add (on
+   no path of either package) at the embedding's flat size.
 3. serving, default policy: minitron-8b at full width (8 of 32 layers,
    bf16, seeded random weights) on an emulated data axis of 4 ranks;
    ``Engine(distribute=True, double_buffer=True)`` broadcasts the weights,
@@ -30,8 +35,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``distribute_weights(tuner=...)`` from NaN-filled replicas: replicas
    bit-equal to phase 3's, one in-kernel launch per bucket plan, no merge
    launches.
-5. a small-input reference: the port's f32 smoke model on the card against
-   the same model on the CPU.
+4c. long-context serving: gemma3-27b at full width (6 of 62 layers, one
+   whole 5 local : 1 global period, bf16, seeded random weights) broadcast
+   to 4 emulated ranks, staged through chunked_copy, then ``generate`` of one 4096-token
+   prompt per rank and 32 decode steps, then the warm re-run: every
+   layer's prefill goes through the flash_attention kernel (24 launches a
+   pass); the local layers decode from rings of 1024. Then one prefill
+   per rank under ``torch.profiler`` (device time by kernel, busy share).
+5. small-input references: the port's f32 smoke model on the card against
+   the same model on the CPU, and gemma3-27b-smoke (window 64) at a
+   4096-token prompt, the card's kernel against the CPU's plain version.
 6. training: minitron-8b at full width (1 of 32 layers, bf16, seeded
    weights) on 4 emulated data ranks, global batch 8 x 512 tokens, 3 steps
    in each sync mode from the same weights and batches: grad_allreduce,
@@ -52,7 +65,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Launch counts are zeroed right before each path and read right after it:
 phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
-path) and phase 6's runs (the training path); the launches that compare
+path), phase 4c (the long-prompt serving path) and phase 6's runs (the
+training path); the launches that compare
 kernels with their plain versions, and the replays timed to fill the tuner
 tables, are not counted. The last three lines of output are the kernels
 JSON, the card, and ``{"ok": true, "device": ...}``.
@@ -72,7 +86,26 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 BATCH, PROMPT, STEPS, RANKS, LAYERS = 4, 128, 32, 4, 8
+LONG_PROMPT, LONG_LAYERS = 4096, 6  # phase 4c: gemma3-27b, one whole 5:1 period
+# the reference's flash cases (tests/test_kernels.py):
+# B, T, S, H, KV, hd, causal, window, prefix, bq, bk
+FLASH_CASES = (
+    (2, 128, 128, 4, 2, 32, True, None, 0, 64, 64),
+    (1, 256, 256, 4, 1, 64, True, 64, 0, 64, 64),
+    (2, 128, 128, 2, 2, 32, True, None, 32, 64, 32),
+    (1, 128, 128, 4, 4, 32, False, None, 0, 128, 128),
+    (1, 64, 64, 8, 2, 16, True, 32, 16, 32, 32),
+    (1, 128, 128, 2, 1, 16, True, None, 96, 32, 32),   # a prefix tile skipped
+    (1, 96, 96, 4, 2, 128, True, 40, 0, 32, 32),       # hd 128, a partial row block
+    (1, 80, 80, 2, 1, 64, True, None, 0, 16, 16),      # partial row and key tiles
+)
+FLASH_F32_TOL = 2e-4  # the reference test's f32 tolerance, atol = rtol
+# bf16 output against the plain version's f32 result: one rounding to bf16
+# (half a step of its 8-bit significand, at most 2^-8 of the value) plus
+# room for the f32 sums' order (f32 readings 6.6e-7, PERF.md)
+FLASH_BF16_REL, FLASH_BF16_ABS = 2.0**-8, 1e-5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 8, 512, 3, 1
 TRAIN_MODES = (  # (label, RunConfig fields)
     ("grad_allreduce", {"sync_mode": "grad_allreduce"}),
@@ -554,6 +587,172 @@ def check_inkernel(torch) -> dict:
     return line
 
 
+def _flash_path_case(torch, gen, window):
+    """q, k, v of one gemma3-27b layer's prefill at the phase 4c prompt."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma3-27b")
+    T, H, KV, hd = LONG_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn((1, T, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, T, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((1, T, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    return q, k, v, {"causal": True, "window": window, "prefix": 0}
+
+
+def _sdpa_call(torch, q, k, v, window):
+    """One PyTorch call computing the same attention (the yardstick; the
+    port never calls it): heads-first views, GQA, a causal flag for the
+    global layer and a boolean window mask for a local one."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                      enable_gqa=True)
+    T = q.shape[1]
+    i = torch.arange(T, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+
+def flash_bf16_share(torch, got, want32) -> float:
+    """The largest |got - want32| / (2^-8 |want32| + 1e-5) of a bf16 output
+    against the plain version's f32 result: at most 1 when the kernel's f32
+    result, rounded once to bf16, is the plain one."""
+    lim = FLASH_BF16_REL * want32.abs() + FLASH_BF16_ABS
+    return float(((got.float() - want32).abs() / lim).max())
+
+
+def check_flash_attention(torch) -> dict:
+    """flash_attention against its plain version: the reference's cases
+    (and three of tile skipping and partial tiles), then the phase 4c
+    shapes (a gemma3-27b layer at 4096 tokens: a local layer, window 1024,
+    and the global layer), each in f32 and bf16, the bf16 path shapes timed
+    beside the plain version and one scaled_dot_product_attention call. Not
+    bit-equal: the kernel sums in another order. f32 is held as the
+    reference's test holds its kernel, |kernel - plain| <= 2e-4 + 2e-4
+    |plain|; bf16 against the plain version's f32 result on the same
+    inputs, within one bf16 rounding (FLASH_BF16_REL, FLASH_BF16_ABS)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def held(q, k, v, kw, what) -> dict:
+        """Both dtypes of one case: q, k, v are bf16-valued."""
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        want32 = fa.flash_attention_plain(q32, k32, v32, **kw)
+        got32 = fa.flash_attention(q32, k32, v32, **kw)
+        got16 = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert got32.dtype == torch.float32 and got16.dtype == torch.bfloat16
+        assert got32.shape == got16.shape == q.shape
+        assert torch.allclose(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL), \
+            (what, "float32", max_abs_err(torch, got32, want32))
+        share = flash_bf16_share(torch, got16, want32)
+        assert share <= 1.0, (what, "bfloat16", share, max_abs_err(torch, got16, want32))
+        out = {"f32_err": max_abs_err(torch, got32, want32),
+               "bf16_err": max_abs_err(torch, got16, want32), "bf16_share": share}
+        del want32, got32, got16
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = {"f32_err": 0.0, "bf16_err": 0.0, "bf16_share": 0.0}
+    for case in FLASH_CASES:
+        B, T, S, H, KV, hd, causal, window, prefix, bq, bk = case
+        q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        kw = dict(causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
+        for key, val in held(q, k, v, kw, case).items():
+            worst[key] = max(worst[key], val)
+    log(f"kernel flash_attention: {len(FLASH_CASES)} cases x f32/bf16 within tolerance of "
+        f"plain (max abs err f32 {worst['f32_err']:.3e} (tol 2e-4 + 2e-4 |plain|), bf16 "
+        f"{worst['bf16_err']:.3e} against plain's f32, {worst['bf16_share']:.3f} of the limit "
+        f"2^-8 |plain| + 1e-5)")
+
+    line = None
+    for label, window in (("global", None), ("local", 1024)):
+        q, k, v, kw = _flash_path_case(torch, gen, window)
+        errs = held(q, k, v, kw, label)
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3,
+                           warmup=1)
+        library_ms = time_ms(torch, _sdpa_call(torch, q, k, v, window), reps=10)
+        B, T, H, hd = q.shape
+        flops = fa.attention_flops(T, k.shape[1], H, hd, B, **kw)
+        moved = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out; bf16
+        bound = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+        by = "operations" if flops / BF16_FLOPS_PER_S >= moved / HBM_BYTES_PER_S else "bytes"
+        log(f"kernel flash_attention {label} ({B}, {T}, {H}, {hd}) x ({B}, {k.shape[1]}, "
+            f"{k.shape[2]}, {hd}) window {window}: max abs err f32 {errs['f32_err']:.3e} "
+            f"(tol 2e-4 + 2e-4 |plain|), bf16 {errs['bf16_err']:.3e} against plain's f32, "
+            f"{errs['bf16_share']:.3f} of the limit 2^-8 |plain| + 1e-5; bf16 {ms:.4f} ms "
+            f"(bound {bound:.4f} ms by {by}, {flops / 1e9:.1f} GFLOP of allowed pairs in kept "
+            f"tiles: {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms)")
+        numbers = {"max_abs_err": errs["bf16_err"], "max_abs_err_f32": errs["f32_err"],
+                   "bf16_share_of_limit": errs["bf16_share"], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                   "gflop": flops / 1e9}
+        if line is None:  # the global layer is the kernel's line; the local one beside it
+            line = {"name": "flash_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:102", **numbers,
+                    "shape": [list(q.shape), list(k.shape)], "dtype": "bfloat16"}
+        else:
+            line["local_window_1024"] = numbers
+        del q, k, v
+    return line
+
+
+def check_param_update(torch) -> list[dict]:
+    """mix and scaled_add bit for bit against their plain versions: f32 and
+    bf16 at a ragged length, unaligned by one element, then at the flat
+    1,048,576,000-element bf16 size of the embedding, timed beside the
+    plain versions and one PyTorch call each (lerp, add with alpha)."""
+    from repro_torch.kernels import param_update as pu
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for dt in (torch.float32, torch.bfloat16):
+        w = torch.randn(100_003, generator=gen, device="cuda").to(dt)
+        u = torch.randn(100_003, generator=gen, device="cuda").to(dt)
+        for a in (0.25, 0.01, 1e-3 / 7):
+            for ws, us in ((w, u), (w[1:], u[1:]), (w[:5], u[:5])):
+                assert same_bits(torch, pu.mix(ws, us, a), pu.mix_plain(ws, us, a)), (dt, a)
+                assert same_bits(torch, pu.scaled_add(ws, us, a),
+                                 pu.scaled_add_plain(ws, us, a)), (dt, a)
+    log("kernel mix/scaled_add f32+bf16 at 100,003 / 100,002 (unaligned) / 5 elements, "
+        "a in {0.25, 0.01, 1e-3/7}: bit-equal to plain")
+    N, a = 1_048_576_000, 0.01
+    w = torch.randn(N, generator=gen, device="cuda").to(torch.bfloat16)
+    u = torch.randn(N, generator=gen, device="cuda").to(torch.bfloat16)
+    lines = []
+    for name, fn, plain, library in (
+        ("mix", pu.mix, pu.mix_plain, lambda: torch.lerp(w, u, a)),
+        ("scaled_add", pu.scaled_add, pu.scaled_add_plain, lambda: torch.add(w, u, alpha=-a)),
+    ):
+        k = fn(w, u, a)
+        p = plain(w, u, a)
+        torch.cuda.synchronize()
+        assert same_bits(torch, k, p), f"{name} differs from plain"
+        err = max_abs_err(torch, k, p)
+        del k, p
+        ms = time_ms(torch, lambda: fn(w, u, a), reps=10)
+        plain_ms = time_ms(torch, lambda: plain(w, u, a), reps=3, warmup=1)
+        library_ms = time_ms(torch, library, reps=10)
+        bound = 3 * N * 2 / HBM_BYTES_PER_S * 1e3
+        log(f"kernel {name} ({N},) bf16 a={a}: bit-equal, {ms:.4f} ms (bound {bound:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, {'lerp' if name == 'mix' else 'add(alpha=-a)'} "
+            f"{library_ms:.4f} ms)")
+        lines.append({"name": name, "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/param_update.cu",
+                      "replaces": f"src/repro/kernels/param_update.py:{67 if name == 'mix' else 73}",
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": "bytes", "library_ms": library_ms, "shape": [N],
+                      "dtype": "bfloat16", "path": "none in either package"})
+    del w, u
+    torch.cuda.empty_cache()
+    return lines
+
+
 def replicas_equal(torch, stacked, root=None) -> bool:
     from repro_torch.core.tree import tree_leaves
 
@@ -601,7 +800,7 @@ def serve(torch) -> tuple[dict, object]:
     assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
     peak = torch.cuda.max_memory_allocated()
 
-    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens)
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
     out = {
         "params": n_params, "replica_bytes": n_params * 2,
         "distribute_s": dist_s, "chunked_copy_launches": counts["chunked_copy"],
@@ -616,13 +815,14 @@ def serve(torch) -> tuple[dict, object]:
     return out, engine
 
 
-def time_prefill_decode(torch, engine, tokens) -> tuple[float, float]:
-    """A warm re-run of ``generate``'s greedy loop, rank by rank on each
-    rank's replica, with prefill and the decode steps (``decode_step`` and
-    the argmax) timed in separate windows, each closed by a synchronize.
-    Returns the seconds of all ranks' prefills and of all their decode
-    steps."""
+def time_prefill_decode(torch, engine, tokens, steps: int) -> tuple[float, float]:
+    """A warm re-run of ``generate``'s greedy loop over ``tokens`` (B, T),
+    rank by rank on each rank's replica, with prefill and the ``steps``
+    decode steps (``decode_step`` and the argmax) timed in separate windows,
+    each closed by a synchronize. Returns the seconds of all ranks'
+    prefills and of all their decode steps."""
     tok = torch.as_tensor(tokens, device="cuda")
+    T = tok.shape[1]
     prefill_s = decode_s = 0.0
     with torch.no_grad():
         for r, part in enumerate(torch.tensor_split(tok, RANKS)):
@@ -630,18 +830,131 @@ def time_prefill_decode(torch, engine, tokens) -> tuple[float, float]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, caches = engine.model.prefill(params, {"tokens": part},
-                                                  max_len=PROMPT + STEPS)
+                                                  max_len=T + steps)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             nxt = torch.argmax(logits[:, -1], dim=-1)
-            for i in range(STEPS):
+            del logits  # (B, T, vocab) f32: 4.3 GB a rank at gemma's 4096 x 262,144
+            for i in range(steps):
                 logits, caches = engine.model.decode_step(params, nxt[:, None], caches,
-                                                          PROMPT + i)
+                                                          T + i)
                 nxt = torch.argmax(logits[:, 0], dim=-1)
             torch.cuda.synchronize()
             prefill_s += t1 - t0
             decode_s += time.perf_counter() - t1
     return prefill_s, decode_s
+
+
+def profile_prefill(torch, engine, tokens, top: int = 8) -> list[dict]:
+    """One warm prefill of each rank's prompt on its replica under
+    ``torch.profiler``, after one unprofiled warm-up prefill: wall ms,
+    device ms (the kernels of one stream do not overlap, so their sum is
+    the busy time), the flash kernel's ms and the ``top`` kernels as
+    ``(name, ms, launches)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.as_tensor(tokens, device="cuda")
+    max_len = tok.shape[1] + STEPS
+    out = []
+    for r in range(RANKS):
+        params, batch = engine.replica(r), {"tokens": tok[r:r + 1]}
+        with torch.no_grad():
+            engine.model.prefill(params, batch, max_len=max_len)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                logits = engine.model.prefill(params, batch, max_len=max_len)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            del logits
+        kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                       if e.device_time_total > 0 and not e.key.startswith("aten::")),
+                      key=lambda row: -row[1])
+        res = {"wall_ms": wall_ms, "device_ms": sum(row[1] for row in kern),
+               "flash_ms": sum(ms for name, ms, _n in kern if "flash_fwd" in name),
+               "top": [(name[:60], round(ms, 3), n) for name, ms, n in kern[:top]]}
+        log(f"serve long profile rank {r} (one warm prefill, profiler on): wall "
+            f"{res['wall_ms']:.2f} ms, device kernels {res['device_ms']:.2f} ms "
+            f"({res['device_ms'] / res['wall_ms']:.1%} busy), flash_fwd {res['flash_ms']:.2f} "
+            f"ms; top kernels (name, ms, launches): {res['top']}")
+        out.append(res)
+    return out
+
+
+def serve_long(torch) -> dict:
+    """Phase 4c: gemma3-27b at full width (6 of 62 layers: five local
+    layers of window 1024 and the global one, bf16, seeded random weights)
+    distributed to 4 emulated ranks, staged through chunked_copy, then
+    ``generate`` of one 4096-token
+    prompt per rank and 32 decode steps (max_len 4128: the local layers'
+    caches are rings of 1024), then the warm re-run and one profiled
+    prefill per rank. Every layer's prefill goes through the flash_attention kernel:
+    6 x 4 launches per pass. Launch counts are zeroed by the caller right
+    before; the profiled prefills are counted apart."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    cfg = dataclasses.replace(get_config("gemma3-27b"), num_layers=LONG_LAYERS)
+    params = Model(cfg).init(seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, params, mesh=make_mesh(RANKS, device="cuda"), distribute=True,
+                    double_buffer=True)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 0 and counts["chunked_copy"] > 0, counts
+    assert replicas_equal(torch, engine.params, params), "a gemma replica differs from the weights"
+    # the replicas sit in the stacked leaves, each rank's row where the leaf's row starts
+    assert all(t.is_contiguous() for t in tree_leaves(engine.params))
+    del params
+    dist_peak = torch.cuda.max_memory_allocated()
+
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, cfg.vocab_size - 1, size=(RANKS, LONG_PROMPT))
+    t0 = time.perf_counter()
+    res = engine.generate({"tokens": tokens}, steps=STEPS)
+    gen_s = time.perf_counter() - t0
+    cold = kernels.launch_counts()["flash_attention"]
+    assert res.tokens.shape == (RANKS, STEPS) and res.logprobs.shape == (RANKS, STEPS)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
+    assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
+    assert cold == LONG_LAYERS * RANKS, cold
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
+    warm = kernels.launch_counts()["flash_attention"] - cold
+    assert warm == LONG_LAYERS * RANKS, warm
+    peak = torch.cuda.max_memory_allocated()
+    assert peak < torch.cuda.get_device_properties(0).total_memory, peak
+    out = {
+        "params": n_params, "replica_bytes": n_params * 2, "distribute_s": dist_s,
+        "distribute_peak": dist_peak, "chunked_copy_launches": counts["chunked_copy"],
+        "generate_s": gen_s,
+        "prefill_ms_per_rank": prefill_s / RANKS * 1e3,
+        "decode_tokens_per_s": RANKS * STEPS / decode_s, "max_memory_allocated": peak,
+        "flash_attention_launches": {"cold": cold, "warm": warm},
+        "first_tokens": res.tokens[:, :4].tolist(),
+    }
+    log(f"serve long: gemma3-27b {LONG_LAYERS} layers, {n_params} params, distribution "
+        f"{dist_s:.3f} s ({counts['chunked_copy']} chunked_copy launches, peak "
+        f"{dist_peak / 2**30:.2f} GiB), generate {gen_s:.3f} s (cold, {RANKS} x "
+        f"{LONG_PROMPT} tokens + {STEPS} steps); warm: prefill "
+        f"{out['prefill_ms_per_rank']:.2f} ms/rank, decode steps "
+        f"{out['decode_tokens_per_s']:.1f} tok/s; flash_attention launches {cold} cold + "
+        f"{warm} warm; peak {peak / 2**30:.2f} GiB")
+    out["counts"] = kernels.launch_counts()  # the path's; the profiled prefills come after
+    out["profile"] = profile_prefill(torch, engine, tokens)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def compiled_replay(torch, root, mesh) -> tuple[dict, dict]:
@@ -764,6 +1077,44 @@ def small_reference(torch) -> float:
     assert math.isfinite(err) and err < 1e-3, err
     log(f"reference: smoke f32 prefill logits, card vs CPU, max abs diff {err:.3e} (tol 1e-3)")
     return err
+
+
+def small_long_reference(torch) -> float:
+    """gemma3-27b-smoke in f32 (window 64) at a 4096-token prompt, prefill
+    and 2 decode steps: the card (prefill attention through the
+    flash_attention kernel) against the CPU (its plain version)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-27b-smoke"), dtype="float32",
+                              kv_cache_dtype="float32")
+    model = Model(cfg)
+    cpu = model.init(seed=5, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                           generator=torch.Generator().manual_seed(5))
+    before = kernels.launch_counts()["flash_attention"]
+    errs = []
+    with torch.no_grad():
+        a, ca = model.prefill(cpu, {"tokens": tokens}, max_len=LONG_PROMPT + 2)
+        b, cb = model.prefill(gpu, {"tokens": tokens.cuda()}, max_len=LONG_PROMPT + 2)
+        errs.append(float((a - b.cpu()).abs().max()))
+        nxt = torch.argmax(a[:, -1], dim=-1)[:, None]
+        for i in range(2):
+            a, ca = model.decode_step(cpu, nxt, ca, LONG_PROMPT + i)
+            b, cb = model.decode_step(gpu, nxt.cuda(), cb, LONG_PROMPT + i)
+            errs.append(float((a - b.cpu()).abs().max()))
+            nxt = torch.argmax(a[:, 0], dim=-1)[:, None]
+    launched = kernels.launch_counts()["flash_attention"] - before
+    assert launched == cfg.num_layers, launched
+    assert all(math.isfinite(e) and e < 1e-3 for e in errs), errs
+    log(f"reference: gemma3-27b-smoke f32 at {LONG_PROMPT} tokens, card ({launched} "
+        f"flash_attention launches) vs CPU (plain), max abs diff of prefill / decode logits "
+        f"{['%.3e' % e for e in errs]} (tol 1e-3)")
+    return max(errs)
 
 
 def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False):
@@ -963,7 +1314,7 @@ def main() -> int:
     log(f"calibrate: ts {cal['ts_s']:.3e} s, t_launch {cal['t_launch_s']:.3e} s")
 
     lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch),
-             check_inkernel(torch)]
+             check_inkernel(torch), check_flash_attention(torch), *check_param_update(torch)]
     check_fused_combine_training(torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -987,8 +1338,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    kernels.reset_launch_counts()
+    long = serve_long(torch)
+    long_counts = long.pop("counts")
+
     small_reference(torch)
-    numbers = {"serve": serving, "compiled": compiled, "tuned_inkernel": tuned}
+    small_long_reference(torch)
+    numbers = {"serve": serving, "compiled": compiled, "tuned_inkernel": tuned,
+               "serve_long": long}
     log(f"serving numbers: {json.dumps(numbers)}")
 
     with tempfile.TemporaryDirectory() as d:
@@ -999,13 +1356,21 @@ def main() -> int:
         training = train(torch, table_runs, plans_per_step)
         train_counts = kernels.launch_counts()
     # each kernel on the path that runs it: the merge on both, the staging
-    # copy on the serving path, the quantize pair on the training path, the
-    # in-kernel replay on the tuned serving path (phase 4b) and in training
-    paths = {"fused_combine": ("serve", "train"), "chunked_copy": ("serve",),
+    # copy on both serving paths, the quantize pair on the training path, the
+    # in-kernel replay on the tuned serving path (phase 4b) and in training,
+    # flash attention on the long-prompt serving path (phase 4c); mix and
+    # scaled_add are on no path of either package
+    paths = {"fused_combine": ("serve", "train"), "chunked_copy": ("serve", "serve_long"),
              "quantize_blocks": ("train",), "dequantize_blocks": ("train",),
-             "inkernel_replay": ("serve_tuned", "train")}
-    counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts}
+             "inkernel_replay": ("serve_tuned", "train"), "flash_attention": ("serve_long",),
+             "mix": (), "scaled_add": ()}
+    counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
+              "serve_long": long_counts}
     for line in lines:
+        if not paths[line["name"]]:
+            assert line["name"] in ("mix", "scaled_add"), line["name"]
+            line["launches"], line["launches_by_path"] = 0, {}
+            continue
         line["launches_by_path"] = {p: counts[p][line["name"]] for p in paths[line["name"]]}
         for p, k in line["launches_by_path"].items():
             assert k > 0, f"{line['name']} never launched on the {p} path"

@@ -19,6 +19,7 @@ from typing import Any, Sequence
 
 from ..core import bucketing
 from ..core.bucketing import BucketSpec
+from ..core.tree import tree_leaves
 from ..kernels.chunked_copy import chunked_copy
 from .api import apply_plan
 from .plan import CollectivePlan
@@ -90,10 +91,16 @@ class StreamGraph:
 def _run_entry(entry: StreamEntry, tree: Any, dispatch: Sequence[int], *,
                stage: bool, stage_chunk: int, compiled: bool | None) -> Any:
     """Replay ``entry`` over the rank-stacked ``tree`` issuing buckets in
-    ``dispatch`` order with the entry's staging window kept ahead."""
+    ``dispatch`` order with the entry's staging window kept ahead. Each
+    bucket's result is written back into the bucket when the collectives
+    returned another buffer (a staged copy, or the zero-padded copy of a
+    bucket that does not divide into the schedule's chunks), and the copy is
+    dropped before the next bucket runs; at the end every leaf of ``tree``
+    holds its result. So ``tree`` is updated in place and keeps its own
+    layout, and at most ``overlap_depth`` staged buckets and one padded
+    bucket are held beside it."""
     buckets = bucketing.pack_buckets(tree, entry.spec)
     order = [k for k in dispatch if buckets[k].numel()]
-    out: list = list(buckets)  # empty buckets pass through untouched
 
     staged: dict[int, Any] = {}
 
@@ -111,8 +118,15 @@ def _run_entry(entry: StreamEntry, tree: Any, dispatch: Sequence[int], *,
         b = staged.pop(k)
         for ax in entry.axes:
             b = apply_plan(entry.plans[ax][k], b, compiled=compiled)
-        out[k] = b
-    return bucketing.unpack_buckets(out, entry.spec)
+        if b.data_ptr() != buckets[k].data_ptr():
+            buckets[k].copy_(b)
+        del b
+    # a bucket of several leaves is a concatenated copy of them
+    for leaf, res in zip(tree_leaves(tree), tree_leaves(bucketing.unpack_buckets(buckets,
+                                                                                 entry.spec))):
+        if res.data_ptr() != leaf.data_ptr():
+            leaf.copy_(res)
+    return tree
 
 
 def execute_stream_entry(
@@ -124,8 +138,8 @@ def execute_stream_entry(
     compiled: bool | None = None,
 ) -> Any:
     """Replay ONE stream entry over a rank-stacked tree (leaves
-    ``(n, *shape)``). Buckets are updated in place; with ``stage`` every
-    bucket is first copied through the ``chunked_copy`` kernel and the
-    copies are what the collectives update."""
+    ``(n, *shape)``) and return the tree, updated in place. With ``stage``
+    every bucket is first copied through the ``chunked_copy`` kernel; the
+    collectives update the copy, which is then written back."""
     return _run_entry(entry, tree, entry.order, stage=stage,
                       stage_chunk=stage_chunk, compiled=compiled)

@@ -1,9 +1,9 @@
 """Config registry of the port: the architectures its slices serve."""
 from .base import ModelConfig, RunConfig
 
-from . import minitron_8b
+from . import gemma3_27b, minitron_8b
 
-ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (minitron_8b,)}
+ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (gemma3_27b, minitron_8b)}
 
 
 def get_config(name: str) -> ModelConfig:

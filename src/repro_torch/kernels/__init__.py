@@ -2,15 +2,18 @@
 
   chunked_copy    — chunked flat-buffer copy (bucket staging)
   combine_update  — fused row-mode merge of the compiled executor
+  flash_attention — blocked online-softmax attention (long-context prefill)
   inkernel_collective — one-launch replay of a whole lowered schedule
+  param_update    — fused mix / scaled_add over flat buffers (no path calls them)
   quantize        — per-256-block quantize / dequantize of the compressed wire
 
 Sources live in ``csrc/`` and are built by :mod:`._build` at first use.
 """
-from . import chunked_copy, combine_update, inkernel_collective, quantize
+from . import (chunked_copy, combine_update, flash_attention, inkernel_collective, param_update,
+               quantize)
 
-__all__ = ["chunked_copy", "combine_update", "inkernel_collective", "quantize", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["chunked_copy", "combine_update", "flash_attention", "inkernel_collective",
+           "param_update", "quantize", "launch_counts", "reset_launch_counts"]
 
 _WRAPPERS = {
     "chunked_copy": (chunked_copy.chunked_copy,),
@@ -19,6 +22,9 @@ _WRAPPERS = {
     "quantize_blocks": (quantize.quantize_blocks,),
     "dequantize_blocks": (quantize.dequantize_blocks,),
     "inkernel_replay": (inkernel_collective.inkernel_replay_shared,),
+    "flash_attention": (flash_attention.flash_attention,),
+    "mix": (param_update.mix,),
+    "scaled_add": (param_update.scaled_add,),
 }
 
 

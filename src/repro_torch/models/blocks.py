@@ -25,17 +25,13 @@ __all__ = ["attn_spec_for", "init_block", "apply_block", "init_block_cache"]
 
 
 def attn_spec_for(cfg, window: Optional[int], causal: bool = True) -> AttnSpec:
-    if window is not None:
-        raise NotImplementedError(
-            f"sliding-window attention (window {window}) is not ported yet "
-            "(ROADMAP A.11); the port has global attention"
-        )
     return AttnSpec(
         num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim,
         qkv_bias=cfg.qkv_bias,
         rope_theta=cfg.rope_theta,
+        window=window,
         causal=causal,
     )
 
@@ -84,7 +80,7 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
                       cache=None if cache is None else cache["attn"], cur_pos=cur_pos)
     if mode == "prefill":
         if max_len:
-            ac = _grow_cache(ac, max_len)
+            ac = _grow_cache(ac, max_len, spec)
         kv_dt = getattr(torch, cfg.kv_cache_dtype)
         ac = {**ac, "k": ac["k"].to(kv_dt), "v": ac["v"].to(kv_dt)}
     x = x + y
@@ -93,9 +89,11 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
     return x, (None if mode == "train" else {"attn": ac})
 
 
-def _grow_cache(cache: dict, max_len: int) -> dict:
-    """Extend a prefill-built cache to decode capacity ``max_len``."""
-    pad = max_len - cache["k"].shape[1]
+def _grow_cache(cache: dict, max_len: int, spec: AttnSpec) -> dict:
+    """Extend a prefill-built cache to decode capacity ``max_len`` (a
+    windowed layer's ring holds at most ``window`` slots)."""
+    target = min(max_len, spec.window) if spec.window else max_len
+    pad = target - cache["k"].shape[1]
     if pad <= 0:
         return cache
     k = torch.nn.functional.pad(cache["k"], (0, 0, 0, 0, 0, pad))

@@ -6,9 +6,8 @@ Conventions:
   * activations ``(B, T, D)``; attention heads ``(B, T, H, hd)``.
   * caches: dict with 'k','v' of shape (B, S_cache, KV, hd) plus 'pos'
     (stored absolute positions (S_cache,) int32, -1 = empty slot), with
-    S_cache == max_len. Only global attention is ported: the reference's
-    sliding-window ring buffers wait for a config that uses them
-    (ROADMAP A.11).
+    S_cache == max_len for global layers and min(max_len, window) for
+    sliding-window layers, whose cache is a ring buffer (slot = pos % S).
   * decode appends to its cache IN PLACE (the reference returns an updated
     copy); the caller's cache tensors hold the new entry.
 """
@@ -16,9 +15,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels import flash_attention as flash
 
 __all__ = [
     "AttnSpec",
@@ -86,6 +88,7 @@ class AttnSpec:
     head_dim: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    window: Optional[int] = None     # sliding window (None = global)
     causal: bool = True
     use_rope: bool = True
 
@@ -108,8 +111,8 @@ def init_attention(gen: torch.Generator, d: int, spec: AttnSpec, dtype,
 
 
 def init_attn_cache(batch: int, max_len: int, spec: AttnSpec, dtype, device) -> dict:
-    """Cache for one attention layer."""
-    S = max_len
+    """Cache for one attention layer. Windowed layers keep a ring buffer."""
+    S = min(max_len, spec.window) if spec.window else max_len
     KV, hd = spec.num_kv_heads, spec.head_dim
     return {
         "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
@@ -154,9 +157,9 @@ def _sdpa(q, k, v, mask, spec: AttnSpec):
     return out.reshape(B, T, H, hd)
 
 
-# S at which train/prefill attention switches to the memory-efficient
-# KV-block-scanned softmax (full T x S scores never materialize), as in the
-# reference.
+# S at which train/prefill attention leaves the dense softmax (full T x S
+# scores never materialize), as in the reference: prefill goes through the
+# flash_attention kernel, train through the differentiable block loop.
 CHUNKED_ATTN_MIN_S = 4096
 _CHUNK_BLOCK = 1024
 
@@ -170,6 +173,10 @@ def _mask_block(spec: AttnSpec, prefix_len: int, i, j):
             m = m | (jj < prefix_len)
     else:
         m = torch.ones((ii.shape[0], jj.shape[1]), dtype=torch.bool, device=i.device)
+    if spec.window is not None:
+        m = m & (jj > ii - spec.window)
+        if prefix_len:
+            m = m | ((jj < prefix_len) & (ii < prefix_len))
     return m
 
 
@@ -228,11 +235,18 @@ def attention(
         if spec.use_rope:
             q = rope(q, positions, spec.rope_theta)
             k = rope(k, positions, spec.rope_theta)
-        if k.shape[1] >= CHUNKED_ATTN_MIN_S:
-            out = _chunked_sdpa(q, k, v, spec, prefix_len)
-        else:
+        if k.shape[1] < CHUNKED_ATTN_MIN_S:
             out = _sdpa(q, k, v, full_mask(T, spec, x.device, prefix_len), spec)
-        return _out_proj(out, p["wo"]), (_fill_cache(k, v) if mode == "prefill" else None)
+        elif mode == "prefill":
+            out = flash.flash_attention(q, k, v, causal=spec.causal, window=spec.window,
+                                        prefix=prefix_len)
+        else:
+            # the kernel has no backward (neither has the reference's Pallas
+            # kernel, whose training takes this XLA twin): train keeps the
+            # differentiable block loop
+            out = _chunked_sdpa(q, k, v, spec, prefix_len)
+        return _out_proj(out, p["wo"]), (_fill_cache(k, v, spec, T) if mode == "prefill"
+                                         else None)
 
     # ---- decode: T == 1, append to cache ----
     if mode != "decode" or cache is None or cur_pos is None:
@@ -248,12 +262,22 @@ def attention(
     cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
     cache["pos"][slot] = cur_pos
     valid = cache["pos"] >= 0
+    if spec.window is not None:
+        valid = valid & (cache["pos"] > cur_pos - spec.window)
     out = _sdpa(q, cache["k"], cache["v"], valid[None, None, :], spec)
     return _out_proj(out, p["wo"]), cache
 
 
-def _fill_cache(k, v) -> dict:
-    """Build a decode cache from prefill K/V."""
+def _fill_cache(k, v, spec: AttnSpec, T: int) -> dict:
+    """Build a decode cache from prefill K/V; a windowed layer keeps the
+    last ``window`` positions in ring-buffer order (slot = pos % window)."""
+    if spec.window is not None and T > spec.window:
+        W = spec.window
+        pos_abs = torch.arange(T - W, T, device=k.device)
+        order = torch.argsort(pos_abs % W)
+        pos_abs = pos_abs[order]
+        return {"k": k[:, T - W:][:, order], "v": v[:, T - W:][:, order],
+                "pos": pos_abs.to(torch.int32)}
     pos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
     return {"k": k, "v": v, "pos": pos}
 

@@ -204,9 +204,11 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     the same plans either way, so the weights are identical. ``compiled``
     routes the per-bucket replay (None = the tuned policy).
 
-    Buckets are updated in place: without staging, a bucket that is one
-    contiguous leaf of ``stacked`` is that leaf, so ``stacked`` itself
-    receives the broadcast. The returned tree is always the result."""
+    ``stacked`` is updated in place and returned: every leaf keeps its own
+    contiguous layout, so each rank's replica starts where the leaf's row
+    starts (a result left in a padded bucket buffer would put rank ``r``'s
+    row ``r`` padded bucket lengths in, off the 16-byte boundary that
+    cuBLAS's fast matmul kernels need)."""
     if drain_dir is not None:
         raise NotImplementedError(
             "draining the weights to a checkpoint on failure needs the "

@@ -112,3 +112,54 @@ def test_inkernel_replay_matches_plain(dt):
             p = ik.inkernel_replay_shared_plain(low, buf.clone())
             assert torch.equal(k.view(bits), p.view(bits)), (sched.name, cols)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # B, T, S, H, KV, hd, causal, window, prefix, bq, bk
+    (2, 128, 128, 4, 2, 32, True, None, 0, 64, 64),
+    (1, 256, 256, 4, 1, 64, True, 64, 0, 64, 64),
+    (1, 96, 96, 4, 2, 128, True, 40, 16, 32, 32),
+    (1, 80, 80, 2, 2, 16, False, 24, 0, 16, 16),
+])
+def test_flash_attention_matches_plain(dt, case):
+    """One launch per call, within the reference test's tolerances of the
+    plain version (the kernel sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import flash_attention as fa
+
+    B, T, S, H, KV, hd, causal, window, prefix, bq, bk = case
+    gen = torch.Generator(device="cuda").manual_seed(T + hd)
+    q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    tol = 2e-4 if dt == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_param_updates_match_plain(dt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import param_update as pu
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    w = torch.randn(70_001, generator=gen, device="cuda").to(dt)
+    u = torch.randn(70_001, generator=gen, device="cuda").to(dt)
+    bits = {2: torch.int16, 4: torch.int32}[w.element_size()]
+    for ws, us in ((w, u), (w[1:], u[1:])):
+        for a in (0.25, 0.01):
+            assert torch.equal(pu.mix(ws, us, a).view(bits), pu.mix_plain(ws, us, a).view(bits))
+            assert torch.equal(pu.scaled_add(ws, us, a).view(bits),
+                               pu.scaled_add_plain(ws, us, a).view(bits))
+    torch.cuda.synchronize()

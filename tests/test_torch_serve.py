@@ -149,7 +149,55 @@ def test_distribute_weights_fills_every_replica(f32, n, monkeypatch):
     assert calls["copy"] > 0 and calls["merge"] > 0
     assert launch_counts() == {"chunked_copy": 0, "fused_combine": 0,
                                "quantize_blocks": 0, "dequantize_blocks": 0,
-                               "inkernel_replay": 0}
+                               "inkernel_replay": 0, "flash_attention": 0, "mix": 0,
+                               "scaled_add": 0}
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_engine_serves_from_contiguous_aligned_replicas(f32, double_buffer):
+    """The distribution writes its results back into the stacked leaves
+    (out of staged copies and padded bucket buffers alike), so every rank's
+    row starts at a multiple of the row's bytes (16-byte aligned wherever
+    those are)."""
+    _jcfg, tcfg, _jparams, tparams, _ = f32
+    engine = TEngine(tcfg, tree_map(torch.clone, tparams), mesh=make_mesh(3, device="cpu"),
+                     distribute=True, double_buffer=double_buffer, device="cpu")
+    for leaf, want in zip(tree_leaves(engine.params), tree_leaves(tparams)):
+        assert leaf.is_contiguous()
+        row = leaf[0].numel() * leaf.element_size()
+        for r in range(3):
+            assert (leaf[r].data_ptr() - leaf.data_ptr()) == r * row
+            assert torch.equal(_bits(leaf[r]), _bits(want))
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_distribution_updates_the_stacked_tree_in_place(f32, double_buffer):
+    """Buckets of one leaf, of several leaves and with a pad tail (the
+    schedule's chunks do not divide them), staged or not: the returned
+    leaves are the caller's, and they hold the broadcast."""
+    from repro_torch.serve import plan_distribution
+
+    _jcfg, _tcfg, _jparams, tparams, _ = f32
+    # 16 MiB + 2 bytes: the first size at which the plan cuts two chunks
+    odd = torch.randn(1 + (8 << 20), generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    params = {"w": tree_map(lambda t: t.to(torch.bfloat16), tparams), "s": tparams, "odd": odd}
+    n, bucket_bytes = 3, 16 << 10
+    stacked = _nan_stack(params, n)
+    spec, plans = plan_distribution(stacked, make_mesh(n, device="cpu"),
+                                    algo="pipelined_chain", bucket_bytes=bucket_bytes)
+    leaves_per_bucket = [0] * spec.num_buckets
+    for meta in spec.leaves:
+        leaves_per_bucket[meta.bucket] += 1
+    assert 1 in leaves_per_bucket and max(leaves_per_bucket) > 1
+    assert any(size % p.schedule.num_chunks for size, p in zip(spec.bucket_sizes, plans["data"]))
+    before = [leaf.data_ptr() for leaf in tree_leaves(stacked)]
+    out = distribute_weights(stacked, make_mesh(n, device="cpu"), algo="pipelined_chain",
+                             bucket_bytes=bucket_bytes, double_buffer=double_buffer)
+    assert out is stacked
+    assert [leaf.data_ptr() for leaf in tree_leaves(out)] == before
+    for leaf, want in zip(tree_leaves(out), tree_leaves(params)):
+        for r in range(n):
+            assert torch.equal(_bits(leaf[r]), _bits(want))
 
 
 def test_default_policy_plans_and_graph(f32):
@@ -218,14 +266,6 @@ def test_attention_layer_matches_reference(KV):
     got = tl._chunked_sdpa(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                            tspec, 0, block=32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
-
-
-def test_windowed_attention_is_refused():
-    """Sliding-window layers are not ported: a config with them raises
-    rather than serving global attention in their place."""
-    cfg = dataclasses.replace(t_get_config("minitron-8b-smoke"), attn_pattern=(4, None))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        TModel(cfg).init(0, device="cpu")
 
 
 def test_decode_cache_layout_matches_reference(f32):
