@@ -16,10 +16,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    hop shape, the merge again at the training path's rounds, and the
    in-kernel replay (also against the numpy simulator) at small shapes over
    every builder and at the path shapes, beside the compiled executor's
-   replay of the same plan; flash attention (it sums in another order: f32
-   within the reference test's 2e-4, bf16 within one bf16 rounding of the
-   plain version's f32 result) at the reference's cases and at phase 4c's
-   layer shapes, with the flops bound and one
+   replay of the same plan; both flash attention kernels, the CUDA-core
+   one and the sm90 one (bf16 wgmma + TMA, head width 128), which sum in
+   another order (f32 within the reference test's 2e-4, bf16 within one
+   bf16 rounding of the plain version's f32 result), at the reference's
+   cases and at phase 4c's layer shapes, with the flops bound and one
    scaled_dot_product_attention call as yardstick; mix and scaled_add (on
    no path of either package) at the embedding's flat size.
 3. serving, default policy: minitron-8b at full width (8 of 32 layers,
@@ -39,12 +40,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    whole 5 local : 1 global period, bf16, seeded random weights) broadcast
    to 4 emulated ranks, staged through chunked_copy, then ``generate`` of one 4096-token
    prompt per rank and 32 decode steps, then the warm re-run: every
-   layer's prefill goes through the flash_attention kernel (24 launches a
-   pass); the local layers decode from rings of 1024. Then one prefill
-   per rank under ``torch.profiler`` (device time by kernel, busy share).
+   layer's prefill goes through the sm90 flash kernel (24 launches a
+   pass, none of the CUDA-core one); the local layers decode from rings
+   of 1024. Then one prefill per rank under ``torch.profiler`` (device
+   time by kernel, busy share).
 5. small-input references: the port's f32 smoke model on the card against
-   the same model on the CPU, and gemma3-27b-smoke (window 64) at a
-   4096-token prompt, the card's kernel against the CPU's plain version.
+   the same model on the CPU, and gemma3-27b-smoke (window 64) in f32 at a
+   4096-token prompt, the card's CUDA-core flash kernel (the f32 route)
+   against the CPU's plain version.
 6. training: minitron-8b at full width (1 of 32 layers, bf16, seeded
    weights) on 4 emulated data ranks, global batch 8 x 512 tokens, 3 steps
    in each sync mode from the same weights and batches: grad_allreduce,
@@ -65,8 +68,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Launch counts are zeroed right before each path and read right after it:
 phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
-path), phase 4c (the long-prompt serving path) and phase 6's runs (the
-training path); the launches that compare
+path), phase 4c (the long-prompt serving path), phase 5's long-prompt
+reference (the f32 flash route) and phase 6's runs (the training path);
+the launches that compare
 kernels with their plain versions, and the replays timed to fill the tuner
 tables, are not counted. The last three lines of output are the kernels
 JSON, the card, and ``{"ok": true, "device": ...}``.
@@ -100,6 +104,15 @@ FLASH_CASES = (
     (1, 128, 128, 2, 1, 16, True, None, 96, 32, 32),   # a prefix tile skipped
     (1, 96, 96, 4, 2, 128, True, 40, 0, 32, 32),       # hd 128, a partial row block
     (1, 80, 80, 2, 1, 64, True, None, 0, 16, 16),      # partial row and key tiles
+    # head width 128, the sm90 kernel's: caller tiles below its 128 x 128, a
+    # prefix with a window, a skipped prefix tile, partial tiles, window 0
+    # (rows without an allowed key: the mean of their kept keys' v)
+    (2, 256, 256, 4, 2, 128, True, None, 0, 64, 64),
+    (1, 384, 384, 2, 2, 128, True, 100, 48, 64, 32),
+    (1, 128, 128, 2, 1, 128, True, None, 96, 32, 32),
+    (1, 80, 80, 2, 1, 128, True, None, 0, 16, 16),
+    (1, 256, 256, 2, 2, 128, False, 0, 0, 64, 64),
+    (1, 128, 128, 2, 1, 128, True, 0, 0, 32, 32),
 )
 FLASH_F32_TOL = 2e-4  # the reference test's f32 tolerance, atol = rtol
 # bf16 output against the plain version's f32 result: one rounding to bf16
@@ -623,56 +636,76 @@ def flash_bf16_share(torch, got, want32) -> float:
     return float(((got.float() - want32).abs() / lim).max())
 
 
-def check_flash_attention(torch) -> dict:
-    """flash_attention against its plain version: the reference's cases
-    (and three of tile skipping and partial tiles), then the phase 4c
-    shapes (a gemma3-27b layer at 4096 tokens: a local layer, window 1024,
-    and the global layer), each in f32 and bf16, the bf16 path shapes timed
-    beside the plain version and one scaled_dot_product_attention call. Not
-    bit-equal: the kernel sums in another order. f32 is held as the
-    reference's test holds its kernel, |kernel - plain| <= 2e-4 + 2e-4
-    |plain|; bf16 against the plain version's f32 result on the same
-    inputs, within one bf16 rounding (FLASH_BF16_REL, FLASH_BF16_ABS)."""
+def check_flash_attention(torch) -> list[dict]:
+    """Both flash kernels against the plain version: the reference's cases
+    (and those of tile skipping, partial tiles and head width 128), then the
+    phase 4c shapes (a gemma3-27b layer at 4096 tokens: the global layer and
+    a local one, window 1024). Every case goes through the CUDA-core kernel
+    in f32 and bf16 and, where its head width is 128, through the sm90
+    kernel in bf16; ``flash_attention`` itself must give the output of the
+    kernel its route names. Not bit-equal to the plain version: the kernels
+    sum in another order. f32 is held as the reference's test holds its
+    kernel, |kernel - plain| <= 2e-4 + 2e-4 |plain|; bf16 against the plain
+    version's f32 result on the same inputs, within one bf16 rounding
+    (FLASH_BF16_REL, FLASH_BF16_ABS). At the path shapes each kernel is
+    timed beside the plain version and one scaled_dot_product_attention
+    call; the kernels JSON gets one line per kernel."""
     from repro_torch.kernels import flash_attention as fa
 
     def held(q, k, v, kw, what) -> dict:
-        """Both dtypes of one case: q, k, v are bf16-valued."""
+        """Every route of one case: q, k, v are bf16-valued."""
         q32, k32, v32 = q.float(), k.float(), v.float()
         want32 = fa.flash_attention_plain(q32, k32, v32, **kw)
-        got32 = fa.flash_attention(q32, k32, v32, **kw)
-        got16 = fa.flash_attention(q, k, v, **kw)
+        got32 = fa.flash_fwd(q32, k32, v32, **kw)
+        got = {"flash_attention": fa.flash_fwd(q, k, v, **kw)}
+        if q.shape[3] in fa.SM90_HEAD_DIMS:
+            got["flash_attention_sm90"] = fa.flash_sm90(q, k, v, **kw)
+        routed = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        assert got32.dtype == torch.float32 and got16.dtype == torch.bfloat16
-        assert got32.shape == got16.shape == q.shape
+        assert torch.equal(bits(torch, routed),
+                           bits(torch, got[fa.kernel_route(q.dtype, q.shape[3])])), what
+        assert got32.dtype == torch.float32 and got32.shape == q.shape
         assert torch.allclose(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL), \
             (what, "float32", max_abs_err(torch, got32, want32))
-        share = flash_bf16_share(torch, got16, want32)
-        assert share <= 1.0, (what, "bfloat16", share, max_abs_err(torch, got16, want32))
-        out = {"f32_err": max_abs_err(torch, got32, want32),
-               "bf16_err": max_abs_err(torch, got16, want32), "bf16_share": share}
-        del want32, got32, got16
+        out = {"f32_err": max_abs_err(torch, got32, want32)}
+        for name, got16 in got.items():
+            assert got16.dtype == torch.bfloat16 and got16.shape == q.shape
+            share = flash_bf16_share(torch, got16, want32)
+            assert share <= 1.0, (what, name, share, max_abs_err(torch, got16, want32))
+            out[name] = {"bf16_err": max_abs_err(torch, got16, want32), "bf16_share": share}
+        del want32, got32, got, routed
         return out
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    worst = {"f32_err": 0.0, "bf16_err": 0.0, "bf16_share": 0.0}
+    worst = {"f32_err": 0.0}
+    sm90_cases = 0
     for case in FLASH_CASES:
         B, T, S, H, KV, hd, causal, window, prefix, bq, bk = case
         q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
         kw = dict(causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
-        for key, val in held(q, k, v, kw, case).items():
-            worst[key] = max(worst[key], val)
-    log(f"kernel flash_attention: {len(FLASH_CASES)} cases x f32/bf16 within tolerance of "
-        f"plain (max abs err f32 {worst['f32_err']:.3e} (tol 2e-4 + 2e-4 |plain|), bf16 "
-        f"{worst['bf16_err']:.3e} against plain's f32, {worst['bf16_share']:.3f} of the limit "
-        f"2^-8 |plain| + 1e-5)")
+        res = held(q, k, v, kw, case)
+        worst["f32_err"] = max(worst["f32_err"], res.pop("f32_err"))
+        sm90_cases += "flash_attention_sm90" in res
+        for name, errs in res.items():
+            w = worst.setdefault(name, {"bf16_err": 0.0, "bf16_share": 0.0})
+            for key, val in errs.items():
+                w[key] = max(w[key], val)
+    log(f"kernel flash_attention: {len(FLASH_CASES)} cases within tolerance of plain, f32 "
+        f"(CUDA-core) max abs err {worst['f32_err']:.3e} (tol 2e-4 + 2e-4 |plain|); bf16 "
+        f"against plain's f32, limit 2^-8 |plain| + 1e-5: CUDA-core kernel "
+        f"{worst['flash_attention']['bf16_err']:.3e} ({worst['flash_attention']['bf16_share']:.3f}"
+        f" of the limit), sm90 kernel on the {sm90_cases} cases of head width 128 "
+        f"{worst['flash_attention_sm90']['bf16_err']:.3e} "
+        f"({worst['flash_attention_sm90']['bf16_share']:.3f} of the limit)")
 
-    line = None
+    kernels = {"flash_attention": (fa.flash_fwd, "flash_attention.cu"),
+               "flash_attention_sm90": (fa.flash_sm90, "flash_attention_sm90.cu")}
+    lines = {}
     for label, window in (("global", None), ("local", 1024)):
         q, k, v, kw = _flash_path_case(torch, gen, window)
-        errs = held(q, k, v, kw, label)
-        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), reps=10)
+        res = held(q, k, v, kw, label)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3,
                            warmup=1)
         library_ms = time_ms(torch, _sdpa_call(torch, q, k, v, window), reps=10)
@@ -681,26 +714,30 @@ def check_flash_attention(torch) -> dict:
         moved = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out; bf16
         bound = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
         by = "operations" if flops / BF16_FLOPS_PER_S >= moved / HBM_BYTES_PER_S else "bytes"
-        log(f"kernel flash_attention {label} ({B}, {T}, {H}, {hd}) x ({B}, {k.shape[1]}, "
-            f"{k.shape[2]}, {hd}) window {window}: max abs err f32 {errs['f32_err']:.3e} "
-            f"(tol 2e-4 + 2e-4 |plain|), bf16 {errs['bf16_err']:.3e} against plain's f32, "
-            f"{errs['bf16_share']:.3f} of the limit 2^-8 |plain| + 1e-5; bf16 {ms:.4f} ms "
-            f"(bound {bound:.4f} ms by {by}, {flops / 1e9:.1f} GFLOP of allowed pairs in kept "
-            f"tiles: {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {library_ms:.4f} ms)")
-        numbers = {"max_abs_err": errs["bf16_err"], "max_abs_err_f32": errs["f32_err"],
-                   "bf16_share_of_limit": errs["bf16_share"], "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-                   "gflop": flops / 1e9}
-        if line is None:  # the global layer is the kernel's line; the local one beside it
-            line = {"name": "flash_attention", "route": "cuda",
-                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                    "replaces": "src/repro/kernels/flash_attention.py:102", **numbers,
-                    "shape": [list(q.shape), list(k.shape)], "dtype": "bfloat16"}
-        else:
-            line["local_window_1024"] = numbers
+        for name, (fn, src) in kernels.items():
+            ms = time_ms(torch, lambda: fn(q, k, v, **kw), reps=20 if "sm90" in name else 10)
+            errs = res[name]
+            log(f"kernel {name} {label} ({B}, {T}, {H}, {hd}) x ({B}, {k.shape[1]}, "
+                f"{k.shape[2]}, {hd}) window {window}: max abs err f32 {res['f32_err']:.3e} "
+                f"(CUDA-core kernel, tol 2e-4 + 2e-4 |plain|), bf16 {errs['bf16_err']:.3e} "
+                f"against plain's f32, {errs['bf16_share']:.3f} of the limit 2^-8 |plain| + "
+                f"1e-5; bf16 {ms:.4f} ms (bound {bound:.4f} ms by {by}, {flops / 1e9:.1f} GFLOP "
+                f"of allowed pairs in kept tiles: {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+                f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms)")
+            numbers = {"max_abs_err": errs["bf16_err"], "bf16_share_of_limit": errs["bf16_share"],
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "library_ms": library_ms, "gflop": flops / 1e9}
+            if name == "flash_attention":
+                numbers["max_abs_err_f32"] = res["f32_err"]
+            if name not in lines:  # the global layer is the kernel's line; the local beside it
+                lines[name] = {"name": name, "route": "cuda",
+                               "source": f"src/repro_torch/kernels/csrc/{src}",
+                               "replaces": "src/repro/kernels/flash_attention.py:102", **numbers,
+                               "shape": [list(q.shape), list(k.shape)], "dtype": "bfloat16"}
+            else:
+                lines[name]["local_window_1024"] = numbers
         del q, k, v
-    return line
+    return list(lines.values())
 
 
 def check_param_update(torch) -> list[dict]:
@@ -849,8 +886,8 @@ def profile_prefill(torch, engine, tokens, top: int = 8) -> list[dict]:
     """One warm prefill of each rank's prompt on its replica under
     ``torch.profiler``, after one unprofiled warm-up prefill: wall ms,
     device ms (the kernels of one stream do not overlap, so their sum is
-    the busy time), the flash kernel's ms and the ``top`` kernels as
-    ``(name, ms, launches)``."""
+    the busy time), the flash kernels' ms (both names, ``flash_fwd`` and
+    ``flash_fwd_sm90``) and the ``top`` kernels as ``(name, ms, launches)``."""
     from torch.profiler import ProfilerActivity, profile
 
     tok = torch.as_tensor(tokens, device="cuda")
@@ -871,11 +908,12 @@ def profile_prefill(torch, engine, tokens, top: int = 8) -> list[dict]:
                        if e.device_time_total > 0 and not e.key.startswith("aten::")),
                       key=lambda row: -row[1])
         res = {"wall_ms": wall_ms, "device_ms": sum(row[1] for row in kern),
-               "flash_ms": sum(ms for name, ms, _n in kern if "flash_fwd" in name),
+               "flash_ms": sum(ms for name, ms, _n in kern
+                               if "flash_fwd<" in name or "flash_fwd_sm90" in name),
                "top": [(name[:60], round(ms, 3), n) for name, ms, n in kern[:top]]}
         log(f"serve long profile rank {r} (one warm prefill, profiler on): wall "
             f"{res['wall_ms']:.2f} ms, device kernels {res['device_ms']:.2f} ms "
-            f"({res['device_ms'] / res['wall_ms']:.1%} busy), flash_fwd {res['flash_ms']:.2f} "
+            f"({res['device_ms'] / res['wall_ms']:.1%} busy), flash {res['flash_ms']:.2f} "
             f"ms; top kernels (name, ms, launches): {res['top']}")
         out.append(res)
     return out
@@ -888,9 +926,10 @@ def serve_long(torch) -> dict:
     ``generate`` of one 4096-token
     prompt per rank and 32 decode steps (max_len 4128: the local layers'
     caches are rings of 1024), then the warm re-run and one profiled
-    prefill per rank. Every layer's prefill goes through the flash_attention kernel:
-    6 x 4 launches per pass. Launch counts are zeroed by the caller right
-    before; the profiled prefills are counted apart."""
+    prefill per rank. Every layer's prefill (bf16, head width 128) goes
+    through the sm90 flash kernel: 6 x 4 launches per pass, none of the
+    CUDA-core one. Launch counts are zeroed by the caller right before; the
+    profiled prefills are counted apart."""
     import numpy as np
 
     from repro_torch import kernels
@@ -911,7 +950,7 @@ def serve_long(torch) -> dict:
     torch.cuda.synchronize()
     dist_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == 0 and counts["chunked_copy"] > 0, counts
+    assert counts["flash_attention_sm90"] == 0 and counts["chunked_copy"] > 0, counts
     assert replicas_equal(torch, engine.params, params), "a gemma replica differs from the weights"
     # the replicas sit in the stacked leaves, each rank's row where the leaf's row starts
     assert all(t.is_contiguous() for t in tree_leaves(engine.params))
@@ -923,14 +962,15 @@ def serve_long(torch) -> dict:
     t0 = time.perf_counter()
     res = engine.generate({"tokens": tokens}, steps=STEPS)
     gen_s = time.perf_counter() - t0
-    cold = kernels.launch_counts()["flash_attention"]
+    cold = kernels.launch_counts()["flash_attention_sm90"]
     assert res.tokens.shape == (RANKS, STEPS) and res.logprobs.shape == (RANKS, STEPS)
     assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
     assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
     assert cold == LONG_LAYERS * RANKS, cold
     prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
-    warm = kernels.launch_counts()["flash_attention"] - cold
+    warm = kernels.launch_counts()["flash_attention_sm90"] - cold
     assert warm == LONG_LAYERS * RANKS, warm
+    assert kernels.launch_counts()["flash_attention"] == 0, "a bf16 prefill left the sm90 route"
     peak = torch.cuda.max_memory_allocated()
     assert peak < torch.cuda.get_device_properties(0).total_memory, peak
     out = {
@@ -947,7 +987,7 @@ def serve_long(torch) -> dict:
         f"{dist_peak / 2**30:.2f} GiB), generate {gen_s:.3f} s (cold, {RANKS} x "
         f"{LONG_PROMPT} tokens + {STEPS} steps); warm: prefill "
         f"{out['prefill_ms_per_rank']:.2f} ms/rank, decode steps "
-        f"{out['decode_tokens_per_s']:.1f} tok/s; flash_attention launches {cold} cold + "
+        f"{out['decode_tokens_per_s']:.1f} tok/s; flash_attention_sm90 launches {cold} cold + "
         f"{warm} warm; peak {peak / 2**30:.2f} GiB")
     out["counts"] = kernels.launch_counts()  # the path's; the profiled prefills come after
     out["profile"] = profile_prefill(torch, engine, tokens)
@@ -1081,8 +1121,9 @@ def small_reference(torch) -> float:
 
 def small_long_reference(torch) -> float:
     """gemma3-27b-smoke in f32 (window 64) at a 4096-token prompt, prefill
-    and 2 decode steps: the card (prefill attention through the
-    flash_attention kernel) against the CPU (its plain version)."""
+    and 2 decode steps: the card (prefill attention through the CUDA-core
+    flash kernel, the f32 route) against the CPU (its plain version). Launch
+    counts are zeroed by the caller right before."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
@@ -1096,7 +1137,6 @@ def small_long_reference(torch) -> float:
     gpu = tree_map(lambda t: t.cuda(), cpu)
     tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
                            generator=torch.Generator().manual_seed(5))
-    before = kernels.launch_counts()["flash_attention"]
     errs = []
     with torch.no_grad():
         a, ca = model.prefill(cpu, {"tokens": tokens}, max_len=LONG_PROMPT + 2)
@@ -1108,8 +1148,9 @@ def small_long_reference(torch) -> float:
             b, cb = model.decode_step(gpu, nxt.cuda(), cb, LONG_PROMPT + i)
             errs.append(float((a - b.cpu()).abs().max()))
             nxt = torch.argmax(a[:, 0], dim=-1)[:, None]
-    launched = kernels.launch_counts()["flash_attention"] - before
+    launched = kernels.launch_counts()["flash_attention"]
     assert launched == cfg.num_layers, launched
+    assert kernels.launch_counts()["flash_attention_sm90"] == 0, "f32 took the sm90 route"
     assert all(math.isfinite(e) and e < 1e-3 for e in errs), errs
     log(f"reference: gemma3-27b-smoke f32 at {LONG_PROMPT} tokens, card ({launched} "
         f"flash_attention launches) vs CPU (plain), max abs diff of prefill / decode logits "
@@ -1308,13 +1349,13 @@ def main() -> int:
         logf = _build.BUILD_DIR / f"{src}.log"
         if logf.exists():
             for ln in logf.read_text().splitlines():
-                if "registers" in ln or "spill" in ln:
+                if "registers" in ln or "spill" in ln or "Performance Loss" in ln:
                     log(f"  ptxas {src}: {ln.strip()}")
     cal = calibrate(torch)
     log(f"calibrate: ts {cal['ts_s']:.3e} s, t_launch {cal['t_launch_s']:.3e} s")
 
     lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch),
-             check_inkernel(torch), check_flash_attention(torch), *check_param_update(torch)]
+             check_inkernel(torch), *check_flash_attention(torch), *check_param_update(torch)]
     check_fused_combine_training(torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1343,7 +1384,9 @@ def main() -> int:
     long_counts = long.pop("counts")
 
     small_reference(torch)
+    kernels.reset_launch_counts()
     small_long_reference(torch)
+    ref_long_counts = kernels.launch_counts()
     numbers = {"serve": serving, "compiled": compiled, "tuned_inkernel": tuned,
                "serve_long": long}
     log(f"serving numbers: {json.dumps(numbers)}")
@@ -1358,14 +1401,17 @@ def main() -> int:
     # each kernel on the path that runs it: the merge on both, the staging
     # copy on both serving paths, the quantize pair on the training path, the
     # in-kernel replay on the tuned serving path (phase 4b) and in training,
-    # flash attention on the long-prompt serving path (phase 4c); mix and
+    # the sm90 flash kernel on the long-prompt serving path (phase 4c), the
+    # CUDA-core one on phase 5's f32 long-prompt reference; mix and
     # scaled_add are on no path of either package
     paths = {"fused_combine": ("serve", "train"), "chunked_copy": ("serve", "serve_long"),
              "quantize_blocks": ("train",), "dequantize_blocks": ("train",),
-             "inkernel_replay": ("serve_tuned", "train"), "flash_attention": ("serve_long",),
+             "inkernel_replay": ("serve_tuned", "train"),
+             "flash_attention_sm90": ("serve_long",), "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
-              "serve_long": long_counts}
+              "serve_long": long_counts, "reference_long": ref_long_counts}
+    assert long_counts["flash_attention"] == 0, long_counts
     for line in lines:
         if not paths[line["name"]]:
             assert line["name"] in ("mix", "scaled_add"), line["name"]

@@ -2,7 +2,8 @@
 
   chunked_copy    — chunked flat-buffer copy (bucket staging)
   combine_update  — fused row-mode merge of the compiled executor
-  flash_attention — blocked online-softmax attention (long-context prefill)
+  flash_attention — blocked online-softmax attention (long-context prefill): the
+                    sm90 kernel (bf16 wgmma + TMA, head width 128) and the CUDA-core one
   inkernel_collective — one-launch replay of a whole lowered schedule
   param_update    — fused mix / scaled_add over flat buffers (no path calls them)
   quantize        — per-256-block quantize / dequantize of the compressed wire
@@ -22,7 +23,8 @@ _WRAPPERS = {
     "quantize_blocks": (quantize.quantize_blocks,),
     "dequantize_blocks": (quantize.dequantize_blocks,),
     "inkernel_replay": (inkernel_collective.inkernel_replay_shared,),
-    "flash_attention": (flash_attention.flash_attention,),
+    "flash_attention": (flash_attention.flash_fwd,),
+    "flash_attention_sm90": (flash_attention.flash_sm90,),
     "mix": (param_update.mix,),
     "scaled_add": (param_update.scaled_add,),
 }

@@ -1,5 +1,6 @@
-// Blocked online-softmax attention, forward: the compute kernel of every
-// transformer layer's prefill from S = CHUNKED_ATTN_MIN_S (4096) keys on.
+// Blocked online-softmax attention, forward, on CUDA cores: the route of
+// every call that flash_attention_sm90.cu (bf16, head width 128) does not
+// take, that is f32 (phase 5's smoke model) and head widths 16 to 64.
 //
 // Replaces: src/repro/kernels/flash_attention.py:102 flash_attention (its
 //   pallas_call at :141; the body is _kernel, :38-95). q (B, T, H, hd),
@@ -15,8 +16,8 @@
 //   (max, sum, acc) of its rows in registers: a thread owns 4 rows (ty +
 //   16a) and, for the scores, 2 keys (tx + 16c); for the output, 4-column
 //   groups (4tx + 64n). The products are f32 FMAs on CUDA cores, float4
-//   reads of shared memory; no tensor cores yet (mma/wgmma and TMA are a
-//   later change), so the kernel runs far from its bound.
+//   reads of shared memory, no tensor cores (f32 has none at full
+//   precision), so the kernel runs far from its bound.
 //   The arithmetic is the Pallas kernel's: scale after the q.k dot, masked
 //   scores set to -1e30 (not -inf), the running max starting at -1e30, the
 //   sum clamped at 1e-30 before the division. The caller's (bq, bk) tiles

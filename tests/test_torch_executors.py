@@ -16,6 +16,10 @@ from repro_torch.comm import schedules as tcs
 from repro_torch.core import schedules as ts
 from repro_torch.launch import mesh as tmesh
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 CASES = [
     # (op, algo, kwargs)
     ("bcast", "binomial", {}),

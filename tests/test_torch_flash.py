@@ -12,6 +12,10 @@ from repro.kernels import ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as tl
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 # the reference's own cases (tests/test_kernels.py):
 # B, T, S, H, KV, hd, causal, window, prefix, bq, bk
 CASES = [

@@ -34,6 +34,10 @@ from repro_torch.core.simulator import simulate_collective, simulate_lowered
 from repro_torch.core.tuner import Tuner as TTuner
 from repro_torch.kernels import inkernel_collective as ik
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 
 def _builders(mod_s, mod_c, n: int, K: int):
     """Every builder at (n, K): bcast, reduce, allreduce, allgather and

@@ -16,6 +16,10 @@ from repro_torch.kernels import combine_update as cu
 from repro_torch.kernels.chunked_copy import chunked_copy
 from repro_torch.models.convert import to_tensor
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 DTYPES = ["float32", "bfloat16"]
 
 

@@ -114,36 +114,78 @@ def test_inkernel_replay_matches_plain(dt):
     torch.cuda.synchronize()
 
 
+def _flash_inputs(case, dt, seed):
+    B, T, S, H, KV, hd = case[:6]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dt)
+            for shape in ((B, T, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel, dt", [("flash_attention", torch.float32),
+                                        ("flash_attention", torch.bfloat16),
+                                        ("flash_attention_sm90", torch.bfloat16)])
 @pytest.mark.parametrize("case", [
     # B, T, S, H, KV, hd, causal, window, prefix, bq, bk
     (2, 128, 128, 4, 2, 32, True, None, 0, 64, 64),
     (1, 256, 256, 4, 1, 64, True, 64, 0, 64, 64),
     (1, 96, 96, 4, 2, 128, True, 40, 16, 32, 32),
     (1, 80, 80, 2, 2, 16, False, 24, 0, 16, 16),
+    (2, 384, 384, 4, 2, 128, True, 100, 48, 64, 32),
+    (1, 256, 256, 2, 2, 128, False, 0, 0, 64, 64),
 ])
-def test_flash_attention_matches_plain(dt, case):
-    """One launch per call, within the reference test's tolerances of the
-    plain version (the kernel sums in another order)."""
+def test_flash_attention_matches_plain(kernel, dt, case):
+    """Each kernel: one launch per call on its own counter, and within the
+    tolerances of the plain version's f32 result (the kernels sum in another
+    order): f32 as the reference's test, 2e-4; bf16 within one bf16
+    rounding, 2^-8 |plain| + 1e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from repro_torch import kernels
     from repro_torch.kernels import flash_attention as fa
 
     B, T, S, H, KV, hd, causal, window, prefix, bq, bk = case
-    gen = torch.Generator(device="cuda").manual_seed(T + hd)
-    q = torch.randn((B, T, H, hd), generator=gen, device="cuda").to(dt)
-    k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
-    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
+    if kernel == "flash_attention_sm90" and hd not in fa.SM90_HEAD_DIMS:
+        with pytest.raises(ValueError, match="head widths"):
+            fa.flash_sm90(*_flash_inputs(case, dt, 0))
+        return
+    q, k, v = _flash_inputs(case, dt, T + hd)
     kw = dict(causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
-    before = fa.flash_attention.launches
-    got = fa.flash_attention(q, k, v, **kw)
-    assert fa.flash_attention.launches == before + 1
-    want = fa.flash_attention_plain(q, k, v, **kw)
-    tol = 2e-4 if dt == torch.float32 else 3e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    fn = {"flash_attention": fa.flash_fwd, "flash_attention_sm90": fa.flash_sm90}[kernel]
+    before = kernels.launch_counts()
+    got = fn(q, k, v, **kw)
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {kernel: 1}
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        assert float(((got.float() - want).abs() / (2**-8 * want.abs() + 1e-5)).max()) <= 1.0
+    if fa.kernel_route(dt, hd) == kernel:  # the public entry point takes this kernel
+        assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
     with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, **kw)
+        fn(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 1024])
+def test_flash_sm90_at_the_serving_path_shape(window):
+    """A gemma3-27b layer's prefill at 4096 tokens (phase 4c of
+    chip_smoke.py): the route is the sm90 kernel, within one bf16 rounding
+    of the plain version's f32 result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs((1, 4096, 4096, 32, 16, 128), torch.bfloat16, 3)
+    kw = dict(causal=True, window=window, prefix=0)
+    kernels.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, **kw)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_sm90"] == 1 and counts["flash_attention"] == 0
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert float(((got.float() - want).abs() / (2**-8 * want.abs() + 1e-5)).max()) <= 1.0
 
 
 @pytest.mark.gpu

@@ -10,6 +10,10 @@ import torch
 from repro.kernels import ops, ref
 from repro_torch.kernels import launch_counts, param_update as pu
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 
 def _bits(x: np.ndarray) -> np.ndarray:
     return x.view({2: np.uint16, 4: np.uint32}[x.dtype.itemsize])

@@ -29,6 +29,10 @@ from repro_torch.core import tuner as ttuner
 from repro_torch.core.tree import tree_leaves
 from repro_torch.models.convert import params_from_jax
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 NS = [2, 3, 4, 6, 8]
 KS = [1, 3, 8]
 # the reference's v5e constants, handed to the port explicitly (the port

@@ -20,6 +20,10 @@ from repro_torch.comm.compress import CompressedWire, CompressionState, roundtri
 from repro_torch.core import schedules as ts
 from repro_torch.kernels import quantize as qk
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 FMTS = ["int8", "fp8"]
 
 

@@ -37,6 +37,10 @@ from repro_torch.optim.schedules import constant, warmup_cosine
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train.trainer import Trainer
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 ARCH = "minitron-8b-smoke"
 BATCH, SEQ, STEPS = 8, 16, 3
 RUN = dict(total_steps=STEPS, warmup_steps=0, learning_rate=1e-3, seed=7)
@@ -381,6 +385,7 @@ print("PASS")
 """,
         devices=4,
         timeout=300,
+        env={"OMP_NUM_THREADS": "1"},  # one intra-op thread, as in this process
     )
 
 
@@ -455,4 +460,5 @@ print("PASS")
 """,
         devices=4,
         timeout=300,
+        env={"OMP_NUM_THREADS": "1"},  # one intra-op thread, as in this process
     )

@@ -26,6 +26,10 @@ from repro_torch.models import layers as tl
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import Engine as TEngine
 
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
 ARCH = "gemma3-27b-smoke"
 STEPS = 6
 SHORT = 80     # > window 64: the ring wraps; < CHUNKED_ATTN_MIN_S: dense softmax
