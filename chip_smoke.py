@@ -17,12 +17,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    in-kernel replay (also against the numpy simulator) at small shapes over
    every builder and at the path shapes, beside the compiled executor's
    replay of the same plan; both flash attention kernels, the CUDA-core
-   one and the sm90 one (bf16 wgmma + TMA, head width 128), which sum in
+   one (head widths 16-128 and 256) and the sm90 one (bf16 wgmma + TMA,
+   head width 128, which must refuse every other width), which sum in
    another order (f32 within the reference test's 2e-4, bf16 within one
    bf16 rounding of the plain version's f32 result), at the reference's
-   cases and at phase 4c's layer shapes, with the flops bound and one
-   scaled_dot_product_attention call as yardstick; mix and scaled_add (on
-   no path of either package) at the embedding's flat size.
+   cases, at phase 4c's layer shapes and at phase 4d's (a paligemma-3b
+   layer: head width 256, a prefix of 256 under query tiles of 256), with
+   the flops bound and one scaled_dot_product_attention call (its kernel
+   named) as yardstick; mix and scaled_add (on no path of either package)
+   at the embedding's flat size.
 3. serving, default policy: minitron-8b at full width (8 of 32 layers,
    bf16, seeded random weights) on an emulated data axis of 4 ranks;
    ``Engine(distribute=True, double_buffer=True)`` broadcasts the weights,
@@ -44,10 +47,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    pass, none of the CUDA-core one); the local layers decode from rings
    of 1024. Then one prefill per rank under ``torch.profiler`` (device
    time by kernel, busy share).
+4d. vision-prefix serving: paligemma-3b at full width and depth (18
+   layers, bf16, seeded random weights) broadcast to 4 emulated ranks,
+   staged through chunked_copy, then ``generate`` of one request per rank
+   (256 stub patch embeddings from the port's ``batches`` + 3840 text
+   tokens: 4096 positions) and 32 decode steps, then the warm re-run:
+   every layer's prefill (bf16, head width 256) goes through the CUDA-core
+   flash kernel with the prefix-LM mask (18 launches a pass, none of the
+   sm90 one). Then one prefill per rank under ``torch.profiler``.
 5. small-input references: the port's f32 smoke model on the card against
-   the same model on the CPU, and gemma3-27b-smoke (window 64) in f32 at a
-   4096-token prompt, the card's CUDA-core flash kernel (the f32 route)
-   against the CPU's plain version.
+   the same model on the CPU, gemma3-27b-smoke (window 64) in f32 at a
+   4096-token prompt, and paligemma-3b-smoke widened to head width 256 and
+   a prefix of 256 in f32 at 256 patches + 3840 tokens: the card's
+   CUDA-core flash kernel (the f32 route) against the CPU's plain version.
 6. training: minitron-8b at full width (1 of 32 layers, bf16, seeded
    weights) on 4 emulated data ranks, global batch 8 x 512 tokens, 3 steps
    in each sync mode from the same weights and batches: grad_allreduce,
@@ -68,8 +80,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Launch counts are zeroed right before each path and read right after it:
 phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
-path), phase 4c (the long-prompt serving path), phase 5's long-prompt
-reference (the f32 flash route) and phase 6's runs (the training path);
+path), phase 4c (the long-prompt serving path), phase 4d (the
+vision-prefix serving path), phase 5's two long-prompt references (the
+f32 flash route) and phase 6's runs (the training path);
 the launches that compare
 kernels with their plain versions, and the replays timed to fill the tuner
 tables, are not counted. The last three lines of output are the kernels
@@ -93,6 +106,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 BATCH, PROMPT, STEPS, RANKS, LAYERS = 4, 128, 32, 4, 8
 LONG_PROMPT, LONG_LAYERS = 4096, 6  # phase 4c: gemma3-27b, one whole 5:1 period
+VLM_TEXT = 3840  # phase 4d: paligemma-3b, 256 patches + 3840 tokens = 4096 positions
 # the reference's flash cases (tests/test_kernels.py):
 # B, T, S, H, KV, hd, causal, window, prefix, bq, bk
 FLASH_CASES = (
@@ -113,6 +127,12 @@ FLASH_CASES = (
     (1, 80, 80, 2, 1, 128, True, None, 0, 16, 16),
     (1, 256, 256, 2, 2, 128, False, 0, 0, 64, 64),
     (1, 128, 128, 2, 1, 128, True, 0, 0, 32, 32),
+    # head width 256, the CUDA-core kernel's alone: a skipped prefix tile,
+    # partial row and key tiles, a window with a prefix
+    (1, 128, 128, 2, 1, 256, True, None, 96, 32, 32),
+    (1, 80, 80, 2, 1, 256, True, None, 0, 16, 16),
+    (1, 96, 96, 4, 2, 256, True, 40, 0, 32, 32),
+    (1, 384, 384, 2, 1, 256, True, 100, 48, 64, 32),
 )
 FLASH_F32_TOL = 2e-4  # the reference test's f32 tolerance, atol = rtol
 # bf16 output against the plain version's f32 result: one rounding to bf16
@@ -600,32 +620,54 @@ def check_inkernel(torch) -> dict:
     return line
 
 
-def _flash_path_case(torch, gen, window):
-    """q, k, v of one gemma3-27b layer's prefill at the phase 4c prompt."""
+def _flash_path_case(torch, gen, arch: str, window):
+    """q, k, v of one layer's prefill at 4096 positions: a gemma3-27b layer
+    (phase 4c), or a paligemma-3b layer with its prefix of 256 stub patches
+    under the query tiles its prefill passes (phase 4d)."""
     from repro_torch.configs import get_config
+    from repro_torch.models.layers import prefill_tiles
 
-    cfg = get_config("gemma3-27b")
+    cfg = get_config(arch)
     T, H, KV, hd = LONG_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = torch.randn((1, T, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn((1, T, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn((1, T, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
-    return q, k, v, {"causal": True, "window": window, "prefix": 0}
+    bq, bk = prefill_tiles(T, cfg.prefix_len)
+    return q, k, v, {"causal": True, "window": window, "prefix": cfg.prefix_len, "bq": bq,
+                     "bk": bk}
 
 
-def _sdpa_call(torch, q, k, v, window):
+def _sdpa_call(torch, q, k, v, kw):
     """One PyTorch call computing the same attention (the yardstick; the
     port never calls it): heads-first views, GQA, a causal flag for the
-    global layer and a boolean window mask for a local one."""
+    global layer and a boolean mask for a windowed or prefix-LM one."""
     import torch.nn.functional as F
 
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    if window is None:
+    window, prefix = kw["window"], kw["prefix"]
+    if window is None and not prefix:
         return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                       enable_gqa=True)
     T = q.shape[1]
     i = torch.arange(T, device=q.device)
-    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    mask = i[None, :] <= i[:, None]
+    if prefix:
+        mask = mask | (i[None, :] < prefix)
+    if window is not None:
+        mask = mask & (i[None, :] > i[:, None] - window)
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+
+def _sdpa_kernel(torch, fn) -> str:
+    """The name of the device kernel that takes most of one call's time:
+    which of scaled_dot_product_attention's backends ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [(e.device_time_total, e.key) for e in prof.key_averages() if e.device_time_total > 0]
+    return max(kern)[1][:100] if kern else "not measured"
 
 
 def flash_bf16_share(torch, got, want32) -> float:
@@ -638,18 +680,23 @@ def flash_bf16_share(torch, got, want32) -> float:
 
 def check_flash_attention(torch) -> list[dict]:
     """Both flash kernels against the plain version: the reference's cases
-    (and those of tile skipping, partial tiles and head width 128), then the
-    phase 4c shapes (a gemma3-27b layer at 4096 tokens: the global layer and
-    a local one, window 1024). Every case goes through the CUDA-core kernel
-    in f32 and bf16 and, where its head width is 128, through the sm90
-    kernel in bf16; ``flash_attention`` itself must give the output of the
-    kernel its route names. Not bit-equal to the plain version: the kernels
-    sum in another order. f32 is held as the reference's test holds its
-    kernel, |kernel - plain| <= 2e-4 + 2e-4 |plain|; bf16 against the plain
-    version's f32 result on the same inputs, within one bf16 rounding
-    (FLASH_BF16_REL, FLASH_BF16_ABS). At the path shapes each kernel is
-    timed beside the plain version and one scaled_dot_product_attention
-    call; the kernels JSON gets one line per kernel."""
+    (and those of tile skipping, partial tiles and head widths 128 and
+    256), then the phase 4c shapes (a gemma3-27b layer at 4096 tokens: the
+    global layer and a local one, window 1024) and the phase 4d shape (a
+    paligemma-3b layer: 8 query heads and 1 kv head of 256, the prefix of
+    256 under query tiles of 256). Every case goes through the CUDA-core
+    kernel in f32 and bf16 and, where its head width is 128, through the
+    sm90 kernel in bf16, which must refuse every other width;
+    ``flash_attention`` itself must give the output of the kernel its route
+    names. Not bit-equal to the plain version: the kernels sum in another
+    order. f32 is held as the reference's test holds its kernel, |kernel -
+    plain| <= 2e-4 + 2e-4 |plain|; bf16 against the plain version's f32
+    result on the same inputs, within one bf16 rounding (FLASH_BF16_REL,
+    FLASH_BF16_ABS). At the path shapes each kernel is timed beside the
+    plain version and one scaled_dot_product_attention call; the kernels
+    JSON gets one line per kernel, at the shape of the serving path that
+    runs it (the sm90 kernel: gemma's global layer; the CUDA-core kernel:
+    paligemma's layer), the other shapes beside it."""
     from repro_torch.kernels import flash_attention as fa
 
     def held(q, k, v, kw, what) -> dict:
@@ -660,6 +707,13 @@ def check_flash_attention(torch) -> list[dict]:
         got = {"flash_attention": fa.flash_fwd(q, k, v, **kw)}
         if q.shape[3] in fa.SM90_HEAD_DIMS:
             got["flash_attention_sm90"] = fa.flash_sm90(q, k, v, **kw)
+        else:
+            try:
+                fa.flash_sm90(q, k, v, **kw)
+            except ValueError as e:
+                assert "head widths" in str(e), e
+            else:
+                raise AssertionError(f"flash_sm90 took head width {q.shape[3]}: {what}")
         routed = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         assert torch.equal(bits(torch, routed),
@@ -702,41 +756,55 @@ def check_flash_attention(torch) -> list[dict]:
 
     kernels = {"flash_attention": (fa.flash_fwd, "flash_attention.cu"),
                "flash_attention_sm90": (fa.flash_sm90, "flash_attention_sm90.cu")}
-    lines = {}
-    for label, window in (("global", None), ("local", 1024)):
-        q, k, v, kw = _flash_path_case(torch, gen, window)
+    # (label, arch, window, the kernel whose JSON line this shape is)
+    shapes = (("global", "gemma3-27b", None, "flash_attention_sm90"),
+              ("local", "gemma3-27b", 1024, None),
+              ("vlm", "paligemma-3b", None, "flash_attention"))
+    side_key = {"global": "gemma_global", "local": "local_window_1024", "vlm": "paligemma_layer"}
+    lines, sides = {}, {}
+    for label, arch, window, line_of in shapes:
+        q, k, v, kw = _flash_path_case(torch, gen, arch, window)
         res = held(q, k, v, kw, label)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3,
                            warmup=1)
-        library_ms = time_ms(torch, _sdpa_call(torch, q, k, v, window), reps=10)
+        sdpa = _sdpa_call(torch, q, k, v, kw)
+        library_ms = time_ms(torch, sdpa, reps=10)
+        library_kernel = _sdpa_kernel(torch, sdpa)
         B, T, H, hd = q.shape
         flops = fa.attention_flops(T, k.shape[1], H, hd, B, **kw)
         moved = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out; bf16
         bound = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
         by = "operations" if flops / BF16_FLOPS_PER_S >= moved / HBM_BYTES_PER_S else "bytes"
         for name, (fn, src) in kernels.items():
+            if name not in res:  # the sm90 kernel refused this width (held checked it)
+                continue
             ms = time_ms(torch, lambda: fn(q, k, v, **kw), reps=20 if "sm90" in name else 10)
             errs = res[name]
             log(f"kernel {name} {label} ({B}, {T}, {H}, {hd}) x ({B}, {k.shape[1]}, "
-                f"{k.shape[2]}, {hd}) window {window}: max abs err f32 {res['f32_err']:.3e} "
+                f"{k.shape[2]}, {hd}) window {window} prefix {kw['prefix']} tiles "
+                f"({kw['bq']}, {kw['bk']}): max abs err f32 {res['f32_err']:.3e} "
                 f"(CUDA-core kernel, tol 2e-4 + 2e-4 |plain|), bf16 {errs['bf16_err']:.3e} "
                 f"against plain's f32, {errs['bf16_share']:.3f} of the limit 2^-8 |plain| + "
                 f"1e-5; bf16 {ms:.4f} ms (bound {bound:.4f} ms by {by}, {flops / 1e9:.1f} GFLOP "
                 f"of allowed pairs in kept tiles: {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
-                f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms)")
+                f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
+                f"in {library_kernel})")
             numbers = {"max_abs_err": errs["bf16_err"], "bf16_share_of_limit": errs["bf16_share"],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                       "library_ms": library_ms, "gflop": flops / 1e9}
+                       "library_ms": library_ms, "library_kernel": library_kernel,
+                       "gflop": flops / 1e9}
             if name == "flash_attention":
                 numbers["max_abs_err_f32"] = res["f32_err"]
-            if name not in lines:  # the global layer is the kernel's line; the local beside it
+            if name == line_of:
                 lines[name] = {"name": name, "route": "cuda",
                                "source": f"src/repro_torch/kernels/csrc/{src}",
                                "replaces": "src/repro/kernels/flash_attention.py:102", **numbers,
                                "shape": [list(q.shape), list(k.shape)], "dtype": "bfloat16"}
             else:
-                lines[name]["local_window_1024"] = numbers
+                sides.setdefault(name, {})[side_key[label]] = numbers
         del q, k, v
+    for name, extra in sides.items():
+        lines[name].update(extra)
     return list(lines.values())
 
 
@@ -852,29 +920,37 @@ def serve(torch) -> tuple[dict, object]:
     return out, engine
 
 
-def time_prefill_decode(torch, engine, tokens, steps: int) -> tuple[float, float]:
-    """A warm re-run of ``generate``'s greedy loop over ``tokens`` (B, T),
-    rank by rank on each rank's replica, with prefill and the ``steps``
-    decode steps (``decode_step`` and the argmax) timed in separate windows,
-    each closed by a synchronize. Returns the seconds of all ranks'
-    prefills and of all their decode steps."""
+def _rank_batches(torch, tokens, embeds=None) -> list[dict]:
+    """Each rank's request, split as ``Engine.generate`` splits the batch."""
     tok = torch.as_tensor(tokens, device="cuda")
-    T = tok.shape[1]
+    embs = [None] * RANKS if embeds is None else torch.tensor_split(embeds, RANKS)
+    return [{"tokens": part, "embeds": emb}
+            for part, emb in zip(torch.tensor_split(tok, RANKS), embs)]
+
+
+def time_prefill_decode(torch, engine, tokens, steps: int, embeds=None) -> tuple[float, float]:
+    """A warm re-run of ``generate``'s greedy loop over ``tokens`` (B, T)
+    (and a vision config's patch ``embeds``), rank by rank on each rank's
+    replica, with prefill and the ``steps`` decode steps (``decode_step``
+    and the argmax, at positions after the prefix and the text) timed in
+    separate windows, each closed by a synchronize. Returns the seconds of
+    all ranks' prefills and of all their decode steps."""
+    T = tokens.shape[1]
+    offset = engine.cfg.prefix_len if engine.cfg.frontend == "vision" else 0
     prefill_s = decode_s = 0.0
     with torch.no_grad():
-        for r, part in enumerate(torch.tensor_split(tok, RANKS)):
+        for r, batch in enumerate(_rank_batches(torch, tokens, embeds)):
             params = engine.replica(r)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = engine.model.prefill(params, {"tokens": part},
-                                                  max_len=T + steps)
+            logits, caches = engine.model.prefill(params, batch, max_len=T + steps)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             nxt = torch.argmax(logits[:, -1], dim=-1)
             del logits  # (B, T, vocab) f32: 4.3 GB a rank at gemma's 4096 x 262,144
             for i in range(steps):
                 logits, caches = engine.model.decode_step(params, nxt[:, None], caches,
-                                                          T + i)
+                                                          T + offset + i)
                 nxt = torch.argmax(logits[:, 0], dim=-1)
             torch.cuda.synchronize()
             prefill_s += t1 - t0
@@ -882,19 +958,20 @@ def time_prefill_decode(torch, engine, tokens, steps: int) -> tuple[float, float
     return prefill_s, decode_s
 
 
-def profile_prefill(torch, engine, tokens, top: int = 8) -> list[dict]:
-    """One warm prefill of each rank's prompt on its replica under
-    ``torch.profiler``, after one unprofiled warm-up prefill: wall ms,
-    device ms (the kernels of one stream do not overlap, so their sum is
-    the busy time), the flash kernels' ms (both names, ``flash_fwd`` and
-    ``flash_fwd_sm90``) and the ``top`` kernels as ``(name, ms, launches)``."""
+def profile_prefill(torch, engine, tokens, top: int = 8, embeds=None,
+                    label: str = "serve long") -> list[dict]:
+    """One warm prefill of each rank's prompt (one request a rank) on its
+    replica under ``torch.profiler``, after one unprofiled warm-up prefill:
+    wall ms, device ms (the kernels of one stream do not overlap, so their
+    sum is the busy time), the flash kernels' ms (both names, ``flash_fwd``
+    and ``flash_fwd_sm90``) and the ``top`` kernels as ``(name, ms,
+    launches)``."""
     from torch.profiler import ProfilerActivity, profile
 
-    tok = torch.as_tensor(tokens, device="cuda")
-    max_len = tok.shape[1] + STEPS
+    max_len = tokens.shape[1] + STEPS
     out = []
-    for r in range(RANKS):
-        params, batch = engine.replica(r), {"tokens": tok[r:r + 1]}
+    for r, batch in enumerate(_rank_batches(torch, tokens, embeds)):
+        params = engine.replica(r)
         with torch.no_grad():
             engine.model.prefill(params, batch, max_len=max_len)
             torch.cuda.synchronize()
@@ -911,7 +988,7 @@ def profile_prefill(torch, engine, tokens, top: int = 8) -> list[dict]:
                "flash_ms": sum(ms for name, ms, _n in kern
                                if "flash_fwd<" in name or "flash_fwd_sm90" in name),
                "top": [(name[:60], round(ms, 3), n) for name, ms, n in kern[:top]]}
-        log(f"serve long profile rank {r} (one warm prefill, profiler on): wall "
+        log(f"{label} profile rank {r} (one warm prefill, profiler on): wall "
             f"{res['wall_ms']:.2f} ms, device kernels {res['device_ms']:.2f} ms "
             f"({res['device_ms'] / res['wall_ms']:.1%} busy), flash {res['flash_ms']:.2f} "
             f"ms; top kernels (name, ms, launches): {res['top']}")
@@ -991,6 +1068,86 @@ def serve_long(torch) -> dict:
         f"{warm} warm; peak {peak / 2**30:.2f} GiB")
     out["counts"] = kernels.launch_counts()  # the path's; the profiled prefills come after
     out["profile"] = profile_prefill(torch, engine, tokens)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_vlm(torch) -> dict:
+    """Phase 4d: paligemma-3b at full width and depth (18 layers, bf16,
+    seeded random weights) distributed to 4 emulated ranks, staged through
+    chunked_copy, then ``generate`` of one request per rank (256 stub patch
+    embeddings and 3840 text tokens from the port's ``batches``: 4096
+    positions) and 32 decode steps (positions 4096-4127, after the prefix
+    and the text), then the warm re-run and one profiled prefill per rank.
+    Every layer's prefill (bf16, head width 256) goes through the CUDA-core
+    flash kernel: 18 x 4 launches per pass, none of the sm90 one. Launch
+    counts are zeroed by the caller right before; the profiled prefills are
+    counted apart."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import batches, make_source
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    cfg = get_config("paligemma-3b")
+    params = Model(cfg).init(seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, params, mesh=make_mesh(RANKS, device="cuda"), distribute=True,
+                    double_buffer=True)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 0 and counts["chunked_copy"] > 0, counts
+    assert replicas_equal(torch, engine.params, params), "a paligemma replica differs"
+    del params
+    dist_peak = torch.cuda.max_memory_allocated()
+
+    batch = next(batches(make_source(cfg, seed=2), cfg, batch=RANKS, seq=VLM_TEXT,
+                         device="cuda"))
+    tokens, embeds = batch["tokens"], batch["embeds"]
+    assert tuple(embeds.shape) == (RANKS, cfg.prefix_len, cfg.d_model)
+    assert embeds.dtype == torch.bfloat16
+    t0 = time.perf_counter()
+    res = engine.generate({"tokens": tokens, "embeds": embeds}, steps=STEPS)
+    gen_s = time.perf_counter() - t0
+    cold = kernels.launch_counts()["flash_attention"]
+    assert res.tokens.shape == (RANKS, STEPS) and res.logprobs.shape == (RANKS, STEPS)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
+    assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
+    assert cold == cfg.num_layers * RANKS, cold
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS, embeds)
+    warm = kernels.launch_counts()["flash_attention"] - cold
+    assert warm == cfg.num_layers * RANKS, warm
+    assert kernels.launch_counts()["flash_attention_sm90"] == 0, "width 256 took the sm90 route"
+    peak = torch.cuda.max_memory_allocated()
+    assert peak < torch.cuda.get_device_properties(0).total_memory, peak
+    out = {
+        "params": n_params, "replica_bytes": n_params * 2, "distribute_s": dist_s,
+        "distribute_peak": dist_peak, "chunked_copy_launches": counts["chunked_copy"],
+        "generate_s": gen_s,
+        "prefill_ms_per_rank": prefill_s / RANKS * 1e3,
+        "decode_tokens_per_s": RANKS * STEPS / decode_s, "max_memory_allocated": peak,
+        "flash_attention_launches": {"cold": cold, "warm": warm},
+        "first_tokens": res.tokens[:, :4].tolist(),
+    }
+    log(f"serve vlm: paligemma-3b {cfg.num_layers} layers, {n_params} params, distribution "
+        f"{dist_s:.3f} s ({counts['chunked_copy']} chunked_copy launches, peak "
+        f"{dist_peak / 2**30:.2f} GiB), generate {gen_s:.3f} s (cold, {RANKS} x "
+        f"({cfg.prefix_len} patches + {VLM_TEXT} tokens) + {STEPS} steps); warm: prefill "
+        f"{out['prefill_ms_per_rank']:.2f} ms/rank, decode steps "
+        f"{out['decode_tokens_per_s']:.1f} tok/s; flash_attention launches {cold} cold + "
+        f"{warm} warm, flash_attention_sm90 0; peak {peak / 2**30:.2f} GiB")
+    out["counts"] = kernels.launch_counts()  # the path's; the profiled prefills come after
+    out["profile"] = profile_prefill(torch, engine, tokens, embeds=embeds, label="serve vlm")
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1298,6 +1455,52 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
     return out
 
 
+def small_vlm_reference(torch) -> float:
+    """paligemma-3b-smoke widened to head width 256 and a prefix of 256
+    patches, in f32, at 256 patches + 3840 tokens (4096 positions): prefill
+    and 2 decode steps on the card (prefill attention through the CUDA-core
+    flash kernel at width 256, query tiles of 256 over the prefix) against
+    the CPU (its plain version). Counts the launches since the caller's
+    last zeroing."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import batches, make_source
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("paligemma-3b-smoke"), dtype="float32",
+                              kv_cache_dtype="float32", head_dim=256, prefix_len=256,
+                              frontend_len=256)
+    model = Model(cfg)
+    cpu = model.init(seed=6, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    batch = next(batches(make_source(cfg, seed=6), cfg, batch=1, seq=VLM_TEXT))
+    on_card = {key: t.cuda() for key, t in batch.items()}
+    before = kernels.launch_counts()["flash_attention"]
+    pos = cfg.prefix_len + VLM_TEXT
+    errs = []
+    with torch.no_grad():
+        a, ca = model.prefill(cpu, batch, max_len=VLM_TEXT + 2)
+        b, cb = model.prefill(gpu, on_card, max_len=VLM_TEXT + 2)
+        errs.append(float((a - b.cpu()).abs().max()))
+        nxt = torch.argmax(a[:, -1], dim=-1)[:, None]
+        for i in range(2):
+            a, ca = model.decode_step(cpu, nxt, ca, pos + i)
+            b, cb = model.decode_step(gpu, nxt.cuda(), cb, pos + i)
+            errs.append(float((a - b.cpu()).abs().max()))
+            nxt = torch.argmax(a[:, 0], dim=-1)[:, None]
+    launched = kernels.launch_counts()["flash_attention"] - before
+    assert launched == cfg.num_layers, launched
+    assert kernels.launch_counts()["flash_attention_sm90"] == 0, "f32 took the sm90 route"
+    assert all(math.isfinite(e) and e < 1e-3 for e in errs), errs
+    log(f"reference: paligemma-3b-smoke (head width 256, prefix 256) f32 at {cfg.prefix_len} "
+        f"patches + {VLM_TEXT} tokens, card ({launched} flash_attention launches) vs CPU "
+        f"(plain), max abs diff of prefill / decode logits {['%.3e' % e for e in errs]} "
+        "(tol 1e-3)")
+    return max(errs)
+
+
 def small_train_reference(torch) -> list[float]:
     """One f32 smoke param_bcast run of 2 steps on the card against the
     same run on the CPU, from one initial state (saved as a checkpoint by
@@ -1382,13 +1585,18 @@ def main() -> int:
     kernels.reset_launch_counts()
     long = serve_long(torch)
     long_counts = long.pop("counts")
+    log(f"memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before phase 4d")
+    kernels.reset_launch_counts()
+    vlm = serve_vlm(torch)
+    vlm_counts = vlm.pop("counts")
 
     small_reference(torch)
     kernels.reset_launch_counts()
     small_long_reference(torch)
+    small_vlm_reference(torch)
     ref_long_counts = kernels.launch_counts()
     numbers = {"serve": serving, "compiled": compiled, "tuned_inkernel": tuned,
-               "serve_long": long}
+               "serve_long": long, "serve_vlm": vlm}
     log(f"serving numbers: {json.dumps(numbers)}")
 
     with tempfile.TemporaryDirectory() as d:
@@ -1402,16 +1610,21 @@ def main() -> int:
     # copy on both serving paths, the quantize pair on the training path, the
     # in-kernel replay on the tuned serving path (phase 4b) and in training,
     # the sm90 flash kernel on the long-prompt serving path (phase 4c), the
-    # CUDA-core one on phase 5's f32 long-prompt reference; mix and
-    # scaled_add are on no path of either package
-    paths = {"fused_combine": ("serve", "train"), "chunked_copy": ("serve", "serve_long"),
+    # CUDA-core one on the vision-prefix serving path (phase 4d) and phase
+    # 5's f32 long-prompt references; mix and scaled_add are on no path of
+    # either package. A line's ``launches`` are those of its last path.
+    paths = {"fused_combine": ("serve", "train"),
+             "chunked_copy": ("serve", "serve_long", "serve_vlm"),
              "quantize_blocks": ("train",), "dequantize_blocks": ("train",),
              "inkernel_replay": ("serve_tuned", "train"),
-             "flash_attention_sm90": ("serve_long",), "flash_attention": ("reference_long",),
+             "flash_attention_sm90": ("serve_long",),
+             "flash_attention": ("reference_long", "serve_vlm"),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
-              "serve_long": long_counts, "reference_long": ref_long_counts}
+              "serve_long": long_counts, "serve_vlm": vlm_counts,
+              "reference_long": ref_long_counts}
     assert long_counts["flash_attention"] == 0, long_counts
+    assert vlm_counts["flash_attention_sm90"] == 0, vlm_counts
     for line in lines:
         if not paths[line["name"]]:
             assert line["name"] in ("mix", "scaled_add"), line["name"]

@@ -1,9 +1,10 @@
 """Config registry of the port: the architectures its slices serve."""
 from .base import ModelConfig, RunConfig
 
-from . import gemma3_27b, minitron_8b
+from . import gemma3_27b, minitron_8b, paligemma_3b
 
-ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (gemma3_27b, minitron_8b)}
+ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
+                                  for m in (gemma3_27b, minitron_8b, paligemma_3b)}
 
 
 def get_config(name: str) -> ModelConfig:

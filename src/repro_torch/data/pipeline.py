@@ -6,8 +6,9 @@ Sources are numpy, so the port draws exactly the reference's tokens:
   * MemmapTokens  — packed int32 token file (one long array).
 
 Both produce global ``{"tokens", "labels"}`` batches (labels = next token)
-as int64 tensors on the requested device. The multimodal stub embeddings
-wait for the model families that read them (ROADMAP A.11).
+as int64 tensors on the requested device; a vision config's batches also
+hold the stub patch ``embeds``, the reference's values bit for bit. The
+audio frontend's frames wait for its model family (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -63,11 +64,19 @@ def make_source(cfg, *, path: Optional[str] = None, seed: int = 0):
 
 def batches(source, cfg, *, batch: int, seq: int, start_step: int = 0,
             device="cpu") -> Iterator[dict]:
-    """Yield global batches of ``seq`` text tokens on ``device``."""
-    if cfg.frontend is not None or cfg.arch_type != "decoder":
-        raise NotImplementedError(f"{cfg.name}: frontend stub embeddings are ROADMAP A.11")
+    """Yield global batches of ``seq`` text tokens on ``device``; for a
+    vision config also ``embeds`` (batch, prefix_len, d_model) in the
+    config's dtype, standard normal draws seeded with the step, as the
+    reference's stub frontend makes them."""
+    if cfg.frontend not in (None, "vision") or cfg.arch_type != "decoder":
+        raise NotImplementedError(f"{cfg.name}: the audio frontend's frames are ROADMAP A.6")
     step = start_step
     while True:
         toks = torch.from_numpy(source.batch(step, batch, seq)).long()
-        yield {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+        out = {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+        if cfg.frontend == "vision":
+            rng = np.random.RandomState(step % (2**31))
+            emb = rng.randn(batch, cfg.prefix_len, cfg.d_model).astype(np.float32)
+            out["embeds"] = torch.from_numpy(emb).to(device=device, dtype=getattr(torch, cfg.dtype))
+        yield out
         step += 1

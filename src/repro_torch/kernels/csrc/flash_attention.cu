@@ -1,6 +1,7 @@
 // Blocked online-softmax attention, forward, on CUDA cores: the route of
 // every call that flash_attention_sm90.cu (bf16, head width 128) does not
-// take, that is f32 (phase 5's smoke model) and head widths 16 to 64.
+// take, that is f32 (phase 5's smoke models) and head widths 16, 32, 64
+// and 256 (PaliGemma's) in either dtype. It takes 16, 32, 64, 128 and 256.
 //
 // Replaces: src/repro/kernels/flash_attention.py:102 flash_attention (its
 //   pallas_call at :141; the body is _kernel, :38-95). q (B, T, H, hd),
@@ -18,6 +19,11 @@
 //   groups (4tx + 64n). The products are f32 FMAs on CUDA cores, float4
 //   reads of shared memory, no tensor cores (f32 has none at full
 //   precision), so the kernel runs far from its bound.
+//   What head width 256 costs: the f32 tiles take (64*260 + 32*260 +
+//   32*256 + 64*36) * 4 = 141,824 bytes of shared memory a block (76,800
+//   at 128), above the 48 KB default, so every launch opts in with
+//   cudaFuncSetAttribute; one block fits an SM (two at 128), 8 warps to
+//   hide latency. Each thread keeps acc[4][4][4], 64 f32, for its output.
 //   The arithmetic is the Pallas kernel's: scale after the q.k dot, masked
 //   scores set to -1e30 (not -inf), the running max starting at -1e30, the
 //   sum clamped at 1e-30 before the division. The caller's (bq, bk) tiles
@@ -267,6 +273,7 @@ int dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
     case 32: return launch<T, 32>(p, B, stream);
     case 64: return launch<T, 64>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
+    case 256: return launch<T, 256>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,7 +4,7 @@ Replaces the reference's Pallas ``flash_attention``
 (``src/repro/kernels/flash_attention.py:102``) with two hand-written
 kernels, each with its design note in its source: ``csrc/flash_attention_sm90.cu``
 (bf16 ``wgmma`` and TMA, head width 128) and ``csrc/flash_attention.cu`` (f32
-FMAs on CUDA cores, f32 or bf16, head widths 16 to 128). :func:`kernel_route`
+FMAs on CUDA cores, f32 or bf16, head widths 16 to 128 and 256). :func:`kernel_route`
 picks one by dtype and head width alone. Same signature as the reference's
 ``kernels/ops.py::flash_attention``: q ``(B, T, H, hd)``, k/v
 ``(B, S, KV, hd)`` with ``H % KV == 0``, causal / sliding-window /
@@ -32,7 +32,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd", "flash_sm90"
 
 NEG_INF = -1e30  # the reference's mask value; the running max starts here too
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the CUDA-core kernel's
-_KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+_KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 SM90_HEAD_DIMS = (128,)
 SM90_TILE = (128, 128)  # the sm90 kernel's own (query rows, keys) per tile
 
@@ -226,8 +226,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
               window: Optional[int] = None, prefix: int = 0, bq: int = 128,
               bk: int = 128) -> torch.Tensor:
     """The CUDA-core kernel (``csrc/flash_attention.cu``): f32 or bf16,
-    head widths 16 to 128. The route of every call that the sm90 kernel
-    does not take."""
+    head widths 16, 32, 64, 128 and 256. The route of every call that the
+    sm90 kernel does not take."""
     bq, bk = _checked(q, k, v, bq, bk, window, _KERNEL_DTYPES, _KERNEL_HEAD_DIMS,
                       "flash_attention")
     fn = _build.load("flash_attention").repro_flash_attention

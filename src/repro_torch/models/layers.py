@@ -36,6 +36,7 @@ __all__ = [
     "embed_tokens",
     "unembed",
     "cross_entropy_loss",
+    "prefill_tiles",
 ]
 
 
@@ -164,6 +165,22 @@ CHUNKED_ATTN_MIN_S = 4096
 _CHUNK_BLOCK = 1024
 
 
+def prefill_tiles(T: int, prefix_len: int) -> tuple[int, int]:
+    """Caller tiles ``(bq, bk)`` of a prefill through the flash kernel. The
+    kernel's tile test (the reference kernel's) leaves the prefix out of its
+    causal term, so a query tile shorter than the prefix would skip prefix
+    keys that the mask allows; ``bq`` is the least multiple of 128 at least
+    ``prefix_len`` that divides T, under which no allowed key lies in a
+    skipped tile (a T of 128 or less is one tile)."""
+    if T <= 128:
+        return 128, 128
+    for bq in range(128 * max(1, -(-prefix_len // 128)), T + 1, 128):
+        if T % bq == 0:
+            return bq, 128
+    raise ValueError(f"prefix of {prefix_len}: no multiple of 128 at least that long divides "
+                     f"the prefill's {T} positions, so a query tile would skip prefix keys")
+
+
 def _mask_block(spec: AttnSpec, prefix_len: int, i, j):
     """Boolean mask for query positions i (T,) x key positions j (block,)."""
     ii, jj = i[:, None], j[None, :]
@@ -238,8 +255,9 @@ def attention(
         if k.shape[1] < CHUNKED_ATTN_MIN_S:
             out = _sdpa(q, k, v, full_mask(T, spec, x.device, prefix_len), spec)
         elif mode == "prefill":
+            bq, bk = prefill_tiles(T, prefix_len)
             out = flash.flash_attention(q, k, v, causal=spec.causal, window=spec.window,
-                                        prefix=prefix_len)
+                                        prefix=prefix_len, bq=bq, bk=bk)
         else:
             # the kernel has no backward (neither has the reference's Pallas
             # kernel, whose training takes this XLA twin): train keeps the

@@ -30,8 +30,8 @@ class Model:
     def forward(self, params, batch: dict, *, remat: bool = False):
         """Train-mode forward. Returns (logits (B, T, V) f32, aux): the
         dense family has no auxiliary loss, so aux is a 0-d f32 zero."""
-        logits, _ = apply_lm(params, self.cfg, tokens=batch["tokens"], mode="train",
-                             remat=remat)
+        logits, _ = apply_lm(params, self.cfg, tokens=batch["tokens"],
+                             embeds=batch.get("embeds"), mode="train", remat=remat)
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
     def loss(self, params, batch: dict, *, remat: bool = False):
@@ -43,10 +43,13 @@ class Model:
         return nll + aux, {"nll": nll, "aux": aux}
 
     def prefill(self, params, batch: dict, *, max_len: int):
-        """``batch['tokens']`` (B, T) int. Returns (logits (B, T, V) f32,
-        caches grown to ``max_len``)."""
-        return apply_lm(params, self.cfg, tokens=batch["tokens"], mode="prefill",
-                        max_len=max_len)
+        """``batch['tokens']`` (B, T) int, and ``batch['embeds']`` (B,
+        prefix, D) for a vision config. Returns (logits (B, T, V) f32,
+        caches grown to ``max_len``, plus the prefix's slots for vision)."""
+        if self.cfg.frontend == "vision":
+            max_len = max_len + self.cfg.prefix_len  # the cache holds the prefix too
+        return apply_lm(params, self.cfg, tokens=batch["tokens"], embeds=batch.get("embeds"),
+                        mode="prefill", max_len=max_len)
 
     def decode_step(self, params, tokens: torch.Tensor, caches, cur_pos: int):
         """tokens (B, 1) int; ``cur_pos`` the absolute position of the new

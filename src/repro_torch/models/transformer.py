@@ -7,7 +7,8 @@ superblock, with a leading ``num_layers // P`` dimension, so the port's
 parameter tree flattens and buckets exactly like the reference's. Layer
 ``l`` of slot ``i`` is row ``l`` of that stack. ``num_layers % P`` leftover
 layers live unstacked in ``decoder.tail``. Decode caches are stacked the
-same way.
+same way. A vision config's stub patch embeddings enter in front of the
+text tokens as a bidirectional prefix (prefix-LM), as in the reference.
 """
 from __future__ import annotations
 
@@ -42,9 +43,10 @@ def _dtype(cfg) -> torch.dtype:
 
 
 def _check_arch(cfg) -> None:
-    if cfg.arch_type != "decoder" or cfg.frontend is not None:
+    if cfg.arch_type != "decoder" or cfg.frontend not in (None, "vision"):
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only text models are ported (ROADMAP A.11)")
+            f"{cfg.name}: the port has decoder-only text and vision-prefix models; "
+            "the audio encoder-decoder is ROADMAP A.6")
 
 
 def init_lm(gen: torch.Generator, cfg) -> dict:
@@ -70,31 +72,35 @@ def init_lm(gen: torch.Generator, cfg) -> dict:
     }
 
 
-def _train_superblock(x, stack, l: int, cfg, layout: StackLayout):
+def _train_superblock(x, stack, l: int, cfg, layout: StackLayout, prefix_len: int):
     """Superblock ``l`` in train mode (the reference's scan body)."""
     for i in range(layout.period):
         p = tree_map(lambda t: t[l], stack["blocks"][i])
-        x, _ = apply_block(p, x, cfg, layout.kinds[i], layout.windows[i], mode="train")
+        x, _ = apply_block(p, x, cfg, layout.kinds[i], layout.windows[i], mode="train",
+                           prefix_len=prefix_len)
     return x
 
 
 def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
-                 cur_pos=None, max_len: int = 0, remat: bool = False):
+                 cur_pos=None, max_len: int = 0, prefix_len: int = 0, remat: bool = False):
     """Returns (x, caches) with caches ``{'blocks': [...], 'tail': [...]}``,
-    or ``None`` in train mode. ``remat`` (train mode) recomputes each
-    superblock in the backward pass instead of keeping its activations: the
-    reference's ``jax.checkpoint`` around its scan body."""
+    or ``None`` in train mode. ``prefix_len`` reaches every block (the
+    bidirectional prefix of a vision config). ``remat`` (train mode)
+    recomputes each superblock in the backward pass instead of keeping its
+    activations: the reference's ``jax.checkpoint`` around its scan body."""
     P = layout.period
     kinds, wins = layout.kinds, layout.windows
     if mode == "train":
         for l in range(layout.num_super):
             if remat:
-                x = checkpoint(_train_superblock, x, stack, l, cfg, layout, use_reentrant=False)
+                x = checkpoint(_train_superblock, x, stack, l, cfg, layout, prefix_len,
+                               use_reentrant=False)
             else:
-                x = _train_superblock(x, stack, l, cfg, layout)
+                x = _train_superblock(x, stack, l, cfg, layout, prefix_len)
         for j, tp in enumerate(stack["tail"]):
             i = (layout.num_super * P + j) % P
-            x, _ = apply_block(tp, x, cfg, kinds[i], wins[i], mode="train")
+            x, _ = apply_block(tp, x, cfg, kinds[i], wins[i], mode="train",
+                               prefix_len=prefix_len)
         return x, None
     slot_caches: list[list] = [[] for _ in range(P)]
     for l in range(layout.num_super):
@@ -102,7 +108,7 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
             p = tree_map(lambda t: t[l], stack["blocks"][i])
             c = None if caches is None else tree_map(lambda t: t[l], caches["blocks"][i])
             x, nc = apply_block(p, x, cfg, kinds[i], wins[i], mode=mode, cache=c,
-                                cur_pos=cur_pos, max_len=max_len)
+                                cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len)
             slot_caches[i].append(nc)
     new_caches = {"blocks": None, "tail": []}
     if layout.num_super:
@@ -115,26 +121,39 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
         i = (layout.num_super * P + j) % P
         tc = None if caches is None else caches["tail"][j]
         x, nc = apply_block(tp, x, cfg, kinds[i], wins[i], mode=mode, cache=tc,
-                            cur_pos=cur_pos, max_len=max_len)
+                            cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len)
         new_caches["tail"].append(nc)
     return x, new_caches
 
 
-def apply_lm(params, cfg, *, tokens: torch.Tensor, mode: str = "prefill",
-             caches=None, cur_pos: int | None = None, max_len: int = 0,
-             remat: bool = False):
-    """train/prefill: ``tokens`` (B, T); decode: ``tokens`` (B, 1) +
-    ``caches`` + ``cur_pos``. Returns (logits_f32, caches); caches are None
-    in train mode."""
+def apply_lm(params, cfg, *, tokens: torch.Tensor, embeds: torch.Tensor | None = None,
+             mode: str = "prefill", caches=None, cur_pos: int | None = None,
+             max_len: int = 0, remat: bool = False):
+    """train/prefill: ``tokens`` (B, T_text), and for a vision config the
+    stub patch ``embeds`` (B, prefix, D), which go in front unscaled;
+    decode: ``tokens`` (B, 1) + ``caches`` + ``cur_pos``. Returns
+    (logits_f32 of the text positions, caches); caches are None in train
+    mode."""
     _check_arch(cfg)
     layout = StackLayout(cfg)
     dt = _dtype(cfg)
     scale = torch.tensor(cfg.d_model**0.5, dtype=dt, device=tokens.device)
     x = embed_tokens(params["embed"], tokens) * scale
+    prefix_len = 0
+    if cfg.frontend == "vision":
+        if mode == "decode":
+            prefix_len = cfg.prefix_len
+        else:
+            if embeds is None:
+                raise ValueError(f"{cfg.name}: train and prefill need the patch embeddings")
+            x = torch.cat([embeds.to(dt), x], dim=1)
+            prefix_len = embeds.shape[1]
     x, new_caches = _apply_stack(params["decoder"], x, cfg, layout, mode=mode,
                                  caches=caches, cur_pos=cur_pos, max_len=max_len,
-                                 remat=remat)
+                                 prefix_len=prefix_len, remat=remat)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if mode != "decode" and prefix_len:
+        x = x[:, prefix_len:]
     return unembed(params["embed"], x), new_caches
 
 

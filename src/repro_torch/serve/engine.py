@@ -92,22 +92,32 @@ class Engine:
     @torch.no_grad()
     def generate(self, batch: dict, *, steps: int, greedy: bool = True,
                  temperature: float = 1.0, seed: int = 0) -> GenerationResult:
-        """``batch['tokens']``: (B, T) integer array or tensor. The batch is
-        split over the data ranks (``tensor_split``, as even as B allows)."""
+        """``batch['tokens']``: (B, T) integer array or tensor, and for a
+        vision config ``batch['embeds']`` (B, prefix, D), the stub patch
+        embeddings. The batch is split over the data ranks (``tensor_split``,
+        as even as B allows); decode positions follow the prefix and the
+        text."""
         tokens = batch["tokens"]
         if not torch.is_tensor(tokens):
             tokens = torch.as_tensor(np.asarray(tokens))
         tokens = tokens.to(self.device).long()
         T = tokens.shape[1]
         max_len = self.max_len or (T + steps)
+        offset = self.cfg.prefix_len if self.cfg.frontend == "vision" else 0
+        embeds = batch.get("embeds")
+        if embeds is not None:
+            embeds = torch.as_tensor(embeds, device=self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         toks, lps = [], []
-        for rank, part in enumerate(torch.tensor_split(tokens, self.n)):
+        parts = torch.tensor_split(tokens, self.n)
+        emb_parts = [None] * self.n if embeds is None else torch.tensor_split(embeds, self.n)
+        for rank, (part, emb) in enumerate(zip(parts, emb_parts)):
             if not part.shape[0]:
                 continue
             params = self.replica(rank)
-            logits, caches = self.model.prefill(params, {"tokens": part}, max_len=max_len)
+            logits, caches = self.model.prefill(params, {"tokens": part, "embeds": emb},
+                                                max_len=max_len)
             cur = logits[:, -1]
             rt, rl = [], []
             for i in range(steps):
@@ -119,7 +129,8 @@ class Engine:
                 lp = torch.log_softmax(cur, dim=-1)
                 rl.append(torch.gather(lp, 1, nxt[:, None])[:, 0])
                 rt.append(nxt)
-                logits, caches = self.model.decode_step(params, nxt[:, None], caches, T + i)
+                logits, caches = self.model.decode_step(params, nxt[:, None], caches,
+                                                        T + offset + i)
                 cur = logits[:, 0]
             toks.append(torch.stack(rt, dim=1))
             lps.append(torch.stack(rl, dim=1))

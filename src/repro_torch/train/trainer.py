@@ -51,6 +51,10 @@ class Trainer:
         self.mesh = mesh if mesh is not None else make_mesh(1, device=self.device)
         if self.mesh.device != self.device:
             raise ValueError(f"mesh lies on {self.mesh.device}, trainer on {self.device}")
+        if cfg.frontend is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: training a model with a {cfg.frontend} frontend is not ported "
+                "(ROADMAP A.10, training PaliGemma); the port serves it")
         if run.sync_mode not in SYNC_MODES:
             raise NotImplementedError(
                 f"sync_mode {run.sync_mode!r} is not ported (have {SYNC_MODES}); "

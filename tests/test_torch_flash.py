@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro.models import layers as jl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as tl
 
@@ -32,6 +33,13 @@ EXTRA = [
     (1, 128, 128, 2, 1, 16, True, None, 96, 32, 32),
     (1, 128, 128, 2, 2, 16, False, 8, 0, 32, 16),
 ]
+# head width 256 (PaliGemma's): a skipped prefix tile, partial row and key
+# tiles, a window with a prefix
+WIDE = [
+    (1, 128, 128, 2, 1, 256, True, None, 96, 32, 32),
+    (1, 80, 80, 2, 1, 256, True, None, 0, 16, 16),
+    (1, 192, 192, 2, 1, 256, True, 40, 48, 64, 32),
+]
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}  # the reference test's tolerances
 
 
@@ -45,7 +53,7 @@ def _inputs(case, dt: str, seed: int):
     return j, t
 
 
-@pytest.mark.parametrize("case", CASES + EXTRA)
+@pytest.mark.parametrize("case", CASES + EXTRA + WIDE)
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_plain_matches_reference_kernel(case, dt):
     causal, window, prefix, bq, bk = case[6:]
@@ -72,6 +80,65 @@ def test_prefix_tile_skipping_follows_the_kernel():
     oracle = np.asarray(ref.flash_attention_ref(jq, jk, jv, **kw))
     assert np.abs(got[:, :32] - oracle[:, :32]).max() > 1e-2  # rows 0-31 miss keys 32-95
     np.testing.assert_allclose(got[:, 96:], oracle[:, 96:], rtol=2e-4, atol=2e-4)
+
+
+def test_prefix_lm_prefill_keeps_every_prefix_key(monkeypatch):
+    """A prefill whose prefix (256) is longer than a 128-row query tile, at
+    4096 keys: the port's layer sends it to the kernel with query tiles that
+    cover the prefix, so rows 0-127 see prefix keys 128-255 as the mask
+    allows. The kernel's output against the port's block loop on the same
+    q, k, v, and the layer against the reference layer's prefill (its block
+    loop), every row, f32."""
+    rng = np.random.RandomState(13)
+    B, T, D, H, KV, hd, P = 1, 4096, 32, 2, 1, 16, 256
+    kw = dict(num_heads=H, num_kv_heads=KV, head_dim=hd)
+    p = {k: (rng.randn(*s) * 0.3).astype(np.float32) for k, s in
+         (("wq", (D, H, hd)), ("wk", (D, KV, hd)), ("wv", (D, KV, hd)), ("wo", (H, hd, D)))}
+    x = rng.randn(B, T, D).astype(np.float32)
+    seen = []
+    real = fa.flash_attention
+
+    def spy(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    ts = tl.AttnSpec(**kw)
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    with torch.no_grad():
+        y, _ = tl.attention({k: torch.from_numpy(a) for k, a in p.items()},
+                            torch.from_numpy(x), ts, mode="prefill", prefix_len=P)
+    (q, k, v, kwargs, out), = seen
+    assert kwargs["prefix"] == P and kwargs["bq"] >= P
+    want = tl._chunked_sdpa(q, k, v, ts, P)
+    np.testing.assert_allclose(out[:, :128].numpy(), want[:, :128].numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    jy, _ = jl.attention({k: jnp.asarray(a) for k, a in p.items()}, jnp.asarray(x),
+                         jl.AttnSpec(**kw), mode="prefill", prefix_len=P)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T, prefix, tiles", [
+    (4096, 0, (128, 128)), (4096, 100, (128, 128)), (4096, 256, (256, 128)),
+    (4096, 300, (512, 128)), (3072, 520, (768, 128)), (96, 16, (128, 128)),
+])
+def test_prefill_tiles_cover_the_prefix(T, prefix, tiles):
+    """The least multiple of 128 at least as long as the prefix that
+    divides T (a shorter T is one tile), and no tile of keys the kernel
+    skips holds a key that the mask allows."""
+    assert tl.prefill_tiles(T, prefix) == tiles
+    bq, bk = min(tiles[0], T), min(tiles[1], T)
+    i = torch.arange(T)
+    kept = torch.tensor([[fa.tile_relevant(q0, k0, bq, bk, causal=True, window=None,
+                                           prefix=prefix) for k0 in range(0, T, bk)]
+                         for q0 in range(0, T, bq)])
+    kept = kept.repeat_interleave(bq, 0).repeat_interleave(bk, 1)
+    assert not (fa._mask(i, i, True, None, prefix) & ~kept).any()
+
+
+def test_prefill_tiles_refuse_a_prefix_no_tile_covers():
+    with pytest.raises(ValueError, match="prefix of 300"):
+        tl.prefill_tiles(4160, 300)
 
 
 @pytest.mark.parametrize("window", [None, 64])
@@ -115,7 +182,8 @@ def test_long_prefill_goes_through_the_kernel(monkeypatch, window):
     monkeypatch.setattr(tl, "_chunked_sdpa", no_block_loop)
     with torch.no_grad():
         y, cache = tl.attention(p, x, spec, mode="prefill")
-    assert calls == [((1, 4096, 4, 16), {"causal": True, "window": window, "prefix": 0})]
+    assert calls == [((1, 4096, 4, 16), {"causal": True, "window": window, "prefix": 0,
+                                         "bq": 128, "bk": 128})]
     assert y.shape == x.shape and torch.isfinite(y).all()
     assert cache["k"].shape[1] == (window or 4096)
 

@@ -99,7 +99,8 @@ def test_route_picks_the_kernel_by_dtype_and_head_width(monkeypatch):
     fallback from either kernel's wrapper."""
     want = {(torch.bfloat16, 128): "flash_attention_sm90", (torch.float32, 128): "flash_attention",
             (torch.bfloat16, 64): "flash_attention", (torch.bfloat16, 32): "flash_attention",
-            (torch.float32, 16): "flash_attention", (torch.float16, 128): "flash_attention"}
+            (torch.float32, 16): "flash_attention", (torch.float16, 128): "flash_attention",
+            (torch.bfloat16, 256): "flash_attention", (torch.float32, 256): "flash_attention"}
     calls = []
     monkeypatch.setattr(fa, "flash_sm90", lambda *a, **k: calls.append("flash_attention_sm90"))
     monkeypatch.setattr(fa, "flash_fwd", lambda *a, **k: calls.append("flash_attention"))

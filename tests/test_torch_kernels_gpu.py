@@ -133,6 +133,11 @@ def _flash_inputs(case, dt, seed):
     (1, 80, 80, 2, 2, 16, False, 24, 0, 16, 16),
     (2, 384, 384, 4, 2, 128, True, 100, 48, 64, 32),
     (1, 256, 256, 2, 2, 128, False, 0, 0, 64, 64),
+    # head width 256 (the CUDA-core kernel's; the sm90 kernel refuses it): a
+    # skipped prefix tile, partial row and key tiles, a window with a prefix
+    (1, 128, 128, 2, 1, 256, True, None, 96, 32, 32),
+    (1, 80, 80, 2, 1, 256, True, None, 0, 16, 16),
+    (1, 384, 384, 2, 1, 256, True, 100, 48, 64, 32),
 ])
 def test_flash_attention_matches_plain(kernel, dt, case):
     """Each kernel: one launch per call on its own counter, and within the
@@ -186,6 +191,34 @@ def test_flash_sm90_at_the_serving_path_shape(window):
     assert counts["flash_attention_sm90"] == 1 and counts["flash_attention"] == 0
     want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     assert float(((got.float() - want).abs() / (2**-8 * want.abs() + 1e-5)).max()) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_fwd_at_the_vlm_path_shape(dt):
+    """A paligemma-3b layer's prefill at 4096 positions (phase 4d of
+    chip_smoke.py): q (1, 4096, 8, 256), k/v (1, 4096, 1, 256), the prefix
+    of 256 under query tiles of 256. The route is the CUDA-core kernel in
+    both dtypes; f32 within 2e-4 of the plain version, bf16 within one bf16
+    rounding of its f32 result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs((1, 4096, 4096, 8, 1, 256), dt, 4)
+    kw = dict(causal=True, window=None, prefix=256, bq=256, bk=128)
+    kernels.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, **kw)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_sm90"] == 0
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        assert float(((got.float() - want).abs() / (2**-8 * want.abs() + 1e-5)).max()) <= 1.0
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_sm90(q.bfloat16(), k.bfloat16(), v.bfloat16(), **kw)
 
 
 @pytest.mark.gpu
