@@ -13,10 +13,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    CUDA-event times, the bound (bytes / 3.35 TB/s), the plain version's time
    and a one-call PyTorch yardstick where one exists: the merge and the copy
    at the serving path's shapes, the quantize pair at the training path's
-   hop shape, the merge again at the training path's rounds, and the
-   in-kernel replay (also against the numpy simulator) at small shapes over
-   every builder and at the path shapes, beside the compiled executor's
-   replay of the same plan; both flash attention kernels, the CUDA-core
+   hop shape, the merge again at the training path's rounds, and both
+   in-kernel replays, the device-initiated one (rank groups, point-to-point
+   flags) and the shared-buffer one (grid barrier), against each other and
+   the numpy simulator, at small shapes over every builder and at the path
+   shapes, beside the compiled executor's replay of the same plan; both
+   flash attention kernels, the CUDA-core
    one (head widths 16-128 and 256) and the sm90 one (bf16 wgmma + TMA,
    head width 128, which must refuse every other width), which sum in
    another order (f32 within the reference test's 2e-4, bf16 within one
@@ -37,8 +39,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bucket's analytic plan, timed as one in-kernel replay, recorded with
    ``exec_path='inkernel'``, saved, loaded), then
    ``distribute_weights(tuner=...)`` from NaN-filled replicas: replicas
-   bit-equal to phase 3's, one in-kernel launch per bucket plan, no merge
-   launches.
+   bit-equal to phase 3's, one device-initiated in-kernel launch per bucket
+   plan, no merge launches and none of the shared-buffer replay.
 4c. long-context serving: gemma3-27b at full width (6 of 62 layers, one
    whole 5 local : 1 global period, bf16, seeded random weights) broadcast
    to 4 emulated ranks, staged through chunked_copy, then ``generate`` of one 4096-token
@@ -72,17 +74,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bit-equal synced rows in the two reruns, the bf16 wire's parameters
    bit-identical to tuned_allreduce's, the in-kernel table's parameters
    bit-identical to the compiled table's (with no merge launch and one
-   in-kernel launch per bucket plan and step), the bf16-wire modes' last
-   losses and per-step grad norms close to grad_allreduce's (the plain
-   mean, which runs none of the port's kernels), int8's last loss within
-   5e-3 of tuned_allreduce's, finite losses; then one f32 smoke
+   device-initiated in-kernel launch per bucket plan and step), the
+   bf16-wire modes' last losses and per-step grad norms close to
+   grad_allreduce's (the plain mean, which runs none of the port's
+   kernels), int8's last loss within 5e-3 of tuned_allreduce's, finite
+   losses; then one f32 smoke
    param_bcast run on the card against the CPU.
+7. collectives: ``pallgather``, ``preduce_scatter``, ``preduce`` and
+   ``pallreduce`` at minitron-8b's training embedding bucket (1,048,576,000
+   bf16 elements a rank) on the 4 emulated ranks, each with
+   ``inkernel=True`` (one device-initiated launch) and ``compiled=True``,
+   bit-equal to each other and to the device-initiated replay's plain
+   version on the same buffer; the one-shot max/min ``pallreduce`` against
+   ``torch.amax``/``amin``.
+Last, the trap check: a subprocess launches the device-initiated replay
+with one wait target raised by one and must exit with code 3, which it
+gives only when the synchronize right after the launch raises, within 60 s.
 
 Launch counts are zeroed right before each path and read right after it:
 phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
 path), phase 4c (the long-prompt serving path), phase 4d (the
 vision-prefix serving path), phase 5's two long-prompt references (the
-f32 flash route) and phase 6's runs (the training path);
+f32 flash route), phase 6's runs (the training path) and phase 7 (the
+collective entry points);
 the launches that compare
 kernels with their plain versions, and the replays timed to fill the tuner
 tables, are not counted. The last three lines of output are the kernels
@@ -505,15 +519,15 @@ def _mark_kept_rows(torch, buf, tables) -> int:
     return len(kept)
 
 
-def _sim_check(torch, low, x, cols) -> None:
+def _sim_check(torch, replay, low, x, cols) -> None:
     """Replay integer-valued ``x`` (exact in f32 and bf16) with the kernel
-    and hold the columns ``cols`` against the port's numpy simulator; the
-    replay acts on whole rows, so any column subset is a full check."""
+    ``replay`` and hold the columns ``cols`` against the port's numpy
+    simulator; the replay acts on whole rows, so any column subset is a full
+    check."""
     from repro_torch.core.simulator import simulate_lowered
-    from repro_torch.kernels.inkernel_collective import inkernel_replay_shared
 
     before = x[:, :, cols].float().cpu().numpy()
-    inkernel_replay_shared(low, x)
+    replay(low, x)
     torch.cuda.synchronize()
     want = simulate_lowered(low, list(before))
     got = x[:, :, cols].float().cpu().numpy()
@@ -521,15 +535,28 @@ def _sim_check(torch, low, x, cols) -> None:
         assert (got[r] == want[r]).all(), (low.name, r, "kernel differs from simulate_lowered")
 
 
-def check_inkernel(torch) -> dict:
-    """inkernel_replay against its plain version and the numpy simulator,
-    bit for bit: every builder at n in {2, 3, 4, 8}, K in {1, 4, 5}, widths
-    37 (element path) and 64 (vector path), bf16 and f32, with -0.0 and NaN
-    in kept rows, and the swap schedules; then at the path shapes (the
-    serving chain of phase 4, phase 4b's analytic plan and the training
-    fused_rsb plan on the embedding bucket), with the compiled executor's
-    replay of the same plan on the same buffer timed beside it. The
-    training plan is the kernel's line in the kernels JSON."""
+def rdma_groups(dtype_code: int, vec: int, n: int) -> int:
+    """Blocks in each rank's group of the device-initiated replay's grid."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.load("inkernel_rdma")
+    lib.repro_inkernel_rdma_group.argtypes = [ctypes.c_int] * 3
+    return lib.repro_inkernel_rdma_group(dtype_code, vec, n)
+
+
+def check_inkernel(torch) -> list[dict]:
+    """Both in-kernel replays, the device-initiated one (``rdma_replay``,
+    what ``execute_inkernel`` runs) and the shared-buffer one
+    (``inkernel_replay_shared``), bit for bit against their plain versions,
+    each other and the numpy simulator: every builder at n in {2, 3, 4, 8},
+    K in {1, 4, 5}, widths 37 (element path) and 64 (vector path), bf16 and
+    f32, with -0.0 and NaN in kept rows, and the swap schedules; then at the
+    path shapes (the serving chain of phase 4, phase 4b's analytic plan and
+    the training fused_rsb plan on the embedding bucket), timed beside each
+    other and the compiled executor's replay of the same plan. The training
+    plan is each kernel's line in the kernels JSON."""
     import ctypes
 
     from repro_torch.comm import plan_cached
@@ -545,6 +572,9 @@ def check_inkernel(torch) -> dict:
     grids = {f"{d}/{'vec' if v else 'elem'}": lib.repro_inkernel_grid(code, v)
              for d, code in (("f32", 0), ("bf16", 1)) for v in (1, 0)}
     log(f"kernel inkernel_replay: cooperative grids (blocks of 256) {grids}")
+    groups = {f"{d}/{'vec' if v else 'elem'}": {n: rdma_groups(code, v, n) for n in (2, 3, 4, 8)}
+              for d, code in (("f32", 0), ("bf16", 1)) for v in (1, 0)}
+    log(f"kernel inkernel_rdma: blocks per rank group (blocks of 256) by n {groups}")
     cases = staged = marked = 0
     for n in (2, 3, 4, 8):
         for K in (1, 4, 5):
@@ -559,19 +589,25 @@ def check_inkernel(torch) -> dict:
                         marked += _mark_kept_rows(torch, buf, tables)
                         k = ik.inkernel_replay_shared(low, buf.clone())
                         p = ik.inkernel_replay_shared_plain(low, buf.clone())
+                        r = ik.rdma_replay(low, buf.clone())
+                        rp = ik.rdma_replay_plain(low, buf.clone())
                         torch.cuda.synchronize()
                         assert same_bits(torch, k, p), (sched.name, n, K, dt, cols)
-                        ints = torch.empty(shape, device="cuda", dtype=dt).random_(-4, 5,
-                                                                                  generator=gen)
-                        _sim_check(torch, low, ints, list(range(cols)))
+                        assert same_bits(torch, r, rp), ("rdma", sched.name, n, K, dt, cols)
+                        assert same_bits(torch, r, k), ("rdma/shared", sched.name, n, K, dt, cols)
+                        for replay in (ik.inkernel_replay_shared, ik.rdma_replay):
+                            ints = torch.empty(shape, device="cuda", dtype=dt).random_(
+                                -4, 5, generator=gen)
+                            _sim_check(torch, replay, low, ints, list(range(cols)))
                         cases += 1
     assert staged > 0, "no small case exercised the staged path"
-    log(f"kernel inkernel_replay: {cases} small cases bit-equal to plain and to "
-        f"simulate_lowered ({staged} staged class-rounds, {marked} kept rows marked)")
+    log(f"kernel inkernel_replay, inkernel_rdma: {cases} small cases each bit-equal to its "
+        f"plain version, to the other kernel and to simulate_lowered ({staged} staged "
+        f"class-rounds, {marked} kept rows marked)")
 
     cfg = get_config("minitron-8b")
     N = cfg.padded_vocab * cfg.d_model
-    line = None
+    out = []
     for label, op, algo in (("serving chain (phase 4)", "bcast", "pipelined_chain"),
                             ("serving analytic (phase 4b)", "bcast", "auto"),
                             ("training fused_rsb (phase 6)", "allreduce", "auto")):
@@ -585,39 +621,113 @@ def check_inkernel(torch) -> dict:
         p = ik.inkernel_replay_shared_plain(low, buf.clone())
         torch.cuda.synchronize()
         assert same_bits(torch, k, p), f"inkernel_replay {label} differs from plain"
-        err = 0.0  # bit-equal (a float copy of 4.2e9 elements would not fit beside them)
         del p
+        p = ik.rdma_replay_plain(low, buf.clone())
+        r = ik.rdma_replay(low, buf.clone())
+        torch.cuda.synchronize()
+        assert same_bits(torch, r, p), f"inkernel_rdma {label} differs from its plain version"
+        assert same_bits(torch, r, k), f"inkernel_rdma {label} differs from inkernel_replay"
+        err = 0.0  # bit-equal (a float copy of 4.2e9 elements would not fit beside them)
+        del p, r
         c = execute_compiled(low, buf.clone())
         torch.cuda.synchronize()
         assert same_bits(torch, k, c), f"inkernel_replay {label} differs from execute_compiled"
         del c, buf
         ms = time_ms(torch, lambda: ik.inkernel_replay_shared(low, k), reps=5, warmup=1)
+        rdma_ms = time_ms(torch, lambda: ik.rdma_replay(low, k), reps=5, warmup=1)
+        rdma_ms2 = time_ms(torch, lambda: ik.rdma_replay(low, k), reps=5, warmup=1)
+        ms2 = time_ms(torch, lambda: ik.inkernel_replay_shared(low, k), reps=5, warmup=1)
         compiled_ms = time_ms(torch, lambda: execute_compiled(low, k), reps=3, warmup=1)
         plain_ms = time_ms(torch, lambda: ik.inkernel_replay_shared_plain(low, k),
                            reps=2, warmup=1)
-        k.random_(-4, 5, generator=gen)
-        _sim_check(torch, low, k, list(range(64)) + list(range(C - 64, C)))
+        rdma_plain_ms = time_ms(torch, lambda: ik.rdma_replay_plain(low, k), reps=2, warmup=1)
+        for replay in (ik.inkernel_replay_shared, ik.rdma_replay):
+            k.random_(-4, 5, generator=gen)
+            _sim_check(torch, replay, low, k, list(range(64)) + list(range(C - 64, C)))
         del k
         torch.cuda.empty_cache()
         moved = ik.replay_bytes(tables, C, 2)
         bound = moved / HBM_BYTES_PER_S * 1e3
         modes = ik.round_modes(tables)
         ran, stage = int((modes != ik.SKIP).sum()), int((modes == ik.STAGED).sum())
+        waits = int((ik.rdma_wait_targets(tables) > 0).sum())
         log(f"kernel inkernel_replay {label}: {plan.algo}, ({RANKS}, {K}, {C}) bf16, "
             f"{low.num_rounds} rounds x {low.num_classes} classes ({ran} class-rounds, "
             f"{stage} staged, {ran - 1 + stage} grid barriers), {kept} kept rows marked: "
             f"bit-equal to plain, to execute_compiled and (64 + 64 columns) to "
-            f"simulate_lowered; {ms:.4f} ms (bound {bound:.4f} ms for {moved / 1e9:.3f} GB, "
-            f"compiled {compiled_ms:.4f} ms, plain {plain_ms:.4f} ms)")
+            f"simulate_lowered; {ms:.4f} ms / {ms2:.4f} ms (bound {bound:.4f} ms for "
+            f"{moved / 1e9:.3f} GB, compiled {compiled_ms:.4f} ms, plain {plain_ms:.4f} ms)")
+        log(f"kernel inkernel_rdma {label}: {RANKS} rank groups, {waits} flag waits: "
+            f"bit-equal to its plain version, to inkernel_replay and (64 + 64 columns) to "
+            f"simulate_lowered; {rdma_ms:.4f} ms / {rdma_ms2:.4f} ms (bound {bound:.4f} ms, "
+            f"shared {ms:.4f} / {ms2:.4f} ms, compiled {compiled_ms:.4f} ms, plain "
+            f"{rdma_plain_ms:.4f} ms)")
         if op == "allreduce":
-            line = {"name": "inkernel_replay", "route": "cuda",
-                    "source": "src/repro_torch/kernels/csrc/inkernel_collective.cu",
-                    "replaces": "src/repro/kernels/inkernel_collective.py:136",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-                    "compiled_ms": compiled_ms, "plan": f"{plan.algo} K={K}",
-                    "shape": [RANKS, K, C], "dtype": "bfloat16"}
-    return line
+            common = {"route": "cuda", "max_abs_err": err, "bound_ms": bound,
+                      "bound_by": "bytes", "library_ms": None, "compiled_ms": compiled_ms,
+                      "plan": f"{plan.algo} K={K}", "shape": [RANKS, K, C],
+                      "dtype": "bfloat16"}
+            out.append({"name": "inkernel_replay",
+                        "source": "src/repro_torch/kernels/csrc/inkernel_collective.cu",
+                        "replaces": "src/repro/kernels/inkernel_collective.py:136",
+                        "ms": ms, "plain_ms": plain_ms, **common})
+            out.append({"name": "inkernel_rdma",
+                        "source": "src/repro_torch/kernels/csrc/inkernel_rdma.cu",
+                        "replaces": "src/repro/kernels/inkernel_collective.py:246",
+                        "ms": rdma_ms, "plain_ms": rdma_plain_ms, "shared_ms": ms,
+                        "groups": groups["bf16/vec"][RANKS], **common})
+    return out
+
+
+_TRAP = r"""
+import sys
+sys.path.insert(0, SRC)
+import torch
+from repro_torch.comm import schedules as tcs
+from repro_torch.core import schedules as ts
+from repro_torch.kernels import inkernel_collective as ik
+
+tables = ts.pack_tables(ts.lower_schedule(tcs.build_op("allreduce", "fused_rsb", 4, 0,
+                                                       num_chunks=4)))
+tab = ik.rdma_table(tables).copy()
+waits = tab[..., 10].nonzero()
+at = tuple(int(w[-1]) for w in waits)
+tab[at + (10,)] += 1  # the last receive wait, one signal more than is ever sent
+buf = torch.randn((4, 4, 64), device="cuda")
+dev_tab = torch.from_numpy(tab).cuda()
+torch.cuda.synchronize()  # nothing before the launch has failed
+ik.rdma_launch(buf, tables, dev_tab)  # the launch itself succeeds: the trap comes later
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    # exit 3 only here: the synchronize right after the launch raised
+    print(f"wait target raised by one at (round, class, rank) {at[:3]}: "
+          f"{str(e).splitlines()[0]}", file=sys.stderr)
+    sys.exit(3)
+print("inkernel_rdma returned with a wait that is never met")
+"""
+
+
+def check_trap(torch) -> float:
+    """A wait that is never met must end the kernel, not hang the card: a
+    subprocess (a trap leaves its CUDA context unusable) launches the
+    device-initiated replay with one wait target raised by one. The launch
+    returns success (``_build.check`` cannot see a trap); the subprocess
+    must exit with code 3, which it gives only when the synchronize right
+    after the launch raises, within 60 s. Returns its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", f"SRC = {SRC!r}\n" + _TRAP],
+                          capture_output=True, text=True, timeout=60, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 3, ("the raised wait did not trap at the synchronize after "
+                                  "the launch", proc.returncode, proc.stdout,
+                                  proc.stderr[-2000:])
+    msg = proc.stderr.strip().splitlines()[-1]
+    torch.cuda.synchronize()
+    assert torch.ones(1, device="cuda").item() == 1.0, "this process's context is unusable"
+    log(f"trap: exit {proc.returncode} after {secs:.1f} s, raised by the synchronize after "
+        f"the launch: {msg}")
+    return secs
 
 
 def _flash_path_case(torch, gen, arch: str, window):
@@ -1186,12 +1296,13 @@ def compiled_replay(torch, root, mesh) -> tuple[dict, dict]:
 
 def record_inkernel_table(torch, tuner, buckets, op: str, extras: list[dict]) -> list:
     """For each bucket ``(bytes, elements, dtype)``: the analytic plan's
-    algo and chunk count, one timed in-kernel replay of it on a scratch
+    algo and chunk count, one timed in-kernel replay of it (the
+    device-initiated kernel, which ``execute_inkernel`` runs) on a scratch
     buffer of the bucket's chunked shape (after one warm-up replay), and a
     ``record`` into each tuner of ``tuner`` with the matching ``extras``.
     Returns ``(algo, chunks, rounds, classes, ms)`` per bucket."""
     from repro_torch.comm import plan_cached
-    from repro_torch.kernels.inkernel_collective import inkernel_replay_shared
+    from repro_torch.kernels.inkernel_collective import rdma_replay
 
     rows = []
     for M, elems, dtype in buckets:
@@ -1199,7 +1310,7 @@ def record_inkernel_table(torch, tuner, buckets, op: str, extras: list[dict]) ->
         low = plan.lowered()
         buf = torch.zeros((RANKS, low.num_chunks, -(-elems // low.num_chunks)), dtype=dtype,
                           device="cuda")
-        ms = time_ms(torch, lambda: inkernel_replay_shared(low, buf), reps=1, warmup=1)
+        ms = time_ms(torch, lambda: rdma_replay(low, buf), reps=1, warmup=1)
         del buf
         for t, ex in zip(tuner, extras):
             t.record(M, RANKS, plan.algo, plan.num_chunks, ms * 1e-3, op=op, extras=ex)
@@ -1243,15 +1354,114 @@ def tuned_inkernel(torch, stacked, mesh) -> dict:
     replayed = sum(1 for p in plans["data"] if p.lowered() is not None
                    and p.lowered().num_rounds > 0)
     assert all(p.decision.exec_path == "inkernel" for p in plans["data"]), plans
-    assert counts["fused_combine"] == 0, counts
-    assert counts["inkernel_replay"] == replayed > 0, (counts, replayed)
+    assert counts["fused_combine"] == 0 == counts["inkernel_replay"], counts
+    assert counts["inkernel_rdma"] == replayed > 0, (counts, replayed)
     assert replicas_equal(torch, out, root), "in-kernel replicas differ from phase 3's"
     log(f"tuned in-kernel: table of {len(tuner.table)} entries from {len(rows)} buckets "
         f"(algo, chunks, rounds, classes, replay ms: {rows}); distribution {secs:.3f} s, "
-        f"{counts['inkernel_replay']} inkernel_replay launches for {replayed} bucket plans, "
-        f"{counts['chunked_copy']} chunked_copy, 0 fused_combine; replicas bit-equal to "
+        f"{counts['inkernel_rdma']} inkernel_rdma launches for {replayed} bucket plans, "
+        f"{counts['chunked_copy']} chunked_copy, 0 fused_combine, 0 inkernel_replay; replicas "
+        "bit-equal to "
         "phase 3")
     return {"distribute_s": secs, "counts": counts, "plans": replayed, "buckets": rows}
+
+
+def _plain_collective(torch, plan, x):
+    """What ``apply_plan(plan, x)`` returns with the device-initiated
+    replay's plain version (``rdma_replay_plain``) in place of its kernel:
+    the same buffer layout for each op, on the card. Updates ``x`` in place
+    where its flat length divides into the plan's chunks."""
+    from repro_torch.comm.api import _chunked, _unchunked
+    from repro_torch.kernels import inkernel_collective as ik
+
+    n, low = plan.n, plan.lowered()
+    flat = x.reshape(n, -1)
+    ranks = torch.arange(n, device=x.device)
+    if plan.op == "allgather":
+        buf = torch.zeros((n, n, flat.shape[1]), dtype=x.dtype, device=x.device)
+        buf[ranks, ranks] = flat
+        return ik.rdma_replay_plain(low, buf).reshape((n, n) + tuple(x.shape[1:]))
+    if plan.op == "reduce_scatter":
+        return ik.rdma_replay_plain(low, _chunked(flat, n)[0])[ranks, ranks]
+    buf, pad = _chunked(flat, low.num_chunks)
+    return _unchunked(ik.rdma_replay_plain(low, buf), pad, x.shape)
+
+
+def collectives(torch) -> dict:
+    """Phase 7: the four collective entry points at the size of minitron-8b's
+    training embedding bucket (1,048,576,000 bf16 elements a rank) on the 4
+    emulated ranks, each through the device-initiated in-kernel executor
+    (``inkernel=True``) and the compiled one (``compiled=True``), held bit
+    for bit against each other and against the device-initiated replay's
+    plain version on the same buffer (:func:`_plain_collective`):
+    ``pallgather`` of the per-rank quarter shards, ``preduce_scatter``,
+    ``preduce`` and ``pallreduce``, at the planner's own choice of
+    algorithm; then the one-shot max and min ``pallreduce`` on 16M f32
+    elements a rank, against ``torch.amax`` / ``amin``. Launch counts are
+    zeroed by the caller before this phase; the plain version launches no
+    kernel."""
+    from repro_torch import comm, kernels
+    from repro_torch.comm import plan_cached
+    from repro_torch.configs import get_config
+
+    cfg = get_config("minitron-8b")
+    N = cfg.padded_vocab * cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((RANKS, N), generator=gen, device="cuda", dtype=torch.bfloat16)
+    shards = x[:, :N // RANKS].clone()
+    runs = (("pallgather", "allgather", shards, comm.pallgather),
+            ("preduce_scatter", "reduce_scatter", x, comm.preduce_scatter),
+            ("preduce", "reduce", x, comm.preduce),
+            ("pallreduce", "allreduce", x, comm.pallreduce))
+    out = {}
+    for name, op, value, fn in runs:
+        plan = plan_cached(op, (RANKS if op == "allgather" else 1) * value[0].numel() * 2, RANKS)
+        res, secs, launched = [], [], []
+        for flag in ("inkernel", "compiled"):
+            arg = value.clone()  # the executors update a divisible buffer in place
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res.append(fn(arg, **{flag: True}))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            after = kernels.launch_counts()
+            launched.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+            del arg
+        assert launched[0] == {"inkernel_rdma": 1}, (name, launched)
+        assert launched[1].get("inkernel_rdma", 0) == 0 < launched[1]["fused_combine"], \
+            (name, launched)
+        assert same_bits(torch, res[0], res[1]), f"{name}: inkernel and compiled differ"
+        assert bool(torch.isfinite(res[0]).all()), name
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = _plain_collective(torch, plan, value.clone())
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        assert kernels.launch_counts() == after, (name, "the plain version launched a kernel")
+        assert same_bits(torch, res[0], want), f"{name}: inkernel differs from its plain version"
+        del want
+        out[name] = {"algo": plan.algo, "chunks": plan.num_chunks,
+                     "shape": list(res[0].shape), "inkernel_s": secs[0],
+                     "compiled_s": secs[1], "plain_s": plain_s, "launches": launched}
+        log(f"collectives {name}: {plan.algo} K={plan.num_chunks}, {tuple(value.shape)} -> "
+            f"{tuple(res[0].shape)} bf16: inkernel {secs[0]:.4f} s ({launched[0]}), compiled "
+            f"{secs[1]:.4f} s ({launched[1]}), plain {plain_s:.4f} s: all three bit-equal")
+        del res
+        torch.cuda.empty_cache()
+    del x, shards
+    torch.cuda.empty_cache()
+    y = torch.randn((RANKS, 1 << 24), generator=gen, device="cuda")
+    for combiner, reduce in (("max", torch.amax), ("min", torch.amin)):
+        t0 = time.perf_counter()
+        got = comm.pallreduce(y.clone(), combiner=combiner)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        assert torch.equal(got, reduce(y, dim=0, keepdim=True).expand_as(y)), combiner
+        out[f"pallreduce_{combiner}"] = {"shape": list(y.shape), "s": secs}
+        log(f"collectives pallreduce combiner={combiner}: ({RANKS}, {1 << 24}) f32 one-shot, "
+            f"{secs:.4f} s, equal to torch.{reduce.__name__}")
+    return out
 
 
 def small_reference(torch) -> float:
@@ -1413,13 +1623,13 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
             tuned = None
         elif label == "table_compiled":
             tabled = tree_leaves(params)
-            assert r["launches"]["inkernel_replay"] == 0 < r["launches"]["fused_combine"], r
+            assert r["launches"]["inkernel_rdma"] == 0 < r["launches"]["fused_combine"], r
         elif label == "table_inkernel":
             assert all(same_bits(torch, a, b) for a, b in zip(tabled, tree_leaves(params))), \
                 "the in-kernel table's parameters differ from the compiled table's"
             tabled = None
-            assert r["launches"]["fused_combine"] == 0, r
-            assert r["launches"]["inkernel_replay"] == plans_per_step * TRAIN_STEPS, \
+            assert r["launches"]["fused_combine"] == 0 == r["launches"]["inkernel_replay"], r
+            assert r["launches"]["inkernel_rdma"] == plans_per_step * TRAIN_STEPS, \
                 (r["launches"], plans_per_step)
         del params
         out[label] = r
@@ -1558,7 +1768,7 @@ def main() -> int:
     log(f"calibrate: ts {cal['ts_s']:.3e} s, t_launch {cal['t_launch_s']:.3e} s")
 
     lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch),
-             check_inkernel(torch), *check_flash_attention(torch), *check_param_update(torch)]
+             *check_inkernel(torch), *check_flash_attention(torch), *check_param_update(torch)]
     check_fused_combine_training(torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1606,36 +1816,48 @@ def main() -> int:
         kernels.reset_launch_counts()
         training = train(torch, table_runs, plans_per_step)
         train_counts = kernels.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    colls = collectives(torch)
+    coll_counts = kernels.launch_counts()
     # each kernel on the path that runs it: the merge on both, the staging
     # copy on both serving paths, the quantize pair on the training path, the
-    # in-kernel replay on the tuned serving path (phase 4b) and in training,
-    # the sm90 flash kernel on the long-prompt serving path (phase 4c), the
-    # CUDA-core one on the vision-prefix serving path (phase 4d) and phase
-    # 5's f32 long-prompt references; mix and scaled_add are on no path of
-    # either package. A line's ``launches`` are those of its last path.
+    # device-initiated in-kernel replay on the tuned serving path (phase 4b),
+    # the collective entry points (phase 7) and in training, the sm90 flash
+    # kernel on the long-prompt serving path (phase 4c), the CUDA-core one on
+    # the vision-prefix serving path (phase 4d) and phase 5's f32 long-prompt
+    # references; mix and scaled_add are on no path of either package, and
+    # the shared-buffer replay on none of the port's (the reference, too,
+    # reaches it only off its accelerator; phase 2 holds it at the path
+    # plans). A line's ``launches`` are those of its last path.
     paths = {"fused_combine": ("serve", "train"),
              "chunked_copy": ("serve", "serve_long", "serve_vlm"),
              "quantize_blocks": ("train",), "dequantize_blocks": ("train",),
-             "inkernel_replay": ("serve_tuned", "train"),
+             "inkernel_replay": (),
+             "inkernel_rdma": ("serve_tuned", "collectives", "train"),
              "flash_attention_sm90": ("serve_long",),
              "flash_attention": ("reference_long", "serve_vlm"),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
               "serve_long": long_counts, "serve_vlm": vlm_counts,
-              "reference_long": ref_long_counts}
+              "reference_long": ref_long_counts, "collectives": coll_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention_sm90"] == 0, vlm_counts
     for line in lines:
         if not paths[line["name"]]:
-            assert line["name"] in ("mix", "scaled_add"), line["name"]
+            assert line["name"] in ("mix", "scaled_add", "inkernel_replay"), line["name"]
             line["launches"], line["launches_by_path"] = 0, {}
             continue
         line["launches_by_path"] = {p: counts[p][line["name"]] for p in paths[line["name"]]}
         for p, k in line["launches_by_path"].items():
             assert k > 0, f"{line['name']} never launched on the {p} path"
         line["launches"] = line["launches_by_path"][paths[line["name"]][-1]]
+    assert all(c["inkernel_replay"] == 0 for c in counts.values()), counts
     small_train_reference(torch)
     log(f"training numbers: {json.dumps(training)}")
+    log(f"collectives numbers: {json.dumps(colls)}")
+    check_trap(torch)
     print(json.dumps({"kernels": lines}))
     print(f"card: {name_power}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

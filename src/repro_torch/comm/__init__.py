@@ -6,18 +6,21 @@ Layering, as in the reference:
                          ->  comm.plan      (CollectivePlan: decide + build)
                          ->  comm.executors (replay on a rank-stacked buffer)
                          ->  comm.api       (apply_plan, pbcast, preduce,
-                                             pallreduce, *_tree)
+                                             pallreduce, pallgather,
+                                             preduce_scatter, *_tree)
                          ->  comm.streams   (stream entries)
 """
 from ..core.tuner import OPS, Decision, Tuner, default_tuner
 from .api import (
     apply_plan,
     hierarchical_allreduce_axes,
+    pallgather,
     pallreduce,
     pallreduce_tree,
     pbcast,
     pbcast_tree,
     preduce,
+    preduce_scatter,
 )
 from .compress import (
     CompressedWire,
@@ -64,6 +67,8 @@ __all__ = [
     "pbcast",
     "preduce",
     "pallreduce",
+    "pallgather",
+    "preduce_scatter",
     "pbcast_tree",
     "pallreduce_tree",
     "hierarchical_allreduce_axes",

@@ -13,6 +13,10 @@ the returned value. A compressed plan is the exception: it runs on an f32
 copy of ``x`` (the reference's cast to the f32 wire domain), so ``x`` is
 left as it was — the error-feedback update reads it after the sync.
 
+:func:`pallgather` and :func:`preduce_scatter` change the shape:
+``(n, *shard)`` → ``(n, n, *shard)``, and ``(n, *shape)`` → each rank's
+flat shard ``(n, ceil(size / n))``.
+
 ``*_tree`` variants communicate a rank-stacked pytree through same-dtype
 buckets (:mod:`repro_torch.core.bucketing`).
 """
@@ -35,6 +39,8 @@ __all__ = [
     "pbcast",
     "preduce",
     "pallreduce",
+    "pallgather",
+    "preduce_scatter",
     "pbcast_tree",
     "pallreduce_tree",
     "hierarchical_allreduce_axes",
@@ -119,19 +125,30 @@ def _resolve_exec_path(
     return "compiled" if _use_compiled(plan, fused=fused, compiled=compiled) else "unrolled"
 
 
-# Reduce-family combiners the comm layer understands; the schedule
+# Reduce-family combiners the comm layer understands. The schedule
 # executors combine by sum only, and zero pad tails are only the identity
-# for sum.
+# for sum, so max/min take the one-shot reducers over the rank axis (the
+# reference's pmax/pmin) and never grow a pad tail.
 _COMBINERS = ("sum", "max", "min")
+_ONE_SHOT_REDUCERS = {"max": torch.amax, "min": torch.amin}
 
 
 def _check_combiner(combiner: str, op: str) -> None:
     if combiner not in _COMBINERS:
         raise ValueError(f"unknown combiner {combiner!r} for {op}; have {_COMBINERS}")
-    if combiner != "sum":
-        raise NotImplementedError(
-            f"{op} with combiner {combiner!r} routes through the one-shot max/min "
-            "collectives in the reference, not ported yet: ROADMAP A.3")
+
+
+def _one_shot_reduce(x: torch.Tensor, combiner: str, algo: str, wire_format,
+                     algos=("auto",)) -> torch.Tensor:
+    """Every rank's row of the rank-stacked ``x`` combined by ``combiner``
+    (max/min), on every row."""
+    fmt = normalize_wire_format(wire_format)
+    if fmt.compressed:
+        raise ValueError(f"wire_format={fmt.value!r} supports the 'sum' combiner only "
+                         "(non-sum combiners take the one-shots)")
+    if algo not in algos:
+        raise ValueError(f"combiner {combiner!r} supports algo in {algos} only, not {algo!r}")
+    return _ONE_SHOT_REDUCERS[combiner](x, dim=0, keepdim=True).expand_as(x).clone()
 
 
 def _chunked(flat: torch.Tensor, k: int, *, combiner: str | None = None,
@@ -207,7 +224,7 @@ def apply_plan(
     if plan.algo in ONE_SHOT:
         return _one_shot(plan, x)
     if plan.op not in ("bcast", "reduce", "allreduce", "allgather", "reduce_scatter"):
-        raise NotImplementedError(f"ragged op {plan.op!r} is not ported yet: ROADMAP A.8")
+        raise NotImplementedError(f"ragged op {plan.op!r} is not ported yet: ROADMAP A.4")
     sched = plan.schedule
     run = _EXECUTORS[_resolve_exec_path(plan, fused=fused, compiled=compiled,
                                         inkernel=inkernel)]
@@ -277,18 +294,93 @@ def _check_one_shot(algo: str, wire_format) -> None:
                          f"the one-shot {algo!r} has no compression seam")
 
 
-def preduce(x: torch.Tensor, *, root: int = 0, algo: str = "auto") -> torch.Tensor:
-    """Reduce-to-root (sum) over the rank axis of ``x``. Non-root rows hold
-    partial sums by design (MPI_Reduce semantics): only row ``root`` is
-    meaningful."""
+def preduce(
+    x: torch.Tensor,
+    *,
+    root: int = 0,
+    algo: str = "auto",
+    num_chunks: int | None = None,
+    tuner: Tuner | None = None,
+    inter_pod: bool = False,
+    combiner: str = "sum",
+    compiled: bool | None = None,
+    inkernel: bool | None = None,
+    wire_format: str | None = None,
+) -> torch.Tensor:
+    """Reduce-to-root (``combiner``: sum by default) over the rank axis of
+    ``x``. Non-root rows hold partial sums by design (MPI_Reduce
+    semantics): only row ``root`` is meaningful. max/min take the one-shot
+    reducer, which gives every row the result."""
+    _check_combiner(combiner, "preduce")
     n = x.shape[0]
     if n == 1:
         return x
-    plan = plan_cached("reduce", x[0].numel() * x.element_size(), n, root=root, algo=algo)
-    return apply_plan(plan, x)
+    if combiner != "sum":
+        return _one_shot_reduce(x, combiner, algo, wire_format)
+    plan = plan_cached("reduce", _payload_bytes(x, wire_format), n, root=root, algo=algo,
+                       num_chunks=num_chunks, tuner=tuner, inter_pod=inter_pod,
+                       wire_format=wire_format)
+    return apply_plan(plan, x, compiled=compiled, inkernel=inkernel)
 
 
 def pallreduce(
+    x: torch.Tensor,
+    *,
+    algo: str = "auto",
+    num_chunks: int | None = None,
+    tuner: Tuner | None = None,
+    inter_pod: bool = False,
+    fused: bool = True,
+    combiner: str = "sum",
+    compiled: bool | None = None,
+    inkernel: bool | None = None,
+    wire_format: str | None = None,
+) -> torch.Tensor:
+    """All-reduce (``combiner``: sum by default) over the rank axis of
+    ``x`` through the tuned plan layer. ``algo``: 'auto',
+    'reduce_then_bcast', 'fused_rsb', 'ring_allreduce', or the one-shot
+    'xla_psum'; max/min take the one-shot reducer. ``wire_format``
+    compresses every hop (combine arithmetic stays f32)."""
+    _check_combiner(combiner, "pallreduce")
+    n = x.shape[0]
+    if n == 1:
+        return x
+    if combiner != "sum":
+        return _one_shot_reduce(x, combiner, algo, wire_format, ("auto", "xla_psum"))
+    _check_one_shot(algo, wire_format)
+    plan = plan_cached("allreduce", _payload_bytes(x, wire_format), n, algo=algo,
+                       num_chunks=num_chunks, tuner=tuner, inter_pod=inter_pod,
+                       wire_format=wire_format)
+    return apply_plan(plan, x, fused=fused, compiled=compiled, inkernel=inkernel)
+
+
+def pallgather(
+    x: torch.Tensor,
+    *,
+    algo: str = "auto",
+    tuner: Tuner | None = None,
+    inter_pod: bool = False,
+    compiled: bool | None = None,
+    inkernel: bool | None = None,
+    wire_format: str | None = None,
+) -> torch.Tensor:
+    """All-gather the per-rank shards ``x`` ``(n, *shard)``: every row of
+    the result ``(n, n, *shard)`` holds all ranks' shards stacked (the
+    ``lax.all_gather(axis=0)`` convention on each rank). ``algo``: 'auto',
+    'ring_allgather', 'doubling_allgather' (power-of-two n), or the
+    one-shot 'xla_allgather'."""
+    n = x.shape[0]
+    if n == 1:
+        return x[:, None]
+    _check_one_shot(algo, wire_format)
+    # the full gathered payload; a compressed wire ships f32
+    M = n * _payload_bytes(x, wire_format)
+    plan = plan_cached("allgather", M, n, algo=algo, tuner=tuner, inter_pod=inter_pod,
+                       wire_format=wire_format)
+    return apply_plan(plan, x, compiled=compiled, inkernel=inkernel)
+
+
+def preduce_scatter(
     x: torch.Tensor,
     *,
     algo: str = "auto",
@@ -296,20 +388,29 @@ def pallreduce(
     inter_pod: bool = False,
     combiner: str = "sum",
     compiled: bool | None = None,
+    inkernel: bool | None = None,
     wire_format: str | None = None,
 ) -> torch.Tensor:
-    """All-reduce (sum) over the rank axis of ``x`` through the tuned plan
-    layer. ``algo``: 'auto', 'reduce_then_bcast', 'fused_rsb',
-    'ring_allreduce', or the one-shot 'xla_psum'. ``wire_format``
-    compresses every hop (combine arithmetic stays f32)."""
-    _check_combiner(combiner, "pallreduce")
+    """Reduce-scatter (``combiner``: sum by default): every rank
+    contributes its full buffer and receives its rank-indexed shard of the
+    combined flat result, ``(n, ceil(size / n))`` (zero-padded tail on the
+    last shard). max/min combine first through the one-shot reducer, then
+    shard, so the pad tail is appended after the combine."""
+    _check_combiner(combiner, "preduce_scatter")
     n = x.shape[0]
+    flat = x.reshape(n, -1)
     if n == 1:
-        return x
-    _check_one_shot(algo, wire_format)
-    plan = plan_cached("allreduce", _payload_bytes(x, wire_format), n, algo=algo,
+        return flat
+    if combiner != "sum":
+        full = _one_shot_reduce(flat, combiner, algo, wire_format)
+        buf, _pad = _chunked(full, n)
+        ranks = torch.arange(n, device=x.device)
+        return buf[ranks, ranks]
+    plan = plan_cached("reduce_scatter", _payload_bytes(x, wire_format), n, algo=algo,
                        tuner=tuner, inter_pod=inter_pod, wire_format=wire_format)
-    return apply_plan(plan, x, compiled=compiled)
+    if plan.algo == "noop":
+        return flat
+    return apply_plan(plan, x, compiled=compiled, inkernel=inkernel)
 
 
 def _check_unstaged(stage: bool, op: str) -> None:

@@ -13,7 +13,8 @@ to the same effect.
   blocks into the receivers' slots and merges them with one launch of the
   fused combine-update kernel (:mod:`repro_torch.kernels.combine_update`).
 * :func:`execute_inkernel` — the whole lowered schedule in one launch of
-  the in-kernel replay (:mod:`repro_torch.kernels.inkernel_collective`).
+  the device-initiated in-kernel replay
+  (:mod:`repro_torch.kernels.inkernel_collective`).
 
 An exchange between ranks is a device-memory copy between rows of the
 stacked buffer: the ``lax.ppermute`` of the reference restricted to the
@@ -37,7 +38,7 @@ import torch
 
 from ..core.schedules import LoweredSchedule, Schedule, lower_schedule
 from ..kernels.combine_update import fused_combine_update
-from ..kernels.inkernel_collective import inkernel_replay_shared
+from ..kernels.inkernel_collective import inkernel_replay
 
 __all__ = ["execute_collective", "execute_compiled", "execute_inkernel"]
 
@@ -169,17 +170,18 @@ def execute_compiled(schedule: Schedule | LoweredSchedule,
 def execute_inkernel(schedule: Schedule | LoweredSchedule,
                      buf: torch.Tensor) -> torch.Tensor:
     """In-kernel replay: ONE launch of
-    :func:`~repro_torch.kernels.inkernel_collective.inkernel_replay_shared`
-    for the whole lowered schedule, on the rank-stacked buffer in place —
-    the emulated mesh is the reference's shared buffer. Bit-identical to
-    :func:`execute_compiled` and :func:`execute_collective`. Takes no
-    ``wire``: ``comm.api._resolve_exec_path`` keeps compressed plans off
-    this path. The reference's device-initiated multi-card replay
-    (``_rdma_replay``) is not ported (ROADMAP B.7)."""
+    :func:`~repro_torch.kernels.inkernel_collective.inkernel_replay` for the
+    whole lowered schedule, on the rank-stacked buffer in place: the
+    device-initiated kernel, in which each rank's group of blocks puts into
+    its partners' landing slots and synchronizes with them through flags
+    (the reference's ``_rdma_replay``). A CPU tensor takes its plain
+    version. Bit-identical to :func:`execute_compiled` and
+    :func:`execute_collective`. Takes no ``wire``:
+    ``comm.api._resolve_exec_path`` keeps compressed plans off this path."""
     lowered = (
         schedule if isinstance(schedule, LoweredSchedule) else lower_schedule(schedule)
     )
     _check(buf, lowered.n, lowered.num_chunks)
     if lowered.num_rounds == 0:
         return buf
-    return inkernel_replay_shared(lowered, buf)
+    return inkernel_replay(lowered, buf)

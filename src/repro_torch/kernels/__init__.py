@@ -4,7 +4,9 @@
   combine_update  — fused row-mode merge of the compiled executor
   flash_attention — blocked online-softmax attention (long-context prefill): the
                     sm90 kernel (bf16 wgmma + TMA, head width 128) and the CUDA-core one
-  inkernel_collective — one-launch replay of a whole lowered schedule
+  inkernel_collective — one-launch replay of a whole lowered schedule: the
+                    device-initiated kernel (rank groups, point-to-point flags) that
+                    the executors call, and the shared-buffer one (grid barrier)
   param_update    — fused mix / scaled_add over flat buffers (no path calls them)
   quantize        — per-256-block quantize / dequantize of the compressed wire
 
@@ -23,6 +25,7 @@ _WRAPPERS = {
     "quantize_blocks": (quantize.quantize_blocks,),
     "dequantize_blocks": (quantize.dequantize_blocks,),
     "inkernel_replay": (inkernel_collective.inkernel_replay_shared,),
+    "inkernel_rdma": (inkernel_collective.rdma_replay,),
     "flash_attention": (flash_attention.flash_fwd,),
     "flash_attention_sm90": (flash_attention.flash_sm90,),
     "mix": (param_update.mix,),

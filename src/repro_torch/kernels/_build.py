@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "build_all", "load", "check"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("chunked_copy", "combine_update", "flash_attention", "flash_attention_sm90",
-           "inkernel_collective", "param_update", "quantize")
+           "inkernel_collective", "inkernel_rdma", "param_update", "quantize")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

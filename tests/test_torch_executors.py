@@ -103,8 +103,9 @@ def test_pbcast_overwrites_nan_replicas(algo, dt):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="A.3"):
-        comm.pallreduce(torch.zeros((4, 8)), combiner="max")
+    ragged = comm.plan_collective("allgatherv", 16 * 4, 4, sizes=(5, 0, 9, 2))
+    with pytest.raises(NotImplementedError, match="A.4"):
+        comm.apply_plan(ragged, torch.zeros((4, 16)))
     with pytest.raises(NotImplementedError, match="A.16"):
         comm.pallreduce_tree({"w": torch.zeros((4, 8))}, ("pod", "data"))
     plan = comm.plan_collective("bcast", 4096, 4, algo="binomial", wire_format="int8")

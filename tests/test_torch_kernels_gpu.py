@@ -114,6 +114,41 @@ def test_inkernel_replay_matches_plain(dt):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_inkernel_rdma_matches_plain(dt):
+    """The device-initiated replay: one launch per replay, bit-equal to its
+    plain version and to the shared-buffer kernel, on an odd and an aligned
+    width, over a chain, a fused allreduce, a ring and a schedule in which
+    two ranks swap a chunk (a class-round whose puts read rows it merges)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.comm import schedules as tcs
+    from repro_torch.core import schedules as ts
+    from repro_torch.kernels import inkernel_collective as ik
+
+    T = ts.Transfer
+    swap = ts.Schedule("swap", 3, 0, 2, (ts.Round((T(0, 1, 0, 1, True), T(1, 0, 0, 1, True))),
+                                         ts.Round((T(1, 2, 0, 2),))), kind="allreduce")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bits = {2: torch.int16, 4: torch.int32}[torch.empty((), dtype=dt).element_size()]
+    for sched in (ts.build("pipelined_chain", 4, 1, num_chunks=5),
+                  tcs.build_op("allreduce", "fused_rsb", 4, 0, num_chunks=6),
+                  tcs.build_op("allreduce", "ring_allreduce", 8, 0), swap):
+        low = ts.lower_schedule(sched)
+        for cols in (1029, 1024):
+            buf = torch.randn((sched.n, sched.num_chunks, cols), generator=gen,
+                              device="cuda").to(dt)
+            before = ik.rdma_replay.launches
+            k = ik.rdma_replay(low, buf.clone())
+            assert ik.rdma_replay.launches == before + 1
+            p = ik.rdma_replay_plain(low, buf.clone())
+            s = ik.inkernel_replay_shared(low, buf.clone())
+            torch.cuda.synchronize()
+            assert torch.equal(k.view(bits), p.view(bits)), (sched.name, cols)
+            assert torch.equal(k.view(bits), s.view(bits)), (sched.name, cols)
+
+
 def _flash_inputs(case, dt, seed):
     B, T, S, H, KV, hd = case[:6]
     gen = torch.Generator(device="cuda").manual_seed(seed)

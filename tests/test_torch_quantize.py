@@ -174,8 +174,8 @@ def test_one_shot_algos_refuse_a_compressed_wire():
     x = torch.zeros((2, 16))
     with pytest.raises(ValueError):
         comm.pallreduce(x, algo="xla_psum", wire_format="int8")
-    with pytest.raises(NotImplementedError):
-        comm.pallreduce(x, combiner="max")
+    with pytest.raises(ValueError):
+        comm.pallreduce(x, combiner="max", wire_format="int8")
     with pytest.raises(ValueError):
         comm.pallreduce(x, combiner="prod")
 

@@ -153,7 +153,7 @@ def test_distribute_weights_fills_every_replica(f32, n, monkeypatch):
     assert calls["copy"] > 0 and calls["merge"] > 0
     assert launch_counts() == {"chunked_copy": 0, "fused_combine": 0,
                                "quantize_blocks": 0, "dequantize_blocks": 0,
-                               "inkernel_replay": 0, "flash_attention": 0,
+                               "inkernel_replay": 0, "inkernel_rdma": 0, "flash_attention": 0,
                                "flash_attention_sm90": 0, "mix": 0, "scaled_add": 0}
 
 
