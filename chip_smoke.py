@@ -20,7 +20,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    shapes, beside the compiled executor's replay of the same plan; both
    flash attention kernels, the CUDA-core
    one (head widths 16-128 and 256) and the sm90 one (bf16 wgmma + TMA,
-   head width 128, which must refuse every other width), which sum in
+   head widths 128 and 256, which must refuse widths 16-64), which sum in
    another order (f32 within the reference test's 2e-4, bf16 within one
    bf16 rounding of the plain version's f32 result), at the reference's
    cases, at phase 4c's layer shapes and at phase 4d's (a paligemma-3b
@@ -54,9 +54,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    staged through chunked_copy, then ``generate`` of one request per rank
    (256 stub patch embeddings from the port's ``batches`` + 3840 text
    tokens: 4096 positions) and 32 decode steps, then the warm re-run:
-   every layer's prefill (bf16, head width 256) goes through the CUDA-core
+   every layer's prefill (bf16, head width 256) goes through the sm90
    flash kernel with the prefix-LM mask (18 launches a pass, none of the
-   sm90 one). Then one prefill per rank under ``torch.profiler``.
+   CUDA-core one). Then one prefill per rank under ``torch.profiler``.
 5. small-input references: the port's f32 smoke model on the card against
    the same model on the CPU, gemma3-27b-smoke (window 64) in f32 at a
    4096-token prompt, and paligemma-3b-smoke widened to head width 256 and
@@ -141,12 +141,14 @@ FLASH_CASES = (
     (1, 80, 80, 2, 1, 128, True, None, 0, 16, 16),
     (1, 256, 256, 2, 2, 128, False, 0, 0, 64, 64),
     (1, 128, 128, 2, 1, 128, True, 0, 0, 32, 32),
-    # head width 256, the CUDA-core kernel's alone: a skipped prefix tile,
-    # partial row and key tiles, a window with a prefix
+    # head width 256, both kernels (the sm90 one on 64-key tiles): a skipped
+    # prefix tile, partial row and key tiles, a window with a prefix,
+    # paligemma's caller tiles (256, 128) over a prefix of 256
     (1, 128, 128, 2, 1, 256, True, None, 96, 32, 32),
     (1, 80, 80, 2, 1, 256, True, None, 0, 16, 16),
     (1, 96, 96, 4, 2, 256, True, 40, 0, 32, 32),
     (1, 384, 384, 2, 1, 256, True, 100, 48, 64, 32),
+    (1, 512, 512, 4, 1, 256, True, None, 256, 256, 128),
 )
 FLASH_F32_TOL = 2e-4  # the reference test's f32 tolerance, atol = rtol
 # bf16 output against the plain version's f32 result: one rounding to bf16
@@ -795,8 +797,8 @@ def check_flash_attention(torch) -> list[dict]:
     global layer and a local one, window 1024) and the phase 4d shape (a
     paligemma-3b layer: 8 query heads and 1 kv head of 256, the prefix of
     256 under query tiles of 256). Every case goes through the CUDA-core
-    kernel in f32 and bf16 and, where its head width is 128, through the
-    sm90 kernel in bf16, which must refuse every other width;
+    kernel in f32 and bf16 and, where its head width is 128 or 256, through
+    the sm90 kernel in bf16, which must refuse widths 16-64;
     ``flash_attention`` itself must give the output of the kernel its route
     names. Not bit-equal to the plain version: the kernels sum in another
     order. f32 is held as the reference's test holds its kernel, |kernel -
@@ -804,9 +806,9 @@ def check_flash_attention(torch) -> list[dict]:
     result on the same inputs, within one bf16 rounding (FLASH_BF16_REL,
     FLASH_BF16_ABS). At the path shapes each kernel is timed beside the
     plain version and one scaled_dot_product_attention call; the kernels
-    JSON gets one line per kernel, at the shape of the serving path that
-    runs it (the sm90 kernel: gemma's global layer; the CUDA-core kernel:
-    paligemma's layer), the other shapes beside it."""
+    JSON gets one line per kernel, at one serving-path shape (the sm90
+    kernel: gemma's global layer; the CUDA-core kernel: paligemma's layer),
+    the other shapes beside it."""
     from repro_torch.kernels import flash_attention as fa
 
     def held(q, k, v, kw, what) -> dict:
@@ -860,7 +862,7 @@ def check_flash_attention(torch) -> list[dict]:
         f"(CUDA-core) max abs err {worst['f32_err']:.3e} (tol 2e-4 + 2e-4 |plain|); bf16 "
         f"against plain's f32, limit 2^-8 |plain| + 1e-5: CUDA-core kernel "
         f"{worst['flash_attention']['bf16_err']:.3e} ({worst['flash_attention']['bf16_share']:.3f}"
-        f" of the limit), sm90 kernel on the {sm90_cases} cases of head width 128 "
+        f" of the limit), sm90 kernel on the {sm90_cases} cases of head widths 128 and 256 "
         f"{worst['flash_attention_sm90']['bf16_err']:.3e} "
         f"({worst['flash_attention_sm90']['bf16_share']:.3f} of the limit)")
 
@@ -895,7 +897,8 @@ def check_flash_attention(torch) -> list[dict]:
                 f"({kw['bq']}, {kw['bk']}): max abs err f32 {res['f32_err']:.3e} "
                 f"(CUDA-core kernel, tol 2e-4 + 2e-4 |plain|), bf16 {errs['bf16_err']:.3e} "
                 f"against plain's f32, {errs['bf16_share']:.3f} of the limit 2^-8 |plain| + "
-                f"1e-5; bf16 {ms:.4f} ms (bound {bound:.4f} ms by {by}, {flops / 1e9:.1f} GFLOP "
+                f"1e-5; bf16 {ms:.4f} ms (bound {bound:.4f} ms by {by}, {bound / ms:.1%} of the "
+                f"kernel's time; {flops / 1e9:.1f} GFLOP "
                 f"of allowed pairs in kept tiles: {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
                 f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
                 f"in {library_kernel})")
@@ -1191,8 +1194,8 @@ def serve_vlm(torch) -> dict:
     embeddings and 3840 text tokens from the port's ``batches``: 4096
     positions) and 32 decode steps (positions 4096-4127, after the prefix
     and the text), then the warm re-run and one profiled prefill per rank.
-    Every layer's prefill (bf16, head width 256) goes through the CUDA-core
-    flash kernel: 18 x 4 launches per pass, none of the sm90 one. Launch
+    Every layer's prefill (bf16, head width 256) goes through the sm90
+    flash kernel: 18 x 4 launches per pass, none of the CUDA-core one. Launch
     counts are zeroed by the caller right before; the profiled prefills are
     counted apart."""
     import numpy as np
@@ -1216,7 +1219,7 @@ def serve_vlm(torch) -> dict:
     torch.cuda.synchronize()
     dist_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == 0 and counts["chunked_copy"] > 0, counts
+    assert counts["flash_attention_sm90"] == 0 and counts["chunked_copy"] > 0, counts
     assert replicas_equal(torch, engine.params, params), "a paligemma replica differs"
     del params
     dist_peak = torch.cuda.max_memory_allocated()
@@ -1229,15 +1232,15 @@ def serve_vlm(torch) -> dict:
     t0 = time.perf_counter()
     res = engine.generate({"tokens": tokens, "embeds": embeds}, steps=STEPS)
     gen_s = time.perf_counter() - t0
-    cold = kernels.launch_counts()["flash_attention"]
+    cold = kernels.launch_counts()["flash_attention_sm90"]
     assert res.tokens.shape == (RANKS, STEPS) and res.logprobs.shape == (RANKS, STEPS)
     assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
     assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
     assert cold == cfg.num_layers * RANKS, cold
     prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS, embeds)
-    warm = kernels.launch_counts()["flash_attention"] - cold
+    warm = kernels.launch_counts()["flash_attention_sm90"] - cold
     assert warm == cfg.num_layers * RANKS, warm
-    assert kernels.launch_counts()["flash_attention_sm90"] == 0, "width 256 took the sm90 route"
+    assert kernels.launch_counts()["flash_attention"] == 0, "a bf16 prefill left the sm90 route"
     peak = torch.cuda.max_memory_allocated()
     assert peak < torch.cuda.get_device_properties(0).total_memory, peak
     out = {
@@ -1254,8 +1257,8 @@ def serve_vlm(torch) -> dict:
         f"{dist_peak / 2**30:.2f} GiB), generate {gen_s:.3f} s (cold, {RANKS} x "
         f"({cfg.prefix_len} patches + {VLM_TEXT} tokens) + {STEPS} steps); warm: prefill "
         f"{out['prefill_ms_per_rank']:.2f} ms/rank, decode steps "
-        f"{out['decode_tokens_per_s']:.1f} tok/s; flash_attention launches {cold} cold + "
-        f"{warm} warm, flash_attention_sm90 0; peak {peak / 2**30:.2f} GiB")
+        f"{out['decode_tokens_per_s']:.1f} tok/s; flash_attention_sm90 launches {cold} cold + "
+        f"{warm} warm, flash_attention 0; peak {peak / 2**30:.2f} GiB")
     out["counts"] = kernels.launch_counts()  # the path's; the profiled prefills come after
     out["profile"] = profile_prefill(torch, engine, tokens, embeds=embeds, label="serve vlm")
     del engine
@@ -1825,25 +1828,25 @@ def main() -> int:
     # copy on both serving paths, the quantize pair on the training path, the
     # device-initiated in-kernel replay on the tuned serving path (phase 4b),
     # the collective entry points (phase 7) and in training, the sm90 flash
-    # kernel on the long-prompt serving path (phase 4c), the CUDA-core one on
-    # the vision-prefix serving path (phase 4d) and phase 5's f32 long-prompt
-    # references; mix and scaled_add are on no path of either package, and
-    # the shared-buffer replay on none of the port's (the reference, too,
-    # reaches it only off its accelerator; phase 2 holds it at the path
-    # plans). A line's ``launches`` are those of its last path.
+    # kernel on both long-prompt serving paths (phases 4c and 4d), the
+    # CUDA-core one on phase 5's f32 long-prompt references; mix and
+    # scaled_add are on no path of either package, and the shared-buffer
+    # replay on none of the port's (the reference, too, reaches it only off
+    # its accelerator; phase 2 holds it at the path plans). A line's
+    # ``launches`` are those of its last path.
     paths = {"fused_combine": ("serve", "train"),
              "chunked_copy": ("serve", "serve_long", "serve_vlm"),
              "quantize_blocks": ("train",), "dequantize_blocks": ("train",),
              "inkernel_replay": (),
              "inkernel_rdma": ("serve_tuned", "collectives", "train"),
-             "flash_attention_sm90": ("serve_long",),
-             "flash_attention": ("reference_long", "serve_vlm"),
+             "flash_attention_sm90": ("serve_long", "serve_vlm"),
+             "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
               "serve_long": long_counts, "serve_vlm": vlm_counts,
               "reference_long": ref_long_counts, "collectives": coll_counts}
     assert long_counts["flash_attention"] == 0, long_counts
-    assert vlm_counts["flash_attention_sm90"] == 0, vlm_counts
+    assert vlm_counts["flash_attention"] == 0, vlm_counts
     for line in lines:
         if not paths[line["name"]]:
             assert line["name"] in ("mix", "scaled_add", "inkernel_replay"), line["name"]

@@ -3,7 +3,8 @@
   chunked_copy    — chunked flat-buffer copy (bucket staging)
   combine_update  — fused row-mode merge of the compiled executor
   flash_attention — blocked online-softmax attention (long-context prefill): the
-                    sm90 kernel (bf16 wgmma + TMA, head width 128) and the CUDA-core one
+                    sm90 kernel (bf16 wgmma + TMA, head widths 128 and 256) and the
+                    CUDA-core one (f32, and bf16 at widths 16-64)
   inkernel_collective — one-launch replay of a whole lowered schedule: the
                     device-initiated kernel (rank groups, point-to-point flags) that
                     the executors call, and the shared-buffer one (grid barrier)

@@ -1,50 +1,62 @@
 // Blocked online-softmax attention, forward, on Hopper's tensor cores: the
-// route of every bf16 call with head width 128, which is every layer's
-// prefill of gemma3-27b from S = CHUNKED_ATTN_MIN_S (4096) keys on.
+// route of every bf16 call with head width 128 or 256, which is every
+// layer's prefill of gemma3-27b (width 128) and of paligemma-3b (width 256)
+// from S = CHUNKED_ATTN_MIN_S (4096) keys on.
 //
 // Replaces: src/repro/kernels/flash_attention.py:102 flash_attention (its
 //   pallas_call at :141; the body is _kernel, :38-95), as flash_attention.cu
-//   does for f32 and the other head widths. q (B, T, H, 128), k/v
-//   (B, S, KV, 128) bf16, GQA (kv head = h / (H / KV)), causal / sliding
-//   window / prefix-LM masks, bf16 out.
+//   does for f32 and the other head widths. q (B, T, H, hd), k/v
+//   (B, S, KV, hd) bf16 with hd 128 or 256, GQA (kv head = h / (H / KV)),
+//   causal / sliding window / prefix-LM masks, bf16 out.
 // Bound: operations. 4 * hd flops per (query, key) pair that the caller's
 //   tiles keep and the masks allow, on bf16 tensor cores at 989 TFLOP/s
 //   (H100 SXM data sheet), against q, k, v read once and the output
 //   written once at 3.35 TB/s; at the serving path's shapes the flops bound
 //   it by more than 10x.
-// Design (FlashAttention-3's shape, simplified): one block of 384 threads
+// Design (FlashAttention-3's shape, simplified), one instantiation of
+//   flash_fwd_sm90 per head width (Cfg<hd>): one block of 384 threads
 //   per (128 query rows, query head, batch), the grid walking the query
 //   tiles last to first so that the heaviest causal tiles start first.
-//   Warpgroup 0 is the producer: it gives up registers (setmaxnreg 40) and
-//   one thread issues TMA loads, the q tile once and then each kept 128-key
-//   tile of k and v into a ring of 2 stages, each stage with a full and an
-//   empty mbarrier. Warpgroups 1 and 2 (setmaxnreg 232) are the consumers,
-//   64 query rows each, wgmma's M. Tiles are bf16 in shared memory with the
-//   128-byte swizzle, each as two 64-column halves (a swizzled row is 128
-//   bytes); the tensor maps cover the (B, S, KV, hd) layout with the head
-//   as a coordinate and are encoded on the host per call with
-//   cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (no
-//   link against libcuda).
-//   S = q k^T is 8 wgmma m64n128k16 from shared memory (both K-major), in
-//   f32; the scale multiplies after the dot, as in the Pallas kernel
+//   Warpgroup 0 is the producer: it gives up registers (setmaxnreg 40 at
+//   width 128, 24 at 256) and one thread issues TMA loads, the q tile once
+//   and then each kept tile of k and v (128 keys at width 128, 64 at 256)
+//   into a ring of 2 stages, each stage with a full and an empty mbarrier.
+//   Warpgroups 1 and 2 (setmaxnreg 232 at width 128, 240 at 256) are the
+//   consumers, 64 query rows each, wgmma's M. Tiles are bf16 in shared
+//   memory with the 128-byte swizzle, each as hd/64 pieces of 64 columns
+//   (a swizzled row is 128 bytes); the tensor maps cover the (B, S, KV, hd)
+//   layout with the head as a coordinate and are encoded on the host per
+//   call with cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint (no link against libcuda). Shared memory: 96
+//   KiB a block at width 128 (q 32, two stages of k and v 64), 192 KiB at
+//   256 (q 64, two stages 128).
+//   S = q k^T is hd/16 wgmma m64nBKk16 from shared memory (both K-major),
+//   in f32; the scale multiplies after the dot, as in the Pallas kernel
 //   (:67-69). The online softmax runs in registers on the accumulator
 //   fragment: a row lives in the 4 threads of a quad (2 rows a thread),
 //   the running max starts at -1e30 and the row sum comes from the f32
-//   probabilities. O += P V is wgmma with P from registers (the S
-//   fragment's layout is the A fragment's) and V from shared memory,
-//   MN-major (the transpose bit); P enters as two bf16 terms, p_hi =
-//   bf16(p) and p_lo = bf16(p - p_hi), two products into one accumulator,
-//   so that p keeps about 16 bits: one bf16 rounding of p would cost as
-//   much as the output's own rounding, and the bf16 output is held within
-//   one rounding of the plain version's f32 result. The epilogue divides
-//   by max(l, 1e-30) and stores bf16, rows past T left out.
+//   probabilities. O += P V is wgmma m64n128k16 with P from registers (the
+//   S fragment's layout is the A fragment's) and V from shared memory,
+//   MN-major (the transpose bit), once per 128-column half of O; P enters
+//   as two bf16 terms, p_hi = bf16(p) and p_lo = bf16(p - p_hi), two
+//   products into one accumulator, so that p keeps about 16 bits: one bf16
+//   rounding of p would cost as much as the output's own rounding, and the
+//   bf16 output is held within one rounding of the plain version's f32
+//   result. The epilogue divides by max(l, 1e-30) and stores bf16, rows
+//   past T left out.
+//   Width 256's register budget: O is 64 x 256 f32 a warpgroup, 128
+//   registers a thread, beside S (32: 64-key tiles) and p_hi/p_lo (32,
+//   formed as S dies); 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536.
+//   ptxas still spills a few registers a tile around S (PERF.md §6).
 //   Which pairs are processed is the Pallas kernel's rule, on the caller's
 //   (bq, bk) tiles: the wrapper hands over an int8 table of this kernel's
-//   (128 x 128) tiles (kernels/flash_attention.py tile_classes): 0, no
+//   (128 x BK) tiles (kernels/flash_attention.py tile_classes): 0, no
 //   caller tile kept, not loaded; 1, every pair kept and allowed, no mask
-//   test; 2, the per-element path, where a key of a caller tile that the
-//   Pallas kernel skips enters as -inf (it leaves max, sum and acc as they
-//   were), a masked key as -1e30 and a key past S as -inf.
+//   test (at width 256: the element rule with every key let through, one
+//   softmax for both classes); 2, the per-element path, where a key of a
+//   caller tile that the Pallas kernel skips enters as -inf (it leaves
+//   max, sum and acc as they were), a masked key as -1e30 and a key past S
+//   as -inf.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,17 +65,29 @@
 
 namespace {
 
-constexpr int kHD = 128;         // head width
 constexpr int kBQ = 128;         // query rows per block: two consumer warpgroups of 64
-constexpr int kBK = 128;         // keys per staged tile
 constexpr int kStages = 2;       // k/v ring depth
 constexpr int kThreads = 384;    // producer warpgroup, then two consumer warpgroups
-constexpr int kHalf = 64;        // bf16 columns of one 128-byte swizzled row
-constexpr uint32_t kQBytes = kBQ * kHD * 2;          // 32 KiB
-constexpr uint32_t kKVBytes = kBK * kHD * 2;         // 32 KiB each for k and v
-constexpr uint32_t kQHalf = kQBytes / 2, kKVHalf = kKVBytes / 2;
-constexpr uint32_t kBarOffset = kQBytes + kStages * 2 * kKVBytes;
-constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+constexpr int kPiece = 64;       // bf16 columns of one 128-byte swizzled row
+
+// Each head width's tiles, shared memory and register split.
+template <int HD>
+struct Cfg {
+  static_assert(HD == 128 || HD == 256, "head width 128 or 256");
+  static constexpr int kBK = HD == 128 ? 128 : 64;             // keys per staged tile
+  static constexpr int kRegsProducer = HD == 128 ? 40 : 24;    // setmaxnreg
+  static constexpr int kRegsConsumer = HD == 128 ? 232 : 240;
+  static constexpr int kPieces = HD / kPiece;   // 64-column pieces of a row
+  static constexpr int kHalves = HD / 128;      // 128-column halves of O (wgmma's N)
+  static constexpr int kSRegs = kBK / 2;        // the 64 x kBK S fragment, a thread
+  static constexpr uint32_t kQPiece = kBQ * 128;   // bytes of one piece of the q tile
+  static constexpr uint32_t kKVPiece = kBK * 128;  // ... of a k or v tile
+  static constexpr uint32_t kQBytes = kQPiece * kPieces;
+  static constexpr uint32_t kKVBytes = kKVPiece * kPieces;
+  static constexpr uint32_t kBarOffset = kQBytes + kStages * 2 * kKVBytes;
+  // the barriers, and 1 KiB of slack for the swizzle's alignment
+  static constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
 constexpr float kMasked = -1e30f;  // NEG_INF of the Pallas kernel
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -138,11 +162,15 @@ __device__ __forceinline__ void wgmma_wait0() {
 }
 
 // Keeps the compiler from moving reads of an accumulator above the wait.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+#define FA_REGS32                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 #define FA_REGS64                                                                         \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "      \
@@ -151,7 +179,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #define FA_D8(i)                                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),             \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FA_D64 FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
+#define FA_D32 FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+#define FA_D64 FA_D32, FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
 
 // d (64 x 128, f32) (+)= a (64 x 16, shared, K-major) . b (16 x 128, shared, K-major)
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
@@ -160,6 +189,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_REGS64
       ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : FA_D64
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 64, f32) (+)= a (64 x 16, shared, K-major) . b (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_D32
       : "l"(da), "l"(db), "r"(acc));
 }
 
@@ -215,18 +254,21 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = Cfg<HD>;
+  constexpr int kBK = C::kBK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's alignment
-  const uint32_t sQ = base, bar_q = base + kBarOffset;
+  const uint32_t sQ = base, bar_q = base + C::kBarOffset;
   const int qt = p.nqt - 1 - (int)blockIdx.y;  // heaviest causal tiles first
   const int h = blockIdx.x, b = blockIdx.z;
   const int8_t* cls = p.classes + (size_t)qt * p.nkt;
   const int wg = threadIdx.x / 128;
-  auto sK = [&](int s) { return base + kQBytes + s * 2 * kKVBytes; };
-  auto sV = [&](int s) { return base + kQBytes + s * 2 * kKVBytes + kKVBytes; };
+  auto sK = [&](int s) { return base + C::kQBytes + s * 2 * C::kKVBytes; };
+  auto sV = [&](int s) { return base + C::kQBytes + s * 2 * C::kKVBytes + C::kKVBytes; };
   auto full = [&](int s) { return bar_q + 8 + 8 * s; };
   auto empty = [&](int s) { return bar_q + 8 + 8 * kStages + 8 * s; };
 
@@ -242,22 +284,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (wg == 0) {
     // producer: one thread issues every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(C::kRegsProducer));
     if (threadIdx.x == 0) {
       const int kvh = h / (p.H / p.KV);
-      mbar_expect_tx(bar_q, kQBytes);
-      tma_load(sQ, &tq, bar_q, 0, h, qt * kBQ, b);
-      tma_load(sQ + kQHalf, &tq, bar_q, kHalf, h, qt * kBQ, b);
+      mbar_expect_tx(bar_q, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kPieces; ++c)
+        tma_load(sQ + c * C::kQPiece, &tq, bar_q, c * kPiece, h, qt * kBQ, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int kt = 0; kt < p.nkt; ++kt) {
         if (cls[kt] == 0) continue;
         mbar_wait(empty(stage), phase ^ 1);  // the first pass finds the ring empty
-        mbar_expect_tx(full(stage), 2 * kKVBytes);
-        tma_load(sK(stage), &tk, full(stage), 0, kvh, kt * kBK, b);
-        tma_load(sK(stage) + kKVHalf, &tk, full(stage), kHalf, kvh, kt * kBK, b);
-        tma_load(sV(stage), &tv, full(stage), 0, kvh, kt * kBK, b);
-        tma_load(sV(stage) + kKVHalf, &tv, full(stage), kHalf, kvh, kt * kBK, b);
+        mbar_expect_tx(full(stage), 2 * C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < C::kPieces; ++c)
+          tma_load(sK(stage) + c * C::kKVPiece, &tk, full(stage), c * kPiece, kvh, kt * kBK, b);
+#pragma unroll
+        for (int c = 0; c < C::kPieces; ++c)
+          tma_load(sV(stage) + c * C::kKVPiece, &tv, full(stage), c * kPiece, kvh, kt * kBK, b);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -265,18 +310,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::kRegsConsumer));
     const int cw = wg - 1, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     // this thread's two rows of the accumulator fragment
     const int row_a = qt * kBQ + 64 * cw + 16 * warp + g, row_b = row_a + 8;
     const int qc_a = row_a / p.bq * p.bq, qc_b = row_b / p.bq * p.bq;  // their caller tiles
     const float scale_log2 = p.scale * kLog2e;
-    float o[64];
+    float o[C::kHalves][64];  // O's 128-column halves, each one wgmma accumulator
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int oh = 0; oh < C::kHalves; ++oh)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[oh][i] = 0.f;
     float m_a = kMasked, m_b = kMasked, l_a = 0.f, l_b = 0.f;  // l: this thread's share
-    const uint32_t q_rows = sQ + cw * 64 * 128;  // this warpgroup's 64 rows of each half
+    const uint32_t q_rows = sQ + cw * 64 * 128;  // this warpgroup's 64 rows of each piece
 
     mbar_wait(bar_q, 0);
     int stage = 0;
@@ -284,15 +331,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int kt = 0; kt < p.nkt; ++kt) {
       const int c = cls[kt];
       if (c == 0) continue;
+      // The element rule's masks: bit 2 jj + e is this thread's column
+      // 8 jj + 2 t + e, set in kept_* when the key is below S in a caller
+      // tile that the Pallas kernel keeps and in ok_* when the mask allows
+      // it (rows a and b); all set on a class-1 tile. Built in a rolled loop
+      // before S is in registers, so that they cost few registers beside O.
+      uint32_t kept_a = ~0u, kept_b = ~0u, ok_a = ~0u, ok_b = ~0u;
+      if (c == 2) {
+        kept_a = kept_b = ok_a = ok_b = 0;
+#pragma unroll 1
+        for (int i = 0; i < kBK / 4; ++i) {
+          const int j = kt * kBK + 8 * (i / 2) + 2 * t + (i % 2);
+          const int kc = j / p.bk * p.bk;
+          const bool in = j < p.S;
+          kept_a |= (uint32_t)(in && kept(p, qc_a, kc)) << i;
+          kept_b |= (uint32_t)(in && kept(p, qc_b, kc)) << i;
+          ok_a |= (uint32_t)allowed(p, row_a, j) << i;
+          ok_b |= (uint32_t)allowed(p, row_b, j) << i;
+        }
+      }
       mbar_wait(full(stage), phase);
 
-      float s[64];
+      float s[C::kSRegs];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kHD / 16; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes into the swizzled row
-        const uint64_t da = desc_sw128(q_rows + (kk / 4) * kQHalf + off, 16, 1024);
-        const uint64_t db = desc_sw128(sK(stage) + (kk / 4) * kKVHalf + off, 16, 1024);
+        const uint64_t da = desc_sw128(q_rows + (kk / 4) * C::kQPiece + off, 16, 1024);
+        const uint64_t db = desc_sw128(sK(stage) + (kk / 4) * C::kKVPiece + off, 16, 1024);
         wgmma_ss(s, da, db, kk > 0);
       }
       wgmma_commit();
@@ -300,10 +366,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(s);
 
       float corr_a, corr_b;
-      if (c == 1) {  // every pair kept and allowed: no mask test
+      // Class 1 at width 128: every pair kept and allowed, no mask test. At
+      // width 256 every tile takes the element rule, class 1 with its masks
+      // all set: with a second softmax beside it, ptxas spilled half of O
+      // around every S (the 64 x 256 O leaves it little room).
+      if (HD == 128 && c == 1) {
         float mx_a = s[0], mx_b = s[2];
 #pragma unroll
-        for (int jj = 0; jj < 16; ++jj) {
+        for (int jj = 0; jj < kBK / 8; ++jj) {
           mx_a = fmaxf(mx_a, fmaxf(s[4 * jj], s[4 * jj + 1]));
           mx_b = fmaxf(mx_b, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
         }
@@ -316,7 +386,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float ma2 = mn_a * kLog2e, mb2 = mn_b * kLog2e;
         float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-        for (int jj = 0; jj < 16; ++jj) {
+        for (int jj = 0; jj < kBK / 8; ++jj) {
           s[4 * jj] = exp2f(fmaf(s[4 * jj], scale_log2, -ma2));
           s[4 * jj + 1] = exp2f(fmaf(s[4 * jj + 1], scale_log2, -ma2));
           s[4 * jj + 2] = exp2f(fmaf(s[4 * jj + 2], scale_log2, -mb2));
@@ -327,21 +397,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         l_a = l_a * corr_a + sum_a;
         l_b = l_b * corr_b + sum_b;
       } else {  // the Pallas kernel's element rule
-        const int c0 = kt * kBK;
         float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-        for (int jj = 0; jj < 16; ++jj) {
+        for (int jj = 0; jj < kBK / 8; ++jj) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int j = c0 + 8 * jj + 2 * t + e;
-            const int kc = j / p.bk * p.bk;
-            const bool in = j < p.S;
+            const uint32_t bit = 1u << (2 * jj + e);
             float& xa = s[4 * jj + e];
             float& xb = s[4 * jj + 2 + e];
-            xa = in && kept(p, qc_a, kc) ? (allowed(p, row_a, j) ? xa * p.scale : kMasked)
-                                         : -INFINITY;
-            xb = in && kept(p, qc_b, kc) ? (allowed(p, row_b, j) ? xb * p.scale : kMasked)
-                                         : -INFINITY;
+            xa = kept_a & bit ? (ok_a & bit ? xa * p.scale : kMasked) : -INFINITY;
+            xb = kept_b & bit ? (ok_b & bit ? xb * p.scale : kMasked) : -INFINITY;
             mx_a = fmaxf(mx_a, xa);
             mx_b = fmaxf(mx_b, xb);
           }
@@ -354,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         m_b = mn_b;
         float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-        for (int jj = 0; jj < 16; ++jj) {
+        for (int jj = 0; jj < kBK / 8; ++jj) {
           s[4 * jj] = exp2f((s[4 * jj] - mn_a) * kLog2e);
           s[4 * jj + 1] = exp2f((s[4 * jj + 1] - mn_a) * kLog2e);
           s[4 * jj + 2] = exp2f((s[4 * jj + 2] - mn_b) * kLog2e);
@@ -366,35 +431,43 @@ __global__ void __launch_bounds__(kThreads, 1)
         l_b = l_b * corr_b + sum_b;
       }
 
-      // p as two bf16 terms, in the A fragment's order (pairs of columns)
-      uint32_t ph[32], pl[32];
+      // p as two bf16 terms, in the A fragment's order (pairs of columns);
+      // s dies as they are formed
+      uint32_t ph[C::kSRegs / 2], pl[C::kSRegs / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < C::kSRegs / 2; ++i) {
         const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * i], s[2 * i + 1]);
         const float2 hf = __bfloat1622float2(hi);
         ph[i] = bf16x2_bits(hi);
         pl[i] = bf16x2_bits(__floats2bfloat162_rn(s[2 * i] - hf.x, s[2 * i + 1] - hf.y));
       }
 #pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        o[4 * jj] *= corr_a;
-        o[4 * jj + 1] *= corr_a;
-        o[4 * jj + 2] *= corr_b;
-        o[4 * jj + 3] *= corr_b;
-      }
+      for (int oh = 0; oh < C::kHalves; ++oh)
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          o[oh][4 * jj] *= corr_a;
+          o[oh][4 * jj + 1] *= corr_a;
+          o[oh][4 * jj + 2] *= corr_b;
+          o[oh][4 * jj + 3] *= corr_b;
+        }
 
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kBK / 16; ++kc) {
-        // MN-major: 16 keys are two 8-row groups 1024 bytes apart (SBO), the
-        // two 64-column halves of hd kKVHalf apart (LBO)
-        const uint64_t dv = desc_sw128(sV(stage) + kc * 2048, kKVHalf, 1024);
-        wgmma_rs(o, ph[4 * kc], ph[4 * kc + 1], ph[4 * kc + 2], ph[4 * kc + 3], dv);
-        wgmma_rs(o, pl[4 * kc], pl[4 * kc + 1], pl[4 * kc + 2], pl[4 * kc + 3], dv);
+#pragma unroll
+        for (int oh = 0; oh < C::kHalves; ++oh) {
+          // MN-major: 16 keys are two 8-row groups 1024 bytes apart (SBO), the
+          // two 64-column pieces of this half of hd kKVPiece apart (LBO)
+          const uint64_t dv = desc_sw128(sV(stage) + 2 * oh * C::kKVPiece + kc * 2048,
+                                         C::kKVPiece, 1024);
+          wgmma_rs(o[oh], ph[4 * kc], ph[4 * kc + 1], ph[4 * kc + 2], ph[4 * kc + 3], dv);
+          wgmma_rs(o[oh], pl[4 * kc], pl[4 * kc + 1], pl[4 * kc + 2], pl[4 * kc + 3], dv);
+        }
       }
       wgmma_commit();
       wgmma_wait0();
-      fence_regs(o);
+#pragma unroll
+      for (int oh = 0; oh < C::kHalves; ++oh) fence_regs(o[oh]);
       mbar_arrive(empty(stage));
       if (++stage == kStages) {
         stage = 0;
@@ -403,17 +476,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     const float den_a = fmaxf(quad_sum(l_a), 1e-30f), den_b = fmaxf(quad_sum(l_b), 1e-30f);
-    const long long q_row = (long long)p.H * kHD;
-    __nv_bfloat16* ob = p.o + ((long long)b * p.T * p.H + h) * kHD + 2 * t;
+    const long long q_row = (long long)p.H * HD;
+    __nv_bfloat16* ob = p.o + ((long long)b * p.T * p.H + h) * HD + 2 * t;
 #pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-      if (row_a < p.T)
-        *reinterpret_cast<__nv_bfloat162*>(ob + row_a * q_row + 8 * jj) =
-            __floats2bfloat162_rn(o[4 * jj] / den_a, o[4 * jj + 1] / den_a);
-      if (row_b < p.T)
-        *reinterpret_cast<__nv_bfloat162*>(ob + row_b * q_row + 8 * jj) =
-            __floats2bfloat162_rn(o[4 * jj + 2] / den_b, o[4 * jj + 3] / den_b);
-    }
+    for (int oh = 0; oh < C::kHalves; ++oh)
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int col = 128 * oh + 8 * jj;
+        if (row_a < p.T)
+          *reinterpret_cast<__nv_bfloat162*>(ob + row_a * q_row + col) =
+              __floats2bfloat162_rn(o[oh][4 * jj] / den_a, o[oh][4 * jj + 1] / den_a);
+        if (row_b < p.T)
+          *reinterpret_cast<__nv_bfloat162*>(ob + row_b * q_row + col) =
+              __floats2bfloat162_rn(o[oh][4 * jj + 2] / den_b, o[oh][4 * jj + 3] / den_b);
+      }
   }
 }
 
@@ -441,14 +517,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (B, rows, heads, 128) bf16, boxes of (64 columns, 1 head, 128 rows, 1).
+// (B, rows, heads, hd) bf16, boxes of (64 columns, 1 head, box_rows rows, 1).
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int rows, int heads,
-            int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kHD, (cuuint64_t)heads, (cuuint64_t)rows,
+            int hd, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)kHD * 2, (cuuint64_t)heads * kHD * 2,
-                                 (cuuint64_t)rows * heads * kHD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kHalf, 1, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)rows * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPiece, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -456,38 +532,55 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int ro
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
-
-// bf16 q (B, T, H, 128), k/v (B, S, KV, 128), o like q, all contiguous and
-// 16-byte aligned; classes: int8 (ceil(T/128), ceil(S/128)) on the device,
-// from tile_classes(kq=128, kk=128). window < 0 means no window. The
-// wrapper checks shapes, dtypes and the tile contract before the call.
-extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
-                                          const void* classes, int B, int T, int S, int H,
-                                          int KV, int hd, float scale, int causal, int window,
-                                          int prefix, int bq, int bk, void* stream) {
-  if (hd != kHD || B <= 0 || T <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || bq <= 0 ||
-      bk <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int nqt = (T + kBQ - 1) / kBQ, nkt = (S + kBK - 1) / kBK;
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, const void* classes, int B,
+           int T, int S, int H, int KV, float scale, int causal, int window, int prefix, int bq,
+           int bk, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const int nqt = (T + kBQ - 1) / kBQ, nkt = (S + C::kBK - 1) / C::kBK;
   if (nqt > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!encode(fn, &tq, q, B, T, H, kBQ) || !encode(fn, &tk, k, B, S, KV, kBK) ||
-      !encode(fn, &tv, v, B, S, KV, kBK))
+  if (!encode(fn, &tq, q, B, T, H, HD, kBQ) || !encode(fn, &tk, k, B, S, KV, HD, C::kBK) ||
+      !encode(fn, &tv, v, B, S, KV, HD, C::kBK))
     return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
+  static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+        flash_fwd_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   Params p{static_cast<__nv_bfloat16*>(o), static_cast<const int8_t*>(classes), T, S, H, KV,
            nqt, nkt, scale, causal, window >= 0 ? 1 : 0, window, prefix, bq, bk};
   const dim3 grid(H, nqt, B);
-  flash_fwd_sm90<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(tq, tk, tv,
-                                                                                    p);
+  flash_fwd_sm90<HD><<<grid, kThreads, C::kSmemBytes, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 q (B, T, H, hd), k/v (B, S, KV, hd) with hd 128 or 256, o like q,
+// all contiguous and 16-byte aligned; classes: int8 (ceil(T/128),
+// ceil(S/BK)) on the device, from tile_classes(kq=128, kk=BK), BK = 128 at
+// width 128 and 64 at 256. window < 0 means no window. The wrapper checks
+// shapes, dtypes and the tile contract before the call.
+extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
+                                          const void* classes, int B, int T, int S, int H,
+                                          int KV, int hd, float scale, int causal, int window,
+                                          int prefix, int bq, int bk, void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || bq <= 0 || bk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 128:
+      return launch<128>(q, k, v, o, classes, B, T, S, H, KV, scale, causal, window, prefix, bq,
+                         bk, st);
+    case 256:
+      return launch<256>(q, k, v, o, classes, B, T, S, H, KV, scale, causal, window, prefix, bq,
+                         bk, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

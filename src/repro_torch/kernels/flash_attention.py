@@ -3,10 +3,11 @@
 Replaces the reference's Pallas ``flash_attention``
 (``src/repro/kernels/flash_attention.py:102``) with two hand-written
 kernels, each with its design note in its source: ``csrc/flash_attention_sm90.cu``
-(bf16 ``wgmma`` and TMA, head width 128) and ``csrc/flash_attention.cu`` (f32
-FMAs on CUDA cores, f32 or bf16, head widths 16 to 128 and 256). :func:`kernel_route`
-picks one by dtype and head width alone. Same signature as the reference's
-``kernels/ops.py::flash_attention``: q ``(B, T, H, hd)``, k/v
+(bf16 ``wgmma`` and TMA, head widths 128 and 256, one instantiation each) and
+``csrc/flash_attention.cu`` (f32 FMAs on CUDA cores, f32 or bf16, head widths
+16 to 128 and 256: the route of f32 and of widths 16 to 64).
+:func:`kernel_route` picks one by dtype and head width alone. Same signature
+as the reference's ``kernels/ops.py::flash_attention``: q ``(B, T, H, hd)``, k/v
 ``(B, S, KV, hd)`` with ``H % KV == 0``, causal / sliding-window /
 prefix-LM masks, output ``(B, T, H, hd)`` in q's dtype. The caller's
 ``(bq, bk)`` tiles decide which (query, key) pairs are processed: a tile
@@ -33,8 +34,10 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd", "flash_sm90"
 NEG_INF = -1e30  # the reference's mask value; the running max starts here too
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the CUDA-core kernel's
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
-SM90_HEAD_DIMS = (128,)
-SM90_TILE = (128, 128)  # the sm90 kernel's own (query rows, keys) per tile
+# the sm90 kernel's own (query rows, keys) per tile, by head width: 64-key
+# tiles at 256 leave registers for O's 64 x 256 f32 accumulator
+SM90_TILES = {128: (128, 128), 256: (128, 64)}
+SM90_HEAD_DIMS = tuple(SM90_TILES)
 
 
 def _tiles(q, k, v, bq: int, bk: int, window: Optional[int]) -> tuple[int, int]:
@@ -89,8 +92,8 @@ def _mask(i: torch.Tensor, j: torch.Tensor, causal: bool, window: Optional[int],
 
 @functools.lru_cache(maxsize=64)
 def tile_classes(T: int, S: int, *, causal: bool = True, window: Optional[int] = None,
-                 prefix: int = 0, bq: int = 128, bk: int = 128, kq: int = SM90_TILE[0],
-                 kk: int = SM90_TILE[1]) -> torch.Tensor:
+                 prefix: int = 0, bq: int = 128, bk: int = 128, kq: int,
+                 kk: int) -> torch.Tensor:
     """int8 ``(ceil(T/kq), ceil(S/kk))``: the class of each (kq x kk) tile of
     a kernel over the caller's (bq, bk) tiles (which must divide T and S).
     0: no pair of the tile lies in a caller tile that the reference keeps
@@ -120,10 +123,11 @@ def tile_classes(T: int, S: int, *, causal: bool = True, window: Optional[int] =
 
 @functools.lru_cache(maxsize=64)
 def _classes_on(device: torch.device, T: int, S: int, causal: bool, window: Optional[int],
-                prefix: int, bq: int, bk: int) -> torch.Tensor:
-    """The sm90 kernel's tile classes, copied to ``device`` once per shape."""
-    return tile_classes(T, S, causal=causal, window=window, prefix=prefix, bq=bq,
-                        bk=bk).to(device)
+                prefix: int, bq: int, bk: int, kq: int, kk: int) -> torch.Tensor:
+    """The sm90 kernel's tile classes at its (kq, kk) tile, copied to
+    ``device`` once per shape."""
+    return tile_classes(T, S, causal=causal, window=window, prefix=prefix, bq=bq, bk=bk,
+                        kq=kq, kk=kk).to(device)
 
 
 def attention_flops(T: int, S: int, H: int, hd: int, B: int = 1, *, causal: bool = True,
@@ -245,13 +249,13 @@ def flash_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
                window: Optional[int] = None, prefix: int = 0, bq: int = 128,
                bk: int = 128) -> torch.Tensor:
     """The Hopper kernel (``csrc/flash_attention_sm90.cu``): bf16, head
-    width 128, q, k and v 16-byte aligned (TMA's rule)."""
+    widths 128 and 256, q, k and v 16-byte aligned (TMA's rule)."""
     bq, bk = _checked(q, k, v, bq, bk, window, (torch.bfloat16,), SM90_HEAD_DIMS,
                       "flash_attention_sm90")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_sm90 needs 16-byte aligned q, k and v")
     classes = _classes_on(q.device, q.shape[1], k.shape[1], bool(causal), window, int(prefix),
-                          bq, bk)
+                          bq, bk, *SM90_TILES[q.shape[3]])
     fn = _build.load("flash_attention_sm90").repro_flash_attention_sm90
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] + \
         [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -19,7 +19,8 @@ from repro_torch.kernels import flash_attention as fa
 torch.set_num_threads(1)
 
 # B, T, S, H, KV, hd, causal, window, prefix, bq, bk: the reference's cases
-# (tests/test_kernels.py), then tile skipping, partial tiles, head width 128
+# (tests/test_kernels.py), then tile skipping, partial tiles, head widths 128
+# and 256
 CASES = [
     (2, 128, 128, 4, 2, 32, True, None, 0, 64, 64),
     (1, 256, 256, 4, 1, 64, True, 64, 0, 64, 64),
@@ -34,10 +35,30 @@ CASES = [
     (1, 256, 256, 2, 2, 128, False, 0, 0, 64, 64),     # window 0: the last row has no key
     (1, 128, 128, 2, 1, 128, True, 0, 0, 32, 32),      # causal window 0: no row has a key
     (1, 320, 192, 2, 1, 128, True, None, 160, 64, 64),  # a prefix longer than bq, T != S
+    # head width 256, 64-key kernel tiles: a skipped prefix tile, partial row
+    # and key tiles, a window with a prefix, paligemma's tiles over its prefix
+    (1, 128, 128, 2, 1, 256, True, None, 96, 32, 32),
+    (1, 80, 80, 2, 1, 256, True, None, 0, 16, 16),
+    (1, 96, 96, 4, 2, 256, True, 40, 0, 32, 32),
+    (1, 384, 384, 2, 1, 256, True, 100, 48, 64, 32),
+    (1, 512, 512, 4, 1, 256, True, None, 256, 256, 128),
 ]
-# the serving path: a gemma3-27b layer's prefill at 4096 tokens, caller tiles
-# 128 x 128: (T, S, window, caller tiles kept)
-PATH = [(4096, 4096, None, 528), (4096, 4096, 1024, 252)]
+# the serving paths at 4096 positions: a gemma3-27b layer's prefill (caller
+# tiles 128 x 128, the kernel's own) and a paligemma-3b layer's (the prefix of
+# 256 under caller tiles 256 x 128, kernel tiles 128 x 64):
+# (hd, window, prefix, bq, bk, kernel tiles kept, kernel tiles of class 2)
+PATH = [
+    (128, None, 0, 128, 128, 528, 32),
+    (128, 1024, 0, 128, 128, 252, 32 + 24),  # the diagonal and the window's far edge
+    # Caller tile (a, b) is kept when 128 b <= 256 a + 255: b <= 2a + 1. Kernel
+    # q-tile A lies in caller tile A // 2 and k-tile K in K // 2, so A loads
+    # K <= 4 (A // 2) + 3: 4 (A // 2) + 4 tiles, 2 x (4 + 8 + ... + 64) = 1088
+    # over A < 32. A loaded tile is class 1 when every key is a prefix key
+    # (K <= 3) or at most the tile's first row (64 K + 63 <= 128 A: K <= 2A - 1).
+    # Class 2: none at A = 0, 1; from A = 2 on, 4 (keys 4 (A // 2) .. +3) at
+    # an even A and 2 at an odd one: 15 x 4 + 15 x 2 = 90.
+    (256, None, 256, 256, 128, 1088, 90),
+]
 LIMIT_REL, LIMIT_ABS = 2.0**-8, 1e-5  # chip_smoke.py's bf16 limit: one bf16 rounding
 
 
@@ -53,10 +74,16 @@ def _kept_pairs(T, S, causal, window, prefix, bq, bk) -> torch.Tensor:
     return rel.repeat_interleave(bq, 0).repeat_interleave(bk, 1)
 
 
-def _per_tile(x: torch.Tensor, fill: bool, reduce) -> torch.Tensor:
+def _tile(hd: int) -> tuple[int, int]:
+    """The sm90 kernel's tile at this head width (widths it does not take:
+    width 128's, the tile the table is checked at)."""
+    return fa.SM90_TILES.get(hd, fa.SM90_TILES[128])
+
+
+def _per_tile(x: torch.Tensor, tile, fill: bool, reduce) -> torch.Tensor:
     """(T, S) booleans reduced over the sm90 kernel's tiles, padded with
     ``fill`` to whole tiles."""
-    kq, kk = fa.SM90_TILE
+    kq, kk = tile
     T, S = x.shape
     nqt, nkt = -(-T // kq), -(-S // kk)
     pad = torch.full((nqt * kq, nkt * kk), fill)
@@ -64,34 +91,35 @@ def _per_tile(x: torch.Tensor, fill: bool, reduce) -> torch.Tensor:
     return reduce(reduce(pad.view(nqt, kq, nkt, kk), 3), 1)
 
 
-def _classes_hold(T, S, causal, window, prefix, bq, bk) -> torch.Tensor:
-    cls = fa.tile_classes(T, S, causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
+def _classes_hold(T, S, causal, window, prefix, bq, bk, tile) -> torch.Tensor:
+    kq, kk = tile
+    cls = fa.tile_classes(T, S, causal=causal, window=window, prefix=prefix, bq=bq, bk=bk,
+                          kq=kq, kk=kk)
     kept = _kept_pairs(T, S, causal, window, prefix, bq, bk)
     allowed = kept & fa._mask(torch.arange(T), torch.arange(S), causal, window, prefix)
     # a tile is loaded exactly when it holds a pair that the reference processes
-    assert torch.equal(cls > 0, _per_tile(kept, False, lambda t, d: t.any(d)))
+    assert torch.equal(cls > 0, _per_tile(kept, tile, False, lambda t, d: t.any(d)))
     # class 1 exactly where every pair is kept and allowed (rows past T are
     # never written; a key past S is never allowed)
-    full = torch.zeros((cls.shape[0] * fa.SM90_TILE[0], cls.shape[1] * fa.SM90_TILE[1]),
-                       dtype=torch.bool)
+    full = torch.zeros((cls.shape[0] * kq, cls.shape[1] * kk), dtype=torch.bool)
     full[T:] = True
     full[:T, :S] = allowed
-    assert torch.equal(cls == 1, _per_tile(full, True, lambda t, d: t.all(d)))
+    assert torch.equal(cls == 1, _per_tile(full, tile, True, lambda t, d: t.all(d)))
     return cls
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_tile_classes_cover_the_processed_pairs(case):
     causal, window, prefix, bq, bk = case[6:]
-    _classes_hold(case[1], case[2], causal, window, prefix, min(bq, case[1]), min(bk, case[2]))
+    _classes_hold(case[1], case[2], causal, window, prefix, min(bq, case[1]), min(bk, case[2]),
+                  _tile(case[5]))
 
 
-@pytest.mark.parametrize("T, S, window, tiles", PATH)
-def test_tile_classes_at_the_serving_path(T, S, window, tiles):
-    cls = _classes_hold(T, S, True, window, 0, 128, 128)
-    assert int((cls > 0).sum()) == tiles  # the kernel tiles are the caller tiles
-    # the diagonal (and the window's far edge) take the element path
-    assert int((cls == 2).sum()) == (32 if window is None else 32 + 24)
+@pytest.mark.parametrize("hd, window, prefix, bq, bk, tiles, element", PATH)
+def test_tile_classes_at_the_serving_path(hd, window, prefix, bq, bk, tiles, element):
+    cls = _classes_hold(4096, 4096, True, window, prefix, bq, bk, fa.SM90_TILES[hd])
+    assert int((cls > 0).sum()) == tiles
+    assert int((cls == 2).sum()) == element
 
 
 def test_route_picks_the_kernel_by_dtype_and_head_width(monkeypatch):
@@ -100,7 +128,8 @@ def test_route_picks_the_kernel_by_dtype_and_head_width(monkeypatch):
     want = {(torch.bfloat16, 128): "flash_attention_sm90", (torch.float32, 128): "flash_attention",
             (torch.bfloat16, 64): "flash_attention", (torch.bfloat16, 32): "flash_attention",
             (torch.float32, 16): "flash_attention", (torch.float16, 128): "flash_attention",
-            (torch.bfloat16, 256): "flash_attention", (torch.float32, 256): "flash_attention"}
+            (torch.bfloat16, 256): "flash_attention_sm90", (torch.float32, 256): "flash_attention",
+            (torch.float16, 256): "flash_attention"}
     calls = []
     monkeypatch.setattr(fa, "flash_sm90", lambda *a, **k: calls.append("flash_attention_sm90"))
     monkeypatch.setattr(fa, "flash_fwd", lambda *a, **k: calls.append("flash_attention"))
@@ -122,17 +151,19 @@ def test_route_picks_the_kernel_by_dtype_and_head_width(monkeypatch):
 
 def _emulate_sm90(q, k, v, *, causal=True, window=None, prefix=0, bq=128, bk=128,
                   p_terms="two"):
-    """The sm90 kernel's arithmetic on the CPU: its (128 x 128) tiles walked
-    with tile_classes, S = q k^T in f32 with the scale after the dot, class 1
-    unmasked, class 2 with the reference's element rule (-inf outside a kept
-    caller tile and past S, -1e30 where masked), the online softmax with the
-    row sum from the f32 p, then P V with p as ``two`` bf16 terms (the
-    kernel), one bf16 term, or f32; the output rounded to q's dtype."""
+    """The sm90 kernel's arithmetic on the CPU: its tiles at this head width
+    (128 x 128, or 128 x 64 at width 256) walked with tile_classes, S = q k^T
+    in f32 with the scale after the dot, class 1 unmasked, class 2 with the
+    reference's element rule (-inf outside a kept caller tile and past S,
+    -1e30 where masked), the online softmax with the row sum from the f32 p,
+    then P V with p as ``two`` bf16 terms (the kernel), one bf16 term, or
+    f32; the output rounded to q's dtype."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    G, (kq, kk) = H // KV, fa.SM90_TILE
+    G, (kq, kk) = H // KV, _tile(hd)
     bq, bk = min(bq, T), min(bk, S)
-    cls = fa.tile_classes(T, S, causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
+    cls = fa.tile_classes(T, S, causal=causal, window=window, prefix=prefix, bq=bq, bk=bk,
+                          kq=kq, kk=kk)
     kept = _kept_pairs(T, S, causal, window, prefix, bq, bk)
     allowed = fa._mask(torch.arange(T), torch.arange(S), causal, window, prefix)
     qf = q.float().reshape(B, T, KV, G, hd).permute(0, 2, 3, 1, 4)   # B KV G T hd
@@ -191,14 +222,16 @@ def test_emulated_kernel_processes_the_plain_versions_pairs(case):
 
 
 def test_emulated_kernel_matches_reference_kernel():
-    """One head-width-128 case straight against the reference's Pallas
-    kernel (interpret mode), at the reference test's f32 tolerance."""
-    B, T, S, H, KV, hd, causal, window, prefix, bq, bk = CASES[9]
-    kw = dict(causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
-    q, k, v = _inputs((B, T, H, hd), (B, S, KV, hd), 9, torch.float32)
-    want = ops.flash_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)), **kw)
-    np.testing.assert_allclose(_emulate_sm90(q, k, v, p_terms="f32", **kw).numpy(),
-                               np.asarray(want), rtol=2e-4, atol=2e-4)
+    """One case at each of the kernel's head widths (128 x 128 tiles, then
+    128 x 64 at width 256) straight against the reference's Pallas kernel
+    (interpret mode), at the reference test's f32 tolerance."""
+    for i in (9, 16):
+        B, T, S, H, KV, hd, causal, window, prefix, bq, bk = CASES[i]
+        kw = dict(causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
+        q, k, v = _inputs((B, T, H, hd), (B, S, KV, hd), i, torch.float32)
+        want = ops.flash_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)), **kw)
+        np.testing.assert_allclose(_emulate_sm90(q, k, v, p_terms="f32", **kw).numpy(),
+                                   np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -168,17 +168,20 @@ def _flash_inputs(case, dt, seed):
     (1, 80, 80, 2, 2, 16, False, 24, 0, 16, 16),
     (2, 384, 384, 4, 2, 128, True, 100, 48, 64, 32),
     (1, 256, 256, 2, 2, 128, False, 0, 0, 64, 64),
-    # head width 256 (the CUDA-core kernel's; the sm90 kernel refuses it): a
-    # skipped prefix tile, partial row and key tiles, a window with a prefix
+    # head width 256 (both kernels; the sm90 one on 64-key tiles): a skipped
+    # prefix tile, partial row and key tiles, a window with a prefix,
+    # paligemma's caller tiles over its prefix
     (1, 128, 128, 2, 1, 256, True, None, 96, 32, 32),
     (1, 80, 80, 2, 1, 256, True, None, 0, 16, 16),
     (1, 384, 384, 2, 1, 256, True, 100, 48, 64, 32),
+    (1, 512, 512, 4, 1, 256, True, None, 256, 256, 128),
 ])
 def test_flash_attention_matches_plain(kernel, dt, case):
     """Each kernel: one launch per call on its own counter, and within the
     tolerances of the plain version's f32 result (the kernels sum in another
     order): f32 as the reference's test, 2e-4; bf16 within one bf16
-    rounding, 2^-8 |plain| + 1e-5."""
+    rounding, 2^-8 |plain| + 1e-5. The sm90 kernel takes widths 128 and 256
+    and refuses 16-64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch import kernels
@@ -233,9 +236,10 @@ def test_flash_sm90_at_the_serving_path_shape(window):
 def test_flash_fwd_at_the_vlm_path_shape(dt):
     """A paligemma-3b layer's prefill at 4096 positions (phase 4d of
     chip_smoke.py): q (1, 4096, 8, 256), k/v (1, 4096, 1, 256), the prefix
-    of 256 under query tiles of 256. The route is the CUDA-core kernel in
-    both dtypes; f32 within 2e-4 of the plain version, bf16 within one bf16
-    rounding of its f32 result."""
+    of 256 under query tiles of 256. The route is the sm90 kernel in bf16
+    (within one bf16 rounding of the plain version's f32 result) and the
+    CUDA-core kernel in f32 (within 2e-4). A bf16 call on a misaligned or a
+    non-contiguous tensor raises and launches nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch import kernels
@@ -246,14 +250,23 @@ def test_flash_fwd_at_the_vlm_path_shape(dt):
     kernels.reset_launch_counts()
     got = fa.flash_attention(q, k, v, **kw)
     counts = kernels.launch_counts()
-    assert counts["flash_attention"] == 1 and counts["flash_attention_sm90"] == 0
+    route = "flash_attention_sm90" if dt == torch.bfloat16 else "flash_attention"
+    want_counts = {"flash_attention_sm90": 0, "flash_attention": 0, route: 1}
+    assert {n: counts[n] for n in want_counts} == want_counts
+    assert fa.kernel_route(dt, 256) == route
     want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     if dt == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    else:
-        assert float(((got.float() - want).abs() / (2**-8 * want.abs() + 1e-5)).max()) <= 1.0
-    with pytest.raises(ValueError, match="head widths"):
-        fa.flash_sm90(q.bfloat16(), k.bfloat16(), v.bfloat16(), **kw)
+        return
+    assert float(((got.float() - want).abs() / (2**-8 * want.abs() + 1e-5)).max()) <= 1.0
+    misaligned = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")[1:1 + q.numel()]
+    misaligned = misaligned.view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(misaligned, k, v, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, **kw)
+    after = kernels.launch_counts()
+    assert after["flash_attention_sm90"] == 1 and after["flash_attention"] == 0, after
 
 
 @pytest.mark.gpu
