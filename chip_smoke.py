@@ -14,10 +14,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and a one-call PyTorch yardstick where one exists: the merge and the copy
    at the serving path's shapes, the quantize pair at the training path's
    hop shape, the merge again at the training path's rounds, and both
-   in-kernel replays, the device-initiated one (rank groups, point-to-point
-   flags) and the shared-buffer one (grid barrier), against each other and
-   the numpy simulator, at small shapes over every builder and at the path
-   shapes, beside the compiled executor's replay of the same plan; both
+   in-kernel replays, the device-initiated one (rank groups sized by the
+   rows each rank moves, direct puts, point-to-point flags) and the
+   shared-buffer one (grid barrier), against each other and the numpy
+   simulator, at small shapes over every builder (every source/destination
+   misalignment mod 16 bytes on a direct put) and at the six path plans,
+   beside the compiled executor's replay of the same plan; both
    flash attention kernels, the CUDA-core
    one (head widths 16-128 and 256) and the sm90 one (bf16 wgmma + TMA,
    head widths 128 and 256, which must refuse widths 16-64), which sum in
@@ -537,15 +539,18 @@ def _sim_check(torch, replay, low, x, cols) -> None:
         assert (got[r] == want[r]).all(), (low.name, r, "kernel differs from simulate_lowered")
 
 
-def rdma_groups(dtype_code: int, vec: int, n: int) -> int:
-    """Blocks in each rank's group of the device-initiated replay's grid."""
-    import ctypes
-
-    from repro_torch.kernels import _build
-
-    lib = _build.load("inkernel_rdma")
-    lib.repro_inkernel_rdma_group.argtypes = [ctypes.c_int] * 3
-    return lib.repro_inkernel_rdma_group(dtype_code, vec, n)
+# the device-initiated replay's plans at the training embedding bucket:
+# (label, op, algo) of the serving chain of phase 4, phase 4b's analytic
+# bucket plan, the training plan (its line in the kernels JSON) and phase
+# 7's other in-kernel entry points
+RDMA_PATH_PLANS = (
+    ("serving chain (phase 4)", "bcast", "pipelined_chain"),
+    ("serving analytic (phase 4b)", "bcast", "auto"),
+    ("training fused_rsb (phase 6)", "allreduce", "auto"),
+    ("pallgather (phase 7)", "allgather", "auto"),
+    ("preduce_scatter (phase 7)", "reduce_scatter", "auto"),
+    ("preduce (phase 7)", "reduce", "auto"),
+)
 
 
 def check_inkernel(torch) -> list[dict]:
@@ -553,12 +558,17 @@ def check_inkernel(torch) -> list[dict]:
     what ``execute_inkernel`` runs) and the shared-buffer one
     (``inkernel_replay_shared``), bit for bit against their plain versions,
     each other and the numpy simulator: every builder at n in {2, 3, 4, 8},
-    K in {1, 4, 5}, widths 37 (element path) and 64 (vector path), bf16 and
-    f32, with -0.0 and NaN in kept rows, and the swap schedules; then at the
-    path shapes (the serving chain of phase 4, phase 4b's analytic plan and
-    the training fused_rsb plan on the embedding bucket), timed beside each
-    other and the compiled executor's replay of the same plan. The training
-    plan is each kernel's line in the kernels JSON."""
+    K in {1, 4, 5}, widths 3 (spans shorter than a vector), 37 (under which
+    the DIRECT spans take every source-against-destination offset mod 16
+    bytes, asserted), 64 (aligned) and 1029 (many vectors a warp), bf16 and
+    f32, with -0.0 and NaN in kept rows, and the swap schedules (STAGED
+    class-rounds); then at the path shapes (:data:`RDMA_PATH_PLANS` on the
+    embedding bucket), timed beside each other and the compiled executor's
+    replay of the same plan, with the device-initiated replay's rank groups
+    (timed also at equal groups), the bytes one launch allocates beyond its
+    flag words (the landing slot, read from the allocator's counters and
+    asserted 0) and DIRECT/STAGED class-rounds. The training plan is
+    each kernel's line in the kernels JSON."""
     import ctypes
 
     from repro_torch.comm import plan_cached
@@ -574,10 +584,11 @@ def check_inkernel(torch) -> list[dict]:
     grids = {f"{d}/{'vec' if v else 'elem'}": lib.repro_inkernel_grid(code, v)
              for d, code in (("f32", 0), ("bf16", 1)) for v in (1, 0)}
     log(f"kernel inkernel_replay: cooperative grids (blocks of 256) {grids}")
-    groups = {f"{d}/{'vec' if v else 'elem'}": {n: rdma_groups(code, v, n) for n in (2, 3, 4, 8)}
-              for d, code in (("f32", 0), ("bf16", 1)) for v in (1, 0)}
-    log(f"kernel inkernel_rdma: blocks per rank group (blocks of 256) by n {groups}")
+    resident = {d: ik._resident(dt) for d, dt in (("f32", torch.float32),
+                                                   ("bf16", torch.bfloat16))}
+    log(f"kernel inkernel_rdma: resident blocks of 256 (the groups' sum) {resident}")
     cases = staged = marked = 0
+    shifts = {2: set(), 4: set()}
     for n in (2, 3, 4, 8):
         for K in (1, 4, 5):
             for sched in _small_schedules(n, K):
@@ -585,7 +596,9 @@ def check_inkernel(torch) -> list[dict]:
                 tables = pack_tables(low)
                 staged += int((ik.round_modes(tables) == ik.STAGED).sum())
                 for dt in (torch.bfloat16, torch.float32):
-                    for cols in (37, 64):
+                    for cols in (3, 37, 64, 1029):
+                        es = 2 if dt == torch.bfloat16 else 4
+                        shifts[es] |= ik._direct_shifts(tables, cols, es)
                         shape = (n, low.num_chunks, cols)
                         buf = torch.randn(shape, generator=gen, device="cuda").to(dt)
                         marked += _mark_kept_rows(torch, buf, tables)
@@ -603,16 +616,17 @@ def check_inkernel(torch) -> list[dict]:
                             _sim_check(torch, replay, low, ints, list(range(cols)))
                         cases += 1
     assert staged > 0, "no small case exercised the staged path"
+    for es, seen in shifts.items():
+        assert seen == set(range(16 // es)), ("a misalignment no DIRECT span took", es, seen)
     log(f"kernel inkernel_replay, inkernel_rdma: {cases} small cases each bit-equal to its "
         f"plain version, to the other kernel and to simulate_lowered ({staged} staged "
-        f"class-rounds, {marked} kept rows marked)")
+        f"class-rounds, {marked} kept rows marked; DIRECT spans at every source/destination "
+        f"offset mod 16 bytes: bf16 {sorted(shifts[2])}, f32 {sorted(shifts[4])})")
 
     cfg = get_config("minitron-8b")
     N = cfg.padded_vocab * cfg.d_model
     out = []
-    for label, op, algo in (("serving chain (phase 4)", "bcast", "pipelined_chain"),
-                            ("serving analytic (phase 4b)", "bcast", "auto"),
-                            ("training fused_rsb (phase 6)", "allreduce", "auto")):
+    for label, op, algo in RDMA_PATH_PLANS:
         plan = plan_cached(op, N * 2, RANKS, algo=algo)
         low = plan.lowered()
         tables = pack_tables(low)
@@ -635,35 +649,64 @@ def check_inkernel(torch) -> list[dict]:
         torch.cuda.synchronize()
         assert same_bits(torch, k, c), f"inkernel_replay {label} differs from execute_compiled"
         del c, buf
+        # the rank groups as sized (rdma_replay) against equal groups, as the
+        # kernel had them before they were sized by the rows each rank moves
+        dev_tab = ik._rdma_device_tables(tables, k.device)
+        even = (resident["bf16"] // RANKS,) * RANKS
         ms = time_ms(torch, lambda: ik.inkernel_replay_shared(low, k), reps=5, warmup=1)
         rdma_ms = time_ms(torch, lambda: ik.rdma_replay(low, k), reps=5, warmup=1)
+        even_ms = time_ms(torch, lambda: ik.rdma_launch(k, tables, dev_tab, even),
+                          reps=5, warmup=1)
+        even_ms2 = time_ms(torch, lambda: ik.rdma_launch(k, tables, dev_tab, even),
+                           reps=5, warmup=1)
         rdma_ms2 = time_ms(torch, lambda: ik.rdma_replay(low, k), reps=5, warmup=1)
         ms2 = time_ms(torch, lambda: ik.inkernel_replay_shared(low, k), reps=5, warmup=1)
         compiled_ms = time_ms(torch, lambda: execute_compiled(low, k), reps=3, warmup=1)
         plain_ms = time_ms(torch, lambda: ik.inkernel_replay_shared_plain(low, k),
                            reps=2, warmup=1)
         rdma_plain_ms = time_ms(torch, lambda: ik.rdma_replay_plain(low, k), reps=2, warmup=1)
+        # the same plan at a width of 8: the flags, barriers and launch alone
+        tiny = torch.zeros((RANKS, K, 8), device="cuda", dtype=torch.bfloat16)
+        proto_ms = time_ms(torch, lambda: ik.rdma_replay(low, tiny), reps=5, warmup=1)
+        shared_proto_ms = time_ms(torch, lambda: ik.inkernel_replay_shared(low, tiny),
+                                  reps=5, warmup=1)
+        del tiny
+        # what one launch allocates beyond its flag words: the landing slot
+        torch.cuda.synchronize()
+        stat = "allocated_bytes.all.allocated"
+        before = torch.cuda.memory_stats()[stat]
+        torch.empty((RANKS, ik._flag_words(RANKS)), dtype=torch.int32, device="cuda")
+        flag_bytes = torch.cuda.memory_stats()[stat] - before
+        before = torch.cuda.memory_stats()[stat]
+        ik.rdma_replay(low, k)
+        torch.cuda.synchronize()
+        land_bytes = torch.cuda.memory_stats()[stat] - before - flag_bytes
+        assert land_bytes == 0, f"{label}: a launch allocates {land_bytes} bytes of slot"
         for replay in (ik.inkernel_replay_shared, ik.rdma_replay):
             k.random_(-4, 5, generator=gen)
             _sim_check(torch, replay, low, k, list(range(64)) + list(range(C - 64, C)))
-        del k
+        del k, dev_tab
         torch.cuda.empty_cache()
         moved = ik.replay_bytes(tables, C, 2)
         bound = moved / HBM_BYTES_PER_S * 1e3
         modes = ik.round_modes(tables)
         ran, stage = int((modes != ik.SKIP).sum()), int((modes == ik.STAGED).sum())
         waits = int((ik.rdma_wait_targets(tables) > 0).sum())
+        groups = list(ik.rdma_groups(tables, resident["bf16"]))
         log(f"kernel inkernel_replay {label}: {plan.algo}, ({RANKS}, {K}, {C}) bf16, "
             f"{low.num_rounds} rounds x {low.num_classes} classes ({ran} class-rounds, "
             f"{stage} staged, {ran - 1 + stage} grid barriers), {kept} kept rows marked: "
             f"bit-equal to plain, to execute_compiled and (64 + 64 columns) to "
             f"simulate_lowered; {ms:.4f} ms / {ms2:.4f} ms (bound {bound:.4f} ms for "
             f"{moved / 1e9:.3f} GB, compiled {compiled_ms:.4f} ms, plain {plain_ms:.4f} ms)")
-        log(f"kernel inkernel_rdma {label}: {RANKS} rank groups, {waits} flag waits: "
-            f"bit-equal to its plain version, to inkernel_replay and (64 + 64 columns) to "
-            f"simulate_lowered; {rdma_ms:.4f} ms / {rdma_ms2:.4f} ms (bound {bound:.4f} ms, "
-            f"shared {ms:.4f} / {ms2:.4f} ms, compiled {compiled_ms:.4f} ms, plain "
-            f"{rdma_plain_ms:.4f} ms)")
+        log(f"kernel inkernel_rdma {label}: {plan.algo} K={K}, rank groups {groups} "
+            f"blocks (units {ik._rank_units(tables).tolist()}), {ran - stage} DIRECT / "
+            f"{stage} STAGED class-rounds, landing slot {land_bytes} bytes, {waits} flag "
+            f"waits: bit-equal to its plain version, to inkernel_replay and (64 + 64 "
+            f"columns) to simulate_lowered; {rdma_ms:.4f} ms / {rdma_ms2:.4f} ms (bound "
+            f"{bound:.4f} ms, {bound / min(rdma_ms, rdma_ms2):.1%} of it; shared {ms:.4f} / "
+            f"{ms2:.4f} ms, compiled {compiled_ms:.4f} ms, plain {rdma_plain_ms:.4f} ms; "
+            f"equal groups {list(even)} {even_ms:.4f} / {even_ms2:.4f} ms); at width 8 (the protocol alone) {proto_ms:.4f} ms, shared {shared_proto_ms:.4f} ms")
         if op == "allreduce":
             common = {"route": "cuda", "max_abs_err": err, "bound_ms": bound,
                       "bound_by": "bytes", "library_ms": None, "compiled_ms": compiled_ms,
@@ -677,7 +720,8 @@ def check_inkernel(torch) -> list[dict]:
                         "source": "src/repro_torch/kernels/csrc/inkernel_rdma.cu",
                         "replaces": "src/repro/kernels/inkernel_collective.py:246",
                         "ms": rdma_ms, "plain_ms": rdma_plain_ms, "shared_ms": ms,
-                        "groups": groups["bf16/vec"][RANKS], **common})
+                        "groups": groups, "land_bytes": land_bytes,
+                        "even_groups_ms": min(even_ms, even_ms2), **common})
     return out
 
 

@@ -23,10 +23,13 @@ the kernel or raises. bf16 and float32 only.
 device-initiated replay instead (:func:`rdma_replay`, the reference's
 ``_rdma_replay``, ``:246``): one group of thread blocks per rank, which
 reaches the other ranks only through a per-rank pointer table (their
-landing slots and flag words) and synchronizes with its partners through
-point-to-point flags, never through a grid-wide barrier. The kernel and its
+windows, landing slots and flag words) and synchronizes with its partners
+through point-to-point flags, never through a grid-wide barrier. On a
+DIRECT class-round the source writes straight into the destination's
+window; only STAGED ones go through a landing slot. The kernel and its
 design note are in ``csrc/inkernel_rdma.cu``; the flag values every wait
-needs are computed here (:func:`rdma_wait_targets`).
+needs (:func:`rdma_wait_targets`) and the size of each rank's group
+(:func:`rdma_groups`) are computed here.
 """
 from __future__ import annotations
 
@@ -39,9 +42,9 @@ import torch
 from ..core.schedules import KernelTables, LoweredSchedule, pack_tables
 from . import _build
 
-__all__ = ["inkernel_replay", "inkernel_replay_shared", "inkernel_replay_shared_plain",
-           "neighbor_tables", "rdma_replay", "rdma_replay_plain", "rdma_wait_targets",
-           "round_modes", "replay_bytes"]
+__all__ = ["inkernel_replay", "inkernel_replay_shared",
+           "inkernel_replay_shared_plain", "neighbor_tables", "rdma_groups", "rdma_replay",
+           "rdma_replay_plain", "rdma_wait_targets", "round_modes", "replay_bytes"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -137,9 +140,7 @@ def _device_tables(tables: KernelTables, device: torch.device):
         npairs, pairs.ravel(), block, tables.send_start.ravel(), tables.recv_start.ravel(),
         tables.lo.ravel(), tables.hi.ravel(), tables.combine.ravel(), modes.ravel(),
     ]).astype(np.int32)
-    staged = (modes == STAGED).any(axis=1)
-    land_rows = int(block[staged].max()) if staged.any() else 0
-    return torch.from_numpy(flat).to(device), land_rows
+    return torch.from_numpy(flat).to(device), _land_rows(tables)
 
 
 def _launch(buf: torch.Tensor, tables: KernelTables) -> None:
@@ -185,7 +186,7 @@ inkernel_replay_shared.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# device-initiated replay: rank groups, landing slots, point-to-point flags
+# device-initiated replay: rank groups, direct puts, point-to-point flags
 # ---------------------------------------------------------------------------
 
 # the largest rank count the kernel's pointer table holds
@@ -195,8 +196,9 @@ MAX_RANKS = 64
 # (``csrc/inkernel_rdma.cu``): the partner this rank puts to and the one it
 # receives from (-1: none this class-round), the put's rows [lo, hi) of the
 # block, its send_start, the merge's rows [lo, hi), its recv_start, the
-# three wait targets of :func:`rdma_wait_targets`, the combine flag
-RDMA_FIELDS = 12
+# three wait targets of :func:`rdma_wait_targets`, the combine flag, the
+# class-round's mode (:func:`round_modes`)
+RDMA_FIELDS = 13
 
 
 def neighbor_tables(tables: KernelTables) -> tuple[np.ndarray, np.ndarray]:
@@ -278,13 +280,74 @@ def rdma_wait_targets(tables: KernelTables) -> np.ndarray:
 
 
 def _land_rows(tables: KernelTables) -> int:
-    """Rows of one rank's landing slot: the largest block of a class that
-    moves rows. One slot per rank serves every class, because a source puts
-    only after its destination has signalled that this class-round's
-    barrier was reached, which it does only after its last merge."""
-    to, _frm = _active_partners(tables)
-    used = [tables.blocks[c] for c in range(tables.num_classes) if (to[c] >= 0).any()]
-    return max(used, default=0)
+    """Rows of one rank's landing slot: the largest block of a class with a
+    STAGED class-round, 0 when none stages (DIRECT puts write straight into
+    the destination's window). One slot per rank serves every class,
+    because a source puts only after its destination has signalled that
+    this class-round's barrier was reached, which it does only after its
+    last merge."""
+    staged = (round_modes(tables) == STAGED).any(axis=1)
+    return max((int(tables.blocks[c]) for c in np.flatnonzero(staged)), default=0)
+
+
+def _rank_units(tables: KernelTables) -> np.ndarray:
+    """int64 ``(n,)``: the row units each rank's group moves, as
+    :func:`replay_bytes` counts them (a row 2, a combine row 3). A DIRECT
+    row counts for its source; on STAGED class-rounds the put (slot write
+    and source read, 2) counts for the source and the merge for the
+    destination."""
+    modes = round_modes(tables)
+    units = np.zeros(tables.n, np.int64)
+    for c in range(tables.num_classes):
+        for s in range(tables.num_rounds):
+            u = 3 if tables.combine[c, s] else 2
+            for src, dst, lo, hi in _windows(tables, c, s):
+                if modes[c, s] == STAGED:
+                    units[src] += 2 * (hi - lo)
+                    units[dst] += u * (hi - lo)
+                else:
+                    units[src] += u * (hi - lo)
+    return units
+
+
+def _direct_shifts(tables: KernelTables, cols: int, element_size: int) -> set[int]:
+    """Source-minus-destination start offsets, in elements mod 16 bytes, of
+    the spans the kernel's DIRECT class-rounds put on a ``(n, K, cols)``
+    buffer whose base is 16-byte aligned: the shifts its funnelled
+    16-byte stores must handle (0 when both ends are aligned alike)."""
+    K, modes, out = tables.num_chunks, round_modes(tables), set()
+    for c in range(tables.num_classes):
+        for s in range(tables.num_rounds):
+            if modes[c, s] == DIRECT:
+                for src, dst, lo, _hi in _windows(tables, c, s):
+                    a = src * K + int(tables.send_start[c, s, src]) + lo
+                    b = dst * K + int(tables.recv_start[c, s, dst]) + lo
+                    out.add((a - b) * cols * element_size % 16 // element_size)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def rdma_groups(tables: KernelTables, resident: int) -> tuple[int, ...]:
+    """Blocks in each rank's group of the kernel's cooperative grid, from
+    the ``resident`` blocks the card holds at once: one block each (every
+    rank signals and waits, even one that moves nothing), the rest shared
+    in proportion to the units each moves (:func:`_rank_units`), the
+    remainders of the shares going to the largest fractions, lowest rank
+    first on ties. Raises when the card holds fewer than ``n`` blocks."""
+    n = tables.n
+    if resident < n:
+        raise RuntimeError(f"inkernel_rdma needs a block per rank: the card holds "
+                           f"{resident} blocks at once, the plan has {n} ranks")
+    units = _rank_units(tables)
+    spare = resident - n
+    if units.sum() == 0:
+        units = np.ones(n, np.int64)
+    share = spare * units / units.sum()
+    sizes = 1 + np.floor(share).astype(np.int64)
+    left = resident - int(sizes.sum())
+    order = np.argsort(-(share - np.floor(share)), kind="stable")
+    sizes[order[:left]] += 1
+    return tuple(int(b) for b in sizes)
 
 
 def rdma_replay_plain(lowered: LoweredSchedule, buf: torch.Tensor) -> torch.Tensor:
@@ -296,7 +359,7 @@ def rdma_replay_plain(lowered: LoweredSchedule, buf: torch.Tensor) -> torch.Tens
     rounded once). Returns ``buf``, updated in place."""
     tables = pack_tables(lowered)
     n, _K, cols = buf.shape
-    land = buf.new_empty((n, _land_rows(tables), cols))
+    land = buf.new_empty((n, max(tables.blocks), cols))
     for s in range(tables.num_rounds):
         for c in range(tables.num_classes):
             win = _windows(tables, c, s)
@@ -320,6 +383,7 @@ def rdma_table(tables: KernelTables) -> np.ndarray:
     C, T, n = tables.num_classes, tables.num_rounds, tables.n
     to, frm = _active_partners(tables)
     waits = rdma_wait_targets(tables)
+    modes = round_modes(tables)
     out = np.zeros((T, C, n, RDMA_FIELDS), np.int32)
     for c in range(C):
         for s in range(T):
@@ -334,6 +398,7 @@ def rdma_table(tables: KernelTables) -> np.ndarray:
                 e[7] = tables.recv_start[c, s, r]
                 e[8:11] = waits[c, s, r]
                 e[11] = tables.combine[c, s]
+                e[12] = modes[c, s]
     return out
 
 
@@ -349,28 +414,47 @@ def _flag_words(n: int) -> int:
     return -(-(1 + 2 * n) // 32) * 32
 
 
-def rdma_launch(buf: torch.Tensor, tables: KernelTables, dev_tab: torch.Tensor) -> None:
+def _resident(dtype: torch.dtype) -> int:
+    """Blocks the card holds resident at once for the kernel's ``dtype``
+    instantiation (the occupancy query)."""
+    fn = _build.load("inkernel_rdma").repro_inkernel_rdma_resident
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    _build.check(fn(_DTYPES[dtype], ctypes.byref(blocks)), "inkernel_rdma occupancy query")
+    return blocks.value
+
+
+def rdma_launch(buf: torch.Tensor, tables: KernelTables, dev_tab: torch.Tensor,
+                groups: tuple[int, ...] | None = None) -> None:
     """Launch the kernel of ``csrc/inkernel_rdma.cu`` on ``buf`` with the
-    table ``dev_tab`` (:func:`rdma_table` on the device); counts nothing."""
+    table ``dev_tab`` (:func:`rdma_table` on the device) and ``groups``
+    blocks per rank (default :func:`rdma_groups`); counts nothing."""
     n, K, cols = buf.shape
     rows = _land_rows(tables)
-    land = torch.empty((n, rows, cols), dtype=buf.dtype, device=buf.device)
+    land = (torch.empty((n, rows, cols), dtype=buf.dtype, device=buf.device)
+            if rows else None)
     words = _flag_words(n)
     flags = torch.empty((n, words), dtype=torch.int32, device=buf.device)
     es = buf.element_size()
-    # the pointer table: each rank's buffer row, landing slot and flag words
+    # the pointer table: each rank's buffer row, landing slot (null when no
+    # class-round stages) and flag words; each group's first block
     ptrs = ([buf.data_ptr() + r * K * cols * es for r in range(n)]
-            + [land.data_ptr() + r * rows * cols * es for r in range(n)]
+            + [0 if land is None else land.data_ptr() + r * rows * cols * es
+               for r in range(n)]
             + [flags.data_ptr() + r * words * 4 for r in range(n)])
+    if groups is None:
+        groups = rdma_groups(tables, _resident(buf.dtype))
+    starts = [0, *np.cumsum(groups).tolist()]
     fn = _build.load("inkernel_rdma").repro_inkernel_rdma
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    status = fn((ctypes.c_uint64 * (3 * n))(*ptrs), dev_tab.data_ptr(), tables.num_classes,
-                tables.num_rounds, n, cols, flags.data_ptr(), n * words, _DTYPES[buf.dtype],
-                stream)
+    status = fn((ctypes.c_uint64 * (3 * n))(*ptrs), (ctypes.c_int * (n + 1))(*starts),
+                dev_tab.data_ptr(), tables.num_classes, tables.num_rounds, n, cols,
+                flags.data_ptr(), n * words, _DTYPES[buf.dtype], stream)
     _build.check(status, "inkernel_rdma")
 
 

@@ -114,13 +114,35 @@ def test_inkernel_replay_matches_plain(dt):
     torch.cuda.synchronize()
 
 
+def _mark_kept_rows(buf, tables) -> None:
+    """-0.0, and NaN with a payload where the sum cannot reach it (f32, or
+    a replay that only copies: PyTorch rounds a bf16 sum with a NaN to
+    another payload), in every row that no class-round writes."""
+    written = {(dst, int(tables.recv_start[c, s, dst]) + i)
+               for c, perm in enumerate(tables.perms) for s in range(tables.num_rounds)
+               for _src, dst in perm
+               for i in range(int(tables.lo[c, s, dst]), int(tables.hi[c, s, dst]))}
+    nan_ok = buf.dtype == torch.float32 or not tables.combine.any()
+    bits = buf.view({2: torch.int16, 4: torch.int32}[buf.element_size()])
+    for r in range(tables.n):
+        for k in range(tables.num_chunks):
+            if (r, k) not in written:
+                buf[r, k, 0] = -0.0
+                if nan_ok and buf.shape[2] > 1:
+                    bits[r, k, 1] = 0x7FC3 if buf.dtype == torch.bfloat16 else 0x7FC01234
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_inkernel_rdma_matches_plain(dt):
     """The device-initiated replay: one launch per replay, bit-equal to its
-    plain version and to the shared-buffer kernel, on an odd and an aligned
-    width, over a chain, a fused allreduce, a ring and a schedule in which
-    two ranks swap a chunk (a class-round whose puts read rows it merges)."""
+    plain version and to the shared-buffer kernel, with -0.0 and NaN in kept
+    rows, over a chain, a fused allreduce, a ring and a schedule in which
+    two ranks swap a chunk (a STAGED class-round, whose puts read rows it
+    merges, then a DIRECT one, in one launch), at widths under which the
+    DIRECT spans take every start offset of source against destination
+    mod 16 bytes (bf16 0-7 elements, f32 0-3), and at a width of 3 (spans
+    shorter than a vector)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.comm import schedules as tcs
@@ -131,14 +153,21 @@ def test_inkernel_rdma_matches_plain(dt):
     swap = ts.Schedule("swap", 3, 0, 2, (ts.Round((T(0, 1, 0, 1, True), T(1, 0, 0, 1, True))),
                                          ts.Round((T(1, 2, 0, 2),))), kind="allreduce")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bits = {2: torch.int16, 4: torch.int32}[torch.empty((), dtype=dt).element_size()]
+    es = torch.empty((), dtype=dt).element_size()
+    bits = {2: torch.int16, 4: torch.int32}[es]
+    shifts = set()
+    staged = 0
     for sched in (ts.build("pipelined_chain", 4, 1, num_chunks=5),
                   tcs.build_op("allreduce", "fused_rsb", 4, 0, num_chunks=6),
                   tcs.build_op("allreduce", "ring_allreduce", 8, 0), swap):
         low = ts.lower_schedule(sched)
-        for cols in (1029, 1024):
+        tables = ts.pack_tables(low)
+        staged += int((ik.round_modes(tables) == ik.STAGED).sum())
+        for cols in (3, 1024, 1029, 1030, 1031):
+            shifts |= ik._direct_shifts(tables, cols, es)
             buf = torch.randn((sched.n, sched.num_chunks, cols), generator=gen,
                               device="cuda").to(dt)
+            _mark_kept_rows(buf, tables)
             before = ik.rdma_replay.launches
             k = ik.rdma_replay(low, buf.clone())
             assert ik.rdma_replay.launches == before + 1
@@ -147,6 +176,8 @@ def test_inkernel_rdma_matches_plain(dt):
             torch.cuda.synchronize()
             assert torch.equal(k.view(bits), p.view(bits)), (sched.name, cols)
             assert torch.equal(k.view(bits), s.view(bits)), (sched.name, cols)
+    assert shifts == set(range(16 // es)), shifts
+    assert staged > 0
 
 
 def _flash_inputs(case, dt, seed):

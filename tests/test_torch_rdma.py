@@ -26,7 +26,7 @@ import repro.core.schedules as js
 from repro.kernels.inkernel_collective import _neighbor_tables
 from repro.kernels.inkernel_collective import inkernel_replay_shared as jreplay
 from repro_torch import kernels
-from repro_torch.comm import executors
+from repro_torch.comm import executors, plan_cached
 from repro_torch.comm import schedules as tcs
 from repro_torch.core import schedules as ts
 from repro_torch.core.simulator import simulate_lowered
@@ -412,9 +412,13 @@ def _interleave(n: int, seed: int, step) -> None:
 def _run_protocol(tables, data: np.ndarray, seed: int) -> np.ndarray:
     """Drive the kernel's table (``rdma_table``) through the kernel's
     protocol in a random interleaving of the rank groups: signal, wait for
-    the barrier words, put, signal the receive word, wait for it, merge.
-    Fails on a deadlock, a put into a slot its owner has not merged yet, or
-    a merge of a slot that holds another put. Returns the buffers."""
+    the barrier words, put (straight into the destination's window on a
+    DIRECT class-round, merging on combine rounds; into its landing slot on
+    a STAGED one), signal the receive word, wait for it, merge the slot
+    (STAGED only). Fails on a deadlock, a direct write into rows that their
+    owner reads in a step it has not finished, a put into a slot its owner
+    has not merged yet, or a merge of a slot that holds another put.
+    Returns the buffers."""
     tab = ik.rdma_table(tables)
     T, C, n, _ = tab.shape
     buf = data.copy()
@@ -424,6 +428,20 @@ def _run_protocol(tables, data: np.ndarray, seed: int) -> np.ndarray:
               if tab[s, c, r, 0] >= 0 or tab[s, c, r, 1] >= 0] for r in range(n)]
     pos, phase = [0] * n, [0] * n
 
+    def unfinished_reads(d, s, c) -> set:
+        """Rows of rank d's window that d still reads in its steps up to
+        and including class-round (s, c)."""
+        last = steps[d].index((s, c))
+        assert pos[d] <= last, ("rank ran past a class-round it receives in", d, s, c)
+        rows = set()
+        for i in range(pos[d], last + 1):
+            ed = tab[steps[d][i]][d]
+            if ed[0] >= 0 and not (i == pos[d] and phase[d] > 2):   # its put
+                rows.update(range(ed[4] + ed[2], ed[4] + ed[3]))
+            if ed[1] >= 0 and ed[12] == ik.STAGED and ed[11]:        # its merge
+                rows.update(range(ed[7] + ed[5], ed[7] + ed[6]))
+        return rows
+
     def step(r, probe=False):
         if pos[r] == len(steps[r]):
             return None
@@ -431,7 +449,7 @@ def _run_protocol(tables, data: np.ndarray, seed: int) -> np.ndarray:
             return True
         s, c = steps[r][pos[r]]
         e = tab[s, c, r]
-        dst, src = int(e[0]), int(e[1])
+        dst, src, mode = int(e[0]), int(e[1]), int(e[12])
         if phase[r] == 0:                          # signal both partners
             for q in (dst, src):
                 if q >= 0:
@@ -442,26 +460,36 @@ def _run_protocol(tables, data: np.ndarray, seed: int) -> np.ndarray:
                 return False
         elif phase[r] == 2:                        # put, then signal receipt
             if dst >= 0:
-                assert slot[dst] is None, ("put into an unmerged slot", r, dst, s, c)
                 lo, hi, a = int(e[2]), int(e[3]), int(e[4])
-                slot[dst] = (r, s, c, buf[r, a + lo:a + hi].copy())
+                rows = buf[r, a + lo:a + hi].copy()
+                if mode == ik.DIRECT:
+                    r0 = int(tab[s, c, dst, 7])
+                    hit = unfinished_reads(dst, s, c) & set(range(r0 + lo, r0 + hi))
+                    assert not hit, ("direct write into rows still read", r, dst, s, c, hit)
+                    cur = buf[dst, r0 + lo:r0 + hi]
+                    buf[dst, r0 + lo:r0 + hi] = cur + rows if e[11] else rows
+                else:
+                    assert slot[dst] is None, ("put into an unmerged slot", r, dst, s, c)
+                    slot[dst] = (r, s, c, rows)
                 flags[dst, 1, r] += 1
         else:                                      # wait for receipt, merge
             if src >= 0:
                 if flags[r, 1, src] < e[10]:
                     return False
-                sender, ss, cc, rows = slot[r]
-                assert (sender, ss, cc) == (src, s, c), ("wrong slot", r, slot[r][:3], s, c)
-                lo, hi, r0 = int(e[5]), int(e[6]), int(e[7])
-                assert rows.shape[0] == hi - lo
-                cur = buf[r, r0 + lo:r0 + hi]
-                buf[r, r0 + lo:r0 + hi] = cur + rows if e[11] else rows
-                slot[r] = None
+                if mode == ik.STAGED:
+                    sender, ss, cc, rows = slot[r]
+                    assert (sender, ss, cc) == (src, s, c), ("wrong slot", r, slot[r][:3], s, c)
+                    lo, hi, r0 = int(e[5]), int(e[6]), int(e[7])
+                    assert rows.shape[0] == hi - lo
+                    cur = buf[r, r0 + lo:r0 + hi]
+                    buf[r, r0 + lo:r0 + hi] = cur + rows if e[11] else rows
+                    slot[r] = None
             pos[r] += 1
         phase[r] = (phase[r] + 1) % 4
         return True
 
     _interleave(n, seed, step)
+    assert all(x is None for x in slot)
     return buf
 
 
@@ -469,7 +497,9 @@ def _run_protocol(tables, data: np.ndarray, seed: int) -> np.ndarray:
 def test_protocol_under_random_interleavings(n):
     """The kernel's own table, driven through its protocol in random
     orders in which some ranks run far ahead, ends in
-    ``simulate_lowered``'s buffers on every builder."""
+    ``simulate_lowered``'s buffers on every builder (and at n = 3 on the
+    swap schedules, which mix STAGED and DIRECT class-rounds), and no direct
+    write lands on rows that their owner still reads."""
     rng = np.random.RandomState(100 + n)
     for sched in _schedules(n):
         low = ts.lower_schedule(sched)
@@ -568,17 +598,144 @@ def test_rdma_wrapper_rejects_bad_buffers():
 
 
 def test_landing_slot_holds_every_put():
-    """One slot per rank, of the largest block that moves rows: every put
-    and every merge stays inside it."""
-    for n in (2, 4, 8):
-        for sched in _builders(ts, tcs, n, 5):
+    """One slot per rank, of the largest block of a class with a STAGED
+    class-round (0 when none stages): every staged put and merge stays
+    inside it, and DIRECT class-rounds never touch it."""
+    staged_seen = False
+    for n in (2, 3, 4, 8):
+        for sched in _schedules(n):
             tables = ts.pack_tables(ts.lower_schedule(sched))
-            moving = [tables.blocks[c] for c in range(tables.num_classes)
-                      for s in range(tables.num_rounds) if ik._windows(tables, c, s)]
+            modes = ik.round_modes(tables)
+            staged = [tables.blocks[c] for c in range(tables.num_classes)
+                      if (modes[c] == ik.STAGED).any()]
             rows = ik._land_rows(tables)
-            assert rows == max(moving), sched.name
+            assert rows == max(staged, default=0), sched.name
             tab = ik.rdma_table(tables)
-            assert (tab[..., 3] <= rows).all() and (tab[..., 6] <= rows).all(), sched.name
+            at = tab[..., 12] == ik.STAGED
+            assert (tab[..., 3][at] <= rows).all() and (tab[..., 6][at] <= rows).all(), sched.name
+            staged_seen |= bool(staged)
+    assert staged_seen
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_rdma_table_mode_field_is_round_modes(n):
+    """Field 12 of every entry is its class-round's mode, the same for
+    every rank, so the source and the destination of a pair agree on
+    whether the put goes to the window or to the slot."""
+    for sched in _schedules(n):
+        tables = ts.pack_tables(ts.lower_schedule(sched))
+        tab = ik.rdma_table(tables)
+        want = np.broadcast_to(ik.round_modes(tables).T[:, :, None], tab.shape[:3])
+        np.testing.assert_array_equal(tab[..., 12], want, err_msg=sched.name)
+
+
+@pytest.mark.parametrize("element_size", [2, 4])
+def test_direct_shifts_cover_every_offset_at_odd_widths(element_size):
+    """The card test's schedules (a chain, a fused allreduce, a ring at
+    n = 8 and the swap) put DIRECT spans at every source-against-
+    destination offset mod 16 bytes over widths 1029-1031, and at offset 0
+    only when rows are 16-byte multiples."""
+    T = ts.Transfer
+    swap = ts.Schedule("swap", 3, 0, 2, (ts.Round((T(0, 1, 0, 1, True), T(1, 0, 0, 1, True))),
+                                         ts.Round((T(1, 2, 0, 2),))), kind="allreduce")
+    scheds = (ts.build("pipelined_chain", 4, 1, num_chunks=5),
+              tcs.build_op("allreduce", "fused_rsb", 4, 0, num_chunks=6),
+              tcs.build_op("allreduce", "ring_allreduce", 8, 0), swap)
+    tables = [ts.pack_tables(ts.lower_schedule(s)) for s in scheds]
+    odd = set().union(*(ik._direct_shifts(t, cols, element_size)
+                        for t in tables for cols in (1029, 1030, 1031)))
+    assert odd == set(range(16 // element_size))
+    assert set().union(*(ik._direct_shifts(t, 1024, element_size) for t in tables)) == {0}
+
+
+# the six plans the device-initiated replay runs at the training embedding
+# bucket (1,048,576,000 bf16 elements a rank, 4 ranks), with the planner's
+# algorithm and chunk count: the serving chain of phase 4, phase 4b's
+# analytic bucket plan, the training plan, and phase 7's other entry points
+PATH_PLANS = (
+    ("bcast", "pipelined_chain", "pipelined_chain", 21),
+    ("bcast", "auto", "bidir_chain", 15),
+    ("allreduce", "auto", "fused_rsb", 32),
+    ("allgather", "auto", "doubling_allgather", 4),
+    ("reduce_scatter", "auto", "ring_reduce_scatter", 4),
+    ("reduce", "auto", "pipelined_reduce_chain", 21),
+)
+
+
+def _path_tables(op: str, algo: str):
+    plan = plan_cached(op, 1_048_576_000 * 2, 4, algo=algo)
+    return plan, ts.pack_tables(plan.lowered())
+
+
+@pytest.mark.parametrize("op,algo,chosen,K", PATH_PLANS)
+def test_path_plans_need_no_landing_slot(op, algo, chosen, K):
+    """Every class-round of the path plans is DIRECT (or moves nothing), so
+    the kernel allocates no landing slot for them."""
+    plan, tables = _path_tables(op, algo)
+    assert (plan.algo, plan.lowered().num_chunks) == (chosen, K)
+    assert ik._land_rows(tables) == 0
+    assert not (ik.round_modes(tables) == ik.STAGED).any()
+    assert (ik.round_modes(tables) == ik.DIRECT).any()
+
+
+@pytest.mark.parametrize("resident", [4, 5, 9, 132, 396, 1056])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_rdma_groups_fit_the_card(n, resident):
+    """Every rank gets at least one block and the groups together never
+    exceed the card's resident blocks; a rank that moves more rows never
+    gets fewer blocks; the result does not depend on the call."""
+    if resident < n:
+        with pytest.raises(RuntimeError, match="block per rank"):
+            ik.rdma_groups(ts.pack_tables(ts.lower_schedule(ts.build("chain", n))), resident)
+        return
+    for sched in _schedules(n):
+        tables = ts.pack_tables(ts.lower_schedule(sched))
+        sizes = ik.rdma_groups(tables, resident)
+        assert sizes == ik.rdma_groups.__wrapped__(tables, resident), sched.name
+        assert len(sizes) == n and min(sizes) >= 1, (sched.name, sizes)
+        assert sum(sizes) <= resident, (sched.name, sizes)
+        units = ik._rank_units(tables)
+        for a in range(n):
+            for b in range(n):
+                if units[a] > units[b]:
+                    assert sizes[a] >= sizes[b], (sched.name, units, sizes)
+
+
+@pytest.mark.parametrize("resident", [396, 1056])
+def test_rdma_groups_follow_the_rows_each_rank_moves(resident):
+    """At the path plans: the chain's rank 3 (which puts nothing) gets one
+    block and its three sources share the rest; the bidir chain's rank 0,
+    which puts two rows for rank 1's one, gets about twice rank 1's blocks;
+    the reduce chain's root gets one; the training plan's groups follow
+    its units (64 / 160 / 160 / 96)."""
+    chain = ik.rdma_groups(_path_tables("bcast", "pipelined_chain")[1], resident)
+    assert chain[3] == 1 and max(chain[:3]) - min(chain[:3]) <= 1, chain
+    bidir = ik.rdma_groups(_path_tables("bcast", "auto")[1], resident)
+    assert bidir[2] == bidir[3] == 1 and abs(bidir[0] - 2 * bidir[1]) <= 2, bidir
+    reduce = ik.rdma_groups(_path_tables("reduce", "auto")[1], resident)
+    assert reduce[0] == 1, reduce
+    _plan, tables = _path_tables("allreduce", "auto")
+    np.testing.assert_array_equal(ik._rank_units(tables) // 32, [2, 5, 5, 3])
+    fused = np.asarray(ik.rdma_groups(tables, resident))
+    assert sum(fused) == resident
+    np.testing.assert_allclose(fused - 1, (resident - 4) * np.array([2, 5, 5, 3]) / 15, atol=1)
+
+
+@pytest.mark.parametrize("status,blocks", [(0, 396), (2, 0), (98, 0)])
+def test_resident_reports_the_occupancy_query(monkeypatch, status, blocks):
+    """The occupancy query's count comes back as it is; a failed query
+    raises with its cudaError_t rather than reporting a card of 0 blocks."""
+    def query(dtype, out):
+        out._obj.value = blocks
+        return status
+
+    monkeypatch.setattr(ik._build, "load",
+                        lambda name: type("Lib", (), {"repro_inkernel_rdma_resident": query}))
+    if status:
+        with pytest.raises(RuntimeError, match=f"occupancy query.*cudaError_t {status}"):
+            ik._resident(torch.bfloat16)
+    else:
+        assert ik._resident(torch.bfloat16) == blocks
 
 
 if __name__ == "__main__":
