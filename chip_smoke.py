@@ -7,13 +7,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: name and power limit (``nvidia-smi``); build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a, one process per
-   source, all at once; calibrate the per-transfer and per-launch times the
+   source, all at once, beside the design sweep ``tools/staging_sweep.cu``
+   (built from the same sources, not run); calibrate the per-transfer and per-launch times the
    H100 cost profile quotes.
 2. kernels, each held bit for bit against its plain PyTorch version, with
    CUDA-event times, the bound (bytes / 3.35 TB/s), the plain version's time
    and a one-call PyTorch yardstick where one exists: the merge and the copy
-   at the serving path's shapes, the quantize pair at the training path's
-   hop shape, the merge again at the training path's rounds, and both
+   at the serving path's shapes (the copy also at every source/destination
+   byte offset mod 16, one kernel a call, and timed with its source 2 bytes
+   off), the quantize pair at the training path's hop shape (the
+   dequantize also at every row offset mod 4 floats, and timed as the hop
+   calls it, through ``rows=`` into the receive view), the merge again at
+   the training path's rounds, and both
    in-kernel replays, the device-initiated one (rank groups sized by the
    rows each rank moves, direct puts, point-to-point flags) and the
    shared-buffer one (grid barrier), against each other and the numpy
@@ -345,33 +350,84 @@ def check_fused_combine_training(torch) -> None:
         del buf, ref, recv
 
 
-def check_chunked_copy(torch) -> dict:
+COPY_N = 1_048_576_000 + 37  # the staging copy's bf16 elements (phase 2)
+
+
+def copy_times(torch, x) -> dict:
+    """CUDA-event times of ``chunked_copy`` and ``clone`` on ``x`` (16-byte
+    aligned) and on ``x[1:]`` (the source 2 bytes off, one element
+    shorter)."""
     from repro_torch.kernels.chunked_copy import chunked_copy, chunked_copy_plain
+
+    xs = x[1:]
+    return {"aligned_ms": time_ms(torch, lambda: chunked_copy(x), reps=10),
+            "misaligned_ms": time_ms(torch, lambda: chunked_copy(xs), reps=10),
+            "plain_ms": time_ms(torch, lambda: chunked_copy_plain(x), reps=10),
+            "clone_ms": time_ms(torch, lambda: x.clone(), reps=10),
+            "clone_misaligned_ms": time_ms(torch, lambda: xs.clone(), reps=10)}
+
+
+def check_chunked_copy(torch) -> dict:
+    """One launch per copy at every source and destination byte offset mod
+    16 (int8, 1003 bytes: every byte lands, none around it changes), the
+    staging bucket's shape aligned and with the source 2 bytes off, each
+    bit-equal to the plain version and timed beside ``clone``; one profiled
+    call of each shows one kernel each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import chunked_copy as cc
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     small = torch.randn(1003, generator=gen, device="cuda")
     for x in (small, small[1:]):  # ragged, and 4 bytes off 16-byte alignment
-        assert same_bits(torch, chunked_copy(x), chunked_copy_plain(x))
-    log("kernel chunked_copy (1003,) and (1002,) f32 unaligned: bit-equal to plain")
-    N = 1_048_576_000 + 37
+        assert same_bits(torch, cc.chunked_copy(x), cc.chunked_copy_plain(x))
+    src = torch.randint(-128, 128, (1003 + 32,), dtype=torch.int8, device="cuda",
+                        generator=gen)
+    dst = torch.empty_like(src)
+    for so in range(16):
+        for do in range(16):
+            dst.fill_(0x5A)
+            cc._launch(dst[do:do + 1003], src[so:so + 1003])
+            want = torch.full_like(dst, 0x5A)
+            want[do:do + 1003] = src[so:so + 1003]
+            assert torch.equal(dst, want), f"chunked_copy source +{so} destination +{do}"
+    log("kernel chunked_copy (1003,) and (1002,) f32 unaligned, (1003,) int8 at every "
+        "source x destination byte offset mod 16: bit-equal to plain, nothing else written")
+    N = COPY_N
     x = torch.randn(N, generator=gen, device="cuda").to(torch.bfloat16)
-    k = chunked_copy(x)
-    p = chunked_copy_plain(x)
-    torch.cuda.synchronize()
-    assert same_bits(torch, k, p), "chunked_copy differs from plain"
-    err = max_abs_err(torch, k, p)
-    del k, p
-    ms = time_ms(torch, lambda: chunked_copy(x), reps=10)
-    plain_ms = time_ms(torch, lambda: chunked_copy_plain(x), reps=10)
-    library_ms = time_ms(torch, lambda: x.clone(), reps=10)
+    errs = []
+    for v in (x, x[1:]):
+        k = cc.chunked_copy(v)
+        p = cc.chunked_copy_plain(v)
+        torch.cuda.synchronize()
+        assert same_bits(torch, k, p), f"chunked_copy ({v.numel()},) differs from plain"
+        errs.append(max_abs_err(torch, k, p))
+        del k, p
+    before = cc.chunked_copy.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cc.chunked_copy(x)
+        cc.chunked_copy(x[1:])
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_time_total > 0]
+    assert cc.chunked_copy.launches == before + 2, "chunked_copy counts one launch a copy"
+    assert sum(n for _k, n in kernels) == 2, kernels  # one kernel a call
+    t = copy_times(torch, x)
+    grid = cc.copy_plan(2 * N, x.data_ptr()).grid
     line = {"name": "chunked_copy", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/chunked_copy.cu",
             "replaces": "src/repro/kernels/chunked_copy.py:37",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs), "ms": t["aligned_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": 2 * N * 2 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms, "shape": [N], "dtype": "bfloat16"}
-    log(f"kernel chunked_copy ({N},) bf16: bit-equal, {ms:.4f} ms "
-        f"(bound {line['bound_ms']:.4f} ms, plain {plain_ms:.4f} ms, clone {library_ms:.4f} ms)")
+            "library_ms": t["clone_ms"], "misaligned_ms": t["misaligned_ms"],
+            "misaligned_bound_ms": 2 * (N - 1) * 2 / HBM_BYTES_PER_S * 1e3,
+            "library_misaligned_ms": t["clone_misaligned_ms"],
+            "grid": grid, "kernels_per_call": 1,
+            "shape": [N], "dtype": "bfloat16"}
+    log(f"kernel chunked_copy ({N},) bf16: bit-equal, one kernel a call "
+        f"({[k[:40] for k, _n in kernels]}), grid {grid} blocks; "
+        f"aligned {t['aligned_ms']:.4f} ms (bound {line['bound_ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, clone {t['clone_ms']:.4f} ms); source 2 bytes off "
+        f"{t['misaligned_ms']:.4f} ms (clone {t['clone_misaligned_ms']:.4f} ms)")
     return line
 
 
@@ -384,10 +440,12 @@ def _quant_bits_equal(torch, a, b) -> tuple[bool, int]:
     return bool((same | nan).all()), int((nan & ~same).sum())
 
 
-def embed_wire_block() -> tuple[int, int]:
-    """(rows, width) of one compressed hop on the training path's largest
-    bucket, the embedding's: the planner's int8 allreduce plan chunks it,
-    and a class round quantizes the rows its active pairs merge."""
+def embed_wire_hop() -> tuple[int, int, int, list]:
+    """(rows, width, block, land) of the largest compressed hop on the
+    training path's largest bucket, the embedding's: the planner's int8
+    allreduce plan chunks it, a class round quantizes the rows its active
+    pairs merge, and the hop dequantizes them into the rows ``land`` of the
+    class's receive view ``(4 * block, width)``."""
     from repro_torch.comm import plan_cached
     from repro_torch.configs import get_config
 
@@ -395,20 +453,53 @@ def embed_wire_block() -> tuple[int, int]:
     N = cfg.padded_vocab * cfg.d_model
     plan = plan_cached("allreduce", N * 4, RANKS, wire_format="int8")
     low = plan.lowered()
-    rows = max(sum(int(cls.hi[s, d] - cls.lo[s, d]) for _src, d in cls.perm)
-               for cls in low.classes for s in range(low.num_rounds))
-    return rows, -(-N // plan.schedule.num_chunks)
+    cls, s = max(((cls, s) for cls in low.classes for s in range(low.num_rounds)),
+                 key=lambda cs: sum(int(cs[0].hi[cs[1], d] - cs[0].lo[cs[1], d])
+                                    for _src, d in cs[0].perm))
+    land = [d * cls.block + i for _src, d in cls.perm
+            for i in range(int(cls.lo[s, d]), int(cls.hi[s, d]))]
+    return len(land), -(-N // plan.schedule.num_chunks), cls.block, land
+
+
+def dequantize_times(torch, fmt: str) -> dict:
+    """CUDA-event times of ``dequantize_blocks`` at the embedding bucket's
+    largest ``fmt`` hop: into a contiguous ``(rows, C)``
+    output, and as the compressed hop calls it, into the receive view
+    ``(4 * block, C)`` through ``rows=``; for int8 also one
+    ``torch.mul`` of the payload by its broadcast scales into a ``(rows,
+    Cp)`` f32 buffer (the same bytes but the ragged tail's)."""
+    from repro_torch.kernels import quantize as qk
+
+    rows, C, block, land = embed_wire_hop()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    v, s = qk.quantize_blocks(torch.randn((rows, C), generator=gen, device="cuda"), fmt)
+    out = torch.empty((rows, C), device="cuda")
+    recv = torch.empty((RANKS * block, C), device="cuda")
+    idx = torch.tensor(land, dtype=torch.int64, device="cuda")
+    res = {"shape": [rows, C], "block": block, "land": land,
+           "contiguous_ms": time_ms(torch, lambda: qk.dequantize_blocks(
+               v, s, out_cols=C, out=out), reps=20),
+           "hop_ms": time_ms(torch, lambda: qk.dequantize_blocks(
+               v, s, out_cols=C, out=recv, rows=idx), reps=20)}
+    if fmt == "int8":
+        nb = s.shape[1]
+        full = torch.empty((rows, nb * 256), device="cuda")
+        res["library_ms"] = time_ms(torch, lambda: torch.mul(
+            v.view(rows, nb, 256), s[..., None], out=full.view(rows, nb, 256)), reps=20)
+    return res
 
 
 def check_quantize(torch) -> list[dict]:
     """quantize_blocks / dequantize_blocks against their plain versions, bit
     for bit, int8 and fp8: a ragged width, the training path's odd width,
-    an all-zero block, +-1e30 and 1e-30, a NaN block, zero rows; then
-    times at the embedding bucket's hop shape (the kernels JSON lines)."""
+    an all-zero block, +-1e30 and 1e-30, a NaN block, zero rows; the
+    dequantize also into rows at every offset mod 4 floats and through
+    ``rows=`` into the compressed hop's receive view; then times at the
+    embedding bucket's hop shape (the kernels JSON lines)."""
     from repro_torch.kernels import quantize as qk
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rows, C = embed_wire_block()
+    rows, C, block, land = embed_wire_hop()
     small = torch.randn((3, 1000), generator=gen, device="cuda") * 3
     small[1, :256] = 0.0
     small[2, 0], small[2, 1], small[2, 2:10] = 1e30, -1e30, 1e-30
@@ -417,6 +508,7 @@ def check_quantize(torch) -> list[dict]:
     wide[0, 256:512] = 0.0
     wide[1, 1:3] = 1e30
     wide[-1, C - 5] = float("nan")
+    idx = torch.tensor(land, dtype=torch.int64, device="cuda")
     nan_payload = 0
     for fmt in ("int8", "fp8"):
         for x in (small, small[:, 1:], small[:0], wide):
@@ -433,9 +525,34 @@ def check_quantize(torch) -> list[dict]:
             ok, differ = _quant_bits_equal(torch, d, pd)
             assert ok and d.shape == pd.shape, f"dequantize_blocks {fmt} {tuple(x.shape)} differs"
             nan_payload += differ
+            if not x.shape[0]:
+                continue
+            # rows at every offset mod 4 floats: four base offsets, pitch C + 1
+            B, cols = x.shape
+            for base in range(4):
+                pool = torch.full((B * (cols + 1) + 4,), 7.0, device="cuda")
+                grid = pool[base:base + B * (cols + 1)].view(B, cols + 1)
+                qk.dequantize_blocks(v, s, out_cols=cols, out=grid[:, :cols])
+                ok, _ = _quant_bits_equal(torch, grid[:, :cols], pd)
+                assert ok, f"dequantize_blocks {fmt} {tuple(x.shape)} at +{base} floats differs"
+                assert bool((grid[:, cols] == 7.0).all() and (pool[:base] == 7.0).all()
+                            and (pool[base + B * (cols + 1):] == 7.0).all()), \
+                    f"dequantize_blocks {fmt} {tuple(x.shape)} at +{base} wrote outside its rows"
+                del pool, grid
+        v, s = qk.quantize_blocks(wide, fmt)
+        recv = torch.full((RANKS * block, C), 7.0, device="cuda")
+        qk.dequantize_blocks(v, s, out_cols=C, out=recv, rows=idx)
+        ok, differ = _quant_bits_equal(torch, recv[idx], qk.dequantize_blocks_plain(
+            v, s, out_cols=C))
+        assert ok, f"dequantize_blocks {fmt} through rows= into the receive view differs"
+        rest = torch.ones(RANKS * block, dtype=torch.bool, device="cuda")
+        rest[idx] = False
+        assert bool((recv[rest] == 7.0).all()), "dequantize_blocks wrote outside its rows"
+        del recv
     log(f"kernel quantize/dequantize int8+fp8 at (3, 1000), (3, 999), (0, 1000), "
         f"({rows}, {C}): bit-equal to plain ({nan_payload} NaN positions with other "
-        "payload bits)")
+        "payload bits); dequantize bit-equal at every row offset mod 4 floats and through "
+        f"rows= into the hop's receive view ({RANKS * block}, {C}), rows {land}")
 
     one_way = rows * C * (4 + 1 + 4 / 256)  # f32 in, a byte and 1/256 scale out
     v, s = qk.quantize_blocks(wide, "int8")
@@ -444,6 +561,7 @@ def check_quantize(torch) -> list[dict]:
     d = qk.dequantize_blocks(v, s, out_cols=C, out=out)
     pd = qk.dequantize_blocks_plain(pv, ps, out_cols=C)
     torch.cuda.synchronize()
+    deq = {fmt: dequantize_times(torch, fmt) for fmt in ("int8", "fp8")}
     lines = []
     for name, err, fn, plain, src in (
         ("quantize_blocks", max_abs_err(torch, v, pv), lambda: qk.quantize_blocks(wide, "int8"),
@@ -452,7 +570,7 @@ def check_quantize(torch) -> list[dict]:
          lambda: qk.dequantize_blocks(v, s, out_cols=C, out=out),
          lambda: qk.dequantize_blocks_plain(pv, ps, out_cols=C), "quantize.py:101"),
     ):
-        ms = time_ms(torch, fn, reps=10)
+        ms = time_ms(torch, fn, reps=20)
         plain_ms = time_ms(torch, plain, reps=3, warmup=1)
         line = {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/quantize.cu",
@@ -460,8 +578,19 @@ def check_quantize(torch) -> list[dict]:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": one_way / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                 "library_ms": None, "shape": [rows, C], "dtype": "float32/int8"}
+        extra = ""
+        if name == "dequantize_blocks":
+            line["library_ms"] = deq["int8"]["library_ms"]
+            line["library_call"] = ("torch.mul(values.view(B, nb, 256), scales[..., None], "
+                                    "out=(B, Cp) f32): the same bytes but the ragged tail's")
+            line["hop_ms"] = deq["int8"]["hop_ms"]
+            line["fp8_ms"] = deq["fp8"]["contiguous_ms"]
+            line["fp8_hop_ms"] = deq["fp8"]["hop_ms"]
+            extra = (f"; as the hop calls it (rows= into ({RANKS * block}, {C})) "
+                     f"{deq['int8']['hop_ms']:.4f} ms; fp8 {deq['fp8']['contiguous_ms']:.4f} / "
+                     f"{deq['fp8']['hop_ms']:.4f} ms; torch.mul {deq['int8']['library_ms']:.4f} ms")
         log(f"kernel {name} ({rows}, {C}) int8: {ms:.4f} ms (bound {line['bound_ms']:.4f} ms, "
-            f"plain {plain_ms:.4f} ms)")
+            f"plain {plain_ms:.4f} ms){extra}")
         lines.append(line)
     return lines
 
@@ -1803,8 +1932,19 @@ def main() -> int:
     name_power = card()
     log(f"card: {name_power}")
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.SOURCES)} sources")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sweep = subprocess.Popen(  # the design sweep, from the same sources, beside them
+        [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-o", str(_build.BUILD_DIR.parent / "staging_sweep"),
+         os.path.join(ROOT, "tools", "staging_sweep.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        _build.build_all()
+    finally:
+        sweep_log, _ = sweep.communicate()
+    assert sweep.returncode == 0, f"tools/staging_sweep.cu does not build:\n{sweep_log}"
+    log(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.SOURCES)} sources "
+        "and tools/staging_sweep.cu")
     for src in _build.SOURCES:
         logf = _build.BUILD_DIR / f"{src}.log"
         if logf.exists():

@@ -89,7 +89,7 @@ class StreamGraph:
 
 
 def _run_entry(entry: StreamEntry, tree: Any, dispatch: Sequence[int], *,
-               stage: bool, stage_chunk: int, compiled: bool | None) -> Any:
+               stage: bool, compiled: bool | None) -> Any:
     """Replay ``entry`` over the rank-stacked ``tree`` issuing buckets in
     ``dispatch`` order with the entry's staging window kept ahead. Each
     bucket's result is written back into the bucket when the collectives
@@ -107,7 +107,7 @@ def _run_entry(entry: StreamEntry, tree: Any, dispatch: Sequence[int], *,
     def _stage(k: int) -> None:
         b = buckets[k]
         if stage:
-            b = chunked_copy(b.reshape(-1), chunk_elems=stage_chunk).view(b.shape)
+            b = chunked_copy(b.reshape(-1)).view(b.shape)
         staged[k] = b
 
     depth = max(1, entry.overlap_depth)
@@ -134,12 +134,10 @@ def execute_stream_entry(
     tree: Any,
     *,
     stage: bool = False,
-    stage_chunk: int = 64 * 1024,
     compiled: bool | None = None,
 ) -> Any:
     """Replay ONE stream entry over a rank-stacked tree (leaves
     ``(n, *shape)``) and return the tree, updated in place. With ``stage``
     every bucket is first copied through the ``chunked_copy`` kernel; the
     collectives update the copy, which is then written back."""
-    return _run_entry(entry, tree, entry.order, stage=stage,
-                      stage_chunk=stage_chunk, compiled=compiled)
+    return _run_entry(entry, tree, entry.order, stage=stage, compiled=compiled)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on
 first use with ``nvcc -shared`` for ``sm_90a`` into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root, keyed
-by a hash of the source (so an edited source rebuilds and a stale library is
-never loaded), then opened with ``ctypes``. :func:`build_all` starts one
+by a hash of the source and of every header it includes from ``csrc/`` (so
+an edited source or header rebuilds and a stale library is never loaded),
+then opened with ``ctypes``. :func:`build_all` starts one
 ``nvcc`` per source, all at once. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,10 +42,26 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
+    or through another header, each once, in the order first reached."""
+    seen = [CSRC / f"{name}.cu"]
+    for path in seen:
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep not in seen:
+                seen.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, float]:
@@ -90,3 +108,4 @@ def check(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {status}")
+

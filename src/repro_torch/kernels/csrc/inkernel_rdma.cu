@@ -81,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec16.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -176,23 +178,6 @@ template <typename T>
 __device__ __forceinline__ void move_elem(T* to, const T* from, int comb) {
   const T v = __ldcg(from);
   *to = comb ? add_unit(__ldcg(to), v) : v;
-}
-
-// The 16 bytes at byte offset 4q + r of the 32 bytes (a, b), as prmt
-// selector sel = 0x3210 + 0x1111 r picks them from two neighbouring words.
-__device__ __forceinline__ uint4 funnel(uint4 a, uint4 b, int q, unsigned sel) {
-  const unsigned w0 = q == 0 ? a.x : q == 1 ? a.y : q == 2 ? a.z : a.w;
-  const unsigned w1 = q == 0 ? a.y : q == 1 ? a.z : q == 2 ? a.w : b.x;
-  const unsigned w2 = q == 0 ? a.z : q == 1 ? a.w : q == 2 ? b.x : b.y;
-  const unsigned w3 = q == 0 ? a.w : q == 1 ? b.x : q == 2 ? b.y : b.z;
-  const unsigned w4 = q == 0 ? b.x : q == 1 ? b.y : q == 2 ? b.z : b.w;
-  return make_uint4(__byte_perm(w0, w1, sel), __byte_perm(w1, w2, sel),
-                    __byte_perm(w2, w3, sel), __byte_perm(w3, w4, sel));
-}
-
-__device__ __forceinline__ uint4 shfl_down(uint4 v) {
-  return make_uint4(__shfl_down_sync(~0u, v.x, 1), __shfl_down_sync(~0u, v.y, 1),
-                    __shfl_down_sync(~0u, v.z, 1), __shfl_down_sync(~0u, v.w, 1));
 }
 
 // to[i] = comb ? to[i] + from[i] : from[i] over [0, len), spread over the

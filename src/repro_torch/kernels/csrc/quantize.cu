@@ -16,15 +16,30 @@
 // Bound: bytes. Quantize reads 4 bytes and writes 1 + 4/256 per element;
 //   dequantize the reverse. At 3.35 TB/s (H100 SXM data sheet) that is the
 //   least time; the arithmetic is a few operations per element.
-// Design: one warp per 256-element block, 8 elements per lane at a stride
-//   of 32 (lane-contiguous, so loads coalesce at any row pitch: the
-//   planner's chunk widths are often odd, so rows are not 16-byte aligned);
-//   a warp-shuffle abs-max; lane 0 writes the scale. Rows are addressed
-//   through an optional row-index table, so one launch quantizes the send
-//   blocks of several ranks where they lie in the rank-stacked buffer, and
-//   one launch dequantizes into the receivers' slots. Dequantize gives each
-//   thread 4 payload bytes (one 32-bit load: payload rows are 256-aligned)
-//   and stores them as one float4 where the output row is 16-byte aligned.
+// Design: quantize gives one warp per 256-element block, 8 elements per
+//   lane at a stride of 32 (lane-contiguous, so loads coalesce at any row
+//   pitch: the planner's chunk widths are often odd, so rows are not
+//   16-byte aligned); a warp-shuffle abs-max; lane 0 writes the scale. Rows
+//   are addressed through an optional row-index table, so one launch
+//   quantizes the send blocks of several ranks where they lie in the
+//   rank-stacked buffer, and one launch dequantizes into the receivers'
+//   slots.
+// Dequantize stores aligned float4s on every row, whatever the row's
+//   offset mod 16 bytes (odd pitches, a receive view, `out_cols` < Cp).
+//   A row's first h = (its 16-byte boundary - its start) / 4 columns are
+//   its head; the body is cut into quads of 4 columns, each one aligned
+//   float4 store. Row column c is payload byte c (payload rows are
+//   256-byte aligned), so quad j's 4 bytes start at byte 4 j + h: the two
+//   aligned payload words j and j + 1, funnelled with __byte_perm (the
+//   right word from the next lane by shuffle, the warp's last lane's from
+//   lane 0's next word, or its own load). A warp takes 128 quads: lane l
+//   loads words 32 k + l and stores quad 32 k + l (k < 4), so every load
+//   reads 128 contiguous bytes and every store writes 512; giving each
+//   thread 16 contiguous columns (one 16-byte load, four float4 stores 64
+//   bytes apart) was 1.6x slower on the card (tools/staging_sweep.cu).
+//   Stores stream past the caches (st.cs). One block of 8 warps per
+//   4096 columns of a row; the head (block 0 of the row, lane 0) and the
+//   ragged last quad go column by column.
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,7 +49,8 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kWarps = 8;        // warps (scale blocks) per CTA in quantize
 constexpr int kThreads = 256;    // dequantize CTA
-constexpr int kPerThread = 4;    // dequantize elements per thread
+constexpr int kQuads = 4;        // dequantize float4 stores per thread
+constexpr long long kTileQuads = kThreads * kQuads;  // dequantize quads per CTA
 
 // max that keeps a NaN from either side (fmaxf returns the other operand)
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -107,34 +123,60 @@ __global__ void quantize_rows(const float* __restrict__ x,
   if (lane == 0) scales[w] = scale;
 }
 
-// CTA b dequantizes columns [tile * 1024, +1024) of payload row b / tiles
-// into out + (rows ? rows[r] : r) * pitch, C valid columns
 template <int FMT>
-__global__ void dequantize_rows(const uint8_t* __restrict__ values,
-                                const float* __restrict__ scales, long long nb,
-                                long long C, long long tiles,
-                                float* __restrict__ out,
-                                const long long* __restrict__ rows,
-                                long long out_rows, long long pitch, int vec) {
+__device__ __forceinline__ float byte_times(unsigned word, int k, float s) {
+  return decode<FMT>(static_cast<uint8_t>(word >> (8 * k))) * s;
+}
+
+// CTA b dequantizes quads [tile * kTileQuads, +kTileQuads) of payload row
+// b / tiles (Cp = nb * 256 bytes) into out + (rows ? rows[r] : r) * pitch,
+// C valid columns
+template <int FMT>
+__global__ void __launch_bounds__(kThreads)
+    dequantize_rows(const uint8_t* __restrict__ values, const float* __restrict__ scales,
+                    long long nb, long long C, long long tiles, float* __restrict__ out,
+                    const long long* __restrict__ rows, long long out_rows, long long pitch) {
   const long long r = blockIdx.x / tiles;
-  const long long c = (blockIdx.x % tiles) * (kThreads * kPerThread) +
-                      static_cast<long long>(threadIdx.x) * kPerThread;
-  if (c >= C) return;
-  const uint32_t word =
-      *reinterpret_cast<const uint32_t*>(values + r * nb * kBlock + c);
-  const float s = scales[r * nb + c / kBlock];  // 4 | 256: one block
-  float f[kPerThread];
+  const int lane = threadIdx.x & 31;
+  const long long q0 = (blockIdx.x - r * tiles) * kTileQuads + (threadIdx.x >> 5) * (32 * kQuads);
+  const unsigned* pay = reinterpret_cast<const unsigned*>(values + r * nb * kBlock);
+  const long long words = nb * (kBlock / 4);
+  const float* sc = scales + r * nb;
+  float* dst = out + checked_row(rows, r, out_rows) * pitch;
+  long long h = ((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2;
+  if (h > C) h = C;
+  const long long quads = (C - h) / 4;  // aligned float4 stores of the row
+  const int rem = static_cast<int>(C - h - quads * 4);
+  const unsigned sel = 0x3210u + 0x1111u * static_cast<unsigned>(h);
+  unsigned w[kQuads];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    f[k] = decode<FMT>(static_cast<uint8_t>(word >> (8 * k))) * s;
+  for (int k = 0; k < kQuads; ++k) {
+    const long long j = q0 + 32 * k + lane;
+    w[k] = j < words ? __ldcs(pay + j) : 0u;
   }
-  float* dst = out + checked_row(rows, r, out_rows) * pitch + c;
-  if (vec && c + kPerThread <= C) {
-    *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
-  } else {
+  const long long after = q0 + 32 * kQuads;  // the word after the warp's last
+  const unsigned last = lane == 31 && after < words ? __ldcs(pay + after) : 0u;
+  if (q0 == 0 && lane == 0) {
+    for (int k = 0; k < h; ++k) dst[k] = byte_times<FMT>(w[0], k, sc[0]);
+  }
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      if (c + k < C) dst[k] = f[k];
+  for (int k = 0; k < kQuads; ++k) {
+    const unsigned down = __shfl_down_sync(~0u, w[k], 1);
+    // lane 31 needs word q0 + 32 (k + 1): lane 0's next one, or its own load
+    const unsigned wrap = __shfl_sync(~0u, w[k + 1 < kQuads ? k + 1 : k], 0);
+    const unsigned next = lane < 31 ? down : k + 1 < kQuads ? wrap : last;
+    const long long j = q0 + 32 * k + lane;
+    if (j > quads || (j == quads && rem == 0)) continue;
+    // row columns c0 + e are payload bytes 4 j + h + e
+    const unsigned v = __byte_perm(w[k], next, sel);
+    const long long c0 = h + 4 * j;
+    if (j < quads) {
+      float f[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = byte_times<FMT>(v, e, sc[(c0 + e) / kBlock]);
+      __stcs(reinterpret_cast<float4*>(dst + c0), make_float4(f[0], f[1], f[2], f[3]));
+    } else {
+      for (int e = 0; e < rem; ++e) dst[c0 + e] = byte_times<FMT>(v, e, sc[(c0 + e) / kBlock]);
     }
   }
 }
@@ -167,8 +209,9 @@ extern "C" int repro_quantize_rows(const void* x, const void* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// values: (B, nb * 256), scales (B, nb); writes C columns of each row into
-// out + (rows ? rows[r] : r) * pitch, rows indexing out's out_rows rows.
+// values: (B, nb * 256) at a 4-byte aligned address, scales (B, nb);
+// writes C columns of each row into out + (rows ? rows[r] : r) * pitch
+// (any 4-byte aligned address), rows indexing out's out_rows rows.
 // Returns cudaGetLastError().
 extern "C" int repro_dequantize_rows(const void* values, const void* scales,
                                      long long B, long long nb, long long C,
@@ -177,20 +220,18 @@ extern "C" int repro_dequantize_rows(const void* values, const void* scales,
                                      int fmt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || C <= 0) return 0;
-  const long long per_cta = kThreads * kPerThread;
-  const long long tiles = (C + per_cta - 1) / per_cta;
+  const long long tiles = ((C + 3) / 4 + kTileQuads - 1) / kTileQuads;
   const long long grid = tiles * B;
-  const int vec = pitch % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const uint8_t* vp = static_cast<const uint8_t*>(values);
   const float* sp = static_cast<const float*>(scales);
   float* op = static_cast<float*>(out);
   const long long* rp = static_cast<const long long*>(rows);
   if (fmt == 0) {
     dequantize_rows<0><<<(unsigned)grid, kThreads, 0, s>>>(vp, sp, nb, C, tiles, op, rp,
-                                                            out_rows, pitch, vec);
+                                                            out_rows, pitch);
   } else {
     dequantize_rows<1><<<(unsigned)grid, kThreads, 0, s>>>(vp, sp, nb, C, tiles, op, rp,
-                                                            out_rows, pitch, vec);
+                                                            out_rows, pitch);
   }
   return static_cast<int>(cudaGetLastError());
 }

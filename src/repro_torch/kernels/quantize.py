@@ -16,7 +16,9 @@ covers the send blocks of several ranks where they lie in the rank-stacked
 buffer: ``quantize_blocks(x, f, rows=i)`` equals ``quantize_blocks(x[i], f)``.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. A row index outside the addressed tensor stops the kernel
-(``__trap``), surfacing as a CUDA error at the next synchronization.
+(``__trap``), surfacing as a CUDA error at the next synchronization. On the
+card dequantize writes aligned float4s at any output row offset (odd
+pitches, a receive view).
 """
 from __future__ import annotations
 

@@ -201,7 +201,7 @@ def distribution_stream_graph(stacked, mesh, *, algo: str = "auto", tuner=None,
 def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
                        bucket_bytes: int = 4 << 20, return_plans: bool = False,
                        double_buffer: bool = False, overlap_depth: int = 2,
-                       stage_chunk: int = 64 * 1024, compiled: bool | None = None,
+                       compiled: bool | None = None,
                        drain_dir: Optional[str] = None):
     """Broadcast the root's weights (row 0 of the rank-stacked tree) to
     every data rank with the tuned library (the paper's 'training
@@ -234,7 +234,6 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
         double_buffer=double_buffer, overlap_depth=overlap_depth,
     )
     out = comm_streams.execute_stream_entry(
-        graph.entry("distribute"), stacked, stage=double_buffer,
-        stage_chunk=stage_chunk, compiled=compiled,
+        graph.entry("distribute"), stacked, stage=double_buffer, compiled=compiled,
     )
     return (out, plans) if return_plans else out

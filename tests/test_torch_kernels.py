@@ -12,6 +12,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.combine_update import fused_combine_update as j_fused_combine_update
+from repro_torch.kernels import _build
+from repro_torch.kernels import chunked_copy as cc
 from repro_torch.kernels import combine_update as cu
 from repro_torch.kernels.chunked_copy import chunked_copy
 from repro_torch.models.convert import to_tensor
@@ -112,6 +114,18 @@ def test_chunked_copy_matches_reference(size, chunk, dt):
     np.testing.assert_array_equal(_bits(got), _bits(pallas))
 
 
+@pytest.mark.parametrize("chunk", [-1, 0, 1, 127, 129, 10**9])
+@pytest.mark.parametrize("size", [1, 300])
+def test_chunked_copy_accepts_every_chunk_the_reference_does(chunk, size):
+    """The reference clamps ``chunk_elems`` to at least 128 elements and at
+    most the buffer, so it refuses no value; the port accepts the same
+    values and copies the same bytes."""
+    x = np.arange(size, dtype=np.float32) - 7.5
+    got = chunked_copy(to_tensor(x), chunk_elems=chunk)
+    pallas = jops.chunked_copy(jnp.asarray(x), chunk_elems=chunk, interpret=True)
+    np.testing.assert_array_equal(_bits(got), _bits(pallas))
+
+
 def test_wrappers_check_their_inputs():
     f32 = torch.zeros((2, 4))
     mode = torch.zeros((2, 1), dtype=torch.int32)
@@ -130,3 +144,77 @@ def test_wrappers_check_their_inputs():
         chunked_copy(torch.zeros((2, 4)))
     with pytest.raises(ValueError):
         chunked_copy(torch.zeros(8)[::2])
+
+
+def _check_copy_plan(nbytes: int, dst: int) -> None:
+    """The plan the kernel is launched with cuts ``nbytes`` into a head that
+    reaches the destination's 16-byte boundary, aligned units and a tail of
+    less than a unit, every byte exactly once; its grid is one block a tile
+    of :data:`TILE_UNITS` units (every tile full but the last), and block 0
+    takes the head, the last block the tail."""
+    plan = cc.copy_plan(nbytes, dst)
+    assert plan.head == min((16 - dst % 16) % 16, nbytes) and 0 <= plan.tail < 16
+    assert plan.head + 16 * plan.units + plan.tail == nbytes
+    assert plan.units == 0 or (dst + plan.head) % 16 == 0
+    assert plan.grid >= 1
+    assert (plan.grid - 1) * cc.TILE_UNITS < max(plan.units, 1) <= plan.grid * cc.TILE_UNITS
+
+
+@pytest.mark.parametrize("nbytes", [1, 15, 16, 17, 31, 32, 16 * cc.TILE_UNITS,
+                                    16 * cc.TILE_UNITS + 1, 200_006, 4 * 100_003,
+                                    2 * 1_048_576_037])
+def test_copy_plan_covers_every_byte_once(nbytes):
+    """:func:`_check_copy_plan` at every destination offset mod 16, so every
+    head meets every tail (the source's offset does not enter the plan: the
+    kernel funnels each store from the aligned source vectors around it)."""
+    for dst in range(4096, 4096 + 16):
+        _check_copy_plan(nbytes, dst)
+
+
+def test_copy_plan_takes_a_block_per_tile():
+    """The staging bucket of 1,048,576,037 bf16 takes 64,001 blocks of 32
+    KiB; a copy of a few tiles one block a tile; head-only and tail-only
+    copies one block."""
+    assert cc.copy_plan(2 * 1_048_576_037, 0) == cc.CopyPlan(64_001, 0, 131_072_004, 10)
+    assert cc.copy_plan(16 * 3000, 0).grid == 2
+    assert cc.copy_plan(16 * 3000 + 7, 9) == cc.CopyPlan(2, 7, 3000, 0)
+    assert cc.copy_plan(5, 3) == cc.CopyPlan(1, 5, 0, 0)
+    assert cc.copy_plan(5, 0) == cc.CopyPlan(1, 0, 0, 5)
+
+
+def test_copy_plan_refuses_a_grid_cuda_cannot_launch():
+    """A copy that would need 2**31 blocks of 32 KiB raises before any
+    launch; one block less is planned."""
+    tile = 16 * cc.TILE_UNITS
+    assert cc.copy_plan((2 ** 31 - 1) * tile, 0).grid == 2 ** 31 - 1
+    with pytest.raises(ValueError, match="over CUDA's grid"):
+        cc.copy_plan((2 ** 31 - 1) * tile + 16, 0)
+
+
+def test_build_target_hashes_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """A changed header, reached directly or through another header, names
+    another library, so a kept build directory never loads a stale one; a
+    header the source does not include changes nothing."""
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "c.cuh").write_text("// c\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build._sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _build._target("k")
+    (tmp_path / "c.cuh").write_text("// c, edited\n")
+    assert _build._target("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build._target("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
+    assert _build._target("k") not in (first, second)
+
+
+def test_port_sources_hash_the_shared_vector_header():
+    """The two kernels that funnel 16-byte vectors at any alignment include
+    ``vec16.cuh``, so its digest is part of their libraries' names; a
+    source that includes no header of ``csrc/`` hashes itself alone."""
+    for name in ("chunked_copy", "inkernel_rdma"):
+        assert [p.name for p in _build._sources(name)] == [f"{name}.cu", "vec16.cuh"], name
+    assert [p.name for p in _build._sources("quantize")] == ["quantize.cu"]

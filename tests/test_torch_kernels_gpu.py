@@ -84,6 +84,76 @@ def test_quantize_kernels_match_plain(fmt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 15, 17, 100_003])
+def test_chunked_copy_at_every_byte_offset(dt, n):
+    """One launch copies ``n`` elements from every source byte offset mod 16
+    to every destination one that the dtype allows (all 16 for int8): the
+    bytes land bit for bit, equal to the plain version, and no byte around
+    the destination changes. The wrapper counts one launch a copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import chunked_copy as cc
+
+    es = torch.empty((), dtype=dt).element_size()
+    nbytes = n * es
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    src_pool = torch.randint(-128, 128, (nbytes + 32,), dtype=torch.int8, device="cuda",
+                             generator=gen)
+    dst_pool = torch.empty(nbytes + 32, dtype=torch.int8, device="cuda")
+    for so in range(0, 16, es):
+        x = src_pool[so:so + nbytes].view(dt)
+        for do in range(0, 16, es):
+            dst_pool.fill_(0x5A)
+            cc._launch(dst_pool[do:do + nbytes].view(dt), x)
+            want = torch.full_like(dst_pool, 0x5A)
+            want[do:do + nbytes] = src_pool[so:so + nbytes]
+            assert torch.equal(dst_pool, want), (so, do)
+        before = cc.chunked_copy.launches
+        got = cc.chunked_copy(x)
+        assert cc.chunked_copy.launches == before + 1
+        assert torch.equal(got.view(torch.int8), cc.chunked_copy_plain(x).view(torch.int8))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_dequantize_at_every_row_offset(fmt):
+    """Dequantize into rows at every offset mod 4 floats (four base offsets
+    times four pitch classes), with and without ``rows=``, at widths below
+    ``Cp`` (1024) down to a head-only row: bit-equal to the plain version
+    (NaN block and +-1e30 block included), nothing written outside the
+    addressed rows' ``out_cols`` columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import quantize as qk
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((4, 1000), generator=gen, device="cuda") * 3
+    x[1, :256] = 0.0
+    x[2, 0], x[2, 1], x[2, 2:10] = 1e30, -1e30, 1e-30
+    x[3, 300] = float("nan")
+    v, s = qk.quantize_blocks_plain(x, fmt)
+    land = torch.tensor([5, 1, 3, 6], dtype=torch.int64, device="cuda")
+    for cols in (1000, 999, 771, 256, 17, 2):
+        want = qk.dequantize_blocks_plain(v, s, out_cols=cols)
+        assert _same_or_both_nan(qk.dequantize_blocks(v, s, out_cols=cols), want)
+        for base in range(4):
+            for pitch in range(cols, cols + 4):
+                for rows, nrows, at in ((None, 4, [0, 1, 2, 3]), (land, 7, land.tolist())):
+                    pool = torch.full((nrows * pitch + base + 4,), 7.0, device="cuda")
+                    out = pool[base:base + nrows * pitch].view(nrows, pitch)[:, :cols]
+                    qk.dequantize_blocks(v, s, out_cols=cols, out=out, rows=rows)
+                    assert _same_or_both_nan(out[at], want), (cols, base, pitch, rows)
+                    keep = torch.ones_like(pool, dtype=torch.bool)
+                    for r in at:
+                        start = base + r * pitch
+                        keep[start:start + cols] = False
+                    assert (pool[keep] == 7.0).all(), (cols, base, pitch, rows)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_inkernel_replay_matches_plain(dt):
     """One launch per replay, bit-equal to the plain replay, on an odd and

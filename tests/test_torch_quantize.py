@@ -92,6 +92,30 @@ def test_row_tables_equal_gather_and_scatter(fmt):
     assert (out[[0, 2, 4]] == 7.0).all()
 
 
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("cols", [1001, 1002, 1003])
+def test_dequantize_into_an_odd_pitch_receive_view_matches_reference(fmt, cols):
+    """As the compressed hop calls it: the payload of three send rows
+    written through ``rows=`` into a receive view ``(n * block, C)`` whose
+    pitch is 1, 2 or 3 mod 4 and whose width crosses 256-column blocks;
+    the landed rows are bit-equal to the reference's dequantize (interpret
+    mode), NaN block included, and every other row keeps its bytes."""
+    x = np.ascontiguousarray(_blocks_input(cols=cols)[[0, 2, 3]])
+    v, s = jquantize(jnp.asarray(x), fmt, interpret=True)
+    want = np.asarray(jdequantize(v, s, out_cols=cols, interpret=True))
+    pv, ps = qk.quantize_blocks(torch.from_numpy(x), fmt)
+    n, block = 3, 2
+    recv = torch.full((n, block, cols), 7.0)
+    land = torch.tensor([5, 0, 3], dtype=torch.int64)
+    out = recv.view(n * block, cols)
+    assert out.stride(0) % 4 == cols % 4 != 0
+    got = qk.dequantize_blocks(pv, ps, out_cols=cols, out=out, rows=land)
+    assert got is out
+    np.testing.assert_array_equal(out[land].numpy().view(np.uint32), want.view(np.uint32))
+    assert (out[[1, 2, 4]] == 7.0).all()
+    assert np.isnan(want[2, 300]) and np.isnan(out[3, 300].item())
+
+
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8)
 
