@@ -7,18 +7,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card: name and power limit (``nvidia-smi``); build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for sm_90a, one process per
-   source, all at once, beside the design sweep ``tools/staging_sweep.cu``
-   (built from the same sources, not run); calibrate the per-transfer and per-launch times the
-   H100 cost profile quotes.
+   source, all at once, beside the design sweeps ``tools/staging_sweep.cu``
+   and ``tools/combine_sweep.cu`` (built from the same sources into
+   ``build/``, not run); calibrate the per-transfer and per-launch times
+   the H100 cost profile quotes.
 2. kernels, each held bit for bit against its plain PyTorch version, with
    CUDA-event times, the bound (bytes / 3.35 TB/s), the plain version's time
    and a one-call PyTorch yardstick where one exists: the merge and the copy
-   at the serving path's shapes (the copy also at every source/destination
-   byte offset mod 16, one kernel a call, and timed with its source 2 bytes
-   off), the quantize pair at the training path's hop shape (the
-   dequantize also at every row offset mod 4 floats, and timed as the hop
-   calls it, through ``rows=`` into the receive view), the merge again at
-   the training path's rounds, and both
+   at the serving path's shapes (both also at every source/destination
+   offset mod 16 at odd widths: the copy one kernel a call and timed with
+   its source 2 bytes off, the merge with KEEP rows' -0.0 and NaN payloads
+   and the bytes around the buffer unwritten, timed beside
+   ``index_copy_``/``index_add_`` at the same rows), the quantize pair at
+   the training path's hop shape (the dequantize also at every row offset
+   mod 4 floats, and timed as the hop calls it, through ``rows=`` into the
+   receive view), the merge again at the training path's rounds (each
+   class's first and steady round), and both
    in-kernel replays, the device-initiated one (rank groups sized by the
    rows each rank moves, direct puts, point-to-point flags) and the
    shared-buffer one (grid barrier), against each other and the numpy
@@ -176,6 +180,7 @@ TRAIN_MODES = (  # (label, RunConfig fields)
 )
 TRAIN_RUN = {"learning_rate": 1e-3, "warmup_steps": 1, "total_steps": TRAIN_STEPS, "seed": 0}
 ROW_CHECKED = ("param_bcast", "tuned_allreduce")  # rerun with the synced rows compared
+SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
 def log(msg: str) -> None:
@@ -238,11 +243,114 @@ def calibrate(torch) -> dict:
     return {"ts_s": ts_ms * 1e-3, "t_launch_s": tl_ms * 1e-3}
 
 
+def _moving_rows(torch, buf, recv, start, lo, hi):
+    """The flat row indices of ``buf`` (n * K, C) that a round writes and
+    those of ``recv`` (n * B, C) it reads, from the round tables."""
+    n, K, _C = buf.shape
+    B = recv.shape[1]
+    dst, src = [], []
+    for r, (s, a, b) in enumerate(zip(start.tolist(), lo.tolist(), hi.tolist())):
+        for i in range(max(a, 0), min(b, B)):
+            dst.append(r * K + s + i)
+            src.append(r * B + i)
+    as_index = lambda v: torch.tensor(v, dtype=torch.long, device=buf.device)  # noqa: E731
+    return as_index(dst), as_index(src)
+
+
+def round_times(torch, buf, recv, start, lo, hi, combine, reps: int = 10) -> dict:
+    """CUDA-event times of one ``fused_combine_update`` round on ``buf`` in
+    place, its bytes bound, and one library call at the same moving rows of
+    the flattened buffer: ``index_copy_`` when the round overwrites,
+    ``index_add_`` when it accumulates (a yardstick of time only: its bf16
+    rounding may differ). The buffer's values change."""
+    from repro_torch.kernels import combine_update as cu
+
+    n, K, C = buf.shape
+    dst, src = _moving_rows(torch, buf, recv, start, lo, hi)
+    rows = int(dst.numel())
+    moved = recv.view(-1, C)[src].contiguous()
+    flat = buf.view(n * K, C)
+    lib = (lambda: flat.index_add_(0, dst, moved)) if combine else \
+        (lambda: flat.index_copy_(0, dst, moved))
+    ms = time_ms(torch, lambda: cu.fused_combine_update(buf, recv, start, lo, hi, combine),
+                 reps=reps)
+    library_ms = time_ms(torch, lib, reps=reps)
+    bound = rows * C * buf.element_size() * (3 if combine else 2) / HBM_BYTES_PER_S * 1e3
+    return {"rows": rows, "ms": ms, "bound_ms": bound, "library_ms": library_ms,
+            "library": "index_add_" if combine else "index_copy_"}
+
+
+def check_fused_combine_offsets(torch) -> None:
+    """Both entry points at odd widths, one launch a round, bit-equal to the
+    plain version at every pair of (destination row, recv row) offsets mod
+    16 that the dtype allows (16 pairs in f32, 64 in bf16): the buffer and
+    recv are views of byte pools at every base offset, so each moving row
+    and its recv row take every pair; starts above 0, KEEP rows holding
+    -0.0 and NaN payloads on each side of every moving row, and sentinel
+    bytes before and after the buffer, all unwritten."""
+    from repro_torch.kernels import combine_update as cu
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ints = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")  # noqa: E731
+    # rank 0 moves row 2 of 6, rank 1 rows 2-4, rank 2 row 3, rank 3 none
+    start, lo, hi = ints([1, 2, 1, 3]), ints([1, 0, 2, 1]), ints([2, 3, 3, 1])
+    n, K, B = 4, 6, 3
+    for dt, C in ((torch.float32, 1029), (torch.bfloat16, 1029), (torch.bfloat16, 4099)):
+        es = torch.empty((), dtype=dt).element_size()
+        size = n * K * C * es
+        buf_pool = torch.empty(size + 32, dtype=torch.int8, device="cuda")
+        recv_pool = torch.empty(n * B * C * es + 32, dtype=torch.int8, device="cuda")
+        recv_vals = torch.randn((n, B, C), generator=gen, device="cuda").to(dt)
+        init = torch.randn((n, K, C), generator=gen, device="cuda").to(dt)
+        dst_rows, _src = _moving_rows(torch, init, init[:, :B], start, lo, hi)
+        keep = torch.ones(n * K, dtype=torch.bool, device="cuda")
+        keep[dst_rows] = False
+        flat = init.view(n * K, C)
+        flat[keep, 0] = -0.0
+        flat[keep, 1] = float("nan")
+        bits(torch, flat)[keep, 2] = 0x7FC3 if dt == torch.bfloat16 else 0x7FC01234
+        # the plain entry point: per-row modes over 6 rows, specials in its KEEP rows
+        modes = ints([2, 0, 1, 0, 2, 1]).reshape(6, 1)
+        rows = torch.randn((6, C), generator=gen, device="cuda").to(dt)
+        rows[1, 0] = -0.0
+        rows[3, 1] = float("nan")
+        bits(torch, rows)[3, 2] = 0x7FC3 if dt == torch.bfloat16 else 0x7FC01234
+        for do in range(0, 16, es):
+            for so in range(0, 16, es):
+                recv = recv_pool[so:so + n * B * C * es].view(dt).view(n, B, C)
+                recv.copy_(recv_vals)
+                for combine in (0, 1):
+                    buf_pool.fill_(0x5A)
+                    buf = buf_pool[do:do + size].view(dt).view(n, K, C)
+                    buf.copy_(init)
+                    want = buf_pool.clone()
+                    cu.fused_combine_update_plain(want[do:do + size].view(dt).view(n, K, C),
+                                                  recv, start, lo, hi, combine)
+                    cu.fused_combine_update(buf, recv, start, lo, hi, combine)
+                    assert torch.equal(buf_pool, want), \
+                        f"fused_combine_update {dt} C={C} +{do}/+{so} combine={combine}"
+                buf_pool.fill_(0x5A)
+                cur = buf_pool[do:do + 6 * C * es].view(dt).view(6, C)
+                cur.copy_(rows)
+                src = recv.view(n * B, C)[:6]
+                want = buf_pool.clone()
+                cu.fused_combine_plain(want[do:do + 6 * C * es].view(dt).view(6, C), src, modes)
+                cu.fused_combine(cur, src, modes)
+                assert torch.equal(buf_pool, want), f"fused_combine {dt} C={C} +{do}/+{so}"
+    before = cu.fused_combine_update.launches
+    cu.fused_combine_update(buf, recv, start, lo, hi, 1)
+    assert cu.fused_combine_update.launches == before + 1, "one launch counted a round"
+    log("kernel fused_combine_update (4, 6, 1029) f32, (4, 6, 1029) and (4, 6, 4099) bf16, "
+        "1-3 moving rows of 3 a rank, overwrite and accumulate, and fused_combine (6, C), "
+        "at every destination x recv offset mod 16: bit-equal to plain, KEEP rows (-0.0, "
+        "NaN payloads) and the bytes around the buffer unwritten, one launch a round")
+
+
 def check_fused_combine(torch) -> dict:
     """fused_combine at (8, 262144) and (1, 16384000), bf16 and f32, with
-    -0.0 and NaN payloads in KEEP rows; then fused_combine_update at the
-    round shape phase 4 gives it on the embedding bucket, which is the
-    kernel's line in the kernels JSON."""
+    -0.0 and NaN payloads in KEEP rows; the offsets check; then
+    fused_combine_update at the round shape phase 4 gives it on the
+    embedding bucket, which is the kernel's line in the kernels JSON."""
     from repro_torch.kernels import combine_update as cu
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -266,6 +374,7 @@ def check_fused_combine(torch) -> dict:
             ms = time_ms(torch, lambda: cu.fused_combine(work, recv, mode))
             log(f"kernel fused_combine {shape} {str(dt)[6:]}: bit-equal to plain, "
                 f"{ms:.4f} ms")
+    check_fused_combine_offsets(torch)
 
     # one round of phase 4's compiled pipelined chain on the embedding bucket,
     # chunked as the planner chunks it: ranks 1..3 overwrite one chunk each
@@ -286,29 +395,33 @@ def check_fused_combine(torch) -> dict:
     torch.cuda.synchronize()
     assert same_bits(torch, k, p), "fused_combine_update differs from plain"
     err = max_abs_err(torch, k, p)
+    del k, p
     work = buf.clone()
-    ms = time_ms(torch, lambda: cu.fused_combine_update(work, recv, start, lo, hi, 0))
+    t = round_times(torch, work, recv, start, lo, hi, 0, reps=20)
     plain_ms = time_ms(torch, lambda: cu.fused_combine_update_plain(work, recv, start, lo, hi, 0),
                        reps=5)
-    moved = 3 * 2 * C * 2  # 3 destination rows: read recv, write the row
     line = {"name": "fused_combine", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/combine_update.cu",
             "replaces": "src/repro/kernels/combine_update.py:52",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None, "shape": [n, K, C], "dtype": "bfloat16"}
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t["library_ms"], "library": t["library"],
+            "shape": [n, K, C], "dtype": "bfloat16"}
     log(f"kernel fused_combine_update ({n}, {K}, {C}) bf16 overwrite round "
-        f"({chunks} chunks): bit-equal, {ms:.4f} ms (bound {line['bound_ms']:.4f} ms, "
-        f"plain {plain_ms:.4f} ms)")
+        f"({chunks} chunks, {t['rows']} rows): bit-equal, {t['ms']:.4f} ms (bound "
+        f"{t['bound_ms']:.4f} ms, plain {plain_ms:.4f} ms, index_copy_ {t['library_ms']:.4f} ms)")
     return line
 
 
-def check_fused_combine_training(torch) -> None:
+def check_fused_combine_training(torch) -> list[dict]:
     """fused_combine_update at the training path's round shapes, bit for
-    bit against its plain version: on the embedding bucket, one accumulate
-    and one overwrite round of the int8 compressed allreduce plan (f32 at
-    the plan's odd chunk width) and of the tuned bf16 allreduce plan, each
-    with the start/lo/hi rows of its lowered plan's round tables."""
+    bit against its plain version: on the embedding bucket, of the int8
+    compressed allreduce plan (f32 at the plan's odd chunk width) and of
+    the tuned bf16 allreduce plan, for each class (accumulate, overwrite)
+    its first round that moves a row and its first steady round (the most
+    rows any of its rounds moves), each with the start/lo/hi rows of its
+    lowered plan's round tables, timed beside ``index_add_`` /
+    ``index_copy_`` at the same rows."""
     import numpy as np
 
     from repro_torch.comm import plan_cached
@@ -319,6 +432,7 @@ def check_fused_combine_training(torch) -> None:
     N = cfg.padded_vocab * cfg.d_model
     algo = RunConfig().allreduce_algo
     gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
     for label, dt, fmt in (("compressed int8", torch.float32, "int8"),
                            ("tuned", torch.bfloat16, None)):
         esize = 4 if dt == torch.float32 else 2
@@ -329,25 +443,33 @@ def check_fused_combine_training(torch) -> None:
         buf = torch.randn((RANKS, K, C), generator=gen, device="cuda").to(dt)
         ref = buf.clone()
         for combine, name in ((1, "accumulate"), (0, "overwrite")):
-            cls, r = next((c, r) for c in low.classes for r in range(low.num_rounds)
-                          if int(c.combine[r]) == combine and (c.hi[r] > c.lo[r]).any())
-            tab = torch.from_numpy(np.stack([cls.recv_start[r], cls.lo[r], cls.hi[r]])).to(
-                device="cuda", dtype=torch.int32)
-            recv = torch.randn((RANKS, cls.block, C), generator=gen, device="cuda").to(dt)
-            cu.fused_combine_update(buf, recv, tab[0], tab[1], tab[2], combine)
-            cu.fused_combine_update_plain(ref, recv, tab[0], tab[1], tab[2], combine)
-            torch.cuda.synchronize()
-            assert same_bits(torch, buf, ref), \
-                f"fused_combine_update {label} {name} round differs from plain"
-            ms = time_ms(torch, lambda: cu.fused_combine_update(buf, recv, tab[0], tab[1],
-                                                                tab[2], combine), reps=10)
-            ref.copy_(buf)
-            rows = int((cls.hi[r] - cls.lo[r]).sum())
-            bound = rows * C * esize * (3 if combine else 2) / HBM_BYTES_PER_S * 1e3
-            log(f"kernel fused_combine_update ({RANKS}, {K}, {C}) {str(dt)[6:]} {label} "
-                f"{plan.algo} {name} round ({rows} rows): bit-equal, {ms:.4f} ms "
-                f"(bound {bound:.4f} ms)")
-        del buf, ref, recv
+            moving = [(int((c.hi[r] - c.lo[r]).clip(min=0).sum()), c, r)
+                      for c in low.classes for r in range(low.num_rounds)
+                      if int(c.combine[r]) == combine and (c.hi[r] > c.lo[r]).any()]
+            most = max(m for m, _c, _r in moving)
+            picks = (("first", next(x for x in moving if x[0] == min(m for m, *_ in moving))),
+                     ("steady", next(x for x in moving if x[0] == most)))
+            for kind, (rows, cls, r) in picks:
+                tab = torch.from_numpy(np.stack([cls.recv_start[r], cls.lo[r], cls.hi[r]])).to(
+                    device="cuda", dtype=torch.int32)
+                recv = torch.randn((RANKS, cls.block, C), generator=gen, device="cuda").to(dt)
+                cu.fused_combine_update(buf, recv, tab[0], tab[1], tab[2], combine)
+                cu.fused_combine_update_plain(ref, recv, tab[0], tab[1], tab[2], combine)
+                torch.cuda.synchronize()
+                assert same_bits(torch, buf, ref), \
+                    f"fused_combine_update {label} {name} {kind} round differs from plain"
+                t = round_times(torch, buf, recv, tab[0], tab[1], tab[2], combine)
+                assert t["rows"] == rows, (t["rows"], rows)
+                ref.copy_(buf)
+                out.append({"plan": label, "algo": plan.algo, "class": name, "round": kind,
+                            "round_index": r, "shape": [RANKS, K, C], "dtype": str(dt)[6:], **t})
+                log(f"kernel fused_combine_update ({RANKS}, {K}, {C}) {str(dt)[6:]} {label} "
+                    f"{plan.algo} {name} {kind} round {r} ({rows} rows): bit-equal, "
+                    f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, {t['library']} "
+                    f"{t['library_ms']:.4f} ms)")
+                del recv
+        del buf, ref
+    return out
 
 
 COPY_N = 1_048_576_000 + 37  # the staging copy's bf16 elements (phase 2)
@@ -1933,18 +2055,19 @@ def main() -> int:
     log(f"card: {name_power}")
     t0 = time.perf_counter()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sweep = subprocess.Popen(  # the design sweep, from the same sources, beside them
+    sweeps = {name: subprocess.Popen(  # the design sweeps, from the same sources, beside them
         [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-o", str(_build.BUILD_DIR.parent / "staging_sweep"),
-         os.path.join(ROOT, "tools", "staging_sweep.cu")],
+         "-o", str(_build.BUILD_DIR.parent / name), os.path.join(ROOT, "tools", f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in SWEEPS}
     try:
         _build.build_all()
     finally:
-        sweep_log, _ = sweep.communicate()
-    assert sweep.returncode == 0, f"tools/staging_sweep.cu does not build:\n{sweep_log}"
+        sweep_logs = {name: p.communicate()[0] for name, p in sweeps.items()}
+    for name, p in sweeps.items():
+        assert p.returncode == 0, f"tools/{name}.cu does not build:\n{sweep_logs[name]}"
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.SOURCES)} sources "
-        "and tools/staging_sweep.cu")
+        f"and {', '.join(f'tools/{name}.cu' for name in SWEEPS)}")
     for src in _build.SOURCES:
         logf = _build.BUILD_DIR / f"{src}.log"
         if logf.exists():
@@ -1956,7 +2079,7 @@ def main() -> int:
 
     lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch),
              *check_inkernel(torch), *check_flash_attention(torch), *check_param_update(torch)]
-    check_fused_combine_training(torch)
+    lines[0]["training_rounds"] = check_fused_combine_training(torch)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -417,7 +417,7 @@ def _check_unstaged(stage: bool, op: str) -> None:
     if stage:
         raise NotImplementedError(
             f"{op}(stage=True), staging each bucket through chunked_copy, is read by "
-            "no ported caller yet: ROADMAP A.3")
+            'no ported caller yet: ROADMAP item "Collective API remainder"')
 
 
 def _tree_collective(op_fn, tree, *, bucket_bytes, **kw):
@@ -439,9 +439,12 @@ def pbcast_tree(
     tuner: Tuner | None = None,
     bucket_bytes: int = 4 << 20,
     stage: bool = False,
+    stage_chunk: int = 64 * 1024,
 ) -> Any:
     """Broadcast a rank-stacked pytree via same-dtype buckets, each tuned
-    independently."""
+    independently. ``stage_chunk``, the chunk of the staging copy, is
+    accepted and ignored: ``stage=True`` is refused, and the copy ignores
+    its chunk too (``chunked_copy(chunk_elems=)``)."""
     _check_unstaged(stage, "pbcast_tree")
     return _tree_collective(pbcast, tree, bucket_bytes=bucket_bytes, root=root, algo=algo,
                             tuner=tuner)
@@ -456,19 +459,22 @@ def pallreduce_tree(
     bucket_bytes: int = 4 << 20,
     inter_pod_axes: Sequence = (),
     stage: bool = False,
+    stage_chunk: int = 64 * 1024,
     compiled: bool | None = None,
     wire_format: str | None = None,
 ) -> Any:
     """Bucketed all-reduce of a rank-stacked pytree over the mesh axes
     ``axes`` (:func:`hierarchical_allreduce_axes` order). The emulated mesh
     has one data axis, so ``axes`` names at most one; ``wire_format``
-    applies to every bucket."""
+    applies to every bucket. ``stage_chunk`` is accepted and ignored, as
+    :func:`pbcast_tree`'s is."""
     _check_unstaged(stage, "pallreduce_tree")
     axes = tuple(axes)
     if len(axes) > 1:
         raise NotImplementedError(
             f"hierarchical allreduce over {axes}: the emulated mesh has one data "
-            "axis; multi-level meshes are ROADMAP A.16")
+            'axis; multi-level meshes are ROADMAP item "Serving remainder and '
+            'hierarchical meshes"')
     if not axes:
         return tree
     return _tree_collective(

@@ -104,10 +104,13 @@ class CompressedWire:
         return quantize_blocks(block, self.fmt.value, rows=rows)
 
     def decompress(self, values: torch.Tensor, scales: torch.Tensor, *, out_cols: int,
-                   out: torch.Tensor | None = None, rows: torch.Tensor | None = None):
+                   dtype: torch.dtype | None = None, out: torch.Tensor | None = None,
+                   rows: torch.Tensor | None = None):
         """f32 rows of ``out_cols`` columns, written into ``out[rows]`` when
-        ``out`` is given."""
-        return dequantize_blocks(values, scales, out_cols=out_cols, out=out, rows=rows)
+        ``out`` is given; cast to ``dtype`` when one is given, as the
+        reference's (which needs it) are."""
+        res = dequantize_blocks(values, scales, out_cols=out_cols, out=out, rows=rows)
+        return res if dtype is None else res.to(dtype)
 
 
 def roundtrip(x: torch.Tensor, fmt) -> torch.Tensor:

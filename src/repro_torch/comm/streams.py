@@ -89,7 +89,7 @@ class StreamGraph:
 
 
 def _run_entry(entry: StreamEntry, tree: Any, dispatch: Sequence[int], *,
-               stage: bool, compiled: bool | None) -> Any:
+               stage: bool, fused: bool, compiled: bool | None) -> Any:
     """Replay ``entry`` over the rank-stacked ``tree`` issuing buckets in
     ``dispatch`` order with the entry's staging window kept ahead. Each
     bucket's result is written back into the bucket when the collectives
@@ -117,7 +117,7 @@ def _run_entry(entry: StreamEntry, tree: Any, dispatch: Sequence[int], *,
                 _stage(j)
         b = staged.pop(k)
         for ax in entry.axes:
-            b = apply_plan(entry.plans[ax][k], b, compiled=compiled)
+            b = apply_plan(entry.plans[ax][k], b, fused=fused, compiled=compiled)
         if b.data_ptr() != buckets[k].data_ptr():
             buckets[k].copy_(b)
         del b
@@ -134,10 +134,17 @@ def execute_stream_entry(
     tree: Any,
     *,
     stage: bool = False,
+    stage_chunk: int = 64 * 1024,
+    fused: bool = True,
     compiled: bool | None = None,
 ) -> Any:
     """Replay ONE stream entry over a rank-stacked tree (leaves
     ``(n, *shape)``) and return the tree, updated in place. With ``stage``
     every bucket is first copied through the ``chunked_copy`` kernel; the
-    collectives update the copy, which is then written back."""
-    return _run_entry(entry, tree, entry.order, stage=stage, compiled=compiled)
+    collectives update the copy, which is then written back.
+    ``stage_chunk`` is accepted and ignored: in the reference it is the
+    staging copy's chunk, and the port's copy moves 32 KiB tiles whatever
+    the chunk (``chunked_copy(chunk_elems=)``). ``fused`` and ``compiled``
+    route each bucket's replay as :func:`apply_plan`'s do (``fused=False``:
+    the unrolled replay)."""
+    return _run_entry(entry, tree, entry.order, stage=stage, fused=fused, compiled=compiled)

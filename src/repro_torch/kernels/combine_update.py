@@ -6,7 +6,8 @@ addressed this round when the round combines, ``recv`` when it overwrites,
 ``cur`` everywhere else. Replaces the reference's Pallas ``fused_combine``
 (``src/repro/kernels/combine_update.py:52``) and its wrapper
 ``fused_combine_update`` (``:82``); the kernel and its design note are in
-``csrc/combine_update.cu``.
+``csrc/combine_update.cu``: one launch at any row width and alignment, one
+block a 32 KiB tile of every row, the moving rows found on the device.
 
 Both entry points update their first argument in place (the reference
 aliases it onto the output). A CPU tensor takes the plain version; a CUDA
@@ -67,9 +68,10 @@ def _check_pair(cur: torch.Tensor, recv: torch.Tensor) -> None:
         raise ValueError(f"fused_combine runs on cuda or cpu tensors, not {cur.device}")
 
 
-def _launch(buf, recv, start, lo, hi, row_mode, rows, B, K, C, combine) -> None:
-    lib = _build.load("combine_update")
-    fn = lib.repro_merge_rows
+def _launch(buf, recv, start, lo, hi, row_mode, n, B, K, C, combine) -> None:
+    """One launch over ``n`` ranks of ``B`` rows (the kernel sizes its grid:
+    one block a tile of every row)."""
+    fn = _build.load("combine_update").repro_merge_rows
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
@@ -77,7 +79,7 @@ def _launch(buf, recv, start, lo, hi, row_mode, rows, B, K, C, combine) -> None:
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     status = fn(buf.data_ptr(), recv.data_ptr(), ptr(start), ptr(lo), ptr(hi),
-                ptr(row_mode), rows, B, K, C, int(combine), _DTYPES[buf.dtype], stream)
+                ptr(row_mode), n, B, K, C, int(combine), _DTYPES[buf.dtype], stream)
     _build.check(status, "fused_combine")
 
 
@@ -98,8 +100,7 @@ def fused_combine(cur: torch.Tensor, recv: torch.Tensor,
     if not (cur.is_contiguous() and recv.is_contiguous() and row_mode.is_contiguous()):
         raise ValueError("fused_combine needs contiguous tensors on cuda")
     B, C = cur.shape
-    zero = torch.zeros(1, dtype=torch.int32, device=cur.device)
-    _launch(cur, recv, zero, None, None, row_mode, B, B, B, C, 0)
+    _launch(cur, recv, None, None, None, row_mode, 1, B, B, C, 0)
     fused_combine.launches += 1
     return cur
 
@@ -128,7 +129,7 @@ def fused_combine_update(buf: torch.Tensor, recv: torch.Tensor, start: torch.Ten
         raise ValueError("fused_combine_update needs contiguous tensors on cuda")
     _, K, C = buf.shape
     B = recv.shape[1]
-    _launch(buf, recv, start, lo, hi, None, n * B, B, K, C, combine)
+    _launch(buf, recv, start, lo, hi, None, n, B, K, C, combine)
     fused_combine_update.launches += 1
     return buf
 

@@ -60,8 +60,10 @@ def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
 
 
 def init_block_cache(cfg, kind: str, window: Optional[int], batch: int,
-                     max_len: int, device) -> dict:
-    """Zero decode cache for one block."""
+                     max_len: int, device, dtype=torch.bfloat16) -> dict:
+    """Zero decode cache for one block. ``dtype`` is accepted for the
+    reference's signature and, as there, read by no block kind the port
+    has: the attention cache takes ``cfg.kv_cache_dtype``."""
     _check_kind(kind)
     kv_dt = getattr(torch, cfg.kv_cache_dtype)
     return {"attn": init_attn_cache(batch, max_len, attn_spec_for(cfg, window), kv_dt, device)}
@@ -69,14 +71,15 @@ def init_block_cache(cfg, kind: str, window: Optional[int], batch: int,
 
 def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
                 mode: str, cache: dict | None = None, cur_pos: int | None = None,
-                max_len: int = 0, prefix_len: int = 0):
+                max_len: int = 0, prefix_len: int = 0, positions=None):
     """Returns (x, cache): None in train mode, the prefill-built cache
     (grown to ``max_len``) or the decode cache with the new token appended
-    in place."""
+    in place. ``positions`` as :func:`attention`'s."""
     _check_kind(kind)
     spec = attn_spec_for(cfg, window)
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
-    y, ac = attention(p["attn"], h, spec, mode=mode, prefix_len=prefix_len,
+    y, ac = attention(p["attn"], h, spec, mode=mode, positions=positions,
+                      prefix_len=prefix_len,
                       cache=None if cache is None else cache["attn"], cur_pos=cur_pos)
     if mode == "prefill":
         if max_len:

@@ -239,15 +239,20 @@ def attention(
     spec: AttnSpec,
     *,
     mode: str = "prefill",         # train | prefill | decode
+    positions: torch.Tensor | None = None,
     prefix_len: int = 0,
     cache: dict | None = None,
     cur_pos: int | None = None,    # absolute position of the new token
 ):
     """Returns (out, cache): None in train mode, the prefill-built cache, or
-    ``cache`` with the new token appended in place."""
+    ``cache`` with the new token appended in place. ``positions``
+    (broadcastable to (B, T)) rotate q and k in train and prefill in place
+    of ``0..T-1``, as the reference's do; the mask and the cache's slots
+    keep ``0..T-1``."""
     B, T, _D = x.shape
     if mode in ("train", "prefill"):
-        positions = torch.arange(T, device=x.device)[None, :]
+        if positions is None:
+            positions = torch.arange(T, device=x.device)[None, :]
         q, k, v = _qkv(p, spec, x)
         if spec.use_rope:
             q = rope(q, positions, spec.rope_theta)

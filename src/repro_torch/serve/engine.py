@@ -201,6 +201,7 @@ def distribution_stream_graph(stacked, mesh, *, algo: str = "auto", tuner=None,
 def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
                        bucket_bytes: int = 4 << 20, return_plans: bool = False,
                        double_buffer: bool = False, overlap_depth: int = 2,
+                       stage_chunk: int = 64 * 1024, donate: bool = False,
                        compiled: bool | None = None,
                        drain_dir: Optional[str] = None):
     """Broadcast the root's weights (row 0 of the rank-stacked tree) to
@@ -212,7 +213,12 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     and replayed bucket by bucket through ``comm.apply_plan``.
     ``double_buffer=True`` stages each bucket through the ``chunked_copy``
     kernel, ``overlap_depth`` buckets ahead; the per-bucket collectives are
-    the same plans either way, so the weights are identical. ``compiled``
+    the same plans either way, so the weights are identical.
+    ``stage_chunk`` is accepted and ignored, as
+    :func:`~repro_torch.comm.streams.execute_stream_entry`'s is. ``donate`` is
+    accepted and ignored: the reference donates the incoming buffers to its
+    jitted broadcast so that no bucket is held twice, and here the replicas
+    are updated in place, which holds no second copy either. ``compiled``
     routes the per-bucket replay (None = the tuned policy).
 
     ``stacked`` is updated in place and returned: every leaf keeps its own
@@ -223,7 +229,7 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     if drain_dir is not None:
         raise NotImplementedError(
             "draining the weights to a checkpoint on failure needs the "
-            "checkpoint layer, not ported yet (ROADMAP A.10)")
+            'checkpoint layer, not ported yet (ROADMAP item "Fault runtime")')
     for leaf in tree_leaves(stacked):
         if leaf.shape[:1] != (mesh.size,) or leaf.device != mesh.device:
             raise ValueError(

@@ -35,8 +35,9 @@ def _atomic_write(final: str, write_fn) -> None:
     os.replace(tmp, final)
 
 
-def save_checkpoint(path: str, step: int, tree: Any) -> str:
-    """Save ``tree`` as ``ckpt_<step>.npz`` with its json commit marker."""
+def save_checkpoint(path: str, step: int, tree: Any, extra: Optional[dict] = None) -> str:
+    """Save ``tree`` as ``ckpt_<step>.npz`` with its json commit marker,
+    which holds the step and the fields of ``extra``."""
     os.makedirs(path, exist_ok=True)
     arrays = {}
     for key, leaf in zip(tree_paths(tree), tree_flatten(tree)[0]):
@@ -47,7 +48,7 @@ def save_checkpoint(path: str, step: int, tree: Any) -> str:
             arrays[key] = t.numpy()
     fname = os.path.join(path, f"ckpt_{step:08d}.npz")
     _atomic_write(fname, lambda f: np.savez(f, **arrays))
-    meta = json.dumps({"step": step}).encode()
+    meta = json.dumps({"step": step, **(extra or {})}).encode()
     _atomic_write(os.path.join(path, f"ckpt_{step:08d}.json"), lambda f: f.write(meta))
     return fname
 

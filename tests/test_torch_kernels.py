@@ -212,9 +212,9 @@ def test_build_target_hashes_the_headers_a_source_includes(monkeypatch, tmp_path
 
 
 def test_port_sources_hash_the_shared_vector_header():
-    """The two kernels that funnel 16-byte vectors at any alignment include
+    """The kernels that funnel 16-byte vectors at any alignment include
     ``vec16.cuh``, so its digest is part of their libraries' names; a
     source that includes no header of ``csrc/`` hashes itself alone."""
-    for name in ("chunked_copy", "inkernel_rdma"):
+    for name in ("chunked_copy", "inkernel_rdma", "combine_update"):
         assert [p.name for p in _build._sources(name)] == [f"{name}.cu", "vec16.cuh"], name
     assert [p.name for p in _build._sources("quantize")] == ["quantize.cu"]

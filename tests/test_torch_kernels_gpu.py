@@ -42,6 +42,63 @@ def test_cuda_kernels_match_plain(dt):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 7, 1029, 16_421])
+def test_fused_combine_at_every_row_offset(dt, C):
+    """Both merge entry points at odd widths (a head-only row up to a body
+    of two tiles and more), the buffer and recv at every pair of base
+    offsets mod 16 that the dtype allows: bit-equal to the plain version,
+    KEEP rows (-0.0, NaN payloads) and the bytes around the buffer
+    unwritten, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    es = torch.empty((), dtype=dt).element_size()
+    bits = {2: torch.int16, 4: torch.int32}[es]
+    n, K, B = 4, 6, 3
+    ints = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")  # noqa: E731
+    start, lo, hi = ints([1, 2, 1, 3]), ints([1, 0, 2, 1]), ints([2, 3, 3, 1])
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    init = torch.randn((n, K, C), generator=gen, device="cuda").to(dt)
+    vals = torch.randn((n, B, C), generator=gen, device="cuda").to(dt)
+    moving = torch.zeros(n * K, dtype=torch.bool, device="cuda")
+    for r, (s, a, b) in enumerate(zip(start.tolist(), lo.tolist(), hi.tolist())):
+        moving[r * K + s + a:r * K + s + b] = True
+    flat = init.view(n * K, C)
+    flat[~moving, 0] = -0.0
+    flat[~moving, C // 2] = float("nan")
+    flat.view(bits)[~moving, C - 1] = 0x7FC3 if dt == torch.bfloat16 else 0x7FC01234
+    size = n * K * C * es
+    buf_pool = torch.empty(size + 32, dtype=torch.int8, device="cuda")
+    recv_pool = torch.zeros(n * B * C * es + 32, dtype=torch.int8, device="cuda")
+    modes = ints([2, 0, 1, 0, 2, 1]).reshape(6, 1)
+    for do in range(0, 16, es):
+        for so in range(0, 16, es):
+            recv = recv_pool[so:so + n * B * C * es].view(dt).view(n, B, C)
+            recv.copy_(vals)
+            for combine in (0, 1):
+                buf_pool.fill_(0x5A)
+                buf = buf_pool[do:do + size].view(dt).view(n, K, C)
+                buf.copy_(init)
+                want = buf_pool.clone()
+                cu.fused_combine_update_plain(want[do:do + size].view(dt).view(n, K, C), recv,
+                                              start, lo, hi, combine)
+                before = cu.fused_combine_update.launches
+                cu.fused_combine_update(buf, recv, start, lo, hi, combine)
+                assert cu.fused_combine_update.launches == before + 1
+                assert torch.equal(buf_pool, want), (do, so, combine)
+            buf_pool.fill_(0x5A)
+            cur = buf_pool[do:do + 6 * C * es].view(dt).view(6, C)
+            cur.copy_(vals.view(-1, C)[:6].flip(0))
+            cur[1, 0], cur[3, 0] = -0.0, float("nan")
+            want = buf_pool.clone()
+            cu.fused_combine_plain(want[do:do + 6 * C * es].view(dt).view(6, C),
+                                   recv.view(-1, C)[:6], modes)
+            cu.fused_combine(cur, recv.view(-1, C)[:6], modes)
+            assert torch.equal(buf_pool, want), (do, so)
+    torch.cuda.synchronize()
+
+
 def _same_or_both_nan(a, b) -> bool:
     """Bit-equal, where a NaN may carry any payload on either side."""
     if a.dtype == torch.float8_e4m3fn:

@@ -246,7 +246,7 @@ def test_tree_variants_refuse_staging():
     from repro_torch.core.bcast import pbcast_tree
 
     t = {"a": torch.zeros((4, 300))}
-    with pytest.raises(NotImplementedError, match="A.3"):
+    with pytest.raises(NotImplementedError, match="Collective API remainder"):
         pbcast_tree(t, stage=True)
-    with pytest.raises(NotImplementedError, match="A.3"):
+    with pytest.raises(NotImplementedError, match="Collective API remainder"):
         comm.pallreduce_tree(t, ("data",), stage=True)

@@ -1,0 +1,278 @@
+"""Every public function and class that the port shares with the reference
+accepts the reference's keywords (ROADMAP C.4): ``inspect.signature`` of
+both, module by module, with an explicit allow-list of the names that
+exist only for JAX and of those owned by a queued ROADMAP item, and one
+call of the port with each keyword that was repaired."""
+from __future__ import annotations
+
+import importlib
+import inspect
+import json
+import pkgutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+
+# one intra-op thread: the suite runs in several worker processes at once, and
+# the spinning OpenMP threads of each would contend for the same cores
+torch.set_num_threads(1)
+
+# names that exist only for JAX: mesh axes inside shard_map, Pallas's
+# interpret switch and tiling, PRNG keys, shardings (grad_specs is a tree of
+# NamedShardings), the shared-buffer replay's scratch, scan unrolling
+JAX_ONLY = frozenset({"axis_name", "interpret", "key", "shardings", "grad_specs", "shared",
+                      "tile", "unroll"})
+
+# keywords whose module is queued in ROADMAP, by the item that ports them
+QUEUED = {
+    # A.1 Overlap engine and the stream planner
+    "comm.streams.StreamEntry": {"compute_s", "depth_source", "priority", "after", "link"},
+    "comm.streams.StreamGraph": {"starvation_bound"},
+    "configs.base.RunConfig": {"overlap_depth", "overlap_compute_s", "prefetch_stream"},
+    # A.2 Collective API remainder
+    "comm.api.pbcast_tree": {"inter_pod"},
+    # A.5 Fault runtime
+    "comm.plan.CollectivePlan": {"survivors"},
+    "comm.plan.plan_cached": {"health"},
+    "core.simulator.simulate_collective": {"faults", "report"},
+    "core.simulator.simulate_lowered": {"faults", "report"},
+    "serve.engine.distribution_stream_graph": {"drain"},
+    "train.trainer.Trainer": {"health"},
+    # A.6 Other model families (cross attention, the encoder-decoder)
+    "models.blocks.init_block": {"cross", "causal"},
+    "models.blocks.apply_block": {"causal", "cross_inputs"},
+    "models.layers.attention": {"cross_kv"},
+    "models.transformer.StackLayout": {"encoder"},
+    # A.7 Serving remainder and hierarchical meshes
+    "serve.engine.distribute_weights": {"specs"},
+}
+
+MODULES = sorted(m.name[len("repro_torch."):]
+                 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+def _shared(mod: str):
+    """(qualified name, port callable, reference callable) for every public
+    function and class of port module ``mod`` that the reference module of
+    the same name has, and every public method of such a class that the
+    reference class has."""
+    port = importlib.import_module(f"repro_torch.{mod}")
+    try:
+        ref = importlib.import_module(f"repro.{mod}")
+    except ModuleNotFoundError:
+        return []
+    names = getattr(port, "__all__", None) or [n for n in dir(port) if not n.startswith("_")]
+    out = []
+    for name in names:
+        p, r = getattr(port, name, None), getattr(ref, name, None)
+        if r is None or not (inspect.isfunction(p) or inspect.isclass(p)) \
+                or p.__module__ != port.__name__:
+            continue
+        out.append((f"{mod}.{name}", p, r))
+        if inspect.isclass(p) and inspect.isclass(r):
+            for meth, fn in vars(p).items():
+                if not meth.startswith("_") and inspect.isfunction(fn) \
+                        and callable(getattr(r, meth, None)):
+                    out.append((f"{mod}.{name}.{meth}", fn, getattr(r, meth)))
+    return out
+
+
+def _params(obj) -> dict:
+    try:
+        return dict(inspect.signature(obj).parameters)
+    except (TypeError, ValueError):  # a builtin without a signature
+        return {}
+
+
+def _refused(qual: str, port, ref) -> list[str]:
+    """The reference's parameters the port does not take: a required
+    positional one by position (the port may name it otherwise: ``stacked``
+    for ``params``), every other one by keyword."""
+    pps, rps = _params(port), _params(ref)
+    allowed = JAX_ONLY | QUEUED.get(qual, set())
+    positional = [p for p in pps.values()
+                  if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    missing = []
+    for i, (name, rp) in enumerate(rps.items()):
+        if name in allowed or rp.kind in (rp.VAR_POSITIONAL, rp.VAR_KEYWORD):
+            continue
+        if rp.default is rp.empty and rp.kind != rp.KEYWORD_ONLY:
+            if i >= len(positional):
+                missing.append(name)
+            continue
+        pp = pps.get(name)
+        if pp is None or pp.kind in (pp.POSITIONAL_ONLY, pp.VAR_POSITIONAL):
+            missing.append(name)
+    return missing
+
+
+@pytest.mark.parametrize("mod", MODULES)
+def test_port_accepts_the_references_keywords(mod):
+    """No public function of this module raises TypeError on a keyword the
+    reference's namesake accepts, beyond the allow-list."""
+    refused = {q: m for q, p, r in _shared(mod) if (m := _refused(q, p, r))}
+    assert not refused, f"the port refuses the reference's keywords: {refused}"
+
+
+def test_allow_list_names_only_what_the_port_lacks():
+    """Every queued keyword exists in the reference and is still missing
+    from the port (drop it here when its ROADMAP item lands), and every
+    JAX-only name is taken by some shared reference function."""
+    shared = {q: (p, r) for mod in MODULES for q, p, r in _shared(mod)}
+    for qual, names in QUEUED.items():
+        port, ref = shared[qual]
+        rp, pp = _params(ref), _params(port)
+        assert names <= set(rp), (qual, names - set(rp))
+        assert not names & set(pp), (qual, names & set(pp))
+    taken = {n for _p, r in shared.values() for n in _params(r)}
+    assert JAX_ONLY <= taken, JAX_ONLY - taken
+
+
+# --- one call of the port with each repaired keyword ---
+
+
+def _stacked(n: int = 3):
+    rng = np.random.RandomState(0)
+    tree = {"w": torch.from_numpy(rng.randn(n, 300).astype(np.float32)),
+            "b": torch.from_numpy(rng.randn(n, 5, 7).astype(np.float32)).to(torch.bfloat16)}
+    for leaf in tree.values():
+        leaf[1:] = float("nan")
+    return tree
+
+
+def test_distribute_weights_takes_stage_chunk_and_donate():
+    """``stage_chunk`` and ``donate`` change nothing on one card: the
+    replicas are bit-equal to a call without them, staged and not."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import distribute_weights
+
+    mesh = make_mesh(3, device="cpu")
+    for stage in (False, True):
+        plain = distribute_weights(_stacked(), mesh, bucket_bytes=512, double_buffer=stage)
+        got = distribute_weights(_stacked(), mesh, bucket_bytes=512, double_buffer=stage,
+                                 stage_chunk=128, donate=True)
+        for k in plain:
+            assert torch.equal(got[k].view(torch.int16), plain[k].view(torch.int16))
+            assert torch.equal(got[k][1:].float(), got[k][:1].float().expand_as(got[k][1:]))
+
+
+def test_execute_stream_entry_takes_stage_chunk_and_fused():
+    """``fused=False`` routes every bucket to the unrolled replay, which
+    is bit-identical to the compiled one; ``stage_chunk`` changes
+    nothing."""
+    from repro_torch.comm import streams
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import distribution_stream_graph
+
+    mesh = make_mesh(3, device="cpu")
+    graph, _spec, _plans = distribution_stream_graph(_stacked(), mesh, algo="pipelined_chain",
+                                                     bucket_bytes=512)
+    entry = graph.entry("distribute")
+    want = streams.execute_stream_entry(entry, _stacked(), stage=True, compiled=True)
+    got = streams.execute_stream_entry(entry, _stacked(), stage=True, stage_chunk=256,
+                                       fused=False)
+    for k in want:
+        assert torch.equal(got[k].view(torch.int16), want[k].view(torch.int16))
+
+
+def test_tree_collectives_take_stage_chunk():
+    """``pbcast_tree`` and ``pallreduce_tree`` accept ``stage_chunk`` and
+    give what they give without it."""
+    from repro_torch import comm
+
+    t = {"a": torch.arange(3 * 40, dtype=torch.float32).reshape(3, 40)}
+    got = comm.pbcast_tree({"a": t["a"].clone()}, root=1, bucket_bytes=64, stage_chunk=128)
+    assert torch.equal(got["a"], t["a"][1:2].expand(3, 40))
+    got = comm.pallreduce_tree({"a": t["a"].clone()}, ("data",), bucket_bytes=64,
+                               stage_chunk=128)
+    assert torch.equal(got["a"], t["a"].sum(0, keepdim=True).expand(3, 40))
+
+
+def test_save_checkpoint_writes_extra_into_the_marker(tmp_path):
+    """``extra``'s fields land in the json commit marker beside the step,
+    as the reference writes them, and the checkpoint restores."""
+    from repro.train import checkpoint as jckpt
+    from repro_torch.train import checkpoint as tckpt
+
+    tree = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    extra = {"loss": 1.5, "tag": "warm"}
+    tckpt.save_checkpoint(str(tmp_path / "port"), 7, tree, extra=extra)
+    jckpt.save_checkpoint(str(tmp_path / "ref"), 7, {"w": jnp.arange(6.0).reshape(2, 3)},
+                          extra=extra)
+    marker = lambda d: json.loads((tmp_path / d / "ckpt_00000007.json").read_text())  # noqa: E731
+    assert marker("port") == marker("ref") == {"step": 7, **extra}
+    assert tckpt.latest_step(str(tmp_path / "port")) == 7
+    back = tckpt.restore_checkpoint(str(tmp_path / "port"), 7, tree)
+    assert torch.equal(back["w"], tree["w"])
+
+
+def test_init_block_cache_takes_dtype_as_the_reference_does():
+    """``dtype`` is read by no attention cache, here as in the reference:
+    both give the config's ``kv_cache_dtype`` and the same shapes."""
+    from repro.configs import get_config as j_get_config
+    from repro.models.blocks import init_block_cache as j_init
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.models.blocks import init_block_cache as t_init
+
+    jcfg, tcfg = j_get_config("minitron-8b-smoke"), t_get_config("minitron-8b-smoke")
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        want = j_init(jcfg, "attn", None, 2, 16, jdt)["attn"]
+        got = t_init(tcfg, "attn", None, 2, 16, "cpu", dtype=tdt)["attn"]
+        for k in ("k", "v"):
+            assert tuple(got[k].shape) == want[k].shape
+            assert str(got[k].dtype)[6:] == str(want[k].dtype) == tcfg.kv_cache_dtype
+
+
+def test_attention_positions_match_the_reference():
+    """``positions`` rotate q and k in place of ``0..T-1`` in train and
+    prefill, through ``attention`` and ``apply_block``, as the
+    reference's do (f32, within the reference tests' 1e-5)."""
+    from repro.configs import get_config as j_get_config
+    from repro.models import blocks as jb
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.models import blocks as tb
+
+    jcfg, tcfg = j_get_config("minitron-8b-smoke"), t_get_config("minitron-8b-smoke")
+    rng = np.random.RandomState(3)
+    d = tcfg.d_model
+    p = {"norm1": {"scale": rng.randn(d).astype(np.float32)},
+         "attn": {k: rng.randn(*shape).astype(np.float32) * 0.05 for k, shape in (
+             ("wq", (d, tcfg.num_heads, tcfg.head_dim)),
+             ("wk", (d, tcfg.num_kv_heads, tcfg.head_dim)),
+             ("wv", (d, tcfg.num_kv_heads, tcfg.head_dim)),
+             ("wo", (tcfg.num_heads, tcfg.head_dim, d)))}}
+    x = rng.randn(2, 12, d).astype(np.float32)
+    pos = (np.arange(12)[None, :] + np.array([[5], [40]])).astype(np.int32)
+    tp = {k: {kk: torch.from_numpy(v) for kk, v in sub.items()} for k, sub in p.items()}
+    jp = {k: {kk: jnp.asarray(v) for kk, v in sub.items()} for k, sub in p.items()}
+    got, _ = tb.apply_block(tp, torch.from_numpy(x), tcfg, "attn", None, mode="train",
+                            positions=torch.from_numpy(pos))
+    want = jb.apply_block(jp, jnp.asarray(x), jcfg, "attn", None, mode="train",
+                          positions=jnp.asarray(pos))[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    moved, _ = tb.apply_block(tp, torch.from_numpy(x), tcfg, "attn", None, mode="train")
+    assert not torch.allclose(moved, got)  # the positions were used
+
+
+def test_decompress_casts_to_dtype():
+    """``CompressedWire.decompress(dtype=)`` casts the f32 rows, as the
+    reference's does."""
+    from repro.comm.compress import CompressedWire as JWire
+    from repro.comm.compress import WireFormat as JFormat
+    from repro_torch.comm.compress import CompressedWire as TWire
+    from repro_torch.comm.compress import WireFormat as TFormat
+
+    x = np.random.RandomState(4).randn(3, 300).astype(np.float32)
+    tw, jw = TWire(TFormat("int8")), JWire(JFormat("int8"), interpret=True)
+    tv, ts = tw.compress(torch.from_numpy(x))
+    jv, js = jw.compress(jnp.asarray(x))
+    got = tw.decompress(tv, ts, out_cols=300, dtype=torch.bfloat16)
+    want = jw.decompress(jv, js, out_cols=300, dtype=jnp.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(want).view(np.int16))
+    assert tw.decompress(tv, ts, out_cols=300).dtype == torch.float32
