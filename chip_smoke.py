@@ -76,14 +76,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. training: minitron-8b at full width (1 of 32 layers, bf16, seeded
    weights) on 4 emulated data ranks, global batch 8 x 512 tokens, 3 steps
    in each sync mode from the same weights and batches: grad_allreduce,
-   param_bcast, tuned_allreduce (compiled executor: fused_combine), and
-   compressed_allreduce over bf16 (the passthrough), int8 and fp8 wires
-   (compiled: the quantize kernels); then param_bcast and tuned_allreduce
+   param_bcast, tuned_allreduce (compiled executor: fused_combine),
+   overlap_allreduce (the same plans streamed through the overlap engine at
+   its tuned depth) and again with ``prefetch_stream`` (a second stream
+   broadcasts a rank-stacked copy of the updated parameters after every
+   update), and compressed_allreduce over bf16 (the passthrough), int8 and
+   fp8 wires (compiled: the quantize kernels); then param_bcast and tuned_allreduce
    again with the synced gradient rows compared; then tuned_allreduce with
    ``RunConfig.tuner_table`` naming two tables that differ only in
    ``exec_path`` (compiled, then inkernel). Checks: equal step-0 losses,
-   bit-equal synced rows in the two reruns, the bf16 wire's parameters
-   bit-identical to tuned_allreduce's, the in-kernel table's parameters
+   bit-equal synced rows in the two reruns, the bf16 wire's and both
+   overlap runs' parameters bit-identical to tuned_allreduce's,
+   overlap_allreduce launching as many fused_combine as tuned_allreduce
+   (the prefetch's extra broadcast launches, each run's depth and peak
+   memory printed), the in-kernel table's parameters
    bit-identical to the compiled table's (with no merge launch and one
    device-initiated in-kernel launch per bucket plan and step), the
    bf16-wire modes' last losses and per-step grad norms close to
@@ -98,6 +104,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bit-equal to each other and to the device-initiated replay's plain
    version on the same buffer; the one-shot max/min ``pallreduce`` against
    ``torch.amax``/``amin``.
+8. streams: a 2-entry graph from ``plan_streams`` over phase 6's parameter
+   shapes on the 4 emulated ranks, ``grad_sync`` (allreduce, reversed,
+   priority 1) and ``weight_prefetch`` (bcast, after grad_sync), through
+   ``execute_streams(stage=True, compiled=True)``: each tree bit-equal to
+   its entry replayed alone, bucket 0 of each bit-equal to
+   ``simulate_lowered``, one chunked_copy per non-empty bucket and one
+   fused_combine per class-round; the host-clock time of the interleave
+   beside the two entries run one after the other (one sample, no claim
+   about overlap on one card).
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -106,8 +121,8 @@ Launch counts are zeroed right before each path and read right after it:
 phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
 path), phase 4c (the long-prompt serving path), phase 4d (the
 vision-prefix serving path), phase 5's two long-prompt references (the
-f32 flash route), phase 6's runs (the training path) and phase 7 (the
-collective entry points);
+f32 flash route), phase 6's runs (the training path), phase 7 (the
+collective entry points) and phase 8's interleave (the stream path);
 the launches that compare
 kernels with their plain versions, and the replays timed to fill the tuner
 tables, are not counted. The last three lines of output are the kernels
@@ -171,6 +186,9 @@ TRAIN_MODES = (  # (label, RunConfig fields)
     ("grad_allreduce", {"sync_mode": "grad_allreduce"}),
     ("param_bcast", {"sync_mode": "param_bcast"}),
     ("tuned_allreduce", {"sync_mode": "tuned_allreduce", "compiled_collectives": True}),
+    ("overlap_allreduce", {"sync_mode": "overlap_allreduce", "compiled_collectives": True}),
+    ("overlap_prefetch", {"sync_mode": "overlap_allreduce", "compiled_collectives": True,
+                          "prefetch_stream": True}),
     ("compressed_bf16", {"sync_mode": "compressed_allreduce", "wire_format": "bf16",
                          "compiled_collectives": True}),
     ("compressed_int8", {"sync_mode": "compressed_allreduce", "wire_format": "int8",
@@ -1762,6 +1780,133 @@ def collectives(torch) -> dict:
     return out
 
 
+def _simulated_bucket(torch, plan, bucket):
+    """The numpy replay (``simulate_lowered``) of ``plan`` on the rank-stacked
+    bucket ``(n, size)``, in f32; returns its first ``size`` columns."""
+    import numpy as np
+
+    from repro_torch.comm.api import _chunked
+    from repro_torch.core.simulator import simulate_lowered
+
+    size = bucket.shape[1]
+    buf, _pad = _chunked(bucket, plan.lowered().num_chunks, dtype=torch.float32)
+    want = simulate_lowered(plan.lowered(), list(buf.cpu().numpy()))
+    return np.stack(want).reshape(bucket.shape[0], -1)[:, :size]
+
+
+def streams(torch) -> dict:
+    """Phase 8: a 2-entry stream graph from ``plan_streams`` over the
+    1-layer minitron-8b parameter shapes of phase 6 on the 4 emulated ranks:
+    ``grad_sync`` (allreduce, reversed, priority 1) and ``weight_prefetch``
+    (bcast, priority 0, after grad_sync), replayed by
+    ``execute_streams(stage=True, compiled=True)``. The gradients are
+    random bf16 rows; the prefetch tree's row 0 holds random weights and
+    rows 1-3 NaN, which the broadcast must overwrite. Bucket 0 of each entry
+    holds small integers, exact in bf16 and f32 through every partial sum,
+    so that it can be held against the numpy replay of its plan. Checks:
+    each tree bit-equal to its entry replayed alone through
+    ``execute_stream_entry``, bucket 0 bit-equal to ``simulate_lowered``,
+    replicas bit-equal, one ``chunked_copy`` per non-empty bucket and one
+    ``fused_combine`` per class-round. Launch counts are zeroed right
+    before the interleave and read right after it."""
+    from repro_torch import kernels
+    from repro_torch.comm import (StreamSpec, dispatch_schedule, execute_stream_entry,
+                                  execute_streams, plan_streams)
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import bucketing
+    from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
+    params = Model(cfg).init(seed=0, device="cuda")
+    shapes = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+    del params
+    torch.cuda.empty_cache()
+    run = RunConfig(**TRAIN_RUN)
+    axes = (("data", RANKS),)
+    graph = plan_streams([
+        StreamSpec(name="grad_sync", tree=shapes, axes=axes, op="allreduce", priority=1,
+                   bucket_bytes=run.bcast_bucket_bytes, reverse=True),
+        StreamSpec(name="weight_prefetch", tree=shapes, axes=axes, op="bcast", priority=0,
+                   after=("grad_sync",), bucket_bytes=run.bcast_bucket_bytes),
+    ])
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    leaves, treedef = tree_flatten(shapes)
+    first = {m.index for m in graph.entries[0].spec.leaves if m.bucket == 0}
+
+    def tree(root_only: bool):
+        out = []
+        for i, m in enumerate(leaves):
+            t = torch.empty((RANKS,) + tuple(m.shape), dtype=m.dtype, device="cuda")
+            if i in first:
+                t.copy_(torch.randint(-8, 8, t.shape, generator=gen, device="cuda"))
+            else:
+                t.normal_(generator=gen)
+            if root_only:
+                t[1:] = float("nan")
+            out.append(t)
+        return tree_unflatten(treedef, out)
+
+    trees = {"grad_sync": tree(False), "weight_prefetch": tree(True)}
+    alone = {name: tree_map(lambda t: t.clone(), t) for name, t in trees.items()}
+    want0 = {}
+    for e in graph.entries:
+        b0 = bucketing.pack_buckets(trees[e.name], e.spec)[0]
+        want0[e.name] = _simulated_bucket(torch, e.plans["data"][0], b0)
+    sched = dispatch_schedule(graph)
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = execute_streams(graph, trees, stage=True, compiled=True)
+    torch.cuda.synchronize()
+    interleave_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    t0 = time.perf_counter()
+    for e in graph.entries:
+        execute_stream_entry(e, alone[e.name], stage=True, compiled=True)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+
+    buckets = staged = merges = 0
+    for e in graph.entries:
+        got, want = tree_leaves(out[e.name]), tree_leaves(alone[e.name])
+        assert all(same_bits(torch, a, b) for a, b in zip(got, want)), \
+            f"{e.name}: the interleave differs from the entry replayed alone"
+        for t in got:  # every rank holds the same result
+            assert all(same_bits(torch, t[r], t[0]) for r in range(1, RANKS)), e.name
+        b0 = bucketing.pack_buckets(out[e.name], e.spec)[0]
+        assert (b0.float().cpu().numpy() == want0[e.name]).all(), \
+            f"{e.name}: bucket 0 differs from simulate_lowered"
+        for k, size in enumerate(e.spec.bucket_sizes):
+            low = e.plans["data"][k].lowered()
+            buckets += 1
+            staged += size > 0
+            merges += len(low.classes) * low.num_rounds if size and low is not None else 0
+    assert counts["chunked_copy"] == staged and counts["fused_combine"] == merges, \
+        (counts, staged, merges)
+    assert counts["inkernel_rdma"] == 0 == counts["inkernel_replay"], counts
+    del trees, alone, out
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    rec = {"buckets": buckets, "staged": staged, "merges": merges, "interleave_s": interleave_s,
+           "serial_s": serial_s, "phase_s": phase_s,
+           "entries": {e.name: {"algos": sorted({p.algo for p in e.plans["data"]}),
+                                "depth": e.overlap_depth, "depth_source": e.depth_source,
+                                "priority": e.priority} for e in graph.entries},
+           "dispatch": len(sched)}
+    log(f"streams: grad_sync + weight_prefetch over {buckets} buckets ({staged} staged), "
+        f"{counts['chunked_copy']} chunked_copy and {counts['fused_combine']} fused_combine "
+        f"launches (one a non-empty bucket, one a class-round); each tree bit-equal to its "
+        f"entry alone, bucket 0 to simulate_lowered, replicas bit-equal; entries "
+        f"{rec['entries']}; host clock: interleave {interleave_s:.4f} s, the two entries one "
+        f"after the other {serial_s:.4f} s (one sample each); phase {phase_s:.1f} s")
+    rec["counts"] = counts
+    return rec
+
+
 def small_reference(torch) -> float:
     """The f32 smoke model on the card against the same model on the CPU."""
     from repro_torch.configs import get_config
@@ -1843,6 +1988,8 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False):
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     after = kernels.launch_counts()
+    depths = (overlap_depths(torch, trainer, params)
+              if fields["sync_mode"] == "overlap_allreduce" else None)
     del opt, trainer
     losses = [h["loss"] for h in hist]
     assert all(math.isfinite(x) for x in losses), (fields, losses)
@@ -1857,7 +2004,28 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False):
     }
     if check_rows:
         record["grad_rows_differ"] = [int(h["grad_rows_differ"]) for h in hist]
+    if depths is not None:
+        record["depths"] = depths
     return params, record
+
+
+def overlap_depths(torch, trainer, params) -> dict:
+    """Each stream's [in-flight depth, depth_source] in an overlap_allreduce
+    run: the prefetch form's planned graph (the step's ``graph``), or the
+    plan ``overlap_allreduce_tree`` resolves in every step of the
+    single-stream form (cached, so this call returns the same plan)."""
+    from repro_torch.comm import plan_overlap
+    from repro_torch.core.tree import tree_map
+
+    graph = getattr(trainer._step_fn, "graph", None)
+    if graph is not None:
+        return {e.name: [e.overlap_depth, e.depth_source] for e in graph.entries}
+    run = trainer.run
+    shapes = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+    oplan = plan_overlap(shapes, [("data", RANKS)], algo=run.allreduce_algo,
+                         bucket_bytes=run.bcast_bucket_bytes, compute_s=run.overlap_compute_s,
+                         overlap_depth=run.overlap_depth)
+    return {"overlap": [oplan.overlap_depth, oplan.depth_source]}
 
 
 def train_tables(torch, d: str) -> tuple[dict, int]:
@@ -1908,22 +2076,31 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
     cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
     mesh = make_mesh(RANKS, device="cuda")
     out, tuned, tabled = {}, None, None
+
+    def on_host(params):  # held off the card, so each run's peak is its own
+        return [t.cpu() for t in tree_leaves(params)]
+
+    def same_as(held, params):
+        return all(same_bits(torch, a, b) for a, b in zip(held, on_host(params)))
+
     runs = [(label, fields, False) for label, fields in TRAIN_MODES]
     runs += [(label + "+check_rows", dict(TRAIN_MODES)[label], True) for label in ROW_CHECKED]
     runs += [(label, fields, False) for label, fields in table_runs]
     for label, fields, check_rows in runs:
         params, r = train_mode(torch, cfg, mesh, fields, check_rows)
         if label == "tuned_allreduce":
-            tuned = tree_leaves(params)
+            tuned = on_host(params)
+        elif label in ("overlap_allreduce", "overlap_prefetch"):
+            assert same_as(tuned, params), f"{label}'s parameters differ from tuned_allreduce's"
         elif label == "compressed_bf16":
-            assert all(same_bits(torch, a, b) for a, b in zip(tuned, tree_leaves(params))), \
+            assert same_as(tuned, params), \
                 "the bf16 wire's parameters differ from tuned_allreduce's"
             tuned = None
         elif label == "table_compiled":
-            tabled = tree_leaves(params)
+            tabled = on_host(params)
             assert r["launches"]["inkernel_rdma"] == 0 < r["launches"]["fused_combine"], r
         elif label == "table_inkernel":
-            assert all(same_bits(torch, a, b) for a, b in zip(tabled, tree_leaves(params))), \
+            assert same_as(tabled, params), \
                 "the in-kernel table's parameters differ from the compiled table's"
             tabled = None
             assert r["launches"]["fused_combine"] == 0 == r["launches"]["inkernel_replay"], r
@@ -1936,6 +2113,7 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
             f"(first {r['first_step_s']:.3f} s), {r['tokens_per_s']:.0f} tok/s, peak "
             f"{r['max_memory_allocated'] / 2**30:.2f} GiB, "
             + (f"rows differ {r['grad_rows_differ']}, " if check_rows else "")
+            + (f"depth, source {r['depths']}, " if "depths" in r else "")
             + f"launches {r['launches']}")
     ref = out["tuned_allreduce"]["losses"]
     for label, r in out.items():
@@ -1943,12 +2121,21 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
     for label in ROW_CHECKED:
         rows = out[label + "+check_rows"]["grad_rows_differ"]
         assert not any(rows), (label, "synced rows differ", rows)
+    merges = {label: out[label]["launches"]["fused_combine"]
+              for label in ("tuned_allreduce", "overlap_allreduce", "overlap_prefetch")}
+    assert merges["overlap_allreduce"] == merges["tuned_allreduce"], merges
+    peaks = {label: round(r["max_memory_allocated"] / 2**30, 2) for label, r in out.items()}
+    log(f"train overlap: overlap_allreduce and overlap_prefetch bit-equal to tuned_allreduce; "
+        f"fused_combine launches {merges}: the weight_prefetch broadcast adds "
+        f"{merges['overlap_prefetch'] - merges['tuned_allreduce']} in {TRAIN_STEPS} steps; "
+        f"peak GiB {peaks}")
     # grad_allreduce's plain mean is the one sync that runs none of the
     # port's kernels: the bf16-wire modes must track it. Bounds set from
     # the readings of the proof run (NVIDIA H100 80GB HBM3, 700 W): last
     # losses within 1.7e-4, grad norms within 3.8e-5 relative at every step.
     base = out["grad_allreduce"]
-    for label in ("param_bcast", "tuned_allreduce", "compressed_bf16"):
+    for label in ("param_bcast", "tuned_allreduce", "overlap_allreduce", "overlap_prefetch",
+                  "compressed_bf16"):
         r = out[label]
         d_loss = abs(r["losses"][-1] - base["losses"][-1])
         d_norm = max(abs(a - b) / b for a, b in zip(r["grad_norms"], base["grad_norms"]))
@@ -2131,8 +2318,13 @@ def main() -> int:
     kernels.reset_launch_counts()
     colls = collectives(torch)
     coll_counts = kernels.launch_counts()
-    # each kernel on the path that runs it: the merge on both, the staging
-    # copy on both serving paths, the quantize pair on the training path, the
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream_rec = streams(torch)
+    stream_counts = stream_rec.pop("counts")
+    # each kernel on the path that runs it: the merge on the serving and
+    # training paths and the streams phase, the staging copy on the serving
+    # paths and the streams phase, the quantize pair on the training path, the
     # device-initiated in-kernel replay on the tuned serving path (phase 4b),
     # the collective entry points (phase 7) and in training, the sm90 flash
     # kernel on both long-prompt serving paths (phases 4c and 4d), the
@@ -2141,8 +2333,8 @@ def main() -> int:
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("serve", "train"),
-             "chunked_copy": ("serve", "serve_long", "serve_vlm"),
+    paths = {"fused_combine": ("serve", "train", "streams"),
+             "chunked_copy": ("serve", "serve_long", "serve_vlm", "streams"),
              "quantize_blocks": ("train",), "dequantize_blocks": ("train",),
              "inkernel_replay": (),
              "inkernel_rdma": ("serve_tuned", "collectives", "train"),
@@ -2151,7 +2343,8 @@ def main() -> int:
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
               "serve_long": long_counts, "serve_vlm": vlm_counts,
-              "reference_long": ref_long_counts, "collectives": coll_counts}
+              "reference_long": ref_long_counts, "collectives": coll_counts,
+              "streams": stream_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     for line in lines:
@@ -2167,6 +2360,7 @@ def main() -> int:
     small_train_reference(torch)
     log(f"training numbers: {json.dumps(training)}")
     log(f"collectives numbers: {json.dumps(colls)}")
+    log(f"streams numbers: {json.dumps(stream_rec)}")
     check_trap(torch)
     print(json.dumps({"kernels": lines}))
     print(f"card: {name_power}")

@@ -8,7 +8,8 @@ Layering, as in the reference:
                          ->  comm.api       (apply_plan, pbcast, preduce,
                                              pallreduce, pallgather,
                                              preduce_scatter, *_tree)
-                         ->  comm.streams   (stream entries)
+                         ->  comm.streams   (multi-stream link scheduler;
+                                             comm.overlap = 1-stream case)
 """
 from ..core.tuner import OPS, Decision, Tuner, default_tuner
 from .api import (
@@ -31,6 +32,13 @@ from .compress import (
     wire_chunk_bytes,
 )
 from .executors import execute_collective, execute_compiled, execute_inkernel
+from .overlap import (
+    OverlapPlan,
+    execute_overlap,
+    overlap_allreduce_tree,
+    plan_overlap,
+    simulate_overlap,
+)
 from .plan import (
     CollectivePlan,
     cache_stats,
@@ -40,7 +48,18 @@ from .plan import (
     plan_cached,
     plan_collective,
 )
-from .streams import StreamEntry, StreamGraph, execute_stream_entry, graph_key
+from .streams import (
+    StreamEntry,
+    StreamGraph,
+    StreamGraphError,
+    StreamSpec,
+    dispatch_schedule,
+    execute_stream_entry,
+    execute_streams,
+    graph_key,
+    plan_streams,
+    simulate_streams,
+)
 
 __all__ = [
     "OPS",
@@ -72,8 +91,19 @@ __all__ = [
     "pbcast_tree",
     "pallreduce_tree",
     "hierarchical_allreduce_axes",
+    "OverlapPlan",
+    "plan_overlap",
+    "simulate_overlap",
+    "execute_overlap",
+    "overlap_allreduce_tree",
+    "StreamSpec",
     "StreamEntry",
     "StreamGraph",
+    "StreamGraphError",
     "graph_key",
+    "plan_streams",
+    "simulate_streams",
+    "dispatch_schedule",
+    "execute_streams",
     "execute_stream_entry",
 ]

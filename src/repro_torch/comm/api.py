@@ -224,7 +224,8 @@ def apply_plan(
     if plan.algo in ONE_SHOT:
         return _one_shot(plan, x)
     if plan.op not in ("bcast", "reduce", "allreduce", "allgather", "reduce_scatter"):
-        raise NotImplementedError(f"ragged op {plan.op!r} is not ported yet: ROADMAP A.4")
+        raise NotImplementedError(f"ragged op {plan.op!r} is not ported yet: "
+                                  'ROADMAP item "Ragged collectives and MoE"')
     sched = plan.schedule
     run = _EXECUTORS[_resolve_exec_path(plan, fused=fused, compiled=compiled,
                                         inkernel=inkernel)]
@@ -420,6 +421,16 @@ def _check_unstaged(stage: bool, op: str) -> None:
             'no ported caller yet: ROADMAP item "Collective API remainder"')
 
 
+def _check_one_axis(axes: Sequence) -> tuple:
+    axes = tuple(axes)
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"hierarchical allreduce over {axes}: the emulated mesh has one data "
+            'axis; multi-level meshes are ROADMAP item "Serving remainder and '
+            'hierarchical meshes"')
+    return axes
+
+
 def _tree_collective(op_fn, tree, *, bucket_bytes, **kw):
     spec = bucketing.plan_buckets(_rank_view(tree), bucket_bytes)
     out = [op_fn(b, **kw) if b.shape[-1] else b for b in bucketing.pack_buckets(tree, spec)]
@@ -469,12 +480,7 @@ def pallreduce_tree(
     applies to every bucket. ``stage_chunk`` is accepted and ignored, as
     :func:`pbcast_tree`'s is."""
     _check_unstaged(stage, "pallreduce_tree")
-    axes = tuple(axes)
-    if len(axes) > 1:
-        raise NotImplementedError(
-            f"hierarchical allreduce over {axes}: the emulated mesh has one data "
-            'axis; multi-level meshes are ROADMAP item "Serving remainder and '
-            'hierarchical meshes"')
+    axes = _check_one_axis(axes)
     if not axes:
         return tree
     return _tree_collective(

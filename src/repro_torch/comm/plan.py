@@ -14,6 +14,7 @@ from collections import OrderedDict
 
 from ..core import cost_model
 from ..core.schedules import LoweredSchedule, Schedule, build, lower_schedule
+from ..core.simulator import timed_rounds
 from ..core.tuner import OPS, RAGGED_OPS, Decision, Tuner, default_tuner
 from . import schedules as comm_schedules
 from .compress import WireFormat, normalize_wire_format, wire_chunk_bytes
@@ -129,6 +130,16 @@ class CollectivePlan:
         """Dense round tables for the compiled executor (host-side, cached
         per schedule in ``core.schedules.lower_schedule``)."""
         return None if self.schedule is None else lower_schedule(self.schedule)
+
+    def timed_rounds_s(self, hw: cost_model.Hardware | None = None) -> float:
+        """Round-accurate simulator clock for this plan's schedule
+        (``core.simulator.timed_rounds`` on ``hw``'s startup time and this
+        plan's path bandwidth); 0 for noop and the one-shots."""
+        if self.schedule is None:
+            return 0.0
+        hw = hw or cost_model.H100_SXM
+        chunk_bytes = math.ceil(self.M / max(self.schedule.num_chunks, 1))
+        return timed_rounds(self.schedule, chunk_bytes, hw.ts, hw.path_bw(self.inter_pod))
 
 
 def decide(

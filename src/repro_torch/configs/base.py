@@ -1,5 +1,5 @@
 """Model architecture and run configuration. Input shapes (``ShapeSpec``)
-come with the dry-run tooling (ROADMAP A.13)."""
+come with the dry-run tooling (ROADMAP item "Tooling")."""
 from __future__ import annotations
 
 import dataclasses
@@ -141,18 +141,33 @@ class RunConfig:
     # data-parallel sync mode: 'grad_allreduce' (the plain mean over the
     # rank axis), 'param_bcast' (the paper's CA-CNTK pattern: reduce to the
     # root, then the tuned broadcast), 'tuned_allreduce' (bucketed, per-op
-    # tuned allreduce plans) or 'compressed_allreduce' (the same plans over
-    # a compressed wire with error feedback)
+    # tuned allreduce plans), 'overlap_allreduce' (the same plans streamed
+    # through the overlap engine: backward-order dispatch inside a tuned
+    # in-flight window, the same bits) or 'compressed_allreduce' (the same
+    # plans over a compressed wire with error feedback)
     sync_mode: str = "grad_allreduce"
     bcast_algo: str = "auto"
-    # allreduce algorithm of the tuned/compressed modes: 'auto' consults the
-    # tuner, or pin 'reduce_then_bcast' | 'fused_rsb' | 'ring_allreduce' |
-    # 'xla_psum'
+    # allreduce algorithm of the tuned/overlap/compressed modes: 'auto'
+    # consults the tuner, or pin 'reduce_then_bcast' | 'fused_rsb' |
+    # 'ring_allreduce' | 'xla_psum'
     allreduce_algo: str = "auto"
-    # collective executor of the tuned/compressed modes: True the compiled
-    # replay (fused_combine per round), False the unrolled replay, None the
-    # tuned round-count policy
+    # collective executor of the tuned/overlap/compressed modes: True the
+    # compiled replay (fused_combine per round), False the unrolled replay,
+    # None the tuned round-count policy
     compiled_collectives: Optional[bool] = None
+    # in-flight bucket window of sync_mode='overlap_allreduce': None tunes
+    # it (a tuner table's overlap_depth, else cost_model.optimal_overlap_depth)
+    overlap_depth: Optional[int] = None
+    # backward-pass seconds the overlap engine may hide collectives behind
+    # (0.0: depth tuning assumes staging-bound, still streams buckets)
+    overlap_compute_s: float = 0.0
+    # a second comm stream for sync_mode='overlap_allreduce': right after the
+    # update, the updated parameters are broadcast as the lower-priority
+    # 'weight_prefetch' entry, DAG-ordered after 'grad_sync' (comm.streams).
+    # Every rank holds the same parameters, so the broadcast is
+    # value-identical; on the emulated mesh it broadcasts a rank-stacked
+    # copy of them (4 x the parameters' bytes while it runs)
+    prefetch_stream: bool = False
     # wire format of sync_mode='compressed_allreduce': 'bf16' (passthrough),
     # 'fp8' or 'int8' (1 byte per element + one f32 scale per 256)
     wire_format: str = "bf16"

@@ -25,6 +25,11 @@ __all__ = [
     "optimal_chunk_bytes_fused",
     "skew_ratio",
     "t_exec_path",
+    "t_bucketed_barrier",
+    "multi_stream_finish_times",
+    "window_finish_times",
+    "t_overlapped",
+    "optimal_overlap_depth",
     "ALGO_COSTS",
 ]
 
@@ -65,7 +70,7 @@ class Hardware:
 #   on one card), NOT the startup of an NVLink hop, while link_bw is the
 #   NVLink rate: the chunk counts this profile gives price neither the real
 #   fabric nor the emulation. Re-measure ts over the multi-GPU backend
-#   (ROADMAP A.14) once it exists.
+#   (ROADMAP item "Multi-GPU backend") once it exists.
 H100_SXM = Hardware(
     name="h100_sxm",
     ts=2.327e-05,
@@ -371,6 +376,235 @@ def t_ring_alltoallv(M: float, n: int, hw: Hardware, B: float,
         if worst > 0:
             t += hw.ts + worst / B
     return t
+
+
+# ---------------------------------------------------------------------------
+# Compute/communication overlap (the CNTK end-to-end regime, paper Sec. V-D):
+# bucketed gradient sync pipelined against backward compute. These price
+# *schedules of* collectives — the overlap engine (repro_torch.comm.overlap) feeds
+# them per-bucket times from CollectivePlans.
+# ---------------------------------------------------------------------------
+
+
+def t_bucketed_barrier(
+    bucket_comm_s: Sequence[float],
+    compute_s: float,
+    stage_s: Sequence[float] | None = None,
+) -> float:
+    """Barrier schedule: ALL compute, then ALL staging, then every bucket's
+    collective back-to-back (what ``pallreduce_tree`` runs). The
+    network idles for the whole compute phase."""
+    stage = sum(stage_s) if stage_s is not None else 0.0
+    return float(compute_s) + stage + float(sum(bucket_comm_s))
+
+
+def multi_stream_finish_times(
+    streams: Sequence[dict],
+    *,
+    starvation_bound: int | None = None,
+    trace: list | None = None,
+) -> list:
+    """THE link-scheduler recurrence — the multi-stream generalization of the
+    single-stream in-flight-window timeline. Every contending stream is a dict:
+
+        avail     per-bucket earliest availability times (compute gating)
+        stage     per-bucket staging costs (off-link; pack / chunked_copy)
+        comm      per-bucket link occupancy — a scalar (the bucket is one
+                  indivisible transfer) or a sequence of round quanta (the
+                  scheduler may preempt the stream between quanta: 'priority
+                  preemption points at round boundaries')
+        depth     in-flight window depth (default 1): bucket k's staging
+                  waits for comm_end[k - depth]
+        priority  higher wins contended dispatches (default 0)
+        link      name of the serial resource the stream occupies
+                  (default "net"); different links never contend
+        after     indices of streams that must FULLY finish before this
+                  stream's first bucket may stage (DAG edges)
+
+    Arbitration, per link: a transfer may dispatch at
+    ``t = max(link_free, min(ready))`` over that link's pending quanta —
+    the link never idles while any transfer is ready (no-idle property).
+    Among the quanta ready by ``t``, the highest-priority stream wins
+    (ties: latest-ready loses, then lower stream index wins) UNLESS some
+    eligible stream has already been passed over ``starvation_bound``
+    times — then the most-starved stream is forced (fairness property:
+    with S contending streams no stream is passed over more than
+    ``starvation_bound + S - 2`` consecutive times; exact bound for
+    S == 2). ``starvation_bound=None`` disables aging (pure priority).
+
+    Works on any numeric type (floats or integer rounds). Returns the
+    per-stream per-bucket comm finish times. With ONE stream this reduces
+    exactly to the single-stream recurrence (:func:`window_finish_times`):
+
+        stage_k starts at max(avail_k, comm_end_{k-depth})   (free slot)
+        comm_k  starts at max(stage-end_k, comm_end_{k-1})   (serial net)
+
+    If ``trace`` is a list, one record per dispatched quantum is appended
+    (stream, bucket, quantum, start, end, link, link_free, min_ready,
+    contenders) in commit order — the replay schedule consumers execute.
+    """
+    S = len(streams)
+    quanta: list[list[list]] = []
+    nbuckets: list[int] = []
+    depth: list[int] = []
+    prio: list = []
+    link: list[str] = []
+    after: list[tuple[int, ...]] = []
+    for st in streams:
+        qs = [list(c) if isinstance(c, (list, tuple)) else [c] for c in st["comm"]]
+        if any(not q for q in qs):
+            raise ValueError("every bucket needs >= 1 comm quantum")
+        quanta.append(qs)
+        nbuckets.append(len(qs))
+        depth.append(max(1, min(int(st.get("depth", 1)), max(len(qs), 1))))
+        prio.append(st.get("priority", 0))
+        link.append(str(st.get("link", "net")))
+        deps = tuple(int(d) for d in st.get("after", ()))
+        if any(d < 0 or d >= S for d in deps):
+            raise ValueError(f"'after' index out of range: {deps}")
+        after.append(deps)
+    comm_end: list[list] = [[0] * nbuckets[s] for s in range(S)]
+    nk = [0] * S   # next bucket per stream
+    nq = [0] * S   # next quantum within that bucket
+    qend = [0] * S  # end time of the stream's previous quantum
+    link_free: dict = {}
+    skips = [0] * S
+    while True:
+        pend: dict[str, list] = {}
+        active = False
+        for s in range(S):
+            if nk[s] >= nbuckets[s]:
+                continue
+            active = True
+            if any(nk[d] < nbuckets[d] for d in after[s]):
+                continue  # upstream stream still draining
+            k = nk[s]
+            if nq[s] == 0:
+                dep_done = 0
+                for d in after[s]:
+                    if nbuckets[d]:
+                        dep_done = max(dep_done, comm_end[d][-1])
+                slot_free = comm_end[s][k - depth[s]] if k >= depth[s] else 0
+                ready = max(streams[s]["avail"][k], slot_free, dep_done) + streams[s]["stage"][k]
+            else:
+                ready = qend[s]  # mid-bucket: back-to-back quanta
+            pend.setdefault(link[s], []).append((ready, s))
+        if not pend:
+            if active:
+                raise ValueError("stream deadlock: cycle in 'after' edges")
+            break
+        best = None
+        for ln in sorted(pend):
+            cands = pend[ln]
+            lfree = link_free.get(ln, 0)
+            t = max(lfree, min(r for r, _ in cands))
+            elig = [s for r, s in cands if r <= t]
+            ready_of = {s: r for r, s in cands}
+            starved = [
+                s for s in elig
+                if starvation_bound is not None and skips[s] >= starvation_bound
+            ]
+            pool = starved or elig
+            if starved:
+                chosen = max(pool, key=lambda s: (skips[s], prio[s], -s))
+            else:
+                chosen = max(pool, key=lambda s: (prio[s], -ready_of[s], -s))
+            if best is None or (t, ln) < (best[0], best[1]):
+                best = (t, ln, lfree, ready_of, chosen, elig)
+        t, ln, lfree, ready_of, s, elig = best
+        end = t + quanta[s][nk[s]][nq[s]]
+        link_free[ln] = end
+        qend[s] = end
+        for o in elig:
+            skips[o] = 0 if o == s else skips[o] + 1
+        if trace is not None:
+            trace.append({
+                "stream": s, "bucket": nk[s], "quantum": nq[s],
+                "start": t, "end": end, "link": ln,
+                "link_free": lfree, "min_ready": min(ready_of.values()),
+                "ready": ready_of[s], "contenders": len(elig),
+                "skips": max(skips) if skips else 0,
+            })
+        nq[s] += 1
+        if nq[s] >= len(quanta[s][nk[s]]):
+            comm_end[s][nk[s]] = end
+            nk[s] += 1
+            nq[s] = 0
+    return comm_end
+
+
+def window_finish_times(
+    avail: Sequence,
+    stage: Sequence,
+    comm: Sequence,
+    depth: int,
+) -> list:
+    """The greedy in-flight-window recurrence both :func:`t_overlapped`
+    (seconds) and the round simulator (``repro_torch.comm.streams``, integer
+    rounds) drain through. Since the stream refactor this is literally the
+    1-stream case of :func:`multi_stream_finish_times` — kept as the named
+    entry point so the analytic depth tuner, the round accounting, and the
+    multi-stream arbiter can never drift apart. Per bucket k (dispatch
+    order):
+
+        stage_k starts at max(avail_k, comm_end_{k-depth})   (free slot)
+        comm_k  starts at max(stage-end_k, comm_end_{k-1})   (serial net)
+
+    Works on any numeric type (floats or integer rounds). Returns the
+    per-bucket comm finish times.
+    """
+    return multi_stream_finish_times(
+        [{"avail": avail, "stage": stage, "comm": comm, "depth": depth}]
+    )[0]
+
+
+def t_overlapped(
+    bucket_comm_s: Sequence[float],
+    compute_s: float,
+    *,
+    depth: int = 2,
+    stage_s: Sequence[float] | None = None,
+) -> float:
+    """Overlapped (bucket-streamed) schedule: greedy timeline estimate.
+
+    Buckets are listed in DISPATCH order (backward-order streaming — the
+    DDP/Horovod pattern). Bucket k's gradient becomes available a fraction
+    (k+1)/K through the backward pass; staging (pack / ``chunked_copy``)
+    needs a free slot in the ``depth``-deep in-flight window (the double/
+    multi-buffer the consumer allocates), and the serialized network drains
+    staged buckets in dispatch order (:func:`window_finish_times`).
+
+    ``depth`` only buys time when staging is non-free: depth 1 serializes
+    stage and comm, depth 2 is classic double buffering, deeper windows hide
+    staging bursts at the cost of one live bucket buffer each. Returns the
+    finish time of the last bucket's collective.
+    """
+    K = len(bucket_comm_s)
+    if K == 0:
+        return float(compute_s)
+    avail = [compute_s * (k + 1) / K for k in range(K)]
+    stage = list(stage_s) if stage_s is not None else [0.0] * K
+    return float(window_finish_times(avail, stage, bucket_comm_s, depth)[-1])
+
+
+def optimal_overlap_depth(
+    bucket_comm_s: Sequence[float],
+    compute_s: float,
+    *,
+    stage_s: Sequence[float] | None = None,
+    max_depth: int = 8,
+) -> int:
+    """Smallest in-flight window minimizing :func:`t_overlapped` (ties go to
+    the shallower window — each extra depth is a live staged bucket buffer)."""
+    K = len(bucket_comm_s)
+    if K <= 1:
+        return 1
+    best_d, best_t = 1, float("inf")
+    for d in range(1, min(max_depth, K) + 1):
+        t = t_overlapped(bucket_comm_s, compute_s, depth=d, stage_s=stage_s)
+        if t < best_t * (1.0 - 1e-12):
+            best_d, best_t = d, t
+    return best_d
 
 
 def t_nccl_ring(M: float, n: int, hw: Hardware, B: float, slice_bytes: float = 256 << 10) -> float:

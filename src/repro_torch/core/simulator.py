@@ -4,8 +4,9 @@
 round-start (concurrent) semantics; :func:`simulate_lowered` replays its
 host-side lowering exactly as the compiled and in-kernel executors do.
 Both take per-rank buffers ``data[r]`` of shape ``(num_chunks, chunk)``
-and return new ones. The reference's fault-injection arguments are not
-ported (ROADMAP A.10).
+and return new ones. :func:`timed_rounds` is the round-accurate clock the
+stream simulator prices buckets with. The reference's fault-injection
+arguments are not ported (ROADMAP item "Fault runtime").
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 
 from .schedules import LoweredSchedule, Schedule
 
-__all__ = ["simulate_collective", "simulate_lowered"]
+__all__ = ["simulate_collective", "simulate_lowered", "timed_rounds"]
 
 
 def simulate_collective(schedule: Schedule, data: Sequence[np.ndarray]) -> list[np.ndarray]:
@@ -58,3 +59,17 @@ def simulate_lowered(lowered: LoweredSchedule, data: Sequence[np.ndarray]) -> li
                 else:
                     bufs[dst][r0 + lo:r0 + hi] = blocks[dst][lo:hi]
     return bufs
+
+
+def timed_rounds(schedule: Schedule, chunk_bytes: int, ts: float, bw: float) -> float:
+    """Round-accurate time estimate: each round costs ts + (bytes of the
+    largest transfer in the round)/bw; rounds serialize. Empty rounds cost
+    nothing. This is the 'simulator clock' the closed forms of
+    :mod:`.cost_model` approximate."""
+    total = 0.0
+    for rnd in schedule.rounds:
+        if not rnd.transfers:
+            continue
+        biggest = max(t.chunk_count for t in rnd.transfers) * chunk_bytes
+        total += ts + biggest / bw
+    return total

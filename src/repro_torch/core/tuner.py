@@ -50,8 +50,9 @@ class Decision:
     """A tuning decision for one (op, M, n) point.
 
     ``overlap_depth`` is the tuned in-flight bucket window for bucket-
-    streamed execution; ``None`` means the table carries no depth for this
-    point (the overlap planner is not ported yet).
+    streamed execution (``repro_torch.comm.overlap``); ``None`` means the
+    table carries no depth for this point and the overlap planner falls
+    back to the analytic :func:`cost_model.optimal_overlap_depth` sweep.
 
     ``fused_path`` is the compiled-executor flag: ``True`` pins this point
     to the compiled replay (``comm.executors.execute_compiled``),

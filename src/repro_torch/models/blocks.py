@@ -1,8 +1,9 @@
 """Block assembly with a uniform (init, apply) interface per ``kind``.
 
 The port has the dense ``attn`` block (pre-norm GQA attention + MLP) that
-the dense architectures use; the other kinds (moe, mlstm, slstm, hybrid)
-are ROADMAP A.8 and A.11.
+the dense architectures use; the other kinds are ROADMAP items: moe
+"Ragged collectives and MoE", mlstm, slstm and hybrid "Other model
+families".
 """
 from __future__ import annotations
 
@@ -39,13 +40,14 @@ def attn_spec_for(cfg, window: Optional[int], causal: bool = True) -> AttnSpec:
 def _check_kind(kind: str) -> None:
     if kind != "attn":
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP A.8/A.11); "
+            f"block kind {kind!r} is not ported yet (ROADMAP items \"Ragged collectives "
+            "and MoE\" and \"Other model families\"); "
             "the port has the dense 'attn' block"
         )
 
 
 def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
-               dtype, lead: tuple = ()) -> dict:
+               dtype=torch.bfloat16, lead: tuple = ()) -> dict:
     """One block's parameters; ``lead`` stacks several layers' blocks."""
     _check_kind(kind)
     d = cfg.d_model
@@ -70,7 +72,7 @@ def init_block_cache(cfg, kind: str, window: Optional[int], batch: int,
 
 
 def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
-                mode: str, cache: dict | None = None, cur_pos: int | None = None,
+                mode: str = "train", cache: dict | None = None, cur_pos: int | None = None,
                 max_len: int = 0, prefix_len: int = 0, positions=None):
     """Returns (x, cache): None in train mode, the prefill-built cache
     (grown to ``max_len``) or the decode cache with the new token appended

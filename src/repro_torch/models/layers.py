@@ -94,7 +94,7 @@ class AttnSpec:
     use_rope: bool = True
 
 
-def init_attention(gen: torch.Generator, d: int, spec: AttnSpec, dtype,
+def init_attention(gen: torch.Generator, d: int, spec: AttnSpec, dtype=torch.bfloat16,
                    lead: tuple = ()) -> dict:
     """``lead`` prepends stacked dimensions (layers of a superblock)."""
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
@@ -238,7 +238,7 @@ def attention(
     x: torch.Tensor,
     spec: AttnSpec,
     *,
-    mode: str = "prefill",         # train | prefill | decode
+    mode: str = "train",           # train | prefill | decode
     positions: torch.Tensor | None = None,
     prefix_len: int = 0,
     cache: dict | None = None,
@@ -310,8 +310,8 @@ def _fill_cache(k, v, spec: AttnSpec, T: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, d: int, f: int, act: str, dtype,
-             lead: tuple = ()) -> dict:
+def init_mlp(gen: torch.Generator, d: int, f: int, act: str = "silu",
+             dtype=torch.bfloat16, lead: tuple = ()) -> dict:
     p = {
         "w_up": _norm_init(gen, lead + (d, f), d**-0.5, dtype),
         "w_down": _norm_init(gen, lead + (f, d), f**-0.5, dtype),
@@ -337,7 +337,8 @@ def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_embedding(gen: torch.Generator, vocab: int, d: int, tie: bool, dtype) -> dict:
+def init_embedding(gen: torch.Generator, vocab: int, d: int, tie: bool = True,
+                   dtype=torch.bfloat16) -> dict:
     p = {"tokens": _norm_init(gen, (vocab, d), d**-0.5, dtype)}
     if not tie:
         p["unembed"] = _norm_init(gen, (vocab, d), d**-0.5, dtype)

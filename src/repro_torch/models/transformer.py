@@ -126,15 +126,17 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
     return x, new_caches
 
 
-def apply_lm(params, cfg, *, tokens: torch.Tensor, embeds: torch.Tensor | None = None,
-             mode: str = "prefill", caches=None, cur_pos: int | None = None,
-             max_len: int = 0, remat: bool = False):
+def apply_lm(params, cfg, *, tokens: torch.Tensor | None = None,
+             embeds: torch.Tensor | None = None, mode: str = "train", caches=None,
+             cur_pos: int | None = None, max_len: int = 0, remat: bool = False):
     """train/prefill: ``tokens`` (B, T_text), and for a vision config the
     stub patch ``embeds`` (B, prefix, D), which go in front unscaled;
     decode: ``tokens`` (B, 1) + ``caches`` + ``cur_pos``. Returns
     (logits_f32 of the text positions, caches); caches are None in train
     mode."""
     _check_arch(cfg)
+    if tokens is None:
+        raise ValueError(f"{cfg.name}: every ported family embeds text tokens; pass tokens=")
     layout = StackLayout(cfg)
     dt = _dtype(cfg)
     scale = torch.tensor(cfg.d_model**0.5, dtype=dt, device=tokens.device)

@@ -1,6 +1,6 @@
 """Train-step factories on the emulated data axis.
 
-Four data-parallel synchronization modes, as in the reference's
+Five data-parallel synchronization modes, as in the reference's
 ``train/train_step.py``:
 
 * ``grad_allreduce`` (:func:`make_train_step`) — the baseline: the plain
@@ -11,6 +11,9 @@ Four data-parallel synchronization modes, as in the reference's
   then the tuned bucketed broadcast (``core.bcast.pbcast_tree``).
 * ``tuned_allreduce`` (:func:`make_tuned_allreduce_train_step`) — bucketed
   allreduce through the ``comm`` plan layer, per-bucket tuned algorithm.
+* ``overlap_allreduce`` (:func:`make_overlap_allreduce_train_step`) — the
+  same plans streamed through the overlap engine, optionally with a second
+  stream that broadcasts the updated parameters.
 * ``compressed_allreduce`` (:func:`make_compressed_allreduce_train_step`)
   — the same plans over a compressed wire, with error feedback.
 
@@ -40,8 +43,14 @@ from typing import Callable
 
 import torch
 
-from ..comm import hierarchical_allreduce_axes, pallreduce, pallreduce_tree
+from ..comm import (
+    hierarchical_allreduce_axes,
+    overlap_allreduce_tree,
+    pallreduce,
+    pallreduce_tree,
+)
 from ..comm.compress import CompressionState, normalize_wire_format
+from ..comm.streams import StreamSpec, execute_stream_entry, plan_streams
 from ..configs.base import RunConfig
 from ..core import bucketing
 from ..core.bcast import pbcast_tree, preduce_sum
@@ -55,6 +64,7 @@ __all__ = [
     "make_train_step",
     "make_bcast_train_step",
     "make_tuned_allreduce_train_step",
+    "make_overlap_allreduce_train_step",
     "make_compressed_allreduce_train_step",
     "with_error_feedback",
 ]
@@ -201,7 +211,7 @@ def make_bcast_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn
     if run_cfg.bcast_algo == "ring_allreduce":
         raise NotImplementedError(
             "bcast_algo='ring_allreduce' (the explicit ring of core/algorithms.py) is "
-            "not ported yet: ROADMAP A.3")
+            'not ported yet: ROADMAP item "Collective API remainder"')
     compute = _grad_fn(model, run_cfg)
 
     def train_step(params, opt_state, batch):
@@ -232,6 +242,97 @@ def make_tuned_allreduce_train_step(model, run_cfg: RunConfig, optimizer: Optimi
     the replay)."""
     return _make_comm_sync_step(model, run_cfg, mesh, _tree_allreduce(run_cfg, tuner),
                                 optimizer, lr_fn, mode="tuned_allreduce", check_rows=check_rows)
+
+
+def make_overlap_allreduce_train_step(model, run_cfg: RunConfig, optimizer: Optimizer,
+                                      lr_fn: Callable, mesh, *, tuner: Tuner | None = None,
+                                      check_rows: bool = False):
+    """Gradient sync through the overlap engine (``comm.overlap``): the
+    buckets, hierarchy levels and per-bucket ``CollectivePlan`` objects of
+    ``tuned_allreduce``, so the same parameters bit for bit, with buckets
+    streamed in backward-dispatch order inside the tuned in-flight window
+    (``run_cfg.overlap_depth``; None = tuned).
+
+    With ``run_cfg.prefetch_stream`` the step carries a SECOND comm stream:
+    right after the update, the updated parameters are broadcast as the
+    lower-priority ``weight_prefetch`` entry of a 2-entry
+    :class:`~repro_torch.comm.streams.StreamGraph`, DAG-ordered ``after``
+    the ``grad_sync`` entry (the edge realized by program order). Both
+    entries resolve through ``plan_streams``; the graph is planned at the
+    first step, from the parameters' shapes (the grad-sync buckets at f32
+    when microbatches accumulate in f32), and kept as the step's ``graph``.
+    Every rank holds the same parameters, so the broadcast is
+    value-identical: here it broadcasts a rank-stacked copy of them (each
+    row the updated parameters) and the parameters are then read back from
+    its row 0. When ``tuner`` is given, both stream decisions are recorded
+    in it (``Tuner.record_stream``)."""
+    if not run_cfg.prefetch_stream:
+        def sync(grads, axes, inter_pod_axes):
+            return overlap_allreduce_tree(
+                grads, axes, algo=run_cfg.allreduce_algo, tuner=tuner,
+                bucket_bytes=run_cfg.bcast_bucket_bytes, inter_pod_axes=inter_pod_axes,
+                overlap_depth=run_cfg.overlap_depth, compute_s=run_cfg.overlap_compute_s,
+                compiled=run_cfg.compiled_collectives,
+            )
+
+        return _make_comm_sync_step(model, run_cfg, mesh, sync, optimizer, lr_fn,
+                                    mode="overlap_allreduce", check_rows=check_rows)
+
+    if tuner is not None:
+        # stream:* entries survive save/load, so a saved table pins them
+        tuner.record_stream("grad_sync", priority=1, overlap_depth=run_cfg.overlap_depth)
+        tuner.record_stream("weight_prefetch", priority=0)
+    n = _data_ranks(mesh, "overlap_allreduce")
+    sizes = topology.axis_sizes(mesh)
+    sized_axes = tuple((a, sizes[a]) for a in hierarchical_allreduce_axes(mesh)
+                       if sizes.get(a, 1) > 1)
+    inter = tuple(topology.inter_pod_axes(mesh))
+
+    def plan(params):
+        def shapes(dtype=None):
+            return tree_map(lambda p: torch.empty(p.shape, dtype=dtype or p.dtype,
+                                                  device="meta"), params)
+
+        # the microbatch accumulator holds the grads in f32 (see _grad_fn)
+        gshapes = shapes(torch.float32 if run_cfg.num_microbatches > 1 else None)
+        return plan_streams([
+            StreamSpec(name="grad_sync", tree=gshapes, axes=sized_axes, op="allreduce",
+                       algo=run_cfg.allreduce_algo, priority=1,
+                       overlap_depth=run_cfg.overlap_depth,
+                       compute_s=run_cfg.overlap_compute_s,
+                       bucket_bytes=run_cfg.bcast_bucket_bytes,
+                       inter_pod_axes=inter, reverse=True),
+            StreamSpec(name="weight_prefetch", tree=shapes(), axes=sized_axes, op="bcast",
+                       algo=run_cfg.bcast_algo, priority=0, after=("grad_sync",),
+                       bucket_bytes=run_cfg.bcast_bucket_bytes,
+                       inter_pod_axes=inter, reverse=False),
+        ], tuner=tuner)
+
+    def sync(grads, axes, inter_pod_axes):
+        return execute_stream_entry(train_step.graph.entry("grad_sync"), grads,
+                                    compiled=run_cfg.compiled_collectives)
+
+    def post_update(params, axes, inter_pod_axes):
+        # every rank's row holds the updated parameters; row 0 is the root
+        stacked = tree_map(lambda p: p.expand((n,) + tuple(p.shape)).clone(
+            memory_format=torch.contiguous_format), params)
+        execute_stream_entry(train_step.graph.entry("weight_prefetch"), stacked,
+                             compiled=run_cfg.compiled_collectives)
+        for p, s in zip(tree_leaves(params), tree_leaves(stacked)):
+            p.copy_(s[0])
+        return params
+
+    step = _make_comm_sync_step(model, run_cfg, mesh, sync, optimizer, lr_fn,
+                                mode="overlap_allreduce", check_rows=check_rows,
+                                post_update=post_update)
+
+    def train_step(params, opt_state, batch):
+        if train_step.graph is None:
+            train_step.graph = plan(params)
+        return step(params, opt_state, batch)
+
+    train_step.graph = None  # the planned StreamGraph, read by callers that report it
+    return train_step
 
 
 def _tree_allreduce(run_cfg: RunConfig, tuner, wire_format: str | None = None):
@@ -328,10 +429,13 @@ def make_compressed_allreduce_train_step(model, run_cfg: RunConfig, optimizer: O
 
 
 def _make_comm_sync_step(model, run_cfg: RunConfig, mesh, sync, optimizer: Optimizer,
-                         lr_fn: Callable, *, mode: str, check_rows: bool):
+                         lr_fn: Callable, *, mode: str, check_rows: bool, post_update=None):
     """Shared body of the ``comm`` gradient-sync modes: the per-rank
     gradients, rank-stacked, go through ``sync(grads, axes,
-    inter_pod_axes)``; the update reads row 0 divided by the rank count."""
+    inter_pod_axes)``; the update reads row 0 divided by the rank count.
+    ``post_update(params, axes, inter_pod_axes)`` runs right after the
+    update, the hook the weight-prefetch stream entry rides (it must
+    return the parameters unchanged in value)."""
     n = _data_ranks(mesh, mode)
     sizes = topology.axis_sizes(mesh)
     axes = [a for a in hierarchical_allreduce_axes(mesh) if sizes.get(a, 1) > 1]
@@ -347,6 +451,11 @@ def _make_comm_sync_step(model, run_cfg: RunConfig, mesh, sync, optimizer: Optim
         rows_differ = _tree_rows_differ(synced, check_rows)
         grads = tree_map(lambda t: t[0] / n, synced)
         del synced
-        return _finish(grads, params, opt_state, optimizer, lr_fn, loss, metrics, rows_differ)
+        params, opt_state, out = _finish(grads, params, opt_state, optimizer, lr_fn, loss,
+                                         metrics, rows_differ)
+        del grads
+        if post_update is not None:
+            params = post_update(params, axes, inter)
+        return params, opt_state, out
 
     return train_step

@@ -26,6 +26,7 @@ from . import checkpoint as ckpt_lib
 from .train_step import (
     make_bcast_train_step,
     make_compressed_allreduce_train_step,
+    make_overlap_allreduce_train_step,
     make_train_step,
     make_tuned_allreduce_train_step,
     with_error_feedback,
@@ -33,7 +34,8 @@ from .train_step import (
 
 __all__ = ["Trainer", "SYNC_MODES"]
 
-SYNC_MODES = ("grad_allreduce", "param_bcast", "tuned_allreduce", "compressed_allreduce")
+SYNC_MODES = ("grad_allreduce", "param_bcast", "tuned_allreduce", "overlap_allreduce",
+              "compressed_allreduce")
 
 
 class Trainer:
@@ -54,11 +56,9 @@ class Trainer:
         if cfg.frontend is not None:
             raise NotImplementedError(
                 f"{cfg.name}: training a model with a {cfg.frontend} frontend is not ported "
-                "(ROADMAP A.10, training PaliGemma); the port serves it")
+                '(ROADMAP item "Training PaliGemma"); the port serves it')
         if run.sync_mode not in SYNC_MODES:
-            raise NotImplementedError(
-                f"sync_mode {run.sync_mode!r} is not ported (have {SYNC_MODES}); "
-                "overlap_allreduce is ROADMAP A.6")
+            raise ValueError(f"unknown sync_mode {run.sync_mode!r} (have {SYNC_MODES})")
         self.cfg = cfg
         self.run = run
         self.model = Model(cfg)
@@ -82,6 +82,7 @@ class Trainer:
         return {
             "param_bcast": make_bcast_train_step,
             "tuned_allreduce": make_tuned_allreduce_train_step,
+            "overlap_allreduce": make_overlap_allreduce_train_step,
             "compressed_allreduce": make_compressed_allreduce_train_step,
         }[self.run.sync_mode](*args, tuner=tuner, check_rows=self.check_rows)
 

@@ -104,7 +104,7 @@ def test_pbcast_overwrites_nan_replicas(algo, dt):
 
 def test_unported_paths_raise():
     ragged = comm.plan_collective("allgatherv", 16 * 4, 4, sizes=(5, 0, 9, 2))
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(NotImplementedError, match="Ragged collectives"):
         comm.apply_plan(ragged, torch.zeros((4, 16)))
     with pytest.raises(NotImplementedError, match="hierarchical meshes"):
         comm.pallreduce_tree({"w": torch.zeros((4, 8))}, ("pod", "data"))

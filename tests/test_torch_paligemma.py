@@ -104,7 +104,7 @@ def test_audio_frontend_and_vision_training_are_refused():
         next(tpipe.batches(tpipe.make_source(audio), audio, batch=1, seq=4))
     with pytest.raises(NotImplementedError, match="A.6"):
         TModel(audio).init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="training PaliGemma"):
+    with pytest.raises(NotImplementedError, match="Training PaliGemma"):
         Trainer(t_get_config(ARCH), RunConfig(), device="cpu")
 
 

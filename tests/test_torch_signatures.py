@@ -1,8 +1,10 @@
 """Every public function and class that the port shares with the reference
-accepts the reference's keywords (ROADMAP C.4): ``inspect.signature`` of
-both, module by module, with an explicit allow-list of the names that
-exist only for JAX and of those owned by a queued ROADMAP item, and one
-call of the port with each keyword that was repaired."""
+accepts the reference's keywords (ROADMAP C.4) and keeps its plain-value
+defaults (ROADMAP C.5): ``inspect.signature`` of both, module by module,
+with explicit allow-lists of the names that exist only for JAX, of those
+owned by a queued ROADMAP item and of the defaults the port holds
+otherwise (each with its reason), and one call of the port with each
+keyword that was repaired."""
 from __future__ import annotations
 
 import importlib
@@ -29,15 +31,16 @@ JAX_ONLY = frozenset({"axis_name", "interpret", "key", "shardings", "grad_specs"
 
 # keywords whose module is queued in ROADMAP, by the item that ports them
 QUEUED = {
-    # A.1 Overlap engine and the stream planner
-    "comm.streams.StreamEntry": {"compute_s", "depth_source", "priority", "after", "link"},
-    "comm.streams.StreamGraph": {"starvation_bound"},
-    "configs.base.RunConfig": {"overlap_depth", "overlap_compute_s", "prefetch_stream"},
     # A.2 Collective API remainder
     "comm.api.pbcast_tree": {"inter_pod"},
     # A.5 Fault runtime
+    "comm.overlap.simulate_overlap": {"faults"},
     "comm.plan.CollectivePlan": {"survivors"},
+    "comm.plan.CollectivePlan.timed_rounds_s": {"faults"},
     "comm.plan.plan_cached": {"health"},
+    "comm.streams.StreamEntry.bucket_times_s": {"faults"},
+    "comm.streams.simulate_streams": {"faults"},
+    "core.simulator.timed_rounds": {"faults"},
     "core.simulator.simulate_collective": {"faults", "report"},
     "core.simulator.simulate_lowered": {"faults", "report"},
     "serve.engine.distribution_stream_graph": {"drain"},
@@ -49,6 +52,14 @@ QUEUED = {
     "models.transformer.StackLayout": {"encoder"},
     # A.7 Serving remainder and hierarchical meshes
     "serve.engine.distribute_weights": {"specs"},
+}
+
+# plain-value defaults (None, bool, int, float, str, and dtypes by name) the
+# port holds otherwise, with the reason
+DEFAULTS_DIFFER = {
+    "models.layers.init_attn_cache": {
+        "dtype": "required: the port's cache takes its device as the next positional "
+                 "argument, and every caller passes both"},
 }
 
 MODULES = sorted(m.name[len("repro_torch."):]
@@ -110,6 +121,50 @@ def _refused(qual: str, port, ref) -> list[str]:
     return missing
 
 
+def _default(v):
+    """A comparable form of a plain-value default: a dtype by its name
+    (``jnp.bfloat16`` and ``torch.bfloat16`` alike), None, bool, int,
+    float or str with its type; None for any other default (a hardware
+    profile, a callable), which is not compared."""
+    if isinstance(v, torch.dtype):
+        return ("dtype", str(v)[len("torch."):])
+    if isinstance(v, type) or type(v).__module__.split(".")[0] in ("jax", "numpy", "ml_dtypes"):
+        try:
+            return ("dtype", np.dtype(v).name)
+        except TypeError:
+            return None
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return (type(v).__name__, v)
+    return None
+
+
+def _defaults_differ(qual: str, port, ref) -> dict:
+    """The reference's plain-value defaults that the port's parameter of the
+    same name does not have (``'required'`` where it has none), beyond the
+    allow-lists."""
+    pps, rps = _params(port), _params(ref)
+    allowed = JAX_ONLY | QUEUED.get(qual, set()) | set(DEFAULTS_DIFFER.get(qual, {}))
+    out = {}
+    for name, rp in rps.items():
+        want = None if rp.default is rp.empty else _default(rp.default)
+        pp = pps.get(name)
+        if want is None or pp is None or name in allowed:
+            continue
+        got = "required" if pp.default is pp.empty else _default(pp.default)
+        if got != want:
+            out[name] = (want, got)
+    return out
+
+
+@pytest.mark.parametrize("mod", MODULES)
+def test_port_keeps_the_references_defaults(mod):
+    """A call that leaves an argument out runs the same mode in both
+    packages: every plain-value default of the reference is the port's,
+    beyond the allow-list."""
+    differ = {q: d for q, p, r in _shared(mod) if (d := _defaults_differ(q, p, r))}
+    assert not differ, f"the port's defaults differ from the reference's: {differ}"
+
+
 @pytest.mark.parametrize("mod", MODULES)
 def test_port_accepts_the_references_keywords(mod):
     """No public function of this module raises TypeError on a keyword the
@@ -120,8 +175,9 @@ def test_port_accepts_the_references_keywords(mod):
 
 def test_allow_list_names_only_what_the_port_lacks():
     """Every queued keyword exists in the reference and is still missing
-    from the port (drop it here when its ROADMAP item lands), and every
-    JAX-only name is taken by some shared reference function."""
+    from the port (drop it here when its ROADMAP item lands), every
+    JAX-only name is taken by some shared reference function, and every
+    allowed default still differs."""
     shared = {q: (p, r) for mod in MODULES for q, p, r in _shared(mod)}
     for qual, names in QUEUED.items():
         port, ref = shared[qual]
@@ -130,6 +186,12 @@ def test_allow_list_names_only_what_the_port_lacks():
         assert not names & set(pp), (qual, names & set(pp))
     taken = {n for _p, r in shared.values() for n in _params(r)}
     assert JAX_ONLY <= taken, JAX_ONLY - taken
+    for qual, names in DEFAULTS_DIFFER.items():
+        port, ref = shared[qual]
+        for name in names:
+            rp, pp = _params(ref)[name], _params(port)[name]
+            assert _default(rp.default) != (
+                "required" if pp.default is pp.empty else _default(pp.default)), (qual, name)
 
 
 # --- one call of the port with each repaired keyword ---

@@ -180,7 +180,8 @@ def test_reference_checkpoint_restores_into_the_port(reference_run):
         np.testing.assert_array_equal(b.numpy(), a)
 
 
-@pytest.mark.parametrize("sync_mode", ["param_bcast", "tuned_allreduce", "grad_allreduce"])
+@pytest.mark.parametrize("sync_mode", ["param_bcast", "tuned_allreduce", "overlap_allreduce",
+                                       "grad_allreduce"])
 def test_trainer_tracks_reference_full_batch_steps(reference_run, sync_mode):
     ckpt, _, ref_losses = reference_run
     check = sync_mode != "grad_allreduce"  # its mean leaves one copy
@@ -193,6 +194,37 @@ def test_trainer_tracks_reference_full_batch_steps(reference_run, sync_mode):
         assert all(h["grad_rows_differ"] == 0 for h in hist)
     else:
         assert all("grad_rows_differ" not in h for h in hist)
+
+
+def test_prefetch_stream_leaves_parameters_bit_equal(reference_run):
+    """``overlap_allreduce`` with ``prefetch_stream``: the updated
+    parameters, broadcast as a rank-stacked copy after every update, come
+    back bit-equal to the run without the second stream (and to
+    ``tuned_allreduce``'s), with both stream decisions recorded in the
+    tuner; the losses track the reference's within 1e-4."""
+    from repro_torch.core.tuner import Tuner
+    from repro_torch.train import train_step
+
+    ckpt, _, ref_losses = reference_run
+    out = {}
+    for label, mode, kw in (("tuned", "tuned_allreduce", {}),
+                            ("overlap", "overlap_allreduce", {}),
+                            ("prefetch", "overlap_allreduce", {"prefetch_stream": True})):
+        tr = _port_trainer(mode, ckpt, compiled_collectives=True, **kw)
+        params, opt, hist = tr.train(batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
+        out[label] = (tree_leaves(params), tree_leaves(opt), [h["loss"] for h in hist])
+    for label in ("overlap", "prefetch"):
+        for a, b in zip(out["tuned"][0] + out["tuned"][1], out[label][0] + out[label][1]):
+            assert torch.equal(a, b), label
+        assert out[label][2] == out["tuned"][2]
+    losses = out["prefetch"][2]
+    assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= 1e-4, (losses, ref_losses)
+    tr = _port_trainer("overlap_allreduce", prefetch_stream=True)
+    tuner = Tuner()
+    train_step.make_overlap_allreduce_train_step(tr.model, tr.run, tr.optimizer, tr.lr_fn,
+                                                 tr.mesh, tuner=tuner)
+    assert tuner.stream_decision("grad_sync") == {"priority": 1}
+    assert tuner.stream_decision("weight_prefetch") == {"priority": 0}
 
 
 def test_microbatches_track_reference_full_batch_steps(reference_run):
@@ -349,10 +381,10 @@ def test_trainer_defaults_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(get_config(ARCH), RunConfig())
-    with pytest.raises(NotImplementedError, match="A.3"):
+    with pytest.raises(NotImplementedError, match="Collective API remainder"):
         _port_trainer("param_bcast", bcast_algo="ring_allreduce")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        _port_trainer("overlap_allreduce")
+    with pytest.raises(ValueError, match="unknown sync_mode"):
+        _port_trainer("degraded_psum")
 
 
 # --------------------------------------------------------------------------
