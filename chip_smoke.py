@@ -10,7 +10,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    source, all at once, beside the design sweeps ``tools/staging_sweep.cu``
    and ``tools/combine_sweep.cu`` (built from the same sources into
    ``build/``, not run); calibrate the per-transfer and per-launch times
-   the H100 cost profile quotes.
+   the H100 cost profile quotes; then fit the cost model's link class
+   (``calibrate_link_classes``) on one emulated point-to-point transfer at
+   7 sizes from 1 KiB to 256 MiB, and ``calibrate_t_launch`` on a table in
+   the reference's compile-table format filled with compiled replays of
+   1 MiB a rank (3 (op, algo) groups x 4 chunk counts, written to
+   ``build/compile_table_h100.json``), each printed beside ``H100_SXM``'s
+   unchanged constants.
 2. kernels, each held bit for bit against its plain PyTorch version, with
    CUDA-event times, the bound (bytes / 3.35 TB/s), the plain version's time
    and a one-call PyTorch yardstick where one exists: the merge and the copy
@@ -76,13 +82,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. training: minitron-8b at full width (1 of 32 layers, bf16, seeded
    weights) on 4 emulated data ranks, global batch 8 x 512 tokens, 3 steps
    in each sync mode from the same weights and batches: grad_allreduce,
-   param_bcast, tuned_allreduce (compiled executor: fused_combine),
+   param_bcast, param_bcast with ``bcast_algo='ring_allreduce'`` (the
+   explicit ring of ``core.algorithms`` per gradient leaf: no plan kernel),
+   tuned_allreduce (compiled executor: fused_combine),
    overlap_allreduce (the same plans streamed through the overlap engine at
    its tuned depth) and again with ``prefetch_stream`` (a second stream
    broadcasts a rank-stacked copy of the updated parameters after every
    update), and compressed_allreduce over bf16 (the passthrough), int8 and
-   fp8 wires (compiled: the quantize kernels); then param_bcast and tuned_allreduce
-   again with the synced gradient rows compared; then tuned_allreduce with
+   fp8 wires (compiled: the quantize kernels); then param_bcast, the ring
+   and tuned_allreduce again with the synced gradient rows compared; then
+   tuned_allreduce with
    ``RunConfig.tuner_table`` naming two tables that differ only in
    ``exec_path`` (compiled, then inkernel). Checks: equal step-0 losses,
    bit-equal synced rows in the two reruns, the bf16 wire's and both
@@ -104,6 +113,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bit-equal to each other and to the device-initiated replay's plain
    version on the same buffer; the one-shot max/min ``pallreduce`` against
    ``torch.amax``/``amin``.
+7b. algorithms: ``pipelined_chain_fused`` bit-equal to the generic
+   unrolled replay of the same schedule (4 x 21 chunks of bf16, 16M
+   elements a rank); ``schedule_bcast`` at 21 chunks and at 300 (the
+   compiled route: fused_combine) bit-equal to the root's row;
+   ``ring_allreduce`` on the card bit-equal to the CPU (4 x 16M, f32 and
+   bf16); at the training embedding bucket the ring timed beside
+   ``pallreduce(algo='ring_allreduce')`` compiled and in-kernel, all three
+   bit-equal.
 8. streams: a 2-entry graph from ``plan_streams`` over phase 6's parameter
    shapes on the 4 emulated ranks, ``grad_sync`` (allreduce, reversed,
    priority 1) and ``weight_prefetch`` (bcast, after grad_sync), through
@@ -113,6 +130,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fused_combine per class-round; the host-clock time of the interleave
    beside the two entries run one after the other (one sample, no claim
    about overlap on one card).
+8b. trees: ``pallreduce_tree`` and ``pbcast_tree`` over phase 8's two
+   trees with ``stage=True`` (one chunked_copy per non-empty bucket) and
+   ``pbcast_tree(inter_pod=True)``, each bit-equal to ``stage=False``.
+9. online tuning: an ``OnlineTuner`` over the 9 default arms (3 allreduce
+   algorithms x 3 wire formats) at 16M f32 a rank, ``len(arms) + 8``
+   steps, each arm's plan timed on the card (median of 3 CUDA-event
+   replays) and held against the f32 sum of the rows: every arm tried in
+   the first 9 steps, the table ending at the lowest measurement, every
+   improving record a new fingerprint and a plan-cache miss; each arm's
+   ``cost_wire`` prediction printed beside its time.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -122,10 +149,12 @@ phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
 path), phase 4c (the long-prompt serving path), phase 4d (the
 vision-prefix serving path), phase 5's two long-prompt references (the
 f32 flash route), phase 6's runs (the training path), phase 7 (the
-collective entry points) and phase 8's interleave (the stream path);
+collective entry points), phase 7b (the algorithms), phase 8's interleave
+(the stream path), phase 8b (the tree variants) and phase 9 (the online
+tuner);
 the launches that compare
-kernels with their plain versions, and the replays timed to fill the tuner
-tables, are not counted. The last three lines of output are the kernels
+kernels with their plain versions, the replays timed to fill the tuner
+tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
 JSON, the card, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -185,6 +214,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 8, 512, 3, 1
 TRAIN_MODES = (  # (label, RunConfig fields)
     ("grad_allreduce", {"sync_mode": "grad_allreduce"}),
     ("param_bcast", {"sync_mode": "param_bcast"}),
+    ("param_bcast_ring", {"sync_mode": "param_bcast", "bcast_algo": "ring_allreduce"}),
     ("tuned_allreduce", {"sync_mode": "tuned_allreduce", "compiled_collectives": True}),
     ("overlap_allreduce", {"sync_mode": "overlap_allreduce", "compiled_collectives": True}),
     ("overlap_prefetch", {"sync_mode": "overlap_allreduce", "compiled_collectives": True,
@@ -197,7 +227,16 @@ TRAIN_MODES = (  # (label, RunConfig fields)
                         "compiled_collectives": True}),
 )
 TRAIN_RUN = {"learning_rate": 1e-3, "warmup_steps": 1, "total_steps": TRAIN_STEPS, "seed": 0}
-ROW_CHECKED = ("param_bcast", "tuned_allreduce")  # rerun with the synced rows compared
+# rerun with the synced rows compared
+ROW_CHECKED = ("param_bcast", "param_bcast_ring", "tuned_allreduce")
+# the calibrate phase: one emulated point-to-point transfer at each size
+# (bytes, 1 KiB to 256 MiB), and compiled replays of 1 MiB a rank at each
+# chunk count of three (op, algo) groups
+LINK_BYTES = tuple(1 << k for k in (10, 13, 16, 19, 22, 25, 28))
+LAUNCH_GROUPS = (("bcast", "pipelined_chain"), ("reduce", "pipelined_reduce_chain"),
+                 ("allreduce", "fused_rsb"))
+LAUNCH_KS = (4, 8, 16, 32)
+ALG_ELEMS = 1 << 24  # phases 7b and 9: elements a rank
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -259,6 +298,69 @@ def calibrate(torch) -> dict:
     tl_ms = time_ms(torch, lambda: fused_combine_update(buf, recv, zero, zero, one, 0),
                     reps=2000, warmup=50)
     return {"ts_s": ts_ms * 1e-3, "t_launch_s": tl_ms * 1e-3}
+
+
+def calibrate_fits(torch) -> dict:
+    """Fit the cost model's link class and per-round launch cost on the
+    card. The link: one emulated point-to-point transfer (rank 0's row into
+    rank 1's through the unrolled executor, one copy of the row) timed with
+    CUDA events at each of :data:`LINK_BYTES`, fitted by
+    ``calibrate_link_classes``. The launch cost: a table in the
+    reference's compile-table format (``n4/<op>/<algo>/K<k>`` with
+    ``num_rounds``) of compiled replays of 1 MiB a rank, fitted by
+    ``calibrate_t_launch`` and written to ``build/compile_table_h100.json``.
+    ``H100_SXM`` itself is not changed."""
+    from repro_torch.comm import apply_plan, plan_collective
+    from repro_torch.comm.executors import execute_collective
+    from repro_torch.core import cost_model
+    from repro_torch.core.schedules import chain
+
+    hw = cost_model.H100_SXM
+    sched, samples = chain(2), []
+    for nbytes in LINK_BYTES:
+        buf = torch.empty((2, 1, nbytes // 2), dtype=torch.bfloat16, device="cuda").normal_()
+        ms = time_ms(torch, lambda: execute_collective(sched, buf),
+                     reps=200 if nbytes < 1 << 24 else 20)
+        samples.append((nbytes, ms * 1e-3))
+        del buf
+    link = cost_model.calibrate_link_classes({"emulated": samples})["emulated"]
+    assert link.bw < hw.hbm_bw, (link, samples)
+    table = {}
+    for op, algo in LAUNCH_GROUPS:
+        for k in LAUNCH_KS:
+            plan = plan_collective(op, 1 << 20, RANKS, algo=algo, num_chunks=k)
+            x = torch.randn((RANKS, 1 << 19), device="cuda").to(torch.bfloat16)
+            apply_plan(plan, x.clone(), compiled=True)  # warm-up
+            secs = []
+            for _ in range(3):
+                arg = x.clone()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                apply_plan(plan, arg, compiled=True)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            # The reference's table holds the seconds to lower the unrolled
+            # program under this field; the port lowers no device program,
+            # so the field holds the host seconds of one compiled replay
+            # after a synchronize (the median of 3), which grows with the
+            # round count as the lowering does, and one function reads both.
+            table[f"n{RANKS}/{op}/{algo}/K{k}"] = {
+                "num_rounds": plan.lowered().num_rounds, "unrolled_lower_s": sorted(secs)[1]}
+    t_launch = cost_model.calibrate_t_launch(table)
+    path = os.path.join(ROOT, "build", "compile_table_h100.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+    log(f"calibrate link: emulated point-to-point transfers {[(b, '%.3e' % t) for b, t in samples]} "
+        f"(bytes, s) fit bw {link.bw:.4e} B/s, ts {link.ts:.4e} s, beside H100_SXM link_bw "
+        f"{hw.link_bw:.4e}, ts {hw.ts:.4e} (hbm_bw {hw.hbm_bw:.4e})")
+    rows = ", ".join(f"{k} {e['num_rounds']} rounds {e['unrolled_lower_s'] * 1e3:.3f} ms"
+                     for k, e in sorted(table.items()))
+    log(f"calibrate t_launch: {rows}; fit {t_launch:.4e} s a round "
+        f"beside H100_SXM t_launch {hw.t_launch:.4e} s (table: build/compile_table_h100.json)")
+    return {"link": {"samples": samples, "bw": link.bw, "ts": link.ts},
+            "t_launch_table": table, "t_launch": t_launch,
+            "h100_sxm": {"link_bw": hw.link_bw, "ts": hw.ts, "t_launch": hw.t_launch}}
 
 
 def _moving_rows(torch, buf, recv, start, lo, hi):
@@ -1812,17 +1914,12 @@ def streams(torch) -> dict:
     from repro_torch import kernels
     from repro_torch.comm import (StreamSpec, dispatch_schedule, execute_stream_entry,
                                   execute_streams, plan_streams)
-    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs import RunConfig
     from repro_torch.core import bucketing
-    from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
-    from repro_torch.models import Model
+    from repro_torch.core.tree import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
-    params = Model(cfg).init(seed=0, device="cuda")
-    shapes = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
-    del params
-    torch.cuda.empty_cache()
+    shapes = _phase8_shapes(torch)
     run = RunConfig(**TRAIN_RUN)
     axes = (("data", RANKS),)
     graph = plan_streams([
@@ -1832,23 +1929,9 @@ def streams(torch) -> dict:
                    after=("grad_sync",), bucket_bytes=run.bcast_bucket_bytes),
     ])
     gen = torch.Generator(device="cuda").manual_seed(8)
-    leaves, treedef = tree_flatten(shapes)
-    first = {m.index for m in graph.entries[0].spec.leaves if m.bucket == 0}
-
-    def tree(root_only: bool):
-        out = []
-        for i, m in enumerate(leaves):
-            t = torch.empty((RANKS,) + tuple(m.shape), dtype=m.dtype, device="cuda")
-            if i in first:
-                t.copy_(torch.randint(-8, 8, t.shape, generator=gen, device="cuda"))
-            else:
-                t.normal_(generator=gen)
-            if root_only:
-                t[1:] = float("nan")
-            out.append(t)
-        return tree_unflatten(treedef, out)
-
-    trees = {"grad_sync": tree(False), "weight_prefetch": tree(True)}
+    first = frozenset(m.index for m in graph.entries[0].spec.leaves if m.bucket == 0)
+    trees = {"grad_sync": _phase8_tree(torch, shapes, gen, root_only=False, small=first),
+             "weight_prefetch": _phase8_tree(torch, shapes, gen, root_only=True, small=first)}
     alone = {name: tree_map(lambda t: t.clone(), t) for name, t in trees.items()}
     want0 = {}
     for e in graph.entries:
@@ -1905,6 +1988,319 @@ def streams(torch) -> dict:
         f"after the other {serial_s:.4f} s (one sample each); phase {phase_s:.1f} s")
     rec["counts"] = counts
     return rec
+
+
+def _launched(torch, before: dict) -> dict:
+    from repro_torch import kernels
+
+    after = kernels.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def algorithms(torch) -> dict:
+    """Phase 7b: ``core.algorithms`` on the card. ``pipelined_chain_fused``
+    bit-equal to ``execute_collective`` of the same ``pipelined_chain``
+    schedule at 4 x 21 chunks of bf16 (:data:`ALG_ELEMS` a rank, rows 1-3
+    NaN); ``schedule_bcast`` at 21 chunks (the unrolled replay) and at 300
+    (the compiled one, which must launch fused_combine) bit-equal to the
+    root's row; ``ring_allreduce`` at 4 x :data:`ALG_ELEMS` in f32 and bf16
+    bit-equal to the same call on the CPU; then ``ring_allreduce`` at the
+    training embedding bucket (1,048,576,000 bf16 a rank) timed with CUDA
+    events beside ``pallreduce(algo='ring_allreduce')`` compiled and
+    in-kernel, after one warm-up call each, all three bit-equal. Launch
+    counts are zeroed by the caller right before."""
+    from repro_torch import comm, kernels
+    from repro_torch.comm.executors import execute_collective
+    from repro_torch.configs import get_config
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.schedules import build
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+
+    def stacked(K: int):
+        buf = torch.randn((RANKS, K, -(-ALG_ELEMS // K)), generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        buf[1:] = float("nan")
+        return buf
+
+    def rooted(buf, got) -> bool:
+        return all(same_bits(torch, got[r], buf[0]) for r in range(RANKS))
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    buf = stacked(21)
+    fused, fused_ms = timed(lambda: alg.pipelined_chain_fused(buf.clone(), root=0))
+    generic, generic_ms = timed(lambda: execute_collective(
+        build("pipelined_chain", RANKS, 0, num_chunks=21), buf.clone()))
+    assert same_bits(torch, fused, generic), "pipelined_chain_fused differs from the schedule"
+    assert rooted(buf, fused), "pipelined_chain_fused is not the root's row"
+    out["pipelined_chain_fused"] = {"shape": list(buf.shape), "ms": fused_ms,
+                                    "execute_collective_ms": generic_ms}
+    del fused, generic
+    for K in (21, 300):
+        buf = stacked(K)
+        before = kernels.launch_counts()
+        got, ms = timed(lambda: alg.schedule_bcast(buf.clone(), algo="pipelined_chain"))
+        launched = _launched(torch, before)
+        assert rooted(buf, got), f"schedule_bcast K={K} is not the root's row"
+        if K == 300:  # 302 rounds: the compiled replay, one merge a class-round
+            assert launched.get("fused_combine", 0) > 0, launched
+        else:
+            assert not launched, launched
+        out[f"schedule_bcast_K{K}"] = {"shape": list(buf.shape), "ms": ms, "launches": launched}
+        del got
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((RANKS, ALG_ELEMS), generator=torch.Generator().manual_seed(9))
+        x = x.to(dtype)
+        want = alg.ring_allreduce(x.clone())
+        got = alg.ring_allreduce(x.cuda())
+        assert same_bits(torch, got.cpu(), want), f"ring_allreduce {dtype}: card differs from CPU"
+        del x, want, got
+    log(f"algorithms: pipelined_chain_fused {tuple(out['pipelined_chain_fused']['shape'])} bf16 "
+        f"bit-equal to execute_collective ({fused_ms:.3f} / {generic_ms:.3f} ms) and the root; "
+        f"schedule_bcast K=21 ({out['schedule_bcast_K21']['ms']:.3f} ms, "
+        f"{out['schedule_bcast_K21']['launches']}) and K=300 "
+        f"({out['schedule_bcast_K300']['ms']:.3f} ms, {out['schedule_bcast_K300']['launches']}) "
+        f"bit-equal to the root; ring_allreduce ({RANKS}, {ALG_ELEMS}) f32 and bf16 card "
+        "bit-equal to CPU")
+    torch.cuda.empty_cache()
+    cfg = get_config("minitron-8b")
+    N = cfg.padded_vocab * cfg.d_model
+    x = torch.randn((RANKS, N), generator=gen, device="cuda", dtype=torch.bfloat16)
+    runs = (("ring_allreduce", lambda a: alg.ring_allreduce(a)),
+            ("pallreduce compiled", lambda a: comm.pallreduce(a, algo="ring_allreduce",
+                                                              compiled=True)),
+            ("pallreduce inkernel", lambda a: comm.pallreduce(a, algo="ring_allreduce",
+                                                              inkernel=True)))
+    ring, times = None, {}
+    for name, fn in runs:
+        fn(x.clone())  # warm-up: the plan is built and lowered on the host once
+        before = kernels.launch_counts()
+        res, ms = timed(lambda: fn(x.clone()))
+        times[name] = {"ms": ms, "launches": _launched(torch, before)}
+        if ring is None:
+            ring = res
+        else:
+            assert same_bits(torch, res, ring), f"{name} differs from ring_allreduce"
+        del res
+    out["ring_embedding"] = {"shape": [RANKS, N], **times}
+    log(f"algorithms ring at the embedding bucket ({RANKS}, {N}) bf16, CUDA events (the "
+        "clone of the input included), all three bit-equal: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms {v['launches']}" for k, v in times.items()))
+    del x, ring
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase8_shapes(torch):
+    """The 1-layer minitron-8b parameter shapes of phase 6 (meta tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
+    params = Model(cfg).init(seed=0, device="cuda")
+    shapes = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+    del params
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def _phase8_tree(torch, shapes, gen, *, root_only: bool, small=frozenset()):
+    """A rank-stacked tree of ``shapes`` on the 4 emulated ranks: random
+    rows (leaves in ``small`` hold small integers, exact in bf16 and f32
+    through every partial sum), rows 1-3 NaN when ``root_only``."""
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(shapes)
+    out = []
+    for i, m in enumerate(leaves):
+        t = torch.empty((RANKS,) + tuple(m.shape), dtype=m.dtype, device="cuda")
+        if i in small:
+            t.copy_(torch.randint(-8, 8, t.shape, generator=gen, device="cuda"))
+        else:
+            t.normal_(generator=gen)
+        if root_only:
+            t[1:] = float("nan")
+        out.append(t)
+    return tree_unflatten(treedef, out)
+
+
+def tree_variants(torch) -> dict:
+    """Phase 8b: the tree collectives over phase 8's two rank-stacked trees
+    (phase 6's parameter shapes on the 4 emulated ranks: random gradient
+    rows, and weights in row 0 with rows 1-3 NaN). ``pallreduce_tree`` and
+    ``pbcast_tree`` with ``stage=True`` bit-equal to ``stage=False``, with
+    one ``chunked_copy`` per non-empty bucket (and none unstaged);
+    ``pbcast_tree(inter_pod=True)`` bit-equal too, every replica the root's
+    row; the buckets whose broadcast algorithm the inter-pod price changes
+    are counted. Launch counts are zeroed by the caller right before."""
+    from repro_torch import comm, kernels
+    from repro_torch.comm import plan_cached
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import bucketing
+    from repro_torch.core.tree import tree_leaves, tree_map
+
+    shapes = _phase8_shapes(torch)
+    bb = RunConfig(**TRAIN_RUN).bcast_bucket_bytes
+    spec = bucketing.plan_buckets(shapes, bb)
+    buckets = [(M, size) for M, size in zip(spec.bucket_bytes(), spec.bucket_sizes)]
+    nonempty = sum(1 for _M, size in buckets if size)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def clone(t):
+        return tree_map(lambda a: a.clone(), t)
+
+    def same(a, b) -> bool:
+        return all(same_bits(torch, x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    def run(fn, tree, **kw):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(tree, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, _launched(torch, before)
+
+    rec = {"buckets": len(buckets), "nonempty": nonempty}
+    grads = _phase8_tree(torch, shapes, gen, root_only=False)
+    plain, plain_s, plain_n = run(lambda t, **kw: comm.pallreduce_tree(t, ("data",), **kw),
+                                  clone(grads), bucket_bytes=bb)
+    staged, staged_s, staged_n = run(lambda t, **kw: comm.pallreduce_tree(t, ("data",), **kw),
+                                     grads, bucket_bytes=bb, stage=True)
+    assert same(plain, staged), "pallreduce_tree: stage=True differs from stage=False"
+    assert plain_n.get("chunked_copy", 0) == 0 and staged_n["chunked_copy"] == nonempty, \
+        (plain_n, staged_n, nonempty)
+    rec["pallreduce_tree"] = {"s": plain_s, "staged_s": staged_s, "launches": plain_n,
+                              "staged_launches": staged_n}
+    del grads, plain, staged
+    torch.cuda.empty_cache()
+    weights = _phase8_tree(torch, shapes, gen, root_only=True)
+    root = [t[0].clone() for t in tree_leaves(weights)]
+    plain, plain_s, plain_n = run(comm.pbcast_tree, clone(weights), bucket_bytes=bb)
+    staged, staged_s, staged_n = run(comm.pbcast_tree, weights, bucket_bytes=bb, stage=True)
+    assert same(plain, staged), "pbcast_tree: stage=True differs from stage=False"
+    assert plain_n.get("chunked_copy", 0) == 0 and staged_n["chunked_copy"] == nonempty, \
+        (plain_n, staged_n, nonempty)
+    del staged
+    inter, inter_s, inter_n = run(comm.pbcast_tree, weights, bucket_bytes=bb, inter_pod=True)
+    assert same(plain, inter), "pbcast_tree: inter_pod=True differs"
+    for t, r in zip(tree_leaves(plain), root):
+        assert all(same_bits(torch, t[k], r) for k in range(RANKS)), "a replica is not the root's"
+    changed = [(plan_cached("bcast", M, RANKS).algo, plan_cached("bcast", M, RANKS,
+                                                                  inter_pod=True).algo)
+               for M, size in buckets if size]
+    moved = sum(a != b for a, b in changed)
+    rec["pbcast_tree"] = {"s": plain_s, "staged_s": staged_s, "inter_pod_s": inter_s,
+                          "launches": plain_n, "staged_launches": staged_n,
+                          "inter_pod_launches": inter_n, "algos": changed,
+                          "inter_pod_changed": moved}
+    del weights, plain, inter, root
+    torch.cuda.empty_cache()
+    ar, bc = rec["pallreduce_tree"], rec["pbcast_tree"]
+    log(f"trees: {len(buckets)} buckets ({nonempty} non-empty), host clock: pallreduce_tree "
+        f"stage=True {ar['staged_s']:.4f} s {ar['staged_launches']} bit-equal to stage=False "
+        f"{ar['s']:.4f} s {ar['launches']}; pbcast_tree stage=True {bc['staged_s']:.4f} s "
+        f"{bc['staged_launches']} and inter_pod=True {bc['inter_pod_s']:.4f} s "
+        f"{bc['inter_pod_launches']} bit-equal to stage=False {bc['s']:.4f} s {bc['launches']}, "
+        f"replicas the root's; one chunked_copy a non-empty bucket; the inter-pod price changes "
+        f"the algorithm of {moved} of {nonempty} buckets ({changed})")
+    return rec
+
+
+def online(torch) -> dict:
+    """Phase 9: ``OnlineTuner(Tuner(H100_SXM), 'allreduce', M, 4, seed=0)``
+    with M = :data:`ALG_ELEMS` f32 a rank and the default arms (3 algorithms
+    x 3 wire formats), ``len(arms) + 8`` steps. ``measure`` replays the
+    arm's plan through ``apply_plan(compiled=True)`` (as phase 6's tuned
+    modes route it) on a fresh copy of the rows: one warm-up, then the
+    median of 3 CUDA-event times. Each result is held against the f32 sum
+    of the rows (bf16 wire: rtol = atol = 2e-5; int8 2%, fp8 9% of the
+    largest magnitude). Checks: every arm tried in the first ``len(arms)``
+    steps; the table's entry for the point ends as the arm with the lowest
+    single measurement (source 'empirical'); every improving record changes
+    the tuner's fingerprint and the next ``plan_cached`` for the point
+    misses the cache, every other step keeps both. Launch counts are zeroed
+    by the caller right before."""
+    from repro_torch import comm
+    from repro_torch.core.cost_model import H100_SXM
+    from repro_torch.core.tuner import OnlineTuner, Tuner
+
+    M = 4 * ALG_ELEMS
+    tuner = Tuner(H100_SXM)
+    ot = OnlineTuner(tuner, "allreduce", M, RANKS, seed=0)
+    assert len(ot.arms) == 9, ot.arms
+    x = torch.randn((RANKS, ALG_ELEMS), generator=torch.Generator(device="cuda").manual_seed(11),
+                    device="cuda")
+    want = x.sum(0)
+    scale = float(want.abs().max())
+    work = torch.empty_like(x)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def measure(dec) -> float:
+        plan = comm.plan_cached("allreduce", M, RANKS, algo=dec.algo, num_chunks=dec.num_chunks,
+                                tuner=tuner, wire_format=dec.wire_format)
+        ms = []
+        for i in range(4):
+            work.copy_(x)
+            start.record()
+            res = comm.apply_plan(plan, work, compiled=True)
+            end.record()
+            end.synchronize()
+            if i:
+                ms.append(start.elapsed_time(end))
+        fmt = dec.wire_format or "bf16"
+        if fmt == "bf16":
+            ok = bool(((res - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
+        else:
+            ok = float((res - want).abs().max()) <= {"int8": 0.02, "fp8": 0.09}[fmt] * scale
+        assert ok, (dec, float((res - want).abs().max()), scale)
+        return sorted(ms)[1] * 1e-3
+
+    def entry():
+        d = tuner.select(M, RANKS, op="allreduce")
+        return d if d.source == "empirical" else None
+
+    comm.plan_cached("allreduce", M, RANKS, tuner=tuner)
+    steps = []
+    for _ in range(len(ot.arms) + 8):
+        prev, fp = entry(), tuner.fingerprint()
+        dec, secs = ot.step(measure)
+        improved = prev is None or secs < prev.predicted_s
+        misses = comm.cache_stats()["misses"]
+        comm.plan_cached("allreduce", M, RANKS, tuner=tuner)
+        missed = comm.cache_stats()["misses"] > misses
+        assert (tuner.fingerprint() != fp) == improved == missed, (dec, secs, prev, missed)
+        steps.append({"arm": [dec.algo, dec.num_chunks, dec.wire_format], "source": dec.source,
+                      "predicted_s": dec.predicted_s, "s": secs, "improved": improved})
+    tried = {tuple(st["arm"]) for st in steps[:len(ot.arms)]}
+    assert tried == set(ot.arms), (tried, ot.arms)
+    best = min(steps, key=lambda st: st["s"])
+    final = entry()
+    assert final is not None and [final.algo, final.num_chunks, final.wire_format] == \
+        best["arm"] and final.predicted_s == best["s"], (final, best)
+    first = {tuple(st["arm"]): st for st in steps[:len(ot.arms)]}
+    log("online: " + ", ".join(
+        f"{a[0]}/K{a[1]}/{a[2]} cost_wire {first[a]['predicted_s'] * 1e3:.4f} ms measured "
+        f"{first[a]['s'] * 1e3:.4f} ms" for a in ot.arms)
+        + f"; steps {[(st['arm'][0], st['arm'][2], st['source'], round(st['s'] * 1e3, 4)) for st in steps]}"
+        + f"; table: {final.algo}/K{final.num_chunks}/{final.wire_format} at "
+          f"{final.predicted_s * 1e3:.4f} ms (the lowest single measurement), best mean arm "
+          f"{ot.best_arm()}; {sum(st['improved'] for st in steps)} improving records, each a "
+          "new fingerprint and a plan-cache miss")
+    del x, work, want
+    torch.cuda.empty_cache()
+    return {"arms": [list(a) for a in ot.arms], "steps": steps,
+            "table": [final.algo, final.num_chunks, final.wire_format, final.predicted_s],
+            "best_mean_arm": list(ot.best_arm())}
 
 
 def small_reference(torch) -> float:
@@ -2096,6 +2492,9 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
             assert same_as(tuned, params), \
                 "the bf16 wire's parameters differ from tuned_allreduce's"
             tuned = None
+        elif label.startswith("param_bcast_ring"):  # the explicit ring, not a plan
+            assert all(r["launches"][k] == 0 for k in
+                       ("fused_combine", "inkernel_rdma", "chunked_copy")), r["launches"]
         elif label == "table_compiled":
             tabled = on_host(params)
             assert r["launches"]["inkernel_rdma"] == 0 < r["launches"]["fused_combine"], r
@@ -2129,13 +2528,18 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
         f"fused_combine launches {merges}: the weight_prefetch broadcast adds "
         f"{merges['overlap_prefetch'] - merges['tuned_allreduce']} in {TRAIN_STEPS} steps; "
         f"peak GiB {peaks}")
+    log("train ring: " + ", ".join(
+        f"{label} step {out[label]['step_s']:.4f} s, peak "
+        f"{out[label]['max_memory_allocated'] / 2**30:.2f} GiB"
+        for label in ("param_bcast_ring", "param_bcast", "tuned_allreduce", "grad_allreduce"))
+        + "; param_bcast_ring launches no fused_combine, inkernel_rdma or chunked_copy")
     # grad_allreduce's plain mean is the one sync that runs none of the
     # port's kernels: the bf16-wire modes must track it. Bounds set from
     # the readings of the proof run (NVIDIA H100 80GB HBM3, 700 W): last
     # losses within 1.7e-4, grad norms within 3.8e-5 relative at every step.
     base = out["grad_allreduce"]
-    for label in ("param_bcast", "tuned_allreduce", "overlap_allreduce", "overlap_prefetch",
-                  "compressed_bf16"):
+    for label in ("param_bcast", "param_bcast_ring", "tuned_allreduce", "overlap_allreduce",
+                  "overlap_prefetch", "compressed_bf16"):
         r = out[label]
         d_loss = abs(r["losses"][-1] - base["losses"][-1])
         d_norm = max(abs(a - b) / b for a, b in zip(r["grad_norms"], base["grad_norms"]))
@@ -2263,6 +2667,7 @@ def main() -> int:
                     log(f"  ptxas {src}: {ln.strip()}")
     cal = calibrate(torch)
     log(f"calibrate: ts {cal['ts_s']:.3e} s, t_launch {cal['t_launch_s']:.3e} s")
+    fits = calibrate_fits(torch)
 
     lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch),
              *check_inkernel(torch), *check_flash_attention(torch), *check_param_update(torch)]
@@ -2320,31 +2725,50 @@ def main() -> int:
     coll_counts = kernels.launch_counts()
     gc.collect()
     torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    algos = algorithms(torch)
+    algo_counts = kernels.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
     stream_rec = streams(torch)
     stream_counts = stream_rec.pop("counts")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    tree_rec = tree_variants(torch)
+    tree_counts = kernels.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    online_rec = online(torch)
+    online_counts = kernels.launch_counts()
     # each kernel on the path that runs it: the merge on the serving and
     # training paths and the streams phase, the staging copy on the serving
     # paths and the streams phase, the quantize pair on the training path, the
     # device-initiated in-kernel replay on the tuned serving path (phase 4b),
     # the collective entry points (phase 7) and in training, the sm90 flash
     # kernel on both long-prompt serving paths (phases 4c and 4d), the
-    # CUDA-core one on phase 5's f32 long-prompt references; mix and
+    # CUDA-core one on phase 5's f32 long-prompt references; the merge also
+    # on phase 7b's compiled routes and phase 9's arms, the in-kernel replay
+    # on phase 7b's in-kernel ring, the staging copy on phase 8b's staged
+    # trees, the quantize pair on phase 9's compressed arms; mix and
     # scaled_add are on no path of either package, and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("serve", "train", "streams"),
-             "chunked_copy": ("serve", "serve_long", "serve_vlm", "streams"),
-             "quantize_blocks": ("train",), "dequantize_blocks": ("train",),
+    paths = {"fused_combine": ("serve", "train", "algorithms", "online", "streams"),
+             "chunked_copy": ("serve", "serve_long", "serve_vlm", "trees", "streams"),
+             "quantize_blocks": ("online", "train"), "dequantize_blocks": ("online", "train"),
              "inkernel_replay": (),
-             "inkernel_rdma": ("serve_tuned", "collectives", "train"),
+             "inkernel_rdma": ("serve_tuned", "collectives", "algorithms", "train"),
              "flash_attention_sm90": ("serve_long", "serve_vlm"),
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
               "serve_long": long_counts, "serve_vlm": vlm_counts,
               "reference_long": ref_long_counts, "collectives": coll_counts,
-              "streams": stream_counts}
+              "algorithms": algo_counts, "streams": stream_counts, "trees": tree_counts,
+              "online": online_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     for line in lines:
@@ -2361,6 +2785,10 @@ def main() -> int:
     log(f"training numbers: {json.dumps(training)}")
     log(f"collectives numbers: {json.dumps(colls)}")
     log(f"streams numbers: {json.dumps(stream_rec)}")
+    log(f"calibrate numbers: {json.dumps(fits)}")
+    log(f"algorithms numbers: {json.dumps(algos)}")
+    log(f"trees numbers: {json.dumps(tree_rec)}")
+    log(f"online numbers: {json.dumps(online_rec)}")
     check_trap(torch)
     print(json.dumps({"kernels": lines}))
     print(f"card: {name_power}")

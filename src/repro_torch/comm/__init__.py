@@ -11,7 +11,7 @@ Layering, as in the reference:
                          ->  comm.streams   (multi-stream link scheduler;
                                              comm.overlap = 1-stream case)
 """
-from ..core.tuner import OPS, Decision, Tuner, default_tuner
+from ..core.tuner import OPS, Decision, OnlineTuner, Tuner, default_tuner
 from .api import (
     apply_plan,
     hierarchical_allreduce_axes,
@@ -65,6 +65,7 @@ __all__ = [
     "OPS",
     "Decision",
     "Tuner",
+    "OnlineTuner",
     "default_tuner",
     "WireFormat",
     "normalize_wire_format",

@@ -27,9 +27,10 @@ from typing import Any, Sequence
 
 import torch
 
-from ..core import bucketing
+from ..core import algorithms, bucketing
 from ..core.tree import tree_map
 from ..core.tuner import Tuner
+from ..kernels.chunked_copy import chunked_copy
 from .compress import CompressedWire, normalize_wire_format
 from .executors import execute_collective, execute_compiled, execute_inkernel
 from .plan import ONE_SHOT, CollectivePlan, plan_cached
@@ -188,17 +189,13 @@ def _unchunked(buf: torch.Tensor, pad: int, shape) -> torch.Tensor:
 
 def _one_shot(plan: CollectivePlan, x: torch.Tensor) -> torch.Tensor:
     """The one-shot baselines as plain tensor ops over the rank axis (the
-    reference lowers them to native XLA collectives)."""
-    n = x.shape[0]
-    if plan.algo == "xla_psum":
-        if plan.op == "bcast":  # mask non-root contributions, then sum
-            keep = (torch.arange(n, device=x.device) == plan.root).reshape(
-                (n,) + (1,) * (x.dim() - 1))
-            x = torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
-        return x.sum(0, keepdim=True).expand_as(x).clone()
-    if plan.op == "bcast":  # xla_allgather: gather, select the root's slice
-        return x[plan.root:plan.root + 1].expand_as(x).clone()
-    return x.unsqueeze(0).expand((n,) + tuple(x.shape)).clone()
+    reference lowers them to native XLA collectives); the bcast forms are
+    :mod:`repro_torch.core.algorithms`' ``xla_*_bcast``."""
+    if plan.op == "bcast":
+        fn = (algorithms.xla_psum_bcast if plan.algo == "xla_psum"
+              else algorithms.xla_allgather_bcast)
+        return fn(x, root=plan.root)
+    return algorithms._psum(x) if plan.algo == "xla_psum" else algorithms._all_gather(x)
 
 
 def apply_plan(
@@ -414,26 +411,25 @@ def preduce_scatter(
     return apply_plan(plan, x, compiled=compiled, inkernel=inkernel)
 
 
-def _check_unstaged(stage: bool, op: str) -> None:
-    if stage:
-        raise NotImplementedError(
-            f"{op}(stage=True), staging each bucket through chunked_copy, is read by "
-            'no ported caller yet: ROADMAP item "Collective API remainder"')
-
-
 def _check_one_axis(axes: Sequence) -> tuple:
     axes = tuple(axes)
     if len(axes) > 1:
         raise NotImplementedError(
-            f"hierarchical allreduce over {axes}: the emulated mesh has one data "
+            f"a hierarchical collective over {axes}: the emulated mesh has one data "
             'axis; multi-level meshes are ROADMAP item "Serving remainder and '
             'hierarchical meshes"')
     return axes
 
 
-def _tree_collective(op_fn, tree, *, bucket_bytes, **kw):
+def _tree_collective(op_fn, tree, *, bucket_bytes, stage, **kw):
     spec = bucketing.plan_buckets(_rank_view(tree), bucket_bytes)
-    out = [op_fn(b, **kw) if b.shape[-1] else b for b in bucketing.pack_buckets(tree, spec)]
+    out = []
+    for b in bucketing.pack_buckets(tree, spec):
+        if b.shape[-1]:
+            if stage:
+                b = chunked_copy(b.reshape(-1)).view(b.shape)
+            b = op_fn(b, **kw)
+        out.append(b)
     return bucketing.unpack_buckets(out, spec)
 
 
@@ -449,16 +445,19 @@ def pbcast_tree(
     algo: str = "auto",
     tuner: Tuner | None = None,
     bucket_bytes: int = 4 << 20,
+    inter_pod: bool = False,
     stage: bool = False,
     stage_chunk: int = 64 * 1024,
 ) -> Any:
     """Broadcast a rank-stacked pytree via same-dtype buckets, each tuned
-    independently. ``stage_chunk``, the chunk of the staging copy, is
-    accepted and ignored: ``stage=True`` is refused, and the copy ignores
-    its chunk too (``chunked_copy(chunk_elems=)``)."""
-    _check_unstaged(stage, "pbcast_tree")
-    return _tree_collective(pbcast, tree, bucket_bytes=bucket_bytes, root=root, algo=algo,
-                            tuner=tuner)
+    independently (``inter_pod`` prices every bucket on the inter-pod
+    path). ``stage=True`` first copies each non-empty packed bucket through
+    the ``chunked_copy`` kernel (the paper's pipelined staging copy, Sec.
+    IV-C), one launch a bucket; ``stage_chunk``, the reference's chunk of
+    that copy, is accepted and ignored, as ``chunked_copy(chunk_elems=)``
+    ignores it."""
+    return _tree_collective(pbcast, tree, bucket_bytes=bucket_bytes, stage=stage, root=root,
+                            algo=algo, tuner=tuner, inter_pod=inter_pod)
 
 
 def pallreduce_tree(
@@ -477,14 +476,13 @@ def pallreduce_tree(
     """Bucketed all-reduce of a rank-stacked pytree over the mesh axes
     ``axes`` (:func:`hierarchical_allreduce_axes` order). The emulated mesh
     has one data axis, so ``axes`` names at most one; ``wire_format``
-    applies to every bucket. ``stage_chunk`` is accepted and ignored, as
-    :func:`pbcast_tree`'s is."""
-    _check_unstaged(stage, "pallreduce_tree")
+    applies to every bucket. ``stage`` and ``stage_chunk`` act as in
+    :func:`pbcast_tree`."""
     axes = _check_one_axis(axes)
     if not axes:
         return tree
     return _tree_collective(
-        pallreduce, tree, bucket_bytes=bucket_bytes, algo=algo, tuner=tuner,
+        pallreduce, tree, bucket_bytes=bucket_bytes, stage=stage, algo=algo, tuner=tuner,
         inter_pod=axes[0] in tuple(inter_pod_axes), compiled=compiled, wire_format=wire_format,
     )
 

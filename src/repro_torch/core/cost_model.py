@@ -20,7 +20,14 @@ from typing import Sequence
 __all__ = [
     "Hardware",
     "H100_SXM",
+    "CPU_SIM",
+    "calibrate_t_launch",
     "cost",
+    "cost_wire",
+    "LinkClass",
+    "calibrate_link_classes",
+    "cost_link_class",
+    "WIRE_PAYLOAD_FRACTION",
     "optimal_chunk_bytes",
     "optimal_chunk_bytes_fused",
     "skew_ratio",
@@ -81,6 +88,62 @@ H100_SXM = Hardware(
     hbm_bw=3.35e12,
     t_launch=2.841e-05,
 )
+
+
+# Constants for interpreting CPU microbenchmarks (used only to sanity-check
+# measured-vs-model shape agreement; absolute values are calibrated at
+# runtime). The reference's values.
+CPU_SIM = Hardware(
+    name="cpu_sim",
+    ts=50e-6,
+    link_bw=8e9,
+    interpod_bw=2e9,
+    host_bw=8e9,
+    peak_flops=1e11,
+    hbm_bw=2e10,
+    t_launch=100e-6,
+)
+
+
+def _fit_line(pts) -> tuple[float | None, float, float]:
+    """Least-squares slope of the ``(x, y)`` points and the means of x and
+    y; the slope is None when every x is the same."""
+    xs, ys = zip(*pts)
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    den = sum((x - mx) ** 2 for x in xs)
+    if den <= 0:
+        return None, mx, my
+    return sum((x - mx) * (y - my) for x, y in pts) / den, mx, my
+
+
+def calibrate_t_launch(table: dict) -> float:
+    """Per-round launch overhead (s/round) from a table keyed
+    ``n<r>/<op>/<algo>/K<k>`` whose entries carry ``num_rounds`` and
+    ``unrolled_lower_s`` (the reference's compile-table format).
+
+    Each (n, op, algo) group that sweeps several chunk counts gives
+    (num_rounds, seconds) pairs; the least-squares slope of each multi-K
+    group is that group's per-round cost, and the result is the median
+    across groups. ``chip_smoke.py`` fills such a table on the card with
+    the host seconds of compiled replays under the same field name.
+    """
+    groups: dict[tuple, list[tuple[float, float]]] = {}
+    for key, e in table.items():
+        parts = key.split("/")
+        if len(parts) != 4:
+            continue
+        groups.setdefault(tuple(parts[:3]), []).append(
+            (float(e["num_rounds"]), float(e["unrolled_lower_s"]))
+        )
+    slopes = [fit[0] for pts in groups.values()
+              if len(pts) >= 2 and (fit := _fit_line(pts))[0] is not None]
+    if not slopes:
+        raise ValueError(
+            "calibrate_t_launch: table has no multi-K group to fit a slope on"
+        )
+    slopes.sort()
+    mid = len(slopes) // 2
+    return slopes[mid] if len(slopes) % 2 else 0.5 * (slopes[mid - 1] + slopes[mid])
 
 
 def t_exec_path(path: str, num_rounds: int, num_classes: int, hw: Hardware) -> float:
@@ -652,3 +715,122 @@ def cost(algo: str, M: float, n: int, hw: Hardware = H100_SXM, *, inter_pod: boo
     B = hw.path_bw(inter_pod)
     return ALGO_COSTS[algo](M, n, hw, B, **kw)
 
+
+def worst_link_factor(slow_links) -> float:
+    """Worst per-link slowdown factor in a health report (>= 1.0).
+
+    ``slow_links`` is a {(src, dst): factor} mapping or an iterable of
+    ((src, dst), factor) pairs. Every schedule serializes rounds, so the
+    whole collective is gated by its slowest active link: the bandwidth
+    term of a closed form degrades by exactly this factor."""
+    items = list(slow_links.values()) if isinstance(slow_links, dict) else [
+        f for _pair, f in slow_links
+    ]
+    if not items:
+        return 1.0
+    return max(1.0, max(float(f) for f in items))
+
+
+# ---------------------------------------------------------------------------
+# compressed wire formats: bytes-vs-precision pricing
+# ---------------------------------------------------------------------------
+
+# wire payload per full-precision byte (f32 wire domain): compressed
+# formats ship one byte per 4-byte element plus one f32 scale per
+# 256-element block — 260 wire bytes per 1024 payload bytes
+# (``comm.compress.wire_chunk_bytes`` before the block-padding ceil)
+WIRE_PAYLOAD_FRACTION = {
+    "bf16": 1.0,
+    "fp8": 260.0 / 1024.0,
+    "int8": 260.0 / 1024.0,
+}
+
+# HBM passes each compressed hop adds on top of the transfer itself: the
+# sender reads the block and writes the payload, the receiver reads the
+# payload and writes the block back — ~2 full-size passes, charged once
+# against the whole message
+_QUANTIZE_HBM_PASSES = 2.0
+
+
+def cost_wire(
+    algo: str,
+    M: float,
+    n: int,
+    hw: Hardware = H100_SXM,
+    *,
+    wire_format: str | None = None,
+    inter_pod: bool = False,
+    **kw,
+) -> float:
+    """:func:`cost` under a wire format: the closed form at the format's
+    wire payload (bandwidth terms shrink by the compression fraction;
+    startup and round terms are unchanged) plus the quantize/dequantize
+    HBM toll. ``bf16``/``None`` is exactly ``cost``. The
+    :class:`~repro_torch.core.tuner.OnlineTuner` prices its arms with it."""
+    fmt = wire_format or "bf16"
+    if fmt not in WIRE_PAYLOAD_FRACTION:
+        raise ValueError(
+            f"unknown wire format {fmt!r}; have {sorted(WIRE_PAYLOAD_FRACTION)}"
+        )
+    frac = WIRE_PAYLOAD_FRACTION[fmt]
+    if "C" in kw:
+        kw = dict(kw, C=max(kw["C"] * frac, 1.0))
+    t = ALGO_COSTS[algo](M * frac, n, hw, hw.path_bw(inter_pod), **kw)
+    if frac < 1.0:
+        t += _QUANTIZE_HBM_PASSES * M / hw.hbm_bw
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkClass:
+    """One calibrated link class: a (bandwidth, startup) pair for a set of
+    physically alike links. Asymmetric and multi-rail topologies are
+    distinct class names ('nvlink', 'host', 'rail0:up', ...)."""
+
+    name: str
+    bw: float  # bytes/s
+    ts: float  # per-transfer startup (s)
+
+
+def calibrate_link_classes(
+    samples: dict[str, Sequence[tuple[float, float]]]
+) -> dict[str, "LinkClass"]:
+    """Fit per-class link constants from measured point-to-point transfers.
+
+    ``samples[name]`` is a list of ``(bytes, seconds)`` pairs for one link
+    class. Each class gets the least-squares line ``t = ts + bytes / bw``:
+    the slope is ``1/bw``, the intercept the startup (clamped at 0). Needs
+    >= 2 distinct sizes per class and a positive slope; otherwise raises.
+    """
+    classes: dict[str, LinkClass] = {}
+    for name, pts in samples.items():
+        pts = [(float(b), float(t)) for b, t in pts]
+        if len(pts) < 2 or len({b for b, _ in pts}) < 2:
+            raise ValueError(
+                f"link class {name!r}: need >= 2 samples at distinct sizes "
+                f"to fit (bw, ts), got {pts}"
+            )
+        slope, mx, my = _fit_line(pts)
+        if slope <= 0:
+            raise ValueError(
+                f"link class {name!r}: non-positive transfer-time slope "
+                f"({slope:.3e} s/byte) — samples cannot identify a bandwidth"
+            )
+        classes[name] = LinkClass(name, bw=1.0 / slope,
+                                  ts=max(my - slope * mx, 0.0))
+    return classes
+
+
+def cost_link_class(
+    algo: str,
+    M: float,
+    n: int,
+    link: "LinkClass",
+    hw: Hardware = H100_SXM,
+    **kw,
+) -> float:
+    """Predicted latency of ``algo`` over links of one calibrated class:
+    the closed form at the class's bandwidth, with the hardware's startup
+    replaced by the class's."""
+    return ALGO_COSTS[algo](M, n, dataclasses.replace(hw, ts=link.ts),
+                            link.bw, **kw)

@@ -6,8 +6,10 @@ cost models (Eqs. 1-6) on the target :class:`~.cost_model.Hardware`. An
 optional empirical ``table`` overrides the analytic choice inside its
 bucket. ``record``/``calibrate`` fill it from measurements and
 ``save``/``load`` persist it as JSON in the reference's format and keys, so
-a table saved by either package loads into the other. ``OnlineTuner`` is
-not ported yet.
+a table saved by either package loads into the other. ``OnlineTuner``
+closes the loop online: an epsilon-greedy bandit over (algorithm x chunk
+count x wire format) arms for one point, feeding its measurements back
+through ``Tuner.record``.
 """
 from __future__ import annotations
 
@@ -16,13 +18,14 @@ import hashlib
 import json
 import math
 import os
+import random
 from typing import Callable, Iterable, Sequence
 
 from . import cost_model
 from .cost_model import H100_SXM, Hardware
 
-__all__ = ["Decision", "Tuner", "TunerTableError", "default_tuner", "OPS", "RAGGED_OPS",
-           "WIRE_FORMATS", "RECORD_DIMENSIONS"]
+__all__ = ["Decision", "Tuner", "OnlineTuner", "TunerTableError", "default_tuner", "OPS",
+           "RAGGED_OPS", "WIRE_FORMATS", "RECORD_DIMENSIONS"]
 
 
 class TunerTableError(ValueError):
@@ -580,6 +583,152 @@ def _check_entry(path: str, key: str, entry) -> None:
         raise bad("num_chunks must be a positive int")
     if not isinstance(entry["measured_s"], (int, float)) or not math.isfinite(entry["measured_s"]):
         raise bad("measured_s must be finite")
+
+
+class OnlineTuner:
+    """Epsilon-greedy bandit exploration over (algo x num_chunks x
+    wire_format) arms for ONE (op, M, n, inter_pod) point.
+
+    :meth:`propose` usually returns the planned decision
+    (:meth:`Tuner.select` — the table's best), but with probability
+    ``epsilon`` (and always while an arm is untried) it swaps in an
+    exploration arm; :meth:`observe` feeds the measured time back through
+    :meth:`Tuner.record`, so an exploration that beats the incumbent lands
+    in the table, changes the tuner's fingerprint, and with it the key of
+    every cached plan for the point (``plan_cached`` keys on the
+    fingerprint; see ``comm.cache_stats()``). ``record`` is
+    improvement-only, so a bad exploration costs one step and changes
+    nothing.
+
+    Untried arms are visited first in a fixed order (sorted algorithms,
+    then formats), so the best arm of a rigged landscape is found within
+    ``len(arms)`` steps.
+    """
+
+    def __init__(
+        self,
+        tuner: Tuner,
+        op: str,
+        M: int,
+        n: int,
+        *,
+        inter_pod: bool = False,
+        arms: Sequence[tuple] | None = None,
+        wire_formats: Sequence[str] = WIRE_FORMATS,
+        epsilon: float = 0.25,
+        seed: int = 0,
+    ):
+        if op not in OPS:
+            raise ValueError(f"unknown collective op {op!r}; have {OPS}")
+        if op in RAGGED_OPS:
+            raise ValueError(
+                f"online exploration over wire formats is scoped to the dense "
+                f"ops, not {op!r} (compressed formats reject ragged chunking)"
+            )
+        self.tuner = tuner
+        self.op, self.M, self.n, self.inter_pod = op, int(M), int(n), bool(inter_pod)
+        self.epsilon = float(epsilon)
+        self._rng = random.Random(seed)
+        for fmt in wire_formats:
+            _dim_wire_format(fmt)
+        self.arms: list[tuple[str, int, str]] = (
+            [self._norm_arm(a) for a in arms]
+            if arms is not None
+            else self._default_arms(tuple(wire_formats))
+        )
+        if not self.arms:
+            raise ValueError(f"no applicable arms for {op!r} at (M={M}, n={n})")
+        # per-arm statistics live here, not in the table: the table only
+        # holds the best decision, the bandit needs every observation
+        self._pulls = {arm: 0 for arm in self.arms}
+        self._total_s = {arm: 0.0 for arm in self.arms}
+
+    def _norm_arm(self, arm) -> tuple[str, int, str]:
+        algo, num_chunks, fmt = arm
+        return (str(algo), self._arm_chunks(algo) if num_chunks is None
+                else int(num_chunks), _dim_wire_format(fmt))
+
+    def _arm_chunks(self, algo: str) -> int:
+        """Analytic chunk count for an arm (:meth:`Tuner.calibrate`'s
+        per-algorithm logic, collapsed to the model optimum)."""
+        M, n, t = self.M, self.n, self.tuner
+        B = t.hw.path_bw(self.inter_pod)
+        if algo in ("pipelined_chain", "pipelined_reduce_chain"):
+            c = cost_model.optimal_chunk_bytes(M, n, t.hw, B)
+        elif algo == "bidir_chain":
+            c = cost_model.optimal_chunk_bytes(M, (n - 1 + 1) // 2 + 1, t.hw, B)
+        elif algo == "fused_rsb":
+            c = cost_model.optimal_chunk_bytes_fused(M, n, t.hw, B)
+        elif algo in ("scatter_allgather", "ring_allreduce", "ring_allgather",
+                      "doubling_allgather", "ring_reduce_scatter"):
+            return n
+        else:
+            return 1
+        return max(1, min(t.max_chunks, math.ceil(M / c)))
+
+    def _default_arms(self, wire_formats: tuple[str, ...]) -> list:
+        if self.op == "bcast":
+            cands = {a: _CANDIDATES[a] for a in self.tuner.allow if a in _CANDIDATES}
+        else:
+            cands = _OP_CANDIDATES[self.op]
+        return [
+            (algo, self._arm_chunks(algo), fmt)
+            for algo in sorted(cands)
+            if cands[algo](self.M, self.n)
+            for fmt in wire_formats
+        ]
+
+    def _decision(self, arm: tuple[str, int, str]) -> Decision:
+        algo, k, fmt = arm
+        predicted = cost_model.cost_wire(
+            algo, self.M, self.n, self.tuner.hw,
+            wire_format=fmt, inter_pod=self.inter_pod,
+            **({"C": float(math.ceil(self.M / k))} if algo in (
+                "pipelined_chain", "bidir_chain", "pipelined_reduce_chain",
+                "fused_rsb") else {}),
+        ) if algo in cost_model.ALGO_COSTS else float("nan")
+        return Decision(algo, k, math.ceil(self.M / max(1, k)), predicted,
+                        "explore", wire_format=fmt)
+
+    def propose(self) -> Decision:
+        """The decision to run THIS step: an untried arm first (fixed
+        order), then an epsilon-random arm, else the planned decision."""
+        for arm in self.arms:
+            if self._pulls[arm] == 0:
+                return self._decision(arm)
+        if self._rng.random() < self.epsilon:
+            return self._decision(self._rng.choice(self.arms))
+        return self.tuner.select(self.M, self.n, op=self.op,
+                                 inter_pod=self.inter_pod)
+
+    def observe(self, decision: Decision, measured_s: float) -> None:
+        """Feed one measured step back: bandit statistics here, the
+        improvement-only table update (a new fingerprint on improvement)
+        through :meth:`Tuner.record`."""
+        arm = (decision.algo, int(decision.num_chunks),
+               decision.wire_format or "bf16")
+        if arm in self._pulls:
+            self._pulls[arm] += 1
+            self._total_s[arm] += float(measured_s)
+        self.tuner.record(
+            self.M, self.n, decision.algo, decision.num_chunks,
+            float(measured_s), inter_pod=self.inter_pod, op=self.op,
+            extras={"wire_format": decision.wire_format},
+        )
+
+    def step(self, measure: Callable[[Decision], float]) -> tuple[Decision, float]:
+        """One explore-measure-record cycle; returns (decision, seconds)."""
+        dec = self.propose()
+        t = float(measure(dec))
+        self.observe(dec, t)
+        return dec, t
+
+    def best_arm(self) -> tuple[str, int, str] | None:
+        """Lowest mean measured time among tried arms (None before any)."""
+        tried = [a for a in self.arms if self._pulls[a] > 0]
+        if not tried:
+            return None
+        return min(tried, key=lambda a: self._total_s[a] / self._pulls[a])
 
 
 _DEFAULT: Tuner | None = None

@@ -8,7 +8,9 @@ Five data-parallel synchronization modes, as in the reference's
   GSPMD insert the all-reduce).
 * ``param_bcast`` (:func:`make_bcast_train_step`) — the paper's CA-CNTK
   pattern: per-leaf reduce to the root over the reversed binomial tree,
-  then the tuned bucketed broadcast (``core.bcast.pbcast_tree``).
+  then the tuned bucketed broadcast (``core.bcast.pbcast_tree``); with
+  ``bcast_algo='ring_allreduce'``, the explicit ring allreduce of
+  ``core.algorithms`` per leaf instead.
 * ``tuned_allreduce`` (:func:`make_tuned_allreduce_train_step`) — bucketed
   allreduce through the ``comm`` plan layer, per-bucket tuned algorithm.
 * ``overlap_allreduce`` (:func:`make_overlap_allreduce_train_step`) — the
@@ -53,6 +55,7 @@ from ..comm.compress import CompressionState, normalize_wire_format
 from ..comm.streams import StreamSpec, execute_stream_entry, plan_streams
 from ..configs.base import RunConfig
 from ..core import bucketing
+from ..core.algorithms import ring_allreduce
 from ..core.bcast import pbcast_tree, preduce_sum
 from ..core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..core.tuner import Tuner
@@ -206,24 +209,29 @@ def make_bcast_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn
                           check_rows: bool = False):
     """The paper's sync mode: per-leaf reduce to ``root`` over the reversed
     binomial tree, the mean taken there, then the tuned bucketed broadcast
-    of the root's gradients to every rank."""
+    of the root's gradients to every rank. With
+    ``run_cfg.bcast_algo='ring_allreduce'`` (the paper's Sec. VII future
+    work) each rank-stacked gradient leaf goes through the explicit ring
+    allreduce of ``core.algorithms`` instead, then is divided by ``n``:
+    no reduce to the root and no broadcast."""
     n = _data_ranks(mesh, "param_bcast")
-    if run_cfg.bcast_algo == "ring_allreduce":
-        raise NotImplementedError(
-            "bcast_algo='ring_allreduce' (the explicit ring of core/algorithms.py) is "
-            'not ported yet: ROADMAP item "Collective API remainder"')
     compute = _grad_fn(model, run_cfg)
+    ring = run_cfg.bcast_algo == "ring_allreduce"
 
     def train_step(params, opt_state, batch):
         treedef = tree_flatten(params)[1]
         stacked, write = _stacked_writer(n)
         loss, metrics = _per_rank(compute, params, batch, n, write)
-        reduced = [preduce_sum(s, root=root).div_(n) for s in stacked]
-        del stacked
-        synced = pbcast_tree(tree_unflatten(treedef, reduced), root=root,
-                             algo=run_cfg.bcast_algo, tuner=tuner,
-                             bucket_bytes=run_cfg.bcast_bucket_bytes)
-        del reduced
+        if ring:
+            synced = tree_unflatten(treedef, [ring_allreduce(s).div_(n) for s in stacked])
+            del stacked
+        else:
+            reduced = [preduce_sum(s, root=root).div_(n) for s in stacked]
+            del stacked
+            synced = pbcast_tree(tree_unflatten(treedef, reduced), root=root,
+                                 algo=run_cfg.bcast_algo, tuner=tuner,
+                                 bucket_bytes=run_cfg.bcast_bucket_bytes)
+            del reduced
         rows_differ = _tree_rows_differ(synced, check_rows)
         grads = tree_map(lambda t: t[0], synced)
         del synced

@@ -238,15 +238,3 @@ def test_tree_variants_sync_every_bucket():
     assert out["b"].dtype == torch.bfloat16
     assert torch.equal(t["a"], before[0]) and torch.equal(t["c"][0], before[1])
     assert float((out["c"][0][0] - sums["c"]).abs().max()) <= 0.02 * float(sums["c"].abs().max())
-
-
-def test_tree_variants_refuse_staging():
-    """Staging each bucket through chunked_copy has no ported caller: asking
-    for it raises and names its ROADMAP item."""
-    from repro_torch.core.bcast import pbcast_tree
-
-    t = {"a": torch.zeros((4, 300))}
-    with pytest.raises(NotImplementedError, match="Collective API remainder"):
-        pbcast_tree(t, stage=True)
-    with pytest.raises(NotImplementedError, match="Collective API remainder"):
-        comm.pallreduce_tree(t, ("data",), stage=True)

@@ -31,8 +31,6 @@ JAX_ONLY = frozenset({"axis_name", "interpret", "key", "shardings", "grad_specs"
 
 # keywords whose module is queued in ROADMAP, by the item that ports them
 QUEUED = {
-    # A.2 Collective API remainder
-    "comm.api.pbcast_tree": {"inter_pod"},
     # A.5 Fault runtime
     "comm.overlap.simulate_overlap": {"faults"},
     "comm.plan.CollectivePlan": {"survivors"},

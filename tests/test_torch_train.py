@@ -181,12 +181,16 @@ def test_reference_checkpoint_restores_into_the_port(reference_run):
 
 
 @pytest.mark.parametrize("sync_mode", ["param_bcast", "tuned_allreduce", "overlap_allreduce",
-                                       "grad_allreduce"])
+                                       "grad_allreduce", "param_bcast_ring"])
 def test_trainer_tracks_reference_full_batch_steps(reference_run, sync_mode):
+    """``param_bcast_ring`` is ``param_bcast`` with
+    ``bcast_algo='ring_allreduce'``: the explicit ring of
+    ``core.algorithms`` in place of the reduce and the broadcast."""
     ckpt, _, ref_losses = reference_run
     check = sync_mode != "grad_allreduce"  # its mean leaves one copy
-    _, _, hist = _port_trainer(sync_mode, ckpt, check_rows=check).train(
-        batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
+    kw = {"bcast_algo": "ring_allreduce"} if sync_mode == "param_bcast_ring" else {}
+    _, _, hist = _port_trainer(sync_mode.removesuffix("_ring"), ckpt, check_rows=check,
+                               **kw).train(batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
     losses = [h["loss"] for h in hist]
     assert len(losses) == STEPS
     assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= 1e-4, (losses, ref_losses)
@@ -381,8 +385,6 @@ def test_trainer_defaults_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(get_config(ARCH), RunConfig())
-    with pytest.raises(NotImplementedError, match="Collective API remainder"):
-        _port_trainer("param_bcast", bcast_algo="ring_allreduce")
     with pytest.raises(ValueError, match="unknown sync_mode"):
         _port_trainer("degraded_psum")
 
