@@ -140,6 +140,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the first 9 steps, the table ending at the lowest measurement, every
    improving record a new fingerprint and a plan-cache miss; each arm's
    ``cost_wire`` prediction printed beside its time.
+10. MoE serving: mixtral-8x7b at full width (2 of 32 layers, 8 experts
+   top-2, window 4096, bf16, seeded random weights) on the 4 emulated
+   ranks: ``Engine(distribute=True, double_buffer=True)`` as phase 3, then
+   ``generate`` of batch 4, prompt 128, 32 decode steps through the einsum
+   dispatch and the warm re-run, then the compiled pipelined chain from
+   NaN-filled replicas as phase 4 (replicas bit-equal each time).
+10b. expert parallelism: the same model's prefill of one 4096-token
+   sequence a rank through ``apply_lm(mesh=, transport=)`` with
+   ``moe_dispatch='alltoallv'`` (each MoE layer's rows out and back through
+   ``palltoallv``), once with the compiled and once with the in-kernel
+   executor, bit-equal, its logits against the einsum dispatch's within a
+   stated bf16 limit; each MoE layer's block matrices through the compiled,
+   in-kernel and unrolled executors, bit-equal to each other and to a host
+   reshuffle, timed beside the bytes bound; ragged ``pallgatherv`` and
+   ``palltoallv`` cases with zero-row ranks at rows of 4096 bf16, likewise;
+   the expert-parallel ``moe_ffn`` at E = 6 in f32 against the einsum path;
+   then the three MoE smoke configs in f32, card against CPU.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -150,8 +167,9 @@ path), phase 4c (the long-prompt serving path), phase 4d (the
 vision-prefix serving path), phase 5's two long-prompt references (the
 f32 flash route), phase 6's runs (the training path), phase 7 (the
 collective entry points), phase 7b (the algorithms), phase 8's interleave
-(the stream path), phase 8b (the tree variants) and phase 9 (the online
-tuner);
+(the stream path), phase 8b (the tree variants), phase 9 (the online
+tuner), phase 10 (the MoE serving path) and phase 10b (the expert-parallel
+path);
 the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
@@ -237,6 +255,19 @@ LAUNCH_GROUPS = (("bcast", "pipelined_chain"), ("reduce", "pipelined_reduce_chai
                  ("allreduce", "fused_rsb"))
 LAUNCH_KS = (4, 8, 16, 32)
 ALG_ELEMS = 1 << 24  # phases 7b and 9: elements a rank
+MOE_LAYERS, MOE_PROMPT = 2, 4096  # phases 10 and 10b: mixtral-8x7b, 2 of 32 layers
+# phase 10b: the expert-parallel prefill's logits against the einsum
+# dispatch's. The expert-parallel path routes every shard and runs every
+# rank's local experts with the einsum path's contractions on the same
+# shapes, and the one-hot dispatch and combine contractions are exact in
+# any order (one, or k, nonzero products a sum), so the reading expected is
+# 0: only the rows' travel differs, and it copies. The limit allows one
+# bf16 rounding step of a logit, 2^-7 relative, plus the 5e-2 absolute that
+# the port's tests give bf16 prefill logits between two implementations.
+# Routing each shard by itself instead (an f32 router GEMM over 4,096 rows,
+# not 16,384) read 1.207 with 26,826 logits over this limit: the router's
+# ulps sent near-tie tokens to another expert
+MOE_EP_REL, MOE_EP_ABS = 2.0**-7, 5e-2
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -2303,6 +2334,403 @@ def online(torch) -> dict:
             "best_mean_arm": list(ot.best_arm())}
 
 
+def serve_moe(torch) -> tuple[dict, object]:
+    """Phase 10: mixtral-8x7b at full width (2 of 32 layers: attention with
+    window 4096, 8 experts top-2 of width 14336, bf16, seeded random
+    weights) distributed to 4 emulated ranks as phase 3 distributes
+    (``Engine(distribute=True, double_buffer=True)``: the tuned broadcast,
+    each bucket staged through chunked_copy), replicas bit-equal to the
+    weights; ``generate`` with batch 4 (one prompt a rank), prompt 128, 32
+    decode steps through the einsum dispatch, then the warm re-run; then,
+    as phase 4 does, the weights broadcast again from NaN-filled replicas
+    with the pinned pipelined chain and the compiled executor
+    (fused_combine), replicas bit-equal to the root. Launch counts are
+    zeroed by the caller right before. Returns the numbers and the engine,
+    which phase 10b serves from."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, distribute_weights
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MOE_LAYERS)
+    assert cfg.moe_dispatch == "einsum"
+    params = Model(cfg).init(seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    mesh = make_mesh(RANKS, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, params, mesh=mesh, distribute=True, double_buffer=True)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert counts["chunked_copy"] > 0, counts
+    assert replicas_equal(torch, engine.params, params), "a mixtral replica differs"
+    del params
+    dist_peak = torch.cuda.max_memory_allocated()
+
+    rng = np.random.RandomState(10)
+    tokens = rng.randint(0, cfg.vocab_size - 1, size=(BATCH, PROMPT))
+    t0 = time.perf_counter()
+    res = engine.generate({"tokens": tokens}, steps=STEPS)
+    gen_s = time.perf_counter() - t0
+    assert res.tokens.shape == (BATCH, STEPS) and res.logprobs.shape == (BATCH, STEPS)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
+    assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
+    peak = torch.cuda.max_memory_allocated()
+
+    for leaf in tree_leaves(engine.params):
+        leaf[1:].fill_(float("nan"))
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    distribute_weights(engine.params, mesh, algo="pipelined_chain", compiled=True,
+                       double_buffer=True)
+    torch.cuda.synchronize()
+    compiled_s = time.perf_counter() - t0
+    merges = kernels.launch_counts()["fused_combine"] - before["fused_combine"]
+    assert merges > 0, merges
+    assert replicas_equal(torch, engine.params), "compiled mixtral replicas differ from the root"
+    out = {
+        "params": n_params, "replica_bytes": n_params * 2, "distribute_s": dist_s,
+        "distribute_peak": dist_peak, "chunked_copy_launches": counts["chunked_copy"],
+        "generate_s": gen_s, "prefill_ms_per_rank": prefill_s / RANKS * 1e3,
+        "decode_tokens_per_s": BATCH * STEPS / decode_s, "max_memory_allocated": peak,
+        "compiled_distribute_s": compiled_s, "compiled_fused_combine_launches": merges,
+        "first_tokens": res.tokens[:, :4].tolist(),
+    }
+    log(f"serve moe: mixtral-8x7b {MOE_LAYERS} layers, {n_params} params, distribution "
+        f"{dist_s:.3f} s ({counts['chunked_copy']} chunked_copy launches, peak "
+        f"{dist_peak / 2**30:.2f} GiB), generate {gen_s:.3f} s (cold, batch {BATCH}, prompt "
+        f"{PROMPT}, {STEPS} steps, einsum dispatch); warm: prefill "
+        f"{out['prefill_ms_per_rank']:.2f} ms/rank, decode steps "
+        f"{out['decode_tokens_per_s']:.1f} tok/s; peak {peak / 2**30:.2f} GiB; compiled "
+        f"pipelined chain from NaN replicas {compiled_s:.3f} s ({merges} fused_combine "
+        "launches), replicas bit-equal")
+    return out, engine
+
+
+def _gatherv_host(torch, x, sizes):
+    """pallgatherv by torch indexing on the card: each rank's valid rows,
+    concatenated, on every rank."""
+    rows = torch.cat([x[r, :s] for r, s in enumerate(sizes)])
+    return rows[None].expand((x.shape[0],) + tuple(rows.shape)).clone()
+
+
+def _alltoallv_host(torch, x, m, in_padded: bool, out_padded: bool):
+    """palltoallv by torch indexing on the card (``m`` an n x n list): block
+    (s, d) from rank s's input layout to rank d's output layout, zeros
+    elsewhere."""
+    n = len(m)
+    elem = tuple(x.shape[3:]) if in_padded else tuple(x.shape[2:])
+    bmax = max(max(row) for row in m)
+    rmax = max(sum(m[s][r] for s in range(n)) for r in range(n))
+    out = x.new_zeros(((n, n, bmax) if out_padded else (n, rmax)) + elem)
+    for r in range(n):
+        pos = 0
+        for s in range(n):
+            h = m[s][r]
+            if in_padded:
+                block = x[s, r, :h]
+            else:
+                start = sum(m[s][:r])
+                block = x[s, start:start + h]
+            if out_padded:
+                out[r, s, :h] = block
+            else:
+                out[r, pos:pos + h] = block
+            pos += h
+    return out
+
+
+# the executors every ragged case is held across (fused=False: the unrolled)
+RAGGED_EXECUTORS = (("compiled", {"compiled": True}), ("inkernel", {"inkernel": True}),
+                    ("unrolled", {"fused": False}))
+
+
+def _ragged_case(torch, label: str, fn, x, kw: dict, host, valid_rows: int,
+                 reps: int = 0) -> dict:
+    """``fn(x, **kw)`` through the three executors: each bit-equal to the
+    others and to ``host`` (torch indexing, no kernel); with ``reps``, each
+    timed by CUDA events beside the bytes bound (the ``valid_rows`` rows
+    of the input read once, the output written once)."""
+    from repro_torch import kernels
+
+    out, launches = {}, {}
+    for name, ex in RAGGED_EXECUTORS:
+        before = kernels.launch_counts()
+        got = fn(x, **kw, **ex)
+        launches[name] = _launched(torch, before)
+        assert got.shape == host.shape, (label, name, tuple(got.shape), tuple(host.shape))
+        assert same_bits(torch, got, host), f"{label}: {name} differs from the host reshuffle"
+        del got
+    assert launches["inkernel"] == {"inkernel_rdma": 1}, (label, launches)
+    assert launches["compiled"].get("fused_combine", 0) > 0, (label, launches)
+    assert not launches["unrolled"], (label, launches)
+    rec = {"launches": launches}
+    if reps:
+        elem_bytes = host.element_size() * math.prod(
+            host.shape[3:] if kw.get("out_padded") else host.shape[2:])
+        bound_ms = (valid_rows * elem_bytes + host.numel() * host.element_size()) \
+            / HBM_BYTES_PER_S * 1e3
+        for name, ex in RAGGED_EXECUTORS:
+            out[name] = time_ms(torch, lambda ex=ex: fn(x, **kw, **ex), reps=reps, warmup=1)
+        rec.update(ms=out, bound_ms=bound_ms)
+    return rec
+
+
+def moe_ep(torch, engine) -> dict:
+    """Phase 10b: an expert-parallel prefill of phase 10's 2-layer model
+    (rank 0's replica) over the 4 emulated ranks: ``apply_lm(mode='prefill',
+    mesh=mesh)`` with ``moe_dispatch='alltoallv'``, one 4096-token sequence
+    a rank, every layer's attention through the sm90 flash kernel (window
+    4096), every MoE layer's expert rows moved out and back by
+    ``palltoallv``, run twice: ``transport=`` pins its executor to the
+    compiled (fused_combine) and then to the in-kernel (inkernel_rdma)
+    one, and the two give the same bits. Those two runs are the path whose
+    launches the kernels line counts. Held: (a) the same tokens through
+    the einsum dispatch, logits within :data:`MOE_EP_REL` /
+    :data:`MOE_EP_ABS` (the expert-parallel route is the einsum path's
+    arithmetic with the transports in between, so this holds the
+    transports, see ``moe._expert_parallel``); (b) at each MoE
+    layer's own block matrices (recorded from the prefill), both transports
+    through the compiled, in-kernel and unrolled executors, bit-equal to
+    each other and to the host reshuffle, timed beside the bytes bound; (c)
+    ragged cases at rows of 4096 bf16 (pallgatherv at sizes (3, 1, 0, 2)
+    and (5, 0, 0, 7); palltoallv on seeded matrices with a rank that
+    receives nothing and one that sends nothing, compact and padded), each
+    bit-equal across the three executors and to the host reshuffle, and the
+    expert-parallel ``moe_ffn`` at E = 6 over the 4 ranks (partition
+    (2, 2, 1, 1), a shared expert) in f32 within 1e-5 of the einsum path.
+    Launch counts are zeroed by the caller right before."""
+    import numpy as np
+
+    from repro_torch import comm, kernels
+    from repro_torch.comm import api
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import apply_lm
+
+    cfg = dataclasses.replace(engine.cfg, moe_dispatch="alltoallv")
+    mesh, params = engine.mesh, engine.replica(0)
+    tokens = torch.as_tensor(np.random.RandomState(11).randint(
+        0, cfg.vocab_size - 1, size=(RANKS, MOE_PROMPT)), device="cuda")
+    S = moe._group_size(MOE_PROMPT, cfg)
+    C = moe._capacity(S, cfg.experts_per_token, cfg.num_experts, cfg.capacity_factor)
+    R = MOE_PROMPT // S * C
+    cnt = moe.expert_partition(cfg.num_experts, RANKS)
+
+    # the path: the prefill with its transports through the compiled and
+    # then the in-kernel executor (``transport=`` pins palltoallv's), the
+    # launch counts read around each; the first run records each transport's
+    # input (a copy) for (b). Both runs are cold: the first builds the plans
+    # and the second the in-kernel executor's tables.
+    calls = []
+
+    def pinned(ex: dict, record: bool):
+        def transport(x, **kw):
+            if record:
+                calls.append((x.clone(), kw))
+            return comm.palltoallv(x, **kw, **ex)
+        return transport
+
+    runs = {}
+    with torch.no_grad():
+        for name, ex in (("compiled", {"compiled": True}), ("inkernel", {"inkernel": True})):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _caches, got_aux = apply_lm(params, cfg, tokens=tokens, mode="prefill",
+                                             mesh=mesh,
+                                             transport=pinned(ex, name == "compiled"))
+            torch.cuda.synchronize()
+            runs[name] = {"logits": got, "aux": float(got_aux),
+                          "s": time.perf_counter() - t0, "launches": _launched(torch, before)}
+            del got, _caches
+    L = cfg.num_layers
+    assert runs["compiled"]["launches"].get("fused_combine", 0) > 0, runs["compiled"]["launches"]
+    assert "inkernel_rdma" not in runs["compiled"]["launches"], runs["compiled"]["launches"]
+    assert runs["inkernel"]["launches"].get("inkernel_rdma") == 2 * L, runs["inkernel"]["launches"]
+    assert "fused_combine" not in runs["inkernel"]["launches"], runs["inkernel"]["launches"]
+    assert all(r["launches"].get("flash_attention_sm90") == L for r in runs.values()), runs
+    assert len(calls) == 2 * L, len(calls)
+    ep, ep_aux = runs["compiled"]["logits"], runs["compiled"]["aux"]
+    assert same_bits(torch, runs["inkernel"]["logits"], ep) \
+        and runs["inkernel"]["aux"] == ep_aux, "the in-kernel prefill differs from the compiled"
+    counts = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+              for k in kernels.launch_counts()}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, _caches, ref_aux = apply_lm(params, engine.cfg, tokens=tokens, mode="prefill")
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        del _caches
+        err = max_abs_err(torch, ep, ref)
+        over = int(((ep - ref).abs() > MOE_EP_ABS + MOE_EP_REL * ref.abs()).sum())
+        aux_err = abs(ep_aux - float(ref_aux))
+        assert bool(torch.isfinite(ep).all()) and over == 0 and aux_err < 1e-6, \
+            (err, over, aux_err)
+        # then one warm pass of each, CUDA events (not counted: the path's
+        # launches are the two runs above)
+        warm = {name: time_ms(torch, lambda ex=ex: apply_lm(
+            params, cfg, tokens=tokens, mode="prefill", mesh=mesh,
+            transport=pinned(ex, False)), reps=1, warmup=0)
+            for name, ex in (("compiled", {"compiled": True}), ("inkernel", {"inkernel": True}))}
+        warm["einsum"] = time_ms(torch, lambda: apply_lm(params, engine.cfg, tokens=tokens,
+                                                         mode="prefill"), reps=1, warmup=0)
+    for r in runs.values():
+        del r["logits"]
+    del ep, ref
+    torch.cuda.empty_cache()
+    prefill_ms = {name: r["s"] * 1e3 for name, r in runs.items()}
+    prefill_ms["einsum"] = ref_s * 1e3
+    log(f"moe ep: mixtral-8x7b {L} layers, {RANKS} x {MOE_PROMPT} tokens, "
+        f"S={S} nG={MOE_PROMPT // S} C={C} R={R}, experts {cnt} a rank; prefill (cold, host "
+        f"clock) with the transports compiled {prefill_ms['compiled']:.2f} ms (recording "
+        f"their inputs), in-kernel {prefill_ms['inkernel']:.2f} ms, einsum dispatch "
+        f"{prefill_ms['einsum']:.2f} ms; warm (CUDA events) {warm['compiled']:.2f}, "
+        f"{warm['inkernel']:.2f} and {warm['einsum']:.2f} ms; the two bit-equal; logits "
+        "against the einsum "
+        f"dispatch max abs diff {err:.3e} ({over} over {MOE_EP_ABS} + {MOE_EP_REL} |ref|), aux "
+        f"diff {aux_err:.3e}; launches compiled {runs['compiled']['launches']}, in-kernel "
+        f"{runs['inkernel']['launches']}")
+
+    # (b) the model's own block matrices through every executor
+    transports = []
+    for i, (x, kw) in enumerate(calls):
+        m = [list(row) for row in api.alltoallv_matrix(kw["sizes"], RANKS)]
+        host = _alltoallv_host(torch, x, m, kw.get("in_padded", False),
+                               kw.get("out_padded", False))
+        rec = _ragged_case(torch, f"layer {i // 2} {'out' if i % 2 == 0 else 'back'}",
+                           comm.palltoallv, x, kw, host, sum(map(sum, m)), reps=3)
+        rec.update(layer=i // 2, way="out" if i % 2 == 0 else "back",
+                   rows_per_rank=sum(m[0]), shape=list(x.shape))
+        transports.append(rec)
+        log(f"moe ep transport layer {rec['layer']} {rec['way']}: {tuple(x.shape)} bf16, "
+            f"{rec['rows_per_rank']} rows a rank ({rec['rows_per_rank'] * x.shape[-1] * 2 / 1e6:.1f}"
+            f" MB): compiled {rec['ms']['compiled']:.3f} ms, inkernel {rec['ms']['inkernel']:.3f} "
+            f"ms, unrolled {rec['ms']['unrolled']:.3f} ms, bound {rec['bound_ms']:.3f} ms; "
+            "bit-equal to each other and to the host reshuffle")
+        del host
+    calls.clear()
+    torch.cuda.empty_cache()
+
+    # (c) ragged cases at rows of 4096 bf16, zero-row ranks included
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = []
+    for sizes in ((3, 1, 0, 2), (5, 0, 0, 7)):
+        x = torch.randn((RANKS, max(sizes), 4096), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for r, s in enumerate(sizes):
+            x[r, s:] = 99.0  # poison beyond the valid prefix
+        for algo in ("auto", "ring_allgatherv", "doubling_allgatherv"):
+            _ragged_case(torch, f"pallgatherv {sizes} {algo}", comm.pallgatherv, x,
+                         {"sizes": sizes, "algo": algo}, _gatherv_host(torch, x, sizes), 0)
+        cases.append(f"pallgatherv {sizes} x 3 algos")
+    mats = []
+    rng = np.random.RandomState(1)
+    for trial in range(3):
+        mm = rng.randint(0, 4, size=(RANKS, RANKS))
+        if trial == 1:
+            mm[:, 2] = 0  # rank 2 receives nothing
+        if trial == 2:
+            mm[1, :] = 0  # rank 1 sends nothing
+        mats.append(mm.tolist())
+    mats.append([[2, 0, 1, 3], [0, 0, 0, 0], [1, 4, 0, 0], [2, 2, 2, 2]])
+    for j, m in enumerate(mats):
+        send = [sum(row) for row in m]
+        bmax = max(max(row) for row in m)
+        compact = torch.full((RANKS, max(send), 4096), 88.0, device="cuda",
+                             dtype=torch.bfloat16)
+        padded = torch.full((RANKS, RANKS, bmax, 4096), 77.0, device="cuda",
+                            dtype=torch.bfloat16)
+        for s in range(RANKS):
+            pos = 0
+            for d in range(RANKS):
+                block = torch.randn((m[s][d], 4096), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                compact[s, pos:pos + m[s][d]] = block
+                padded[s, d, :m[s][d]] = block
+                pos += m[s][d]
+        layouts = ((False, False),) if j < 3 else ((False, False), (True, True), (True, False),
+                                                   (False, True))
+        for ip, op in layouts:
+            x = padded if ip else compact
+            for algo in ("auto", "pairwise_alltoallv", "ring_alltoallv"):
+                _ragged_case(torch, f"palltoallv {m} {ip}/{op} {algo}", comm.palltoallv, x,
+                             {"sizes": m, "algo": algo, "in_padded": ip, "out_padded": op},
+                             _alltoallv_host(torch, x, m, ip, op), 0)
+        cases.append(f"palltoallv {m}: {len(layouts)} layouts x 3 algos")
+    log(f"moe ep ragged: {cases}, rows of 4096 bf16, each bit-equal across compiled, inkernel "
+        "and unrolled and to the host reshuffle")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = ModelConfig(name="ep6", family="moe", num_layers=1, d_model=128, num_heads=2,
+                        num_kv_heads=2, d_ff=256, vocab_size=32, num_experts=6,
+                        experts_per_token=2, moe_group_size=32, num_shared_experts=1)
+    assert moe.expert_partition(6, RANKS) == (2, 2, 1, 1)
+    p = moe.init_moe(torch.Generator(device="cuda").manual_seed(13), small, torch.float32)
+    x = torch.randn((8, 64, 128), generator=gen, device="cuda")
+    with torch.no_grad():
+        y_ep, aux_ep = moe.moe_ffn(p, x, dataclasses.replace(small, moe_dispatch="alltoallv"),
+                                   mesh=mesh)
+        y, aux = moe.moe_ffn(p, x, small)
+    small_err = max_abs_err(torch, y_ep, y)
+    assert small_err < 1e-5 and abs(float(aux_ep) - float(aux)) < 1e-6, (small_err, aux_ep, aux)
+    log(f"moe ep small: moe_ffn E=6 over {RANKS} ranks (2, 2, 1, 1) + a shared expert, f32, "
+        f"alltoallv vs einsum max abs diff {small_err:.3e} (tol 1e-5)")
+    return {"prefill_ms": prefill_ms, "warm_prefill_ms": warm,
+            "logits_max_abs_diff": err, "aux_diff": aux_err,
+            "S": S, "C": C, "R": R, "experts_per_rank": list(cnt),
+            "prefill_launches": {name: r["launches"] for name, r in runs.items()},
+            "transports": transports, "ragged_cases": cases, "small_moe_max_abs_diff": small_err,
+            "counts": counts}
+
+
+def moe_smoke_reference(torch) -> float:
+    """mixtral-8x7b-smoke, qwen3-moe-30b-a3b-smoke and
+    moonshot-v1-16b-a3b-smoke in f32: prefill of 80 tokens (past
+    mixtral-smoke's window of 64) and 2 decode steps on the card against
+    the CPU, logits within 1e-3 as phase 5 holds the other smoke
+    configs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for i, arch in enumerate(("mixtral-8x7b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")):
+        cfg = dataclasses.replace(get_config(f"{arch}-smoke"), dtype="float32",
+                                  kv_cache_dtype="float32")
+        model = Model(cfg)
+        cpu = model.init(seed=20 + i, device="cpu")
+        gpu = tree_map(lambda t: t.cuda(), cpu)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 80),
+                               generator=torch.Generator().manual_seed(20 + i))
+        e = []
+        with torch.no_grad():
+            a, ca = model.prefill(cpu, {"tokens": tokens}, max_len=82)
+            b, cb = model.prefill(gpu, {"tokens": tokens.cuda()}, max_len=82)
+            e.append(float((a - b.cpu()).abs().max()))
+            nxt = torch.argmax(a[:, -1], dim=-1)[:, None]
+            for s in range(2):
+                a, ca = model.decode_step(cpu, nxt, ca, 80 + s)
+                b, cb = model.decode_step(gpu, nxt.cuda(), cb, 80 + s)
+                e.append(float((a - b.cpu()).abs().max()))
+                nxt = torch.argmax(a[:, 0], dim=-1)[:, None]
+        assert all(math.isfinite(v) and v < 1e-3 for v in e), (arch, e)
+        errs[arch] = max(e)
+    log(f"reference: MoE smoke configs f32, card vs CPU, max abs diff of prefill / decode "
+        f"logits {({k: '%.3e' % v for k, v in errs.items()})} (tol 1e-3)")
+    return max(errs.values())
+
+
 def small_reference(torch) -> float:
     """The f32 smoke model on the card against the same model on the CPU."""
     from repro_torch.configs import get_config
@@ -2665,6 +3093,11 @@ def main() -> int:
             for ln in logf.read_text().splitlines():
                 if "registers" in ln or "spill" in ln or "Performance Loss" in ln:
                     log(f"  ptxas {src}: {ln.strip()}")
+    marks = [("build", time.perf_counter() - t0)]  # each phase's end, seconds from the build's start
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter() - t0))
+
     cal = calibrate(torch)
     log(f"calibrate: ts {cal['ts_s']:.3e} s, t_launch {cal['t_launch_s']:.3e} s")
     fits = calibrate_fits(torch)
@@ -2672,6 +3105,7 @@ def main() -> int:
     lines = [check_fused_combine(torch), check_chunked_copy(torch), *check_quantize(torch),
              *check_inkernel(torch), *check_flash_attention(torch), *check_param_update(torch)]
     lines[0]["training_rounds"] = check_fused_combine_training(torch)
+    mark("calibrate and kernel checks (1-2)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2691,6 +3125,7 @@ def main() -> int:
     log(f"serving: tuned in-kernel distribution {tuned['distribute_s']:.3f} s beside the "
         f"compiled pipelined chain's {compiled['distribute_s']:.3f} s")
     del stacked, mesh
+    mark("serving (3-4b)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2701,12 +3136,14 @@ def main() -> int:
     kernels.reset_launch_counts()
     vlm = serve_vlm(torch)
     vlm_counts = vlm.pop("counts")
+    mark("long-prompt and vision serving (4c-4d)")
 
     small_reference(torch)
     kernels.reset_launch_counts()
     small_long_reference(torch)
     small_vlm_reference(torch)
     ref_long_counts = kernels.launch_counts()
+    mark("references (5)")
     numbers = {"serve": serving, "compiled": compiled, "tuned_inkernel": tuned,
                "serve_long": long, "serve_vlm": vlm}
     log(f"serving numbers: {json.dumps(numbers)}")
@@ -2718,6 +3155,7 @@ def main() -> int:
         kernels.reset_launch_counts()
         training = train(torch, table_runs, plans_per_step)
         train_counts = kernels.launch_counts()
+    mark("training (6)")
     gc.collect()
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
@@ -2742,6 +3180,22 @@ def main() -> int:
     kernels.reset_launch_counts()
     online_rec = online(torch)
     online_counts = kernels.launch_counts()
+    mark("collectives to online tuner (7-9)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    moe_serving, engine = serve_moe(torch)
+    moe_serve_counts = kernels.launch_counts()
+    mark("MoE serving (10)")
+    kernels.reset_launch_counts()
+    moe_rec = moe_ep(torch, engine)
+    moe_ep_counts = moe_rec.pop("counts")
+    mark("expert parallelism (10b)")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_smoke_reference(torch)
+    mark("MoE smoke configs, card against CPU (10b)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths and the streams phase, the staging copy on the serving
     # paths and the streams phase, the quantize pair on the training path, the
@@ -2751,24 +3205,30 @@ def main() -> int:
     # CUDA-core one on phase 5's f32 long-prompt references; the merge also
     # on phase 7b's compiled routes and phase 9's arms, the in-kernel replay
     # on phase 7b's in-kernel ring, the staging copy on phase 8b's staged
-    # trees, the quantize pair on phase 9's compressed arms; mix and
+    # trees, the quantize pair on phase 9's compressed arms; the merge and
+    # the staging copy on the MoE serving path (phase 10), the merge, the
+    # in-kernel replay and the sm90 flash kernel on the expert-parallel path
+    # (phase 10b: its two prefills, the transports through the compiled and
+    # the in-kernel executor); mix and
     # scaled_add are on no path of either package, and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("serve", "train", "algorithms", "online", "streams"),
-             "chunked_copy": ("serve", "serve_long", "serve_vlm", "trees", "streams"),
+    paths = {"fused_combine": ("serve_moe", "moe_ep", "serve", "train", "algorithms", "online",
+                               "streams"),
+             "chunked_copy": ("serve_moe", "serve", "serve_long", "serve_vlm", "trees",
+                              "streams"),
              "quantize_blocks": ("online", "train"), "dequantize_blocks": ("online", "train"),
              "inkernel_replay": (),
-             "inkernel_rdma": ("serve_tuned", "collectives", "algorithms", "train"),
-             "flash_attention_sm90": ("serve_long", "serve_vlm"),
+             "inkernel_rdma": ("moe_ep", "serve_tuned", "collectives", "algorithms", "train"),
+             "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm"),
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
               "serve_long": long_counts, "serve_vlm": vlm_counts,
               "reference_long": ref_long_counts, "collectives": coll_counts,
               "algorithms": algo_counts, "streams": stream_counts, "trees": tree_counts,
-              "online": online_counts}
+              "online": online_counts, "serve_moe": moe_serve_counts, "moe_ep": moe_ep_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     for line in lines:
@@ -2782,6 +3242,7 @@ def main() -> int:
         line["launches"] = line["launches_by_path"][paths[line["name"]][-1]]
     assert all(c["inkernel_replay"] == 0 for c in counts.values()), counts
     small_train_reference(torch)
+    mark("training reference (6)")
     log(f"training numbers: {json.dumps(training)}")
     log(f"collectives numbers: {json.dumps(colls)}")
     log(f"streams numbers: {json.dumps(stream_rec)}")
@@ -2789,7 +3250,11 @@ def main() -> int:
     log(f"algorithms numbers: {json.dumps(algos)}")
     log(f"trees numbers: {json.dumps(tree_rec)}")
     log(f"online numbers: {json.dumps(online_rec)}")
+    log(f"moe numbers: {json.dumps({'serve_moe': moe_serving, 'moe_ep': moe_rec})}")
     check_trap(torch)
+    mark("trap check")
+    log("phase ends, s from the build's start: "
+        + ", ".join(f"{name} {t:.1f}" for name, t in marks))
     print(json.dumps({"kernels": lines}))
     print(f"card: {name_power}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,8 @@ Layering, as in the reference:
                          ->  comm.executors (replay on a rank-stacked buffer)
                          ->  comm.api       (apply_plan, pbcast, preduce,
                                              pallreduce, pallgather,
-                                             preduce_scatter, *_tree)
+                                             preduce_scatter, pallgatherv,
+                                             palltoallv, *_tree)
                          ->  comm.streams   (multi-stream link scheduler;
                                              comm.overlap = 1-stream case)
 """
@@ -16,8 +17,10 @@ from .api import (
     apply_plan,
     hierarchical_allreduce_axes,
     pallgather,
+    pallgatherv,
     pallreduce,
     pallreduce_tree,
+    palltoallv,
     pbcast,
     pbcast_tree,
     preduce,
@@ -88,6 +91,8 @@ __all__ = [
     "preduce",
     "pallreduce",
     "pallgather",
+    "pallgatherv",
+    "palltoallv",
     "preduce_scatter",
     "pbcast_tree",
     "pallreduce_tree",

@@ -15,7 +15,8 @@ left as it was — the error-feedback update reads it after the sync.
 
 :func:`pallgather` and :func:`preduce_scatter` change the shape:
 ``(n, *shard)`` → ``(n, n, *shard)``, and ``(n, *shape)`` → each rank's
-flat shard ``(n, ceil(size / n))``.
+flat shard ``(n, ceil(size / n))``. The ragged :func:`pallgatherv` and
+:func:`palltoallv` move rows of variable count per rank (see each).
 
 ``*_tree`` variants communicate a rank-stacked pytree through same-dtype
 buckets (:mod:`repro_torch.core.bucketing`).
@@ -23,8 +24,10 @@ buckets (:mod:`repro_torch.core.bucketing`).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from ..core import algorithms, bucketing
@@ -34,6 +37,7 @@ from ..kernels.chunked_copy import chunked_copy
 from .compress import CompressedWire, normalize_wire_format
 from .executors import execute_collective, execute_compiled, execute_inkernel
 from .plan import ONE_SHOT, CollectivePlan, plan_cached
+from .schedules import alltoallv_matrix
 
 __all__ = [
     "apply_plan",
@@ -41,6 +45,8 @@ __all__ = [
     "preduce",
     "pallreduce",
     "pallgather",
+    "pallgatherv",
+    "palltoallv",
     "preduce_scatter",
     "pbcast_tree",
     "pallreduce_tree",
@@ -198,6 +204,119 @@ def _one_shot(plan: CollectivePlan, x: torch.Tensor) -> torch.Tensor:
     return algorithms._psum(x) if plan.algo == "xla_psum" else algorithms._all_gather(x)
 
 
+# ---------------------------------------------------------------------------
+# ragged layout tables (host-side numpy, lifted to device index tensors once
+# per call)
+#
+# The ragged schedules move rows of one global (total_rows, elems) frame
+# whose layout is fixed by the size vector: allgatherv concatenates the
+# per-rank segments in rank order; alltoallv lays the n^2 blocks out
+# row-major by (src, dst). The entry points scatter each rank's rows into
+# its row of the rank-stacked frame (n, total_rows, elems), replay the
+# schedule, and gather each rank's result back out.
+# ---------------------------------------------------------------------------
+
+
+def _gatherv_tables(sizes, n: int):
+    """allgatherv scatter layout: global row ``g`` is owned by rank
+    ``src_of[g]`` and lives at row ``loc[g]`` of that rank's local shard."""
+    sz = np.asarray(sizes, dtype=np.int64)
+    off = np.concatenate([[0], np.cumsum(sz)])
+    src_of = np.repeat(np.arange(n, dtype=np.int64), sz)
+    loc = np.arange(int(off[-1]), dtype=np.int64) - off[src_of]
+    return src_of, loc
+
+
+def _a2av_tables(m: np.ndarray, n: int, *, in_padded: bool, out_padded: bool,
+                 in_rows: int):
+    """alltoallv scatter/gather layout for block matrix ``m`` (rows rank s
+    sends to rank d). Returns host arrays:
+
+    - ``src_of[g]``/``loc[g]``: global row ``g`` (row-major (s, d) blocks)
+      is owned by rank ``src_of[g]`` at local row ``loc[g]``. For compact
+      inputs ``loc`` indexes the destination-major concatenation; for padded
+      inputs it indexes the flattened ``(n, in_rows)`` block layout.
+    - ``gidx``/``gvalid``: per-rank output gather table. Row ``i`` of rank
+      r's output is global row ``gidx[r, i]`` where ``gvalid[r, i]``, zero
+      elsewhere. Compact outputs are the source-major concatenation (width
+      ``max_r recv_r``); padded outputs are ``(n, bmax)`` blocks with each
+      incoming block at a valid prefix (``bmax = m.max()``).
+    """
+    total = int(m.sum())
+    boff = np.concatenate([[0], np.cumsum(m.reshape(-1))])
+    bmax = int(m.max())
+    recv = m.sum(axis=0)
+    in_off = np.concatenate([np.zeros((n, 1), np.int64), np.cumsum(m, axis=1)], axis=1)
+    src_of = np.repeat(np.arange(n * n, dtype=np.int64) // n, m.reshape(-1))
+    loc = np.zeros(total, dtype=np.int64)
+    for s in range(n):
+        for d in range(n):
+            b = s * n + d
+            j = np.arange(int(m[s, d]), dtype=np.int64)
+            loc[boff[b]:boff[b + 1]] = (d * in_rows + j) if in_padded else (in_off[s, d] + j)
+    out_rows = n * bmax if out_padded else max(int(recv.max()), 1)
+    gidx = np.zeros((n, out_rows), dtype=np.int64)
+    gvalid = np.zeros((n, out_rows), dtype=bool)
+    for r in range(n):
+        pos = 0
+        for s in range(n):
+            b = s * n + r
+            h = int(m[s, r])
+            lo = s * bmax if out_padded else pos
+            gidx[r, lo:lo + h] = np.arange(boff[b], boff[b] + h)
+            gvalid[r, lo:lo + h] = True
+            pos += h
+    return src_of, loc, gidx, gvalid, bmax
+
+
+def _ragged_scatter(x2d: torch.Tensor, src_of, loc) -> torch.Tensor:
+    """The rank-stacked global frame ``(n, total_rows, elems)``: each rank's
+    own rows in place, zeros elsewhere (the executors' pre-condition for
+    ragged ops). ``x2d`` is ``(n, local_rows, elems)``; one ``index_put_``."""
+    n, _rows, elems = x2d.shape
+    total = len(src_of)
+    frame = torch.zeros((n, total, elems), dtype=x2d.dtype, device=x2d.device)
+    src = torch.from_numpy(src_of).to(x2d.device)
+    rows = torch.arange(total, device=x2d.device)
+    frame.index_put_((src, rows), x2d[src, torch.from_numpy(loc).to(x2d.device)])
+    return frame
+
+
+def _run_allgatherv(plan: CollectivePlan, x: torch.Tensor, run) -> torch.Tensor:
+    n, total = plan.n, sum(plan.sizes)
+    src_of, loc = _gatherv_tables(plan.sizes, n)
+    frame = _ragged_scatter(x.reshape(n, x.shape[1], -1), src_of, loc)
+    return run(plan.schedule, frame).reshape((n, total) + tuple(x.shape[2:]))
+
+
+def _run_alltoallv(plan: CollectivePlan, x: torch.Tensor, run, *, in_padded: bool,
+                   out_padded: bool) -> torch.Tensor:
+    n = plan.n
+    m = np.asarray(plan.sizes, dtype=np.int64).reshape(n, n)
+    elem = tuple(x.shape[3:]) if in_padded else tuple(x.shape[2:])
+    if in_padded and x.shape[1] != n:
+        raise ValueError(f"in_padded alltoallv expects a (n={n}, bmax, ...) "
+                         f"block layout, got leading dim {x.shape[1]}")
+    in_rows = x.shape[2] if in_padded else x.shape[1]
+    src_of, loc, gidx, gvalid, bmax = _a2av_tables(
+        m, n, in_padded=in_padded, out_padded=out_padded, in_rows=int(in_rows))
+    need = bmax if in_padded else int(m.sum(axis=1).max())
+    if in_rows < need:
+        raise ValueError(
+            f"alltoallv input has {in_rows} rows per "
+            f"{'block' if in_padded else 'rank'}, size matrix needs {need}")
+    x3 = x.reshape(n, -1, math.prod(elem) if elem else 1)
+    out = run(plan.schedule, _ragged_scatter(x3, src_of, loc))
+    # each rank's rows out of the frame, then the frame goes; no second copy
+    ranks = torch.arange(n, device=x.device)[:, None]
+    picked = out[ranks, torch.from_numpy(gidx).to(x.device)]
+    del out
+    picked.masked_fill_(~torch.from_numpy(gvalid).to(x.device)[..., None], 0)
+    if out_padded:
+        return picked.reshape((n, n, bmax) + elem)
+    return picked.reshape((n, picked.shape[1]) + elem)
+
+
 def apply_plan(
     plan: CollectivePlan,
     x: torch.Tensor,
@@ -212,20 +331,30 @@ def apply_plan(
     bcast/reduce/allreduce take and return ``(n, *shape)``; allgather takes
     the per-rank shards ``(n, *shard)`` and returns ``(n, n, *shard)``;
     reduce_scatter takes ``(n, *shape)`` and returns each rank's flat shard
-    ``(n, ceil(size / n))``. Executor routing follows
-    :func:`_resolve_exec_path`."""
+    ``(n, ceil(size / n))``. The ragged ops use the compact conventions:
+    allgatherv takes the valid-prefix row shards ``(n, rows, *elem)`` and
+    returns the ``(n, sum(sizes), *elem)`` concatenation; alltoallv takes
+    the destination-major compact rows and returns the source-major compact
+    rows (use :func:`palltoallv` for the padded block layouts). Executor
+    routing follows :func:`_resolve_exec_path`."""
     if x.shape[0] != plan.n:
         raise ValueError(f"value has {x.shape[0]} rank rows, plan is for n={plan.n}")
     if plan.algo == "noop":
+        if plan.op in ("allgatherv", "alltoallv"):
+            # n == 1: the rank's valid prefix IS the result (alltoallv's
+            # 1x1 block matrix degenerates to the same slice)
+            return x[:, : plan.sizes[0]]
         return x if plan.op != "allgather" else x[:, None]
     if plan.algo in ONE_SHOT:
         return _one_shot(plan, x)
-    if plan.op not in ("bcast", "reduce", "allreduce", "allgather", "reduce_scatter"):
-        raise NotImplementedError(f"ragged op {plan.op!r} is not ported yet: "
-                                  'ROADMAP item "Ragged collectives and MoE"')
     sched = plan.schedule
     run = _EXECUTORS[_resolve_exec_path(plan, fused=fused, compiled=compiled,
                                         inkernel=inkernel)]
+    # the ragged ops move rows; their plans never compress (plan_collective)
+    if plan.op == "allgatherv":
+        return _run_allgatherv(plan, x, run)
+    if plan.op == "alltoallv":
+        return _run_alltoallv(plan, x, run, in_padded=False, out_padded=False)
     wire_dtype = None
     if plan.wire_format.compressed:
         # the inkernel path is vetoed above; both remaining executors take
@@ -409,6 +538,117 @@ def preduce_scatter(
     if plan.algo == "noop":
         return flat
     return apply_plan(plan, x, compiled=compiled, inkernel=inkernel)
+
+
+# ---------------------------------------------------------------------------
+# ragged collectives (allgatherv / alltoallv — MPI_Allgatherv/MPI_Alltoallv
+# analogues on the schedule IR; the MoE expert-dispatch transport)
+# ---------------------------------------------------------------------------
+
+
+def pallgatherv(
+    x: torch.Tensor,
+    *,
+    sizes: Sequence[int],
+    algo: str = "auto",
+    tuner: Tuner | None = None,
+    inter_pod: bool = False,
+    fused: bool = True,
+    compiled: bool | None = None,
+    inkernel: bool | None = None,
+) -> torch.Tensor:
+    """Ragged all-gather: rank ``r`` contributes the first ``sizes[r]`` rows
+    of its row ``x[r]`` (rows beyond the valid prefix are ignored) and every
+    rank receives the ``(sum(sizes), *elem)`` concatenation in rank order.
+
+    ``x`` is ``(n, rows, *elem)`` with ``rows >= max(sizes)``; the result
+    is ``(n, sum(sizes), *elem)``. Zero-sized ranks are fine — they
+    contribute nothing but still receive the full result. ``algo``:
+    'auto', 'ring_allgatherv', or 'doubling_allgatherv' (power-of-two n);
+    'auto' routes through the skew-aware tuner (``Tuner.select(...,
+    sizes=)``).
+    """
+    n = x.shape[0]
+    sz = tuple(int(s) for s in sizes)
+    if len(sz) != n:
+        raise ValueError(f"allgatherv sizes has {len(sz)} entries for axis size {n}")
+    if any(s < 0 for s in sz) or sum(sz) == 0:
+        raise ValueError(f"allgatherv sizes must be non-negative and non-empty: {sz}")
+    if x.dim() < 2 or x.shape[1] < max(sz):
+        raise ValueError(
+            f"allgatherv input has {x.shape[1] if x.dim() > 1 else 0} rows, "
+            f"size vector needs max(sizes)={max(sz)}")
+    total = sum(sz)
+    if n == 1:
+        return x[:, : sz[0]]
+    elems = math.prod(x.shape[2:])
+    if elems == 0:
+        return x.new_zeros((n, total) + tuple(x.shape[2:]))
+    M = total * elems * x.element_size()
+    plan = plan_cached("allgatherv", M, n, algo=algo, tuner=tuner, inter_pod=inter_pod,
+                       sizes=sz)
+    return apply_plan(plan, x, fused=fused, compiled=compiled, inkernel=inkernel)
+
+
+def palltoallv(
+    x: torch.Tensor,
+    *,
+    sizes,
+    algo: str = "auto",
+    tuner: Tuner | None = None,
+    inter_pod: bool = False,
+    in_padded: bool = False,
+    out_padded: bool = False,
+    fused: bool = True,
+    compiled: bool | None = None,
+    inkernel: bool | None = None,
+) -> torch.Tensor:
+    """Ragged all-to-all: ``sizes`` gives the block matrix ``m[s][d]`` (rows
+    rank ``s`` sends to rank ``d``) as an n x n nested sequence, a flat
+    row-major n^2 vector, or a length-n per-destination vector (every source
+    sends the same counts). Rank ``r`` sends block ``m[r][d]`` to each
+    ``d`` and receives block ``m[s][r]`` from each ``s``.
+
+    Layouts, rank-stacked (row ``r`` of each is rank ``r``'s):
+
+    - compact in (default): ``x`` is ``(n, rows, *elem)``, each rank's
+      destination-major concatenation — its first ``sum_d m[r][d]`` rows are
+      the blocks for d=0..n-1 back-to-back; ``rows >= max_r sum_d m[r][d]``.
+    - padded in (``in_padded=True``): ``x`` is ``(n, n, bmax_in, *elem)``
+      with rank r's block for destination ``d`` at ``x[r, d, :m[r][d]]``.
+    - compact out (default): ``(n, max_r sum_s m[s][r], *elem)``, each
+      rank's source-major concatenation, zero beyond its valid prefix.
+    - padded out (``out_padded=True``): ``(n, n, max(m), *elem)`` with the
+      block from source ``s`` at ``out[r, s, :m[s][r]]``, zeros elsewhere.
+
+    The padded layouts keep per-rank shapes uniform when block heights vary
+    per rank — the MoE expert-dispatch contract. ``algo``: 'auto',
+    'pairwise_alltoallv', or 'ring_alltoallv' (store-and-forward).
+    """
+    n = x.shape[0]
+    m = alltoallv_matrix(sizes, n)
+    flat = tuple(v for row in m for v in row)
+    total = sum(flat)
+    if total == 0:
+        raise ValueError("alltoallv size matrix is all zeros")
+    elem = tuple(x.shape[3:]) if in_padded else tuple(x.shape[2:])
+    elems = math.prod(elem)
+    if n == 1:
+        c = m[0][0]
+        if in_padded:
+            return x[:, :, :c] if out_padded else x[:, 0, :c]
+        return x[:, :c][:, None] if out_padded else x[:, :c]
+    if elems == 0:
+        bmax = max(flat)
+        rmax = max(sum(m[s][r] for s in range(n)) for r in range(n))
+        shape = ((n, n, bmax) + elem) if out_padded else ((n, rmax) + elem)
+        return x.new_zeros(shape)
+    M = total * elems * x.element_size()
+    plan = plan_cached("alltoallv", M, n, algo=algo, tuner=tuner, inter_pod=inter_pod,
+                       sizes=flat)
+    run = _EXECUTORS[_resolve_exec_path(plan, fused=fused, compiled=compiled,
+                                        inkernel=inkernel)]
+    return _run_alltoallv(plan, x, run, in_padded=in_padded, out_padded=out_padded)
 
 
 def _check_one_axis(axes: Sequence) -> tuple:

@@ -1,8 +1,9 @@
 """Block assembly with a uniform (init, apply) interface per ``kind``.
 
-The port has the dense ``attn`` block (pre-norm GQA attention + MLP) that
-the dense architectures use; the other kinds are ROADMAP items: moe
-"Ragged collectives and MoE", mlstm, slstm and hybrid "Other model
+The port has two kinds:
+  attn    pre-norm GQA attention + MLP            (dense archs)
+  moe     pre-norm GQA attention + MoE FFN        (mixtral / qwen3 / moonshot)
+The other kinds (mlstm, slstm, hybrid) are ROADMAP item "Other model
 families".
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from . import moe as moe_lib
 from .layers import (
     AttnSpec,
     attention,
@@ -37,12 +39,14 @@ def attn_spec_for(cfg, window: Optional[int], causal: bool = True) -> AttnSpec:
     )
 
 
+_KINDS = ("attn", "moe")
+
+
 def _check_kind(kind: str) -> None:
-    if kind != "attn":
+    if kind not in _KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP items \"Ragged collectives "
-            "and MoE\" and \"Other model families\"); "
-            "the port has the dense 'attn' block"
+            f"block kind {kind!r} is not ported yet (ROADMAP item \"Other model "
+            f"families\"); the port has the kinds {_KINDS}"
         )
 
 
@@ -50,6 +54,8 @@ def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
                dtype=torch.bfloat16, lead: tuple = ()) -> dict:
     """One block's parameters; ``lead`` stacks several layers' blocks."""
     _check_kind(kind)
+    if kind == "moe" and not cfg.d_ff:
+        raise ValueError("moe blocks need d_ff (expert width)")
     d = cfg.d_model
     p = {
         "norm1": init_rms_norm(d, gen.device, lead),
@@ -57,7 +63,10 @@ def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
     }
     if cfg.d_ff:
         p["norm2"] = init_rms_norm(d, gen.device, lead)
-        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, lead)
+        if kind == "moe":
+            p["moe"] = moe_lib.init_moe(gen, cfg, dtype, lead)
+        else:
+            p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, lead)
     return p
 
 
@@ -65,7 +74,8 @@ def init_block_cache(cfg, kind: str, window: Optional[int], batch: int,
                      max_len: int, device, dtype=torch.bfloat16) -> dict:
     """Zero decode cache for one block. ``dtype`` is accepted for the
     reference's signature and, as there, read by no block kind the port
-    has: the attention cache takes ``cfg.kv_cache_dtype``."""
+    has: the attention cache takes ``cfg.kv_cache_dtype`` (a moe block's
+    cache is its attention's)."""
     _check_kind(kind)
     kv_dt = getattr(torch, cfg.kv_cache_dtype)
     return {"attn": init_attn_cache(batch, max_len, attn_spec_for(cfg, window), kv_dt, device)}
@@ -73,12 +83,19 @@ def init_block_cache(cfg, kind: str, window: Optional[int], batch: int,
 
 def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
                 mode: str = "train", cache: dict | None = None, cur_pos: int | None = None,
-                max_len: int = 0, prefix_len: int = 0, positions=None):
-    """Returns (x, cache): None in train mode, the prefill-built cache
-    (grown to ``max_len``) or the decode cache with the new token appended
-    in place. ``positions`` as :func:`attention`'s."""
+                max_len: int = 0, prefix_len: int = 0, positions=None, mesh=None,
+                transport=None):
+    """Returns (x, cache, aux): the cache is None in train mode, the
+    prefill-built cache (grown to ``max_len``) or the decode cache with the
+    new token appended in place; ``aux`` is the block's 0-d f32 auxiliary
+    loss (the router's load-balancing loss of a moe block, 0 otherwise).
+    ``positions`` as :func:`attention`'s. ``mesh`` (an emulated mesh)
+    routes a moe block's expert dispatch over its ranks when
+    ``cfg.moe_dispatch == 'alltoallv'``, its rows moved by ``transport``
+    (see :func:`.moe.moe_ffn`); None keeps the dense einsum formulation."""
     _check_kind(kind)
     spec = attn_spec_for(cfg, window)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
     y, ac = attention(p["attn"], h, spec, mode=mode, positions=positions,
                       prefix_len=prefix_len,
@@ -91,7 +108,12 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
     x = x + y
     if "mlp" in p:
         x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg.act)
-    return x, (None if mode == "train" else {"attn": ac})
+    elif "moe" in p:
+        y, a = moe_lib.moe_ffn(p["moe"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg,
+                               mesh=mesh, transport=transport)
+        x = x + y
+        aux = aux + a
+    return x, (None if mode == "train" else {"attn": ac}), aux
 
 
 def _grow_cache(cache: dict, max_len: int, spec: AttnSpec) -> dict:

@@ -29,10 +29,11 @@ class Model:
 
     def forward(self, params, batch: dict, *, remat: bool = False):
         """Train-mode forward. Returns (logits (B, T, V) f32, aux): the
-        dense family has no auxiliary loss, so aux is a 0-d f32 zero."""
-        logits, _ = apply_lm(params, self.cfg, tokens=batch["tokens"],
-                             embeds=batch.get("embeds"), mode="train", remat=remat)
-        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+        blocks' summed auxiliary loss, 0-d f32 (the MoE router's
+        load-balancing loss; exactly 0 for a dense model)."""
+        logits, _, aux = apply_lm(params, self.cfg, tokens=batch["tokens"],
+                                  embeds=batch.get("embeds"), mode="train", remat=remat)
+        return logits, aux
 
     def loss(self, params, batch: dict, *, remat: bool = False):
         """``(nll + aux, {"nll": nll, "aux": aux})`` over ``batch['tokens']``
@@ -48,15 +49,18 @@ class Model:
         caches grown to ``max_len``, plus the prefix's slots for vision)."""
         if self.cfg.frontend == "vision":
             max_len = max_len + self.cfg.prefix_len  # the cache holds the prefix too
-        return apply_lm(params, self.cfg, tokens=batch["tokens"], embeds=batch.get("embeds"),
-                        mode="prefill", max_len=max_len)
+        logits, caches, _ = apply_lm(params, self.cfg, tokens=batch["tokens"],
+                                     embeds=batch.get("embeds"), mode="prefill",
+                                     max_len=max_len)
+        return logits, caches
 
     def decode_step(self, params, tokens: torch.Tensor, caches, cur_pos: int):
         """tokens (B, 1) int; ``cur_pos`` the absolute position of the new
         token. Returns (logits (B, 1, V), caches) — the caches are updated in
         place."""
-        return apply_lm(params, self.cfg, tokens=tokens, mode="decode",
-                        caches=caches, cur_pos=int(cur_pos))
+        logits, caches, _ = apply_lm(params, self.cfg, tokens=tokens, mode="decode",
+                                     caches=caches, cur_pos=int(cur_pos))
+        return logits, caches
 
     def init_cache(self, batch: int, max_len: int, *, device="cuda"):
         return init_decode_cache(self.cfg, batch, max_len, resolve_device(device))

@@ -46,7 +46,7 @@ def _check_arch(cfg) -> None:
     if cfg.arch_type != "decoder" or cfg.frontend not in (None, "vision"):
         raise NotImplementedError(
             f"{cfg.name}: the port has decoder-only text and vision-prefix models; "
-            "the audio encoder-decoder is ROADMAP A.6")
+            'the audio encoder-decoder is ROADMAP item "Other model families"')
 
 
 def init_lm(gen: torch.Generator, cfg) -> dict:
@@ -72,46 +72,67 @@ def init_lm(gen: torch.Generator, cfg) -> dict:
     }
 
 
-def _train_superblock(x, stack, l: int, cfg, layout: StackLayout, prefix_len: int):
-    """Superblock ``l`` in train mode (the reference's scan body)."""
+def _train_superblock(x, stack, l: int, cfg, layout: StackLayout, prefix_len: int, mesh,
+                      transport):
+    """Superblock ``l`` in train mode (the reference's scan body). Returns
+    (x, aux) with ``aux`` the superblock's summed auxiliary loss."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(layout.period):
         p = tree_map(lambda t: t[l], stack["blocks"][i])
-        x, _ = apply_block(p, x, cfg, layout.kinds[i], layout.windows[i], mode="train",
-                           prefix_len=prefix_len)
-    return x
+        x, _, a = apply_block(p, x, cfg, layout.kinds[i], layout.windows[i], mode="train",
+                              prefix_len=prefix_len, mesh=mesh, transport=transport)
+        aux = aux + a
+    return x, aux
 
 
 def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
-                 cur_pos=None, max_len: int = 0, prefix_len: int = 0, remat: bool = False):
-    """Returns (x, caches) with caches ``{'blocks': [...], 'tail': [...]}``,
-    or ``None`` in train mode. ``prefix_len`` reaches every block (the
-    bidirectional prefix of a vision config). ``remat`` (train mode)
-    recomputes each superblock in the backward pass instead of keeping its
-    activations: the reference's ``jax.checkpoint`` around its scan body."""
+                 cur_pos=None, max_len: int = 0, prefix_len: int = 0, remat: bool = False,
+                 mesh=None, transport=None):
+    """Returns (x, caches, aux) with caches ``{'blocks': [...], 'tail':
+    [...]}``, or ``None`` in train mode, and ``aux`` the blocks' summed
+    auxiliary loss (0-d f32). ``prefix_len`` reaches every block (the
+    bidirectional prefix of a vision config), and so do ``mesh`` and
+    ``transport`` (a moe block's expert-parallel dispatch, see
+    :func:`apply_block`). ``remat`` (train mode) recomputes each superblock
+    in the backward pass instead of keeping its activations: the
+    reference's ``jax.checkpoint`` around its scan body."""
     P = layout.period
     kinds, wins = layout.kinds, layout.windows
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train":
+        auxs = []
         for l in range(layout.num_super):
             if remat:
-                x = checkpoint(_train_superblock, x, stack, l, cfg, layout, prefix_len,
-                               use_reentrant=False)
+                x, a = checkpoint(_train_superblock, x, stack, l, cfg, layout, prefix_len,
+                                  mesh, transport, use_reentrant=False)
             else:
-                x = _train_superblock(x, stack, l, cfg, layout, prefix_len)
+                x, a = _train_superblock(x, stack, l, cfg, layout, prefix_len, mesh,
+                                         transport)
+            auxs.append(a)
+        if auxs:
+            aux_total = aux_total + torch.stack(auxs).sum()
         for j, tp in enumerate(stack["tail"]):
             i = (layout.num_super * P + j) % P
-            x, _ = apply_block(tp, x, cfg, kinds[i], wins[i], mode="train",
-                               prefix_len=prefix_len)
-        return x, None
+            x, _, a = apply_block(tp, x, cfg, kinds[i], wins[i], mode="train",
+                                  prefix_len=prefix_len, mesh=mesh, transport=transport)
+            aux_total = aux_total + a
+        return x, None, aux_total
     slot_caches: list[list] = [[] for _ in range(P)]
+    auxs = []
     for l in range(layout.num_super):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(P):
             p = tree_map(lambda t: t[l], stack["blocks"][i])
             c = None if caches is None else tree_map(lambda t: t[l], caches["blocks"][i])
-            x, nc = apply_block(p, x, cfg, kinds[i], wins[i], mode=mode, cache=c,
-                                cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len)
+            x, nc, a = apply_block(p, x, cfg, kinds[i], wins[i], mode=mode, cache=c,
+                                   cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
+                                   mesh=mesh, transport=transport)
+            aux = aux + a
             slot_caches[i].append(nc)
+        auxs.append(aux)
     new_caches = {"blocks": None, "tail": []}
     if layout.num_super:
+        aux_total = aux_total + torch.stack(auxs).sum()
         if mode == "prefill":
             new_caches["blocks"] = [tree_map(lambda *ts: torch.stack(ts), *cs)
                                     for cs in slot_caches]
@@ -120,20 +141,33 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
     for j, tp in enumerate(stack["tail"]):
         i = (layout.num_super * P + j) % P
         tc = None if caches is None else caches["tail"][j]
-        x, nc = apply_block(tp, x, cfg, kinds[i], wins[i], mode=mode, cache=tc,
-                            cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len)
+        x, nc, a = apply_block(tp, x, cfg, kinds[i], wins[i], mode=mode, cache=tc,
+                               cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
+                               mesh=mesh, transport=transport)
+        aux_total = aux_total + a
         new_caches["tail"].append(nc)
-    return x, new_caches
+    return x, new_caches, aux_total
 
 
 def apply_lm(params, cfg, *, tokens: torch.Tensor | None = None,
              embeds: torch.Tensor | None = None, mode: str = "train", caches=None,
-             cur_pos: int | None = None, max_len: int = 0, remat: bool = False):
+             cur_pos: int | None = None, max_len: int = 0, remat: bool = False, mesh=None,
+             transport=None):
     """train/prefill: ``tokens`` (B, T_text), and for a vision config the
     stub patch ``embeds`` (B, prefix, D), which go in front unscaled;
     decode: ``tokens`` (B, 1) + ``caches`` + ``cur_pos``. Returns
-    (logits_f32 of the text positions, caches); caches are None in train
-    mode."""
+    (logits_f32 of the text positions, caches, aux); caches are None in
+    train mode, and ``aux`` is the blocks' summed auxiliary loss (0-d f32:
+    the MoE router's load-balancing loss, 0 for a dense model).
+
+    ``mesh`` (an :class:`~repro_torch.launch.mesh.EmulatedMesh`) with
+    ``cfg.moe_dispatch == 'alltoallv'`` runs every moe block's experts in
+    parallel over the mesh's ranks: the batch splits into ``mesh.size``
+    contiguous shards (B must divide), the reference's ``shard_map`` with
+    the batch on the axis and the parameters replicated. Every other layer
+    is per-row arithmetic and runs on the whole batch at once. ``transport``
+    moves the experts' rows (:func:`repro_torch.comm.palltoallv` by
+    default, with its plan's executor; see :func:`.moe.moe_ffn`)."""
     _check_arch(cfg)
     if tokens is None:
         raise ValueError(f"{cfg.name}: every ported family embeds text tokens; pass tokens=")
@@ -150,13 +184,14 @@ def apply_lm(params, cfg, *, tokens: torch.Tensor | None = None,
                 raise ValueError(f"{cfg.name}: train and prefill need the patch embeddings")
             x = torch.cat([embeds.to(dt), x], dim=1)
             prefix_len = embeds.shape[1]
-    x, new_caches = _apply_stack(params["decoder"], x, cfg, layout, mode=mode,
-                                 caches=caches, cur_pos=cur_pos, max_len=max_len,
-                                 prefix_len=prefix_len, remat=remat)
+    x, new_caches, aux = _apply_stack(params["decoder"], x, cfg, layout, mode=mode,
+                                      caches=caches, cur_pos=cur_pos, max_len=max_len,
+                                      prefix_len=prefix_len, remat=remat, mesh=mesh,
+                                      transport=transport)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if mode != "decode" and prefix_len:
         x = x[:, prefix_len:]
-    return unembed(params["embed"], x), new_caches
+    return unembed(params["embed"], x), new_caches, aux
 
 
 def init_decode_cache(cfg, batch: int, max_len: int, device) -> dict:

@@ -57,6 +57,10 @@ class Trainer:
             raise NotImplementedError(
                 f"{cfg.name}: training a model with a {cfg.frontend} frontend is not ported "
                 '(ROADMAP item "Training PaliGemma"); the port serves it')
+        if cfg.num_experts:
+            raise NotImplementedError(
+                f"{cfg.name}: training a MoE model is not ported (ROADMAP item \"Training a "
+                'MoE model"); the port serves it')
         if run.sync_mode not in SYNC_MODES:
             raise ValueError(f"unknown sync_mode {run.sync_mode!r} (have {SYNC_MODES})")
         self.cfg = cfg

@@ -103,9 +103,12 @@ def test_pbcast_overwrites_nan_replicas(algo, dt):
 
 
 def test_unported_paths_raise():
+    # the ragged ops are ported: apply_plan replays a ragged plan (each
+    # rank's valid prefix, concatenated on every rank) and refuses no more
     ragged = comm.plan_collective("allgatherv", 16 * 4, 4, sizes=(5, 0, 9, 2))
-    with pytest.raises(NotImplementedError, match="Ragged collectives"):
-        comm.apply_plan(ragged, torch.zeros((4, 16)))
+    x = torch.arange(4 * 9, dtype=torch.float32).reshape(4, 9)
+    want = torch.cat([x[0, :5], x[2, :9], x[3, :2]])
+    assert torch.equal(comm.apply_plan(ragged, x), want.expand(4, 16))
     with pytest.raises(NotImplementedError, match="hierarchical meshes"):
         comm.pallreduce_tree({"w": torch.zeros((4, 8))}, ("pod", "data"))
     plan = comm.plan_collective("bcast", 4096, 4, algo="binomial", wire_format="int8")

@@ -192,6 +192,19 @@ def test_allow_list_names_only_what_the_port_lacks():
                 "required" if pp.default is pp.empty else _default(pp.default)), (qual, name)
 
 
+def test_signatures_cover_the_moe_slice():
+    """The MoE module and the ragged entry points are among the shared
+    names this file compares (the port's ``mesh=`` and ``transport=`` are
+    keywords of its own, which no comparison asks of the reference)."""
+    covered = {q for mod in MODULES for q, _p, _r in _shared(mod)}
+    assert {"models.moe.init_moe", "models.moe.moe_ffn", "models.moe.expert_partition",
+            "comm.api.pallgatherv", "comm.api.palltoallv"} <= covered
+    for mod, name in (("models.moe", "moe_ffn"), ("models.blocks", "apply_block"),
+                      ("models.transformer", "apply_lm")):
+        assert {"mesh", "transport"} <= set(_params(getattr(
+            importlib.import_module(f"repro_torch.{mod}"), name)))
+
+
 # --- one call of the port with each repaired keyword ---
 
 
@@ -309,12 +322,12 @@ def test_attention_positions_match_the_reference():
     pos = (np.arange(12)[None, :] + np.array([[5], [40]])).astype(np.int32)
     tp = {k: {kk: torch.from_numpy(v) for kk, v in sub.items()} for k, sub in p.items()}
     jp = {k: {kk: jnp.asarray(v) for kk, v in sub.items()} for k, sub in p.items()}
-    got, _ = tb.apply_block(tp, torch.from_numpy(x), tcfg, "attn", None, mode="train",
-                            positions=torch.from_numpy(pos))
+    got, _, _ = tb.apply_block(tp, torch.from_numpy(x), tcfg, "attn", None, mode="train",
+                               positions=torch.from_numpy(pos))
     want = jb.apply_block(jp, jnp.asarray(x), jcfg, "attn", None, mode="train",
                           positions=jnp.asarray(pos))[0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
-    moved, _ = tb.apply_block(tp, torch.from_numpy(x), tcfg, "attn", None, mode="train")
+    moved, _, _ = tb.apply_block(tp, torch.from_numpy(x), tcfg, "attn", None, mode="train")
     assert not torch.allclose(moved, got)  # the positions were used
 
 
