@@ -157,6 +157,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``palltoallv`` cases with zero-row ranks at rows of 4096 bf16, likewise;
    the expert-parallel ``moe_ffn`` at E = 6 in f32 against the einsum path;
    then the three MoE smoke configs in f32, card against CPU.
+11. faults: (a) phase 6's tuned_allreduce run with rank 1 reported dead
+   (``Trainer(health=MeshHealth(n=4, dead_ranks=(1,)))``): the fallback
+   line printed, finite losses, no plan kernel launched, the first step's
+   loss and grad norm within phase 6's limits of a grad_allreduce step on 3
+   ranks over the batch without rank 1's rows; (b) at the training
+   embedding bucket, the allreduce and the bcast from rank 2 replanned on
+   the 3 survivors (``plan_degraded``), each run on the survivors' rows
+   compiled and in-kernel, bit-equal to each other and to the replay's
+   plain version, rank 1's row untouched, timed (CUDA events) beside the
+   healthy 4-rank plan and the bytes bound; a dead root refused
+   (``DeadRankError``); a slow-link report re-priced, its replay bit-equal
+   to the healthy plan's; (c) ``apply_plan_resilient`` at the same bucket:
+   the bf16 plan served in-kernel, an int8-wire plan served by the compiled
+   stage after the in-kernel veto (its launches those of
+   ``apply_plan(compiled=True)``), a 1e-9 s timeout a straggler with the
+   same bits, each stage's replay fed to a ``Watchdog``; (d) a weight
+   distribution with ``drain_dir=`` whose second bucket fails: a
+   ``WeightSyncError`` and a checkpoint bit-equal to row 0.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -168,8 +186,8 @@ vision-prefix serving path), phase 5's two long-prompt references (the
 f32 flash route), phase 6's runs (the training path), phase 7 (the
 collective entry points), phase 7b (the algorithms), phase 8's interleave
 (the stream path), phase 8b (the tree variants), phase 9 (the online
-tuner), phase 10 (the MoE serving path) and phase 10b (the expert-parallel
-path);
+tuner), phase 10 (the MoE serving path), phase 10b (the expert-parallel
+path) and phase 11 (the fault runtime);
 the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
@@ -268,6 +286,7 @@ MOE_LAYERS, MOE_PROMPT = 2, 4096  # phases 10 and 10b: mixtral-8x7b, 2 of 32 lay
 # not 16,384) read 1.207 with 26,826 logits over this limit: the router's
 # ulps sent near-tie tokens to another expert
 MOE_EP_REL, MOE_EP_ABS = 2.0**-7, 5e-2
+FAULT_DEAD = 1  # phase 11: the rank reported dead
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -2792,9 +2811,10 @@ def small_long_reference(torch) -> float:
     return max(errs)
 
 
-def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False):
-    """One Trainer run of TRAIN_STEPS steps from the seeded weights.
-    Returns the final parameters and the run's record."""
+def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=None):
+    """One Trainer run of TRAIN_STEPS steps from the seeded weights (on a
+    mesh in ``health``'s state, when given). Returns the final parameters
+    and the run's record."""
     from repro_torch import kernels
     from repro_torch.configs import RunConfig
     from repro_torch.core.tree import tree_leaves
@@ -2804,7 +2824,8 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = kernels.launch_counts()
-    trainer = Trainer(cfg, RunConfig(**TRAIN_RUN, **fields), mesh=mesh, check_rows=check_rows)
+    trainer = Trainer(cfg, RunConfig(**TRAIN_RUN, **fields), mesh=mesh, check_rows=check_rows,
+                      health=health)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params, opt, hist = trainer.train(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
@@ -2980,6 +3001,321 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
         "(bound 5e-3; the reference's own test allows 0.05)")
     assert d_int8 <= 5e-3, (out["compressed_int8"]["losses"], ref)
     return out
+
+
+def faults_training(torch, tuned: dict) -> dict:
+    """Phase 11a: phase 6's tuned_allreduce run on a mesh whose rank 1 is
+    reported dead (``Trainer(health=)``): the trainer prints its fallback
+    line and trains on the survivors' mean, launching no plan kernel. Its
+    first step's loss and grad norm are held against a grad_allreduce step
+    on 3 ranks from the same initial state on the batch without rank 1's
+    two rows (the survivors' mean computed another way), within phase 6's
+    bf16-mode limits."""
+    import contextlib
+    import io
+
+    from repro_torch.comm import MeshHealth
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.pipeline import batches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
+    health = MeshHealth(n=RANKS, dead_ranks=(FAULT_DEAD,))
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        params, rec = train_mode(torch, cfg, make_mesh(RANKS, device="cuda"),
+                                 {"sync_mode": "tuned_allreduce", "compiled_collectives": True},
+                                 health=health)
+    sys.stdout.write(said.getvalue())
+    assert "falls back to psum-over-survivors" in said.getvalue(), said.getvalue()
+    del params
+    assert rec["launches"]["fused_combine"] == 0 == rec["launches"]["inkernel_rdma"], rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = Trainer(cfg, RunConfig(**TRAIN_RUN, sync_mode="grad_allreduce"),
+                  mesh=make_mesh(RANKS - 1, device="cuda"))
+    params, opt = ref.init_state()
+    batch = next(batches(ref.source, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device="cuda"))
+    per_rank = TRAIN_BATCH // RANKS
+    keep = torch.tensor([r for r in range(TRAIN_BATCH) if r // per_rank != FAULT_DEAD],
+                        device="cuda")
+    _, _, out = ref._step_fn(params, opt, {k: v[keep] for k, v in batch.items()})
+    want_loss, want_norm = float(out["loss"]), float(out["grad_norm"])
+    del params, opt, out, ref, batch
+    d_loss = abs(rec["losses"][0] - want_loss)
+    d_norm = abs(rec["grad_norms"][0] - want_norm) / want_norm
+    log(f"faults train: {said.getvalue().splitlines()[0]}")
+    log(f"faults train: losses {['%.4f' % x for x in rec['losses']]}, step {rec['step_s']:.4f} "
+        f"s, peak {rec['max_memory_allocated'] / 2**30:.2f} GiB (phase 6 tuned_allreduce "
+        f"{tuned['step_s']:.4f} s, {tuned['max_memory_allocated'] / 2**30:.2f} GiB), launches "
+        f"{ {k: v for k, v in rec['launches'].items() if v} }; first step against grad_allreduce "
+        f"on 3 ranks without rank {FAULT_DEAD}'s rows: loss {rec['losses'][0]:.6f} / "
+        f"{want_loss:.6f} ({d_loss:.3e}, bound 1e-3), grad norm {rec['grad_norms'][0]:.6f} / "
+        f"{want_norm:.6f} ({d_norm:.3e} relative, bound 2e-4)")
+    assert d_loss <= 1e-3 and d_norm <= 2e-4, (rec["losses"], rec["grad_norms"], want_loss,
+                                                want_norm)
+    rec.update(survivor_loss=want_loss, survivor_grad_norm=want_norm)
+    return rec
+
+
+def _plan_line(plan) -> str:
+    return (f"{plan.algo} K={plan.num_chunks} n={plan.n} root={plan.root} "
+            f"predicted {plan.predicted_s * 1e3:.3f} ms")
+
+
+def _replay_bound_ms(plan, cols: int) -> float:
+    """The bytes bound of one replay of ``plan`` at ``cols`` bf16 elements a
+    rank: the rows every class-round reads and writes (read twice on
+    combine rounds), over 3.35 TB/s."""
+    from repro_torch.kernels import inkernel_collective as ik
+
+    tables = ik.pack_tables(plan.lowered())
+    return ik.replay_bytes(tables, -(-cols // plan.lowered().num_chunks), 2) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def faults_plans(torch, x) -> tuple[dict, dict]:
+    """Phase 11b: the degraded plans at the training embedding bucket
+    (``x``: (4, 1,048,576,000) bf16) with rank 1 dead: the allreduce and
+    the bcast from physical rank 2 (logical root 1) replanned on the 3
+    survivors, each run on the survivors' rows with the compiled and the
+    in-kernel executor, bit-equal to each other and to the device-initiated
+    replay's plain version, written back with row 1 untouched; each timed
+    (CUDA events) beside the healthy 4-rank plan and the bytes bound; a dead
+    root refused; a slow-link report re-priced with the healthy schedule
+    and the same bits. Returns the numbers and the healthy allreduce's
+    compiled result (the chain's reference)."""
+    from repro_torch.comm import DeadRankError, MeshHealth, apply_plan, plan_cached, plan_degraded
+
+    n, N = x.shape
+    M = N * x.element_size()
+    health = MeshHealth(n=n, dead_ranks=(FAULT_DEAD,))
+    survivors = [r for r in range(n) if r != FAULT_DEAD]
+    out, healthy_allreduce = {}, None
+    for op, root in (("allreduce", 0), ("bcast", 2)):
+        healthy = plan_cached(op, M, n, root=root)
+        plan = plan_cached(op, M, n, root=root, health=health)
+        assert plan.survivors == tuple(survivors) and plan.n == n - 1, plan
+        assert plan.root == (survivors.index(root) if op == "bcast" else 0), plan
+        rows = x[survivors]
+        res = {flag: apply_plan(plan, rows.clone(), **{flag: True})
+               for flag in ("compiled", "inkernel")}
+        want = _plain_collective(torch, plan, rows.clone())
+        for flag, got in res.items():
+            assert same_bits(torch, got, want), f"degraded {op} {flag} differs from plain"
+        y = x.clone()
+        y[survivors] = res["inkernel"]
+        assert same_bits(torch, y[FAULT_DEAD], x[FAULT_DEAD]), f"degraded {op}: row 1 moved"
+        if op == "bcast":
+            assert all(same_bits(torch, y[r], x[root]) for r in survivors), op
+        del y, res, want
+        rec = {"healthy": {"plan": _plan_line(healthy), "bound_ms": _replay_bound_ms(healthy, N)},
+               "degraded": {"plan": _plan_line(plan), "bound_ms": _replay_bound_ms(plan, N)}}
+        for label, p, buf in (("healthy", healthy, x), ("degraded", plan, rows)):
+            scratch = buf.clone()
+            for flag in ("compiled", "inkernel"):
+                rec[label][f"{flag}_ms"] = time_ms(
+                    torch, lambda: apply_plan(p, scratch, **{flag: True}), reps=3, warmup=1)
+            del scratch
+        if op == "allreduce":
+            healthy_allreduce = apply_plan(healthy, x.clone(), compiled=True)
+        del rows
+        torch.cuda.empty_cache()
+        out[op] = rec
+        log(f"faults plans {op}" + (f" root {root}" if op == "bcast" else "") + ", "
+            + "; ".join(f"{label} {r['plan']}: compiled {r['compiled_ms']:.3f} ms, in-kernel "
+                        f"{r['inkernel_ms']:.3f} ms (bound {r['bound_ms']:.3f} ms)"
+                        for label, r in rec.items())
+            + f"; degraded compiled == in-kernel == plain, row {FAULT_DEAD} bit-unchanged")
+    try:
+        plan_degraded("bcast", M, n, health, root=FAULT_DEAD)
+    except DeadRankError as e:
+        log(f"faults plans: bcast from dead root {FAULT_DEAD} refused: DeadRankError: {e}")
+    else:
+        raise AssertionError("a bcast from a dead root was planned")
+    slow = MeshHealth(n=n, slow_links={(0, 1): 4.0})
+    healthy = plan_cached("allreduce", M, n)
+    plan = plan_degraded("allreduce", M, n, slow)
+    assert plan.survivors is None and plan.schedule.name == healthy.schedule.name, plan
+    assert plan.num_chunks == healthy.num_chunks and plan.decision.source.endswith("+degraded")
+    assert plan.predicted_s > healthy.predicted_s, (plan.predicted_s, healthy.predicted_s)
+    got = apply_plan(plan, x.clone(), compiled=True)
+    assert same_bits(torch, got, healthy_allreduce), "the slow-link plan's replay differs"
+    del got
+    out["slow_link"] = {"plan": _plan_line(plan), "source": plan.decision.source}
+    log(f"faults plans slow link (0, 1) x4: {_plan_line(plan)} ({plan.decision.source}; "
+        f"healthy {healthy.predicted_s * 1e3:.3f} ms), replay bit-equal to the healthy plan's")
+    return out, healthy_allreduce
+
+
+def faults_chain(torch, x, want) -> dict:
+    """Phase 11c: ``apply_plan_resilient`` at the same bucket. The healthy
+    bf16 allreduce under the default policy is served by the in-kernel
+    stage (one ``inkernel_rdma`` launch, no merge), bit-equal to the
+    compiled replay ``want``; the int8-wire plan, nothing injected, burns
+    the in-kernel stage's attempt and retry on the executor's veto and is
+    served by the compiled stage with the launches of
+    ``apply_plan(compiled=True)`` and bit-equal to it; ``timeout_s=1e-9``
+    flags a straggler and still returns the same bits. Then each stage's
+    replay, timed by CUDA events, is fed to a ``Watchdog``."""
+    from repro_torch import kernels
+    from repro_torch.comm import (FallbackPolicy, Tuner, Watchdog, apply_plan,
+                                  apply_plan_resilient, plan_cached)
+    from repro_torch.comm.api import _one_shot_fallback
+    from repro_torch.comm.resilience import DEFAULT_CHAIN
+
+    n, N = x.shape
+    plan = plan_cached("allreduce", N * x.element_size(), n)
+    out = {}
+
+    def chain(p, **policy):
+        events = []
+        before = kernels.launch_counts()
+        got = apply_plan_resilient(p, x, policy=FallbackPolicy(**policy),
+                                   on_event=events.append)
+        return got, [(e.stage, e.attempt, e.outcome) for e in events], \
+            _launched(torch, before), [e.elapsed_s for e in events]
+
+    got, events, launched, secs = chain(plan)
+    assert events == [("inkernel", 0, "ok")], events
+    assert launched == {"inkernel_rdma": 1}, launched
+    assert same_bits(torch, got, want), "the chain's in-kernel stage differs from compiled"
+    del got
+    out["bf16"] = {"events": events, "elapsed_s": secs, "launches": launched}
+    got, events, launched_s, secs_s = chain(plan, timeout_s=1e-9)
+    assert events == [("inkernel", 0, "straggler")], events
+    assert same_bits(torch, got, want), "the straggler's result differs"
+    del got
+    out["straggler"] = {"events": events, "elapsed_s": secs_s}
+    torch.cuda.empty_cache()
+    plan8 = plan_cached("allreduce", N * 4, n, wire_format="int8")
+    before = kernels.launch_counts()
+    want8 = apply_plan(plan8, x.clone(), compiled=True)
+    direct = _launched(torch, before)
+    got, events8, launched8, secs8 = chain(plan8)
+    assert events8 == [("inkernel", 0, "error"), ("inkernel", 1, "error"),
+                       ("compiled", 0, "ok")], events8
+    assert launched8 == direct and "inkernel_rdma" not in launched8, (launched8, direct)
+    assert same_bits(torch, got, want8), "the int8 chain differs from apply_plan(compiled=True)"
+    del got, want8
+    torch.cuda.empty_cache()
+    out["int8"] = {"plan": _plan_line(plan8), "events": events8, "elapsed_s": secs8,
+                   "launches": launched8}
+    log(f"faults chain bf16 {_plan_line(plan)}: {out['bf16']['events']} in "
+        f"{out['bf16']['elapsed_s'][0]:.4f} s, {out['bf16']['launches']}, bit-equal to compiled; "
+        f"timeout_s=1e-9: {events} in {secs_s[0]:.4f} s, same bits")
+    log(f"faults chain int8 {_plan_line(plan8)}: {events8} in "
+        f"{', '.join(f'{t:.4f}' for t in secs8)} s, launches {launched8} (apply_plan "
+        "compiled=True: the same), bit-equal to it")
+    wd = Watchdog(Tuner())
+    scratch = x.clone()
+    runs = {"inkernel": lambda: apply_plan(plan, scratch, inkernel=True),
+            "compiled": lambda: apply_plan(plan, scratch, compiled=True),
+            "unrolled": lambda: apply_plan(plan, scratch, compiled=False, inkernel=False),
+            "xla": lambda: _one_shot_fallback(plan, scratch)}
+    assert tuple(runs) == DEFAULT_CHAIN
+    expected = wd.expected_s(plan)
+    stages = {}
+    for stage, fn in runs.items():
+        ms = time_ms(torch, fn, reps=3, warmup=1)
+        flagged = wd.observe(plan, ms / 1e3) is not None
+        stages[stage] = {"ms": ms, "measured_over_expected": ms / 1e3 / expected,
+                         "straggler": flagged}
+    del scratch
+    out["watchdog"] = {"expected_s": expected, "stages": stages,
+                       "reports": len(wd.reports)}
+    log(f"faults watchdog (H100_SXM prices the plan at {expected * 1e3:.3f} ms): " + ", ".join(
+        f"{k} {v['ms']:.3f} ms = {v['measured_over_expected']:.2f}x"
+        + (" (straggler, recorded)" if v["straggler"] else "") for k, v in stages.items()))
+    return out
+
+
+def faults_drain(torch) -> dict:
+    """Phase 11d: phase 6's 1-layer minitron weights distributed from row 0
+    to 4 emulated ranks with ``double_buffer=True`` and ``drain_dir=``,
+    the stream replay's ``apply_plan`` raising on its second call (one
+    bucket has landed, ``chunked_copy`` has run): ``WeightSyncError``
+    chained to the cause, a checkpoint at step 0 whose tree is bit-equal to
+    the pre-distribution row 0. The directory lives under ``build/`` and is
+    removed."""
+    from repro_torch import kernels
+    from repro_torch.comm import WeightSyncError
+    from repro_torch.comm import streams as comm_streams
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import distribute_weights, replicate
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
+    stacked = replicate(Model(cfg).init(seed=0, device="cuda"), RANKS, fill_root_only=True)
+    root = tree_map(lambda t: t[0].cpu(), stacked)
+    real, calls = comm_streams.apply_plan, []
+
+    def fail_second(*args, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("injected: a rank lost mid-broadcast")
+        return real(*args, **kw)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        before = kernels.launch_counts()
+        comm_streams.apply_plan = fail_second
+        t0 = time.perf_counter()
+        try:
+            distribute_weights(stacked, make_mesh(RANKS, device="cuda"), double_buffer=True,
+                               drain_dir=d)
+        except WeightSyncError as e:
+            err = e
+        else:
+            raise AssertionError("the injected failure did not raise WeightSyncError")
+        finally:
+            comm_streams.apply_plan = real
+        secs = time.perf_counter() - t0
+        launched = _launched(torch, before)
+        assert isinstance(err.__cause__, RuntimeError) and "drained" in str(err), err
+        assert len(calls) == 2 and launched.get("chunked_copy", 0) > 0, (calls, launched)
+        assert ckpt.latest_step(d) == 0, os.listdir(d)
+        fname = os.path.join(d, "ckpt_00000000.npz")
+        assert fname in str(err), err
+        size = os.path.getsize(fname)
+        back = ckpt.restore_checkpoint(d, 0, root)
+        assert all(same_bits(torch, a, b) for a, b in zip(tree_leaves(back), tree_leaves(root))), \
+            "the drained checkpoint differs from the pre-distribution row 0"
+        del back
+    del stacked, root
+    log(f"faults drain: WeightSyncError after {secs:.2f} s (snapshot of row 0, one bucket, the "
+        f"atomic save; launches {launched}), {size / 1e9:.3f} GB at step 0 restored bit for "
+        f"bit; cause: {err.__cause__!r}")
+    return {"s": secs, "bytes": size, "launches": launched}
+
+
+def faults(torch, tuned: dict) -> dict:
+    """Phase 11, the fault runtime: (a) degraded training, (b) degraded
+    plans, (c) the resilient chain, (d) drain on failure. Launch counts are
+    zeroed by the caller before this phase; the plain version launches no
+    kernel."""
+    from repro_torch.configs import get_config
+
+    rec = {"train": faults_training(torch, tuned)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("minitron-8b")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((RANKS, cfg.padded_vocab * cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    rec["plans"], want = faults_plans(torch, x)
+    rec["chain"] = faults_chain(torch, x, want)
+    del x, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["drain"] = faults_drain(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def small_vlm_reference(torch) -> float:
@@ -3196,6 +3532,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_smoke_reference(torch)
     mark("MoE smoke configs, card against CPU (10b)")
+    kernels.reset_launch_counts()
+    fault_rec = faults(torch, training["tuned_allreduce"])
+    fault_counts = kernels.launch_counts()
+    mark("faults (11)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths and the streams phase, the staging copy on the serving
     # paths and the streams phase, the quantize pair on the training path, the
@@ -3209,18 +3549,21 @@ def main() -> int:
     # the staging copy on the MoE serving path (phase 10), the merge, the
     # in-kernel replay and the sm90 flash kernel on the expert-parallel path
     # (phase 10b: its two prefills, the transports through the compiled and
-    # the in-kernel executor); mix and
+    # the in-kernel executor); the merge, the in-kernel replay, the staging
+    # copy and the quantize pair on the fault runtime (phase 11); mix and
     # scaled_add are on no path of either package, and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("serve_moe", "moe_ep", "serve", "train", "algorithms", "online",
-                               "streams"),
-             "chunked_copy": ("serve_moe", "serve", "serve_long", "serve_vlm", "trees",
+    paths = {"fused_combine": ("faults", "serve_moe", "moe_ep", "serve", "train", "algorithms",
+                               "online", "streams"),
+             "chunked_copy": ("faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
                               "streams"),
-             "quantize_blocks": ("online", "train"), "dequantize_blocks": ("online", "train"),
+             "quantize_blocks": ("faults", "online", "train"),
+             "dequantize_blocks": ("faults", "online", "train"),
              "inkernel_replay": (),
-             "inkernel_rdma": ("moe_ep", "serve_tuned", "collectives", "algorithms", "train"),
+             "inkernel_rdma": ("faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
+                               "train"),
              "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm"),
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
@@ -3228,7 +3571,8 @@ def main() -> int:
               "serve_long": long_counts, "serve_vlm": vlm_counts,
               "reference_long": ref_long_counts, "collectives": coll_counts,
               "algorithms": algo_counts, "streams": stream_counts, "trees": tree_counts,
-              "online": online_counts, "serve_moe": moe_serve_counts, "moe_ep": moe_ep_counts}
+              "online": online_counts, "serve_moe": moe_serve_counts, "moe_ep": moe_ep_counts,
+              "faults": fault_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     for line in lines:
@@ -3251,6 +3595,7 @@ def main() -> int:
     log(f"trees numbers: {json.dumps(tree_rec)}")
     log(f"online numbers: {json.dumps(online_rec)}")
     log(f"moe numbers: {json.dumps({'serve_moe': moe_serving, 'moe_ep': moe_rec})}")
+    log(f"faults numbers: {json.dumps(fault_rec)}")
     check_trap(torch)
     mark("trap check")
     log("phase ends, s from the build's start: "

@@ -11,10 +11,16 @@ Layering, as in the reference:
                                              palltoallv, *_tree)
                          ->  comm.streams   (multi-stream link scheduler;
                                              comm.overlap = 1-stream case)
+
+The fault runtime sits beside them: ``comm.faults`` (the fault model and
+the typed errors), ``plan_degraded`` (replanning on the surviving ranks)
+and ``comm.resilience`` with ``apply_plan_resilient`` (the fallback chain
+and the straggler watchdog).
 """
 from ..core.tuner import OPS, Decision, OnlineTuner, Tuner, default_tuner
 from .api import (
     apply_plan,
+    apply_plan_resilient,
     hierarchical_allreduce_axes,
     pallgather,
     pallgatherv,
@@ -35,6 +41,15 @@ from .compress import (
     wire_chunk_bytes,
 )
 from .executors import execute_collective, execute_compiled, execute_inkernel
+from .faults import (
+    DeadRankError,
+    FallbackExhaustedError,
+    FaultError,
+    FaultSpec,
+    MeshHealth,
+    TransientDropError,
+    WeightSyncError,
+)
 from .overlap import (
     OverlapPlan,
     execute_overlap,
@@ -50,7 +65,9 @@ from .plan import (
     plan_cache_clear,
     plan_cached,
     plan_collective,
+    plan_degraded,
 )
+from .resilience import FallbackEvent, FallbackPolicy, StragglerReport, Watchdog
 from .streams import (
     StreamEntry,
     StreamGraph,
@@ -78,6 +95,7 @@ __all__ = [
     "roundtrip",
     "CollectivePlan",
     "plan_collective",
+    "plan_degraded",
     "plan_cached",
     "plan_cache_clear",
     "cache_stats",
@@ -87,6 +105,7 @@ __all__ = [
     "execute_compiled",
     "execute_inkernel",
     "apply_plan",
+    "apply_plan_resilient",
     "pbcast",
     "preduce",
     "pallreduce",
@@ -112,4 +131,15 @@ __all__ = [
     "dispatch_schedule",
     "execute_streams",
     "execute_stream_entry",
+    "FaultError",
+    "DeadRankError",
+    "TransientDropError",
+    "FallbackExhaustedError",
+    "WeightSyncError",
+    "FaultSpec",
+    "MeshHealth",
+    "FallbackPolicy",
+    "FallbackEvent",
+    "StragglerReport",
+    "Watchdog",
 ]

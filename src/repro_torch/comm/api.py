@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
+import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -36,11 +37,14 @@ from ..core.tuner import Tuner
 from ..kernels.chunked_copy import chunked_copy
 from .compress import CompressedWire, normalize_wire_format
 from .executors import execute_collective, execute_compiled, execute_inkernel
+from .faults import FallbackExhaustedError, FaultError
 from .plan import ONE_SHOT, CollectivePlan, plan_cached
+from .resilience import FallbackEvent, FallbackPolicy
 from .schedules import alltoallv_matrix
 
 __all__ = [
     "apply_plan",
+    "apply_plan_resilient",
     "pbcast",
     "preduce",
     "pallreduce",
@@ -90,6 +94,14 @@ _EXECUTORS = {
 }
 
 
+class ExecutorRefusal(ValueError):
+    """An executor declining a plan before it launches anything: the
+    in-kernel executor's veto of a compressed wire, and on the card the
+    plain tensor-op stages of :func:`apply_plan_resilient`. It is the one
+    failure on which the chain degrades a CUDA replay (a ``ValueError``, as
+    the veto has always been)."""
+
+
 def _resolve_exec_path(
     plan: CollectivePlan,
     *,
@@ -117,7 +129,7 @@ def _resolve_exec_path(
     compressed = plan.wire_format.compressed
     if inkernel:
         if compressed:
-            raise ValueError(
+            raise ExecutorRefusal(
                 "the in-kernel executor does not support compressed wire "
                 f"formats (plan wire_format={plan.wire_format.value!r}); "
                 "use the compiled or unrolled executor"
@@ -375,6 +387,145 @@ def apply_plan(
     combiner = "sum" if plan.op in ("reduce", "allreduce") else None
     buf, pad = _chunked(flat, sched.num_chunks, combiner=combiner, dtype=wire_dtype)
     return _unchunked(run(sched, buf), pad, x.shape).to(x.dtype)
+
+
+def _one_shot_fallback(plan: CollectivePlan, x: torch.Tensor) -> torch.Tensor:
+    """Terminal fallback stage: the plan's op as plain tensor ops over the
+    rank axis (the reference's single native XLA collective), bypassing
+    the schedule executors. Returns :func:`apply_plan`'s shapes. The ragged
+    ops have no one-shot (variable per-rank shapes): they raise, and the
+    chain reports them as exhausted."""
+    op = plan.op
+    if op == "bcast":
+        return algorithms.xla_psum_bcast(x, root=plan.root)
+    if op in ("reduce", "allreduce"):
+        return algorithms._psum(x)
+    if op == "allgather":
+        return algorithms._all_gather(x)
+    if op == "reduce_scatter":
+        n = x.shape[0]
+        buf, _pad = _chunked(algorithms._psum(x.reshape(n, -1)), n, combiner="sum")
+        ranks = torch.arange(n, device=x.device)
+        return buf[ranks, ranks]
+    raise RuntimeError(f"no one-shot collective implements ragged op {op!r}")
+
+
+def _card_stream(x):
+    """The current CUDA stream of ``x``'s device, or None for a host buffer
+    (or the reference's shape-only placeholder)."""
+    if isinstance(x, torch.Tensor) and x.is_cuda:
+        return torch.cuda.current_stream(x.device)
+    return None
+
+
+def apply_plan_resilient(
+    plan: CollectivePlan,
+    x: torch.Tensor,
+    *,
+    policy=None,
+    watchdog=None,
+    fused: bool = True,
+    on_event=None,
+) -> torch.Tensor:
+    """:func:`apply_plan` behind a typed fallback chain.
+
+    Walks ``policy.chain`` (default inkernel -> compiled -> unrolled ->
+    one-shot, :data:`~.resilience.DEFAULT_CHAIN`) with per-stage retries
+    and exponential backoff; the first stage that completes wins. Each stage
+    pins its executor (``inkernel=True`` for the head; ``inkernel=False``
+    and an explicit ``compiled`` below it, so a tuned ``exec_path`` cannot
+    route a degraded stage back onto the executor that just failed).
+    Typed :class:`~.faults.FaultError`\\ s propagate at once (they are
+    diagnoses with recovery actions, not transient failures); on the host
+    any other exception burns a retry and then degrades the chain (on the
+    card only a typed refusal does, below). A completed
+    attempt slower than ``policy.timeout_s`` still returns its result but
+    is flagged a straggler, to ``watchdog`` (which can land it in
+    ``Tuner.record``) and to ``on_event``. All stages failing raises
+    :class:`~.faults.FallbackExhaustedError` naming every cause.
+
+    Adaptations to the card and to executors that update their buffer in
+    place:
+
+    * every attempt runs on its own copy of ``x`` (made before its clock
+      starts), so ``x`` is left as it was and an attempt that fails midway
+      never hands a half-replayed buffer to the next stage;
+    * when ``x`` is on CUDA, each attempt ends with a synchronize of the
+      current stream inside the ``try``: ``elapsed_s``, the ``timeout_s``
+      test and ``Watchdog.observe`` see the replay's time, not the time to
+      enqueue it, and an error CUDA reports asynchronously is raised in the
+      stage that caused it;
+    * when ``x`` is on CUDA, the chain degrades only on an executor's typed
+      :class:`ExecutorRefusal` (the in-kernel veto of a compressed wire),
+      which burns retries as any failure does on the host. Any other
+      exception (a kernel that does not build or launch, a device error)
+      propagates at once, as a ``FaultError`` does, so a kernel failure is
+      never served by a plain version. For the same reason the plain
+      tensor-op stages, ``'unrolled'`` on an uncompressed wire and the
+      one-shot ``'xla'``, refuse a CUDA buffer: on the card the chain is
+      served by the kernel stages or ends in ``FallbackExhaustedError``.
+      On the host every stage runs and every exception degrades, as in the
+      reference.
+
+    The reference's contract holds either way: a result bit-identical to
+    the oracle or a typed error, never a silent wrong answer. The chain is
+    opt-in, as in the reference: no trainer, engine or entry point routes
+    through it."""
+    policy = policy or FallbackPolicy()
+    stream = _card_stream(x)
+    causes: list[str] = []
+
+    def sync() -> None:
+        if stream is not None:
+            stream.synchronize()
+
+    for stage in policy.chain:
+        delay = policy.backoff_s
+        plain = stage == "xla" or (stage == "unrolled" and not plan.wire_format.compressed)
+        for attempt in range(policy.max_retries + 1):
+            t0 = time.perf_counter()
+            try:
+                if stream is not None and plain:
+                    raise ExecutorRefusal(
+                        f"the {stage!r} stage replays with plain tensor ops; on the card "
+                        "the chain is served by a kernel stage only")
+                arg = x.clone() if isinstance(x, torch.Tensor) else x
+                sync()
+                t0 = time.perf_counter()
+                if stage == "xla":
+                    out = _one_shot_fallback(plan, arg)
+                else:
+                    out = apply_plan(
+                        plan, arg, fused=fused,
+                        compiled=None if stage == "inkernel" else stage == "compiled",
+                        inkernel=stage == "inkernel",
+                    )
+                sync()
+            except FaultError:
+                raise
+            except Exception as e:  # noqa: BLE001 — the chain is the handler
+                if stream is not None and not isinstance(e, ExecutorRefusal):
+                    raise
+                dt = time.perf_counter() - t0
+                arg = None  # the failed attempt's copy goes before the next is made
+                causes.append(f"{stage}[{attempt}]: {type(e).__name__}: {e}")
+                if on_event is not None:
+                    on_event(FallbackEvent(stage, attempt, "error", dt, repr(e)))
+                if attempt < policy.max_retries:
+                    time.sleep(delay)
+                    delay *= policy.backoff_mult
+                continue
+            dt = time.perf_counter() - t0
+            straggled = policy.timeout_s is not None and dt > policy.timeout_s
+            if on_event is not None:
+                on_event(FallbackEvent(stage, attempt, "straggler" if straggled else "ok", dt))
+            if watchdog is not None:
+                watchdog.observe(plan, dt)
+            return out
+    raise FallbackExhaustedError(
+        f"every fallback stage failed for {plan.op}/{plan.algo} "
+        f"(M={plan.M}, n={plan.n}): " + "; ".join(causes)
+    )
 
 
 def pbcast(

@@ -22,9 +22,6 @@ a thin wrapper —
   accounting into the single-stream keys;
 * :func:`execute_overlap` / :func:`overlap_allreduce_tree` replay through
   :func:`streams.execute_stream_entry` over rank-stacked trees.
-
-The reference's fault injection (``faults=``) is not ported (ROADMAP item
-"Fault runtime").
 """
 from __future__ import annotations
 
@@ -171,7 +168,8 @@ def plan_overlap(
     )
 
 
-def simulate_overlap(oplan: OverlapPlan, hw: cost_model.Hardware | None = None) -> dict:
+def simulate_overlap(oplan: OverlapPlan, hw: cost_model.Hardware | None = None,
+                     faults=None) -> dict:
     """Discrete-round replay of the overlapped timeline vs the barrier one.
 
     Delegates to :func:`streams.simulate_streams` on the 1-entry graph —
@@ -179,14 +177,19 @@ def simulate_overlap(oplan: OverlapPlan, hw: cost_model.Hardware | None = None) 
     (``cost_model.window_finish_times``) — and re-shapes the multi-stream
     accounting into the single-stream keys. For >= 2 non-empty buckets the
     overlapped schedule has STRICTLY fewer network-idle rounds than the
-    barrier one."""
+    barrier one.
+
+    With ``faults`` (a :class:`~repro_torch.comm.faults.FaultSpec`) every
+    bucket's clock runs the degraded ``timed_rounds`` and the result gains
+    :func:`streams.simulate_streams`' four fault keys; dead ranks raise
+    ``DeadRankError``."""
     hw = hw or cost_model.H100_SXM
-    sim = streams.simulate_streams(oplan.as_graph(), hw)
+    sim = streams.simulate_streams(oplan.as_graph(), hw, faults=faults)
     s = sim["streams"][_ENTRY]
     K = s["num_buckets"]
     # barrier: all compute, then all staging, then every transfer
     barrier_idle = s["compute_rounds"] + s["stage_rounds"]
-    return {
+    out = {
         "num_buckets": K,
         "overlap_depth": max(1, min(oplan.overlap_depth, max(K, 1))),
         "comm_rounds": s["comm_rounds"],
@@ -200,6 +203,10 @@ def simulate_overlap(oplan: OverlapPlan, hw: cost_model.Hardware | None = None) 
         "efficiency": oplan.efficiency(hw),
         "wire_bytes": oplan.wire_bytes(),
     }
+    if faults is not None:
+        for key in ("comm_s_healthy", "comm_s_faulty", "fault_slowdown", "fault_fingerprint"):
+            out[key] = sim[key]
+    return out
 
 
 def execute_overlap(

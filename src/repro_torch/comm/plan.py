@@ -22,6 +22,7 @@ from .compress import WireFormat, normalize_wire_format, wire_chunk_bytes
 __all__ = [
     "CollectivePlan",
     "plan_collective",
+    "plan_degraded",
     "plan_cached",
     "plan_cache_clear",
     "cache_stats",
@@ -90,6 +91,10 @@ class CollectivePlan:
     # per (src, dst) block row-major for alltoallv); None for uniform ops.
     # M == sum(sizes) * row_bytes, so wire accounting stays exact.
     sizes: tuple[int, ...] | None = None
+    # degraded-mesh plans: survivors[i] is the physical rank that plays
+    # logical rank i of this plan's shrunk schedule (n == len(survivors)).
+    # None for plans built on the full mesh.
+    survivors: tuple[int, ...] | None = None
 
     @property
     def algo(self) -> str:
@@ -131,15 +136,18 @@ class CollectivePlan:
         per schedule in ``core.schedules.lower_schedule``)."""
         return None if self.schedule is None else lower_schedule(self.schedule)
 
-    def timed_rounds_s(self, hw: cost_model.Hardware | None = None) -> float:
+    def timed_rounds_s(self, hw: cost_model.Hardware | None = None, faults=None) -> float:
         """Round-accurate simulator clock for this plan's schedule
         (``core.simulator.timed_rounds`` on ``hw``'s startup time and this
-        plan's path bandwidth); 0 for noop and the one-shots."""
+        plan's path bandwidth); 0 for noop and the one-shots. With a
+        :class:`~repro_torch.comm.faults.FaultSpec` the clock degrades (slow
+        links, retry inflation, stalls) as ``timed_rounds`` does."""
         if self.schedule is None:
             return 0.0
         hw = hw or cost_model.H100_SXM
         chunk_bytes = math.ceil(self.M / max(self.schedule.num_chunks, 1))
-        return timed_rounds(self.schedule, chunk_bytes, hw.ts, hw.path_bw(self.inter_pod))
+        return timed_rounds(self.schedule, chunk_bytes, hw.ts, hw.path_bw(self.inter_pod),
+                            faults=faults)
 
 
 def decide(
@@ -296,6 +304,115 @@ def plan_collective(
     return CollectivePlan(op, M, n, root, inter_pod, dec, sched, sizes)
 
 
+def _reprice_degraded(dec, op, M, n, t, inter_pod, sizes, slow_links):
+    """Re-price a resolved decision under a degraded-link report via
+    ``cost_model.cost_degraded``: the keywords of :func:`decide`'s manual
+    branch, evaluated at the degraded bandwidth."""
+    algo = dec.algo
+    if not slow_links or algo not in cost_model.ALGO_COSTS:
+        return dec
+    kw = {"C": float(dec.chunk_bytes)} if algo in _CHAIN_ALGOS else {}
+    if algo == "reduce_then_bcast":
+        inner = t.select(M, n, op="bcast", inter_pod=inter_pod)
+        # conservative: the whole inner bcast scales by the worst factor
+        # (the closed form would scale only its bandwidth term)
+        kw = {"t_bcast": inner.predicted_s * cost_model.worst_link_factor(slow_links)}
+    elif algo in _RAGGED_ALGOS and sizes is not None and sum(sizes) > 0:
+        row_bytes = M / sum(sizes)
+        kw = {"sizes": [s * row_bytes for s in sizes]}
+    predicted = cost_model.cost_degraded(
+        algo, M, n, t.hw, inter_pod=inter_pod, slow_links=slow_links, **kw
+    )
+    return dataclasses.replace(dec, predicted_s=predicted, source=dec.source + "+degraded")
+
+
+def plan_degraded(
+    op: str,
+    M: int,
+    n: int,
+    health,
+    *,
+    root: int = 0,
+    algo: str = "auto",
+    num_chunks: int | None = None,
+    tuner: Tuner | None = None,
+    inter_pod: bool = False,
+    sizes=None,
+    exec_path: str | None = None,
+    wire_format: str | None = None,
+) -> CollectivePlan:
+    """Replan one collective for a degraded mesh
+    (:class:`~repro_torch.comm.faults.MeshHealth`).
+
+    Dead ranks shrink the mesh: the schedule is rebuilt on the
+    ``n' = len(survivors)`` surviving ranks, the global row frame is
+    remapped (allgather shards and ragged size vectors drop the dead ranks'
+    segments), the root becomes its logical index ``survivors.index(root)``,
+    and ``plan.survivors`` records the logical-to-physical rank map. Slow
+    links leave the schedule alone but re-price the decision through
+    ``cost_model.cost_degraded``.
+
+    The plan runs on the survivors' rows: ``apply_plan(plan,
+    x[list(plan.survivors)])``, written back into those rows (the
+    reference's ``shard_map`` over the surviving devices); the dead ranks'
+    rows are never touched.
+
+    Typed failures: a dead root on bcast/reduce raises
+    :class:`~repro_torch.comm.faults.DeadRankError` (the data source is
+    gone; only a checkpoint restore can recover), as does an empty
+    survivor set."""
+    from .faults import DeadRankError
+
+    if health.n != n:
+        raise ValueError(f"health report is for n={health.n}, plan asked n={n}")
+    if health.healthy:
+        return plan_collective(op, M, n, root=root, algo=algo, num_chunks=num_chunks,
+                               tuner=tuner, inter_pod=inter_pod, sizes=sizes,
+                               exec_path=exec_path, wire_format=wire_format)
+    t = tuner or default_tuner()
+    sizes = _norm_sizes(op, sizes, n)
+    survivors = health.survivors()
+    slow = health.surviving_slow_links()
+    if not health.dead_ranks:
+        # slow links only: same mesh, same schedule, degraded pricing
+        plan = plan_collective(op, M, n, root=root, algo=algo, num_chunks=num_chunks,
+                               tuner=t, inter_pod=inter_pod, sizes=sizes,
+                               exec_path=exec_path, wire_format=wire_format)
+        dec = _reprice_degraded(plan.decision, op, M, n, t, inter_pod, sizes, slow)
+        return dataclasses.replace(plan, decision=dec)
+    if len(survivors) == 0:
+        raise DeadRankError(f"no surviving ranks in health report for n={n}")
+    dead = set(health.dead_ranks)
+    if root in dead:
+        if op in ("bcast", "reduce"):
+            raise DeadRankError(
+                f"{op} root {root} is dead; its payload is unrecoverable from the "
+                f"mesh — restore from checkpoint and replan with a live root"
+            )
+        new_root = 0
+    else:
+        new_root = survivors.index(root)
+    n2 = len(survivors)
+    # remap the global frame onto the survivor mesh
+    sizes2 = None
+    if op in RAGGED_OPS:
+        sizes2 = comm_schedules.shrink_sizes(op, sizes, survivors)
+        M2 = int(round(M / max(sum(sizes), 1) * sum(sizes2))) if sum(sizes) else 0
+    elif op == "allgather":
+        M2 = (M // n) * n2  # the dead ranks' shards leave the gathered frame
+    else:
+        M2 = M  # bcast/reduce/allreduce/reduce_scatter keep the full payload
+    # surviving slow links in the survivor index space, so degraded pricing
+    # and any fault replay on the shrunk schedule line up
+    pos = {r: i for i, r in enumerate(survivors)}
+    slow2 = tuple(((pos[s], pos[d]), f) for (s, d), f in slow)
+    plan = plan_collective(op, M2, n2, root=new_root, algo=algo, num_chunks=num_chunks,
+                           tuner=t, inter_pod=inter_pod, sizes=sizes2,
+                           exec_path=exec_path, wire_format=wire_format)
+    dec = _reprice_degraded(plan.decision, op, M2, n2, t, inter_pod, plan.sizes, slow2)
+    return dataclasses.replace(plan, decision=dec, survivors=survivors)
+
+
 # ---------------------------------------------------------------------------
 # host-side plan cache
 #
@@ -326,10 +443,12 @@ def plan_cached(
     exec_path: str | None = None,
     stream: str | None = None,
     wire_format: str | None = None,
+    health=None,
 ) -> CollectivePlan:
     """LRU-cached :func:`plan_collective`. Key: (op, M, n, root, algo,
     num_chunks, inter_pod, sizes vector, exec_path, wire_format,
-    stream-graph fingerprint, tuner fingerprint). The buffer dtype
+    stream-graph fingerprint, tuner fingerprint, health fingerprint). The
+    buffer dtype
     is already folded into ``M`` (a byte count), so same-point calls from
     different dtypes correctly share one plan; ragged plans for different
     size vectors never collide (the canonical flat vector is in the key).
@@ -337,7 +456,11 @@ def plan_cached(
     across callers (and across traced programs) is safe; the pre-lowered
     round tables ride along via ``CollectivePlan.lowered()``'s own cache.
 
-    ``exec_path`` pins the executor tier on the Decision
+    ``health`` (a :class:`~repro_torch.comm.faults.MeshHealth`) routes a
+    degraded mesh through :func:`plan_degraded`; its fingerprint sits in
+    the key beside the tuner's, so a health transition (a rank dying, a
+    link slowing or recovering) never serves a plan built for the
+    pre-fault mesh. ``exec_path`` pins the executor tier on the Decision
     (see :func:`decide`); it is a key component so callers pinning
     different tiers never share a plan object. ``stream`` is the opaque
     stream-graph fingerprint from :func:`repro_torch.comm.streams.graph_key`
@@ -364,6 +487,7 @@ def plan_cached(
         None if wire_format is None else normalize_wire_format(wire_format).value,
         None if stream is None else str(stream),
         t.fingerprint(),
+        None if health is None else health.fingerprint(),
     )
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
@@ -371,11 +495,12 @@ def plan_cached(
         _PLAN_CACHE_STATS["hits"] += 1
         return plan
     _PLAN_CACHE_STATS["misses"] += 1
-    plan = plan_collective(
-        op, M, n, root=root, algo=algo, num_chunks=num_chunks, tuner=t,
-        inter_pod=inter_pod, sizes=sizes, exec_path=exec_path,
-        wire_format=wire_format,
-    )
+    kw = dict(root=root, algo=algo, num_chunks=num_chunks, tuner=t, inter_pod=inter_pod,
+              sizes=sizes, exec_path=exec_path, wire_format=wire_format)
+    if health is not None and not health.healthy:
+        plan = plan_degraded(op, M, n, health, **kw)
+    else:
+        plan = plan_collective(op, M, n, **kw)
     _PLAN_CACHE[key] = plan
     while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
         _PLAN_CACHE.popitem(last=False)

@@ -31,14 +31,16 @@ link scheduler:
   caller's CUDA stream in program order, as the reference leaves
   concurrency to its compiler.
 
+``faults=`` (a :class:`~repro_torch.comm.faults.FaultSpec`) runs every
+bucket's clock through the degraded ``timed_rounds``; dead ranks raise the
+typed ``DeadRankError``, never a silent wrong answer.
+
 The arbitration rule (one serial resource per link class): a transfer may
 dispatch at ``max(link_free, min(ready))`` — the link never idles while
 any transfer is ready. Highest priority wins the contended slot, except a
 stream already passed over ``starvation_bound`` times is forced through.
 A bucket occupies its link one round-quantum at a time, so a
 high-priority stream waits at most one round, never a whole bucket.
-The reference's fault injection (``faults=``) is not ported (ROADMAP
-item "Fault runtime").
 """
 from __future__ import annotations
 
@@ -170,21 +172,25 @@ class StreamEntry:
             out.append(max(r, 1))
         return out
 
-    def bucket_times_s(self, hw: cost_model.Hardware | None = None
+    def bucket_times_s(self, hw: cost_model.Hardware | None = None, faults=None
                        ) -> tuple[list[float], list[float]]:
         """Per-bucket (healthy, clocked) schedule replay times in dispatch
-        order. Without faults (the only case the port has) the two columns
-        are identical."""
+        order. With ``faults`` the clocked column runs the degraded
+        ``timed_rounds`` (dead ranks raise from the first bucket's replay);
+        without, the two columns are identical."""
         hw = hw or cost_model.H100_SXM
-        healthy = []
+        healthy, clocked = [], []
         for k in self.order:
-            t0 = 0.0
+            t0 = t = 0.0
             for ax in self.axes:
                 p = self.plans[ax][k]
                 if p.schedule is not None:
                     t0 += p.timed_rounds_s(hw)
+                    if faults is not None:
+                        t += p.timed_rounds_s(hw, faults=faults)
             healthy.append(t0)
-        return healthy, list(healthy)
+            clocked.append(t if faults is not None else t0)
+        return healthy, clocked
 
     def wire_bytes(self) -> int:
         """Total bytes on the wire — exactly the sum of the per-bucket plan
@@ -395,20 +401,23 @@ def plan_streams(
 # ---------------------------------------------------------------------------
 
 
-def _discretize(graph: StreamGraph, hw: cost_model.Hardware) -> tuple[list[dict], dict]:
+def _discretize(graph: StreamGraph, hw: cost_model.Hardware,
+                faults=None) -> tuple[list[dict], dict]:
     """Shared discretization for the simulator and the dispatch schedule:
     one GLOBAL mean round duration (all streams share the links, so rounds
     must be commensurable), per-stream staging/compute round counts, comm
     expanded into unit round-quanta (the preemption points)."""
     idx = {e.name: i for i, e in enumerate(graph.entries)}
     rounds = [e.bucket_rounds() for e in graph.entries]
-    clocked = [e.bucket_times_s(hw)[1] for e in graph.entries]
+    times = [e.bucket_times_s(hw, faults=faults) for e in graph.entries]
+    healthy, clocked = [h for h, _c in times], [c for _h, c in times]
     total_rounds = sum(sum(r) for r in rounds)
     total_time = sum(sum(c) for c in clocked)
     mean_round_s = (total_time / total_rounds) if total_rounds else hw.ts
     mean_round_s = max(mean_round_s, hw.ts)
     demands = []
     info = {"mean_round_s": mean_round_s, "rounds": rounds,
+            "healthy_s": sum(sum(h) for h in healthy), "clocked_s": total_time,
             "stage_rounds": [], "per_bucket_compute": []}
     for i, e in enumerate(graph.entries):
         K = len(rounds[i])
@@ -444,7 +453,8 @@ def _chained(demands: list[dict], graph: StreamGraph) -> list[dict]:
     return out
 
 
-def simulate_streams(graph: StreamGraph, hw: cost_model.Hardware | None = None) -> dict:
+def simulate_streams(graph: StreamGraph, hw: cost_model.Hardware | None = None,
+                     faults=None) -> dict:
     """Discrete-round replay of the contended multi-stream timeline.
 
     Time is discretized into network rounds (one global mean round
@@ -460,9 +470,15 @@ def simulate_streams(graph: StreamGraph, hw: cost_model.Hardware | None = None) 
 
     * fairness — ``max_skips`` never exceeds :meth:`StreamGraph.fairness_bound`;
     * no-idle — ``idle_while_ready_rounds`` is 0: every dispatch starts at
-      ``max(link_free, min_ready)``, recomputed here from the trace."""
+      ``max(link_free, min_ready)``, recomputed here from the trace.
+
+    With ``faults`` (a :class:`~repro_torch.comm.faults.FaultSpec`) every
+    bucket's clock runs the degraded ``timed_rounds``, the round structure
+    untouched: ``comm_s_healthy``, ``comm_s_faulty``, ``fault_slowdown`` and
+    ``fault_fingerprint`` quantify the degradation, and dead ranks raise
+    ``DeadRankError``."""
     hw = hw or cost_model.H100_SXM
-    demands, info = _discretize(graph, hw)
+    demands, info = _discretize(graph, hw, faults=faults)
     trace: list[dict] = []
     ends = cost_model.multi_stream_finish_times(
         demands, starvation_bound=graph.starvation_bound, trace=trace)
@@ -504,7 +520,7 @@ def simulate_streams(graph: StreamGraph, hw: cost_model.Hardware | None = None) 
             "wire_bytes": e.wire_bytes(),
         }
 
-    return {
+    out = {
         "num_streams": len(graph.entries),
         "starvation_bound": int(graph.starvation_bound),
         "fairness_bound": graph.fairness_bound(),
@@ -525,6 +541,13 @@ def simulate_streams(graph: StreamGraph, hw: cost_model.Hardware | None = None) 
         },
         "streams": streams_out,
     }
+    if faults is not None:
+        healthy, faulty = info["healthy_s"], info["clocked_s"]
+        out["comm_s_healthy"] = healthy
+        out["comm_s_faulty"] = faulty
+        out["fault_slowdown"] = faulty / healthy if healthy > 0 else 1.0
+        out["fault_fingerprint"] = faults.fingerprint()
+    return out
 
 
 def dispatch_schedule(

@@ -23,6 +23,8 @@ __all__ = [
     "CPU_SIM",
     "calibrate_t_launch",
     "cost",
+    "cost_degraded",
+    "degraded_bandwidth",
     "cost_wire",
     "LinkClass",
     "calibrate_link_classes",
@@ -729,6 +731,22 @@ def worst_link_factor(slow_links) -> float:
     if not items:
         return 1.0
     return max(1.0, max(float(f) for f in items))
+
+
+def degraded_bandwidth(B: float, slow_links) -> float:
+    """Effective per-link bandwidth once the worst reported slowdown gates
+    the round clock."""
+    return B / worst_link_factor(slow_links)
+
+
+def cost_degraded(algo: str, M: float, n: int, hw: Hardware = H100_SXM, *,
+                  inter_pod: bool = False, slow_links=(), **kw) -> float:
+    """:func:`cost` under a degraded-link health report: the same closed
+    form, evaluated at :func:`degraded_bandwidth`. With an empty report this
+    is exactly ``cost``, so replanning on a health transition re-ranks
+    algorithms only for a reason."""
+    B = degraded_bandwidth(hw.path_bw(inter_pod), slow_links)
+    return ALGO_COSTS[algo](M, n, hw, B, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,14 @@ round-start (concurrent) semantics; :func:`simulate_lowered` replays its
 host-side lowering exactly as the compiled and in-kernel executors do.
 Both take per-rank buffers ``data[r]`` of shape ``(num_chunks, chunk)``
 and return new ones. :func:`timed_rounds` is the round-accurate clock the
-stream simulator prices buckets with. The reference's fault-injection
-arguments are not ported (ROADMAP item "Fault runtime").
+stream simulator prices buckets with.
+
+Each takes ``faults``, a :class:`~repro_torch.comm.faults.FaultSpec` read by
+duck-typing (the spec raises its own typed errors): dead ranks raise
+``DeadRankError`` before any round runs, transient drops are retransmits of
+the round-start payload (the values stay bit-identical unless a streak
+exceeds the budget, ``TransientDropError``), and slow links and stalls
+stretch only :func:`timed_rounds`' clock.
 """
 from __future__ import annotations
 
@@ -19,36 +25,70 @@ from .schedules import LoweredSchedule, Schedule
 __all__ = ["simulate_collective", "simulate_lowered", "timed_rounds"]
 
 
-def simulate_collective(schedule: Schedule, data: Sequence[np.ndarray]) -> list[np.ndarray]:
+def _stalled(faults, num_rounds: int) -> int:
+    """Stalled rounds of ``faults`` that the replay reaches."""
+    return 0 if faults is None else len([r for r in faults.stalled_rounds if r < num_rounds])
+
+
+def simulate_collective(schedule: Schedule, data: Sequence[np.ndarray], faults=None,
+                        report: dict | None = None) -> list[np.ndarray]:
     """Replay any schedule (bcast/reduce/allreduce/allgather/reduce_scatter):
     every transfer reads the sender's buffer as it was at the start of the
     round, then overwrites the destination chunk range or, for
-    ``combine=True`` transfers, accumulates into it."""
+    ``combine=True`` transfers, accumulates into it.
+
+    With ``faults`` each transfer draws its retransmits keyed by (round,
+    src, dst); ``report`` (a dict) receives ``retries`` and
+    ``stalled_rounds``."""
+    if faults is not None:
+        faults.check_alive(schedule)
     bufs = [np.array(d, copy=True) for d in data]
-    for rnd in schedule.rounds:
+    retries = 0
+    for ridx, rnd in enumerate(schedule.rounds):
         staged = [(t, bufs[t.src][t.chunk_start:t.chunk_start + t.chunk_count].copy())
                   for t in rnd.transfers]
+        if faults is not None and faults.drop_prob > 0.0:
+            for t, _payload in staged:
+                retries += faults.retries(ridx, t.src, t.dst)
         for t, payload in staged:
             sl = slice(t.chunk_start, t.chunk_start + t.chunk_count)
             if t.combine:
                 bufs[t.dst][sl] = bufs[t.dst][sl] + payload
             else:
                 bufs[t.dst][sl] = payload
+    if report is not None:
+        report["retries"] = retries
+        report["stalled_rounds"] = _stalled(faults, len(schedule.rounds))
     return bufs
 
 
-def simulate_lowered(lowered: LoweredSchedule, data: Sequence[np.ndarray]) -> list[np.ndarray]:
+def simulate_lowered(lowered: LoweredSchedule, data: Sequence[np.ndarray], faults=None,
+                     report: dict | None = None) -> list[np.ndarray]:
     """Replay a lowering: per round, lane classes apply in order; each class
     snapshots every source block (at its clipped ``send_start``) before it
     writes, and each destination takes only rows ``[lo, hi)`` of its block
-    at ``recv_start`` (overwrite, or accumulate on combine rounds)."""
+    at ``recv_start`` (overwrite, or accumulate on combine rounds).
+
+    ``faults``/``report`` as :func:`simulate_collective`'s, over the lanes'
+    (src, dst) pairs: the dead-rank check runs over every lane, and drop
+    streaks are keyed by (round, src, dst, lane-class index)."""
+    if faults is not None:
+        faults.check_alive_pairs(
+            {(src, dst) for cls in lowered.classes for src, dst in cls.perm},
+            context=lowered.name,
+        )
     bufs = [np.array(d, copy=True) for d in data]
+    retries = 0
     for s in range(lowered.num_rounds):
-        for cls in lowered.classes:
+        for ci, cls in enumerate(lowered.classes):
             blocks = {
                 dst: bufs[src][cls.send_start[s, src]:cls.send_start[s, src] + cls.block].copy()
                 for src, dst in cls.perm
             }
+            if faults is not None and faults.drop_prob > 0.0:
+                for src, dst in cls.perm:
+                    if int(cls.hi[s, dst]) > int(cls.lo[s, dst]):
+                        retries += faults.retries(s, src, dst, tag=ci)
             for _src, dst in cls.perm:
                 lo, hi = int(cls.lo[s, dst]), int(cls.hi[s, dst])
                 if hi <= lo:
@@ -58,18 +98,38 @@ def simulate_lowered(lowered: LoweredSchedule, data: Sequence[np.ndarray]) -> li
                     bufs[dst][r0 + lo:r0 + hi] += blocks[dst][lo:hi]
                 else:
                     bufs[dst][r0 + lo:r0 + hi] = blocks[dst][lo:hi]
+    if report is not None:
+        report["retries"] = retries
+        report["stalled_rounds"] = _stalled(faults, lowered.num_rounds)
     return bufs
 
 
-def timed_rounds(schedule: Schedule, chunk_bytes: int, ts: float, bw: float) -> float:
+def timed_rounds(schedule: Schedule, chunk_bytes: int, ts: float, bw: float,
+                 faults=None) -> float:
     """Round-accurate time estimate: each round costs ts + (bytes of the
     largest transfer in the round)/bw; rounds serialize. Empty rounds cost
     nothing. This is the 'simulator clock' the closed forms of
-    :mod:`.cost_model` approximate."""
+    :mod:`.cost_model` approximate.
+
+    With ``faults`` a round's bandwidth term is gated by its slowest active
+    link (each link's factor divides ``bw``), drops inflate the traffic by
+    the expected retransmit factor 1/(1-p), and each stalled round adds
+    ``stall_s``. Dead ranks raise ``DeadRankError``: a dead mesh has no
+    finish time."""
+    if faults is not None:
+        faults.check_alive(schedule)
+    retry = faults.retry_factor if faults is not None else 1.0
+    stalled = set(faults.stalled_rounds) if faults is not None else ()
     total = 0.0
-    for rnd in schedule.rounds:
+    for ridx, rnd in enumerate(schedule.rounds):
         if not rnd.transfers:
             continue
-        biggest = max(t.chunk_count for t in rnd.transfers) * chunk_bytes
-        total += ts + biggest / bw
+        if faults is None:
+            biggest = max(t.chunk_count for t in rnd.transfers) * chunk_bytes
+        else:
+            biggest = max(t.chunk_count * chunk_bytes * faults.slowdown(t.src, t.dst)
+                          for t in rnd.transfers)
+        total += ts + biggest * retry / bw
+        if ridx in stalled:
+            total += faults.stall_s
     return total

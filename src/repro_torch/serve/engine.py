@@ -168,11 +168,21 @@ def plan_distribution(stacked, mesh, *, algo: str = "auto", tuner=None,
 
 def distribution_stream_graph(stacked, mesh, *, algo: str = "auto", tuner=None,
                               bucket_bytes: int = 4 << 20,
-                              double_buffer: bool = False, overlap_depth: int = 2):
-    """Weight distribution as a one-entry :class:`~repro_torch.comm.StreamGraph`:
-    the tuned broadcast over ``topology.bcast_axes(mesh)``, ``overlap_depth``
-    staging buffers deep when ``double_buffer``. The graph fingerprint keys
-    ``plan_cached`` (``stream=``). Returns ``(graph, bucket_spec, plans)``."""
+                              double_buffer: bool = False, overlap_depth: int = 2,
+                              drain: bool = False):
+    """Weight distribution as a :class:`~repro_torch.comm.StreamGraph` of
+    prioritized entries on distinct links:
+
+    * ``ckpt_drain`` (present when ``drain``): the host snapshot of the
+      pre-distribution weights, priority 2 on the ``host`` link, with the
+      same bucket mix and no collective plans;
+    * ``distribute``: the tuned broadcast over ``topology.bcast_axes(mesh)``,
+      DAG-ordered ``after`` the drain (the snapshot holds a valid copy before
+      the broadcast writes the buffers), ``overlap_depth`` staging buffers
+      deep when ``double_buffer``.
+
+    The graph fingerprint keys ``plan_cached`` (``stream=``). Returns
+    ``(graph, bucket_spec, plans)``."""
     spec = bucketing.plan_buckets(_rank_view(stacked), bucket_bytes)
     sizes = topology.axis_sizes(mesh)
     axes = list(topology.bcast_axes(mesh))
@@ -184,18 +194,25 @@ def distribution_stream_graph(stacked, mesh, *, algo: str = "auto", tuner=None,
         "axes": [[ax, int(sizes[ax])] for ax in axes],
         "buckets": list(spec.bucket_bytes()),
         "depth": depth,
-        "drain": False,
+        "drain": bool(drain),
     })
     bucket_spec, plans = plan_distribution(
         stacked, mesh, algo=algo, tuner=tuner, bucket_bytes=bucket_bytes, stream=gkey,
     )
-    entry = comm_streams.StreamEntry(
+    order = tuple(range(bucket_spec.num_buckets))  # load order
+    entries = []
+    if drain:
+        entries.append(comm_streams.StreamEntry(
+            name="ckpt_drain", op="drain", spec=bucket_spec, axes=(), plans={}, order=order,
+            overlap_depth=1, priority=2, link="host",
+        ))
+    entries.append(comm_streams.StreamEntry(
         name="distribute", op="bcast", spec=bucket_spec, axes=tuple(plans),
         plans={ax: tuple(ax_plans) for ax, ax_plans in plans.items()},
-        order=tuple(range(bucket_spec.num_buckets)),  # load order
-        overlap_depth=depth,
-    )
-    return comm_streams.StreamGraph((entry,), key=gkey), bucket_spec, plans
+        order=order, overlap_depth=depth, priority=1,
+        after=("ckpt_drain",) if drain else (), link="ici",
+    ))
+    return comm_streams.StreamGraph(tuple(entries), key=gkey), bucket_spec, plans
 
 
 def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
@@ -225,11 +242,17 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     contiguous layout, so each rank's replica starts where the leaf's row
     starts (a result left in a padded bucket buffer would put rank ``r``'s
     row ``r`` padded bucket lengths in, off the 16-byte boundary that
-    cuBLAS's fast matmul kernels need)."""
-    if drain_dir is not None:
-        raise NotImplementedError(
-            "draining the weights to a checkpoint on failure needs the "
-            'checkpoint layer, not ported yet (ROADMAP item "Fault runtime")')
+    cuBLAS's fast matmul kernels need).
+
+    ``drain_dir``: graceful degradation on an unrecoverable failure. Before
+    the first bucket moves, a host copy of row 0 of every leaf (the root's
+    weights, the payload of the broadcast) is taken; the graph's
+    ``ckpt_drain`` entry runs before ``distribute``. If the distribution
+    raises (a rank lost mid-broadcast, a kernel that fails to launch, out of
+    memory), that copy is saved as an atomic checkpoint at step 0 under
+    ``drain_dir`` and a typed :class:`~repro_torch.comm.WeightSyncError` is
+    raised, chained to the cause: never a silent partial distribution (the
+    rows may then be half-written)."""
     for leaf in tree_leaves(stacked):
         if leaf.shape[:1] != (mesh.size,) or leaf.device != mesh.device:
             raise ValueError(
@@ -238,8 +261,33 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     graph, _spec, plans = distribution_stream_graph(
         stacked, mesh, algo=algo, tuner=tuner, bucket_bytes=bucket_bytes,
         double_buffer=double_buffer, overlap_depth=overlap_depth,
+        drain=drain_dir is not None,
     )
-    out = comm_streams.execute_stream_entry(
-        graph.entry("distribute"), stacked, stage=double_buffer, compiled=compiled,
-    )
+    snapshot = None
+    if drain_dir is not None:
+        # host RAM is the cheap side of the serving node, device memory is not
+        snapshot = tree_map(lambda t: t[0].to("cpu", copy=True), stacked)
+    try:
+        out = comm_streams.execute_stream_entry(
+            graph.entry("distribute"), stacked, stage=double_buffer, compiled=compiled,
+        )
+    except Exception as e:  # noqa: BLE001 — rewrapped as a typed, actionable error
+        if snapshot is None:
+            raise
+        from ..comm.faults import WeightSyncError
+        from ..train import checkpoint as ckpt_lib
+
+        try:
+            fname = ckpt_lib.save_checkpoint(drain_dir, 0, snapshot)
+        except Exception as drain_err:
+            raise WeightSyncError(
+                f"weight distribution failed ({type(e).__name__}: {e}) AND the "
+                f"drain to {drain_dir!r} also failed "
+                f"({type(drain_err).__name__}: {drain_err}); weights may be lost"
+            ) from e
+        raise WeightSyncError(
+            f"weight distribution failed ({type(e).__name__}: {e}); "
+            f"pre-distribution weights drained to {fname} — restore from the "
+            f"checkpoint and replan on a healthy mesh"
+        ) from e
     return (out, plans) if return_plans else out

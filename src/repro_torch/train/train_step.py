@@ -19,6 +19,9 @@ Five data-parallel synchronization modes, as in the reference's
 * ``compressed_allreduce`` (:func:`make_compressed_allreduce_train_step`)
   — the same plans over a compressed wire, with error feedback.
 
+On a mesh with dead ranks the trainer replaces any of them with
+:func:`make_degraded_psum_train_step`, the mean over the surviving ranks.
+
 How ranks are emulated. The reference's ``local_step`` runs once per rank
 inside ``shard_map``. Here rank ``r`` computes its loss and gradients on
 its shard ``torch.tensor_split(batch, n)[r]``, one rank after another, and
@@ -69,6 +72,7 @@ __all__ = [
     "make_tuned_allreduce_train_step",
     "make_overlap_allreduce_train_step",
     "make_compressed_allreduce_train_step",
+    "make_degraded_psum_train_step",
     "with_error_feedback",
 ]
 
@@ -113,18 +117,20 @@ def _mean(values: list) -> torch.Tensor:
     return torch.stack(values).mean()
 
 
-def _per_rank(compute, params, batch: dict, n: int, write) -> tuple:
-    """Rank by rank: loss, metrics and gradients on the rank's shard of the
-    batch; ``write(r, grads)`` stores rank ``r``'s gradient leaves. Returns
-    the mean loss and metrics over ranks (the reference's ``pmean``)."""
+def _per_rank(compute, params, batch: dict, n: int, write, ranks=None) -> tuple:
+    """Rank by rank over ``ranks`` (every rank of ``n`` by default): loss,
+    metrics and gradients on the rank's shard of the batch;
+    ``write(i, grads)`` stores the gradient leaves of the ``i``-th rank
+    computed (rank ``i`` by default). Returns the mean loss and metrics
+    over those ranks (every rank: the reference's ``pmean``)."""
     b = next(iter(batch.values())).shape[0]
     if b % n:
         raise ValueError(f"global batch {b} does not divide over {n} data ranks")
     parts = {key: torch.tensor_split(v, n) for key, v in batch.items()}
     losses, metricss = [], []
-    for r in range(n):
+    for i, r in enumerate(range(n) if ranks is None else ranks):
         loss, metrics, grads = compute(params, {key: parts[key][r] for key in parts})
-        write(r, grads)
+        write(i, grads)
         del grads
         losses.append(loss)
         metricss.append(metrics)
@@ -200,6 +206,43 @@ def make_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: Call
         grads = tree_unflatten(treedef, [s.mean(0) for s in stacked])
         del stacked
         return _finish(grads, params, opt_state, optimizer, lr_fn, loss, metrics)
+
+    return train_step
+
+
+def make_degraded_psum_train_step(model, run_cfg: RunConfig, optimizer: Optimizer,
+                                  lr_fn: Callable, mesh, *, health):
+    """Graceful-degradation sync: the sum over the SURVIVING ranks divided
+    by their count (``health``, a :class:`~repro_torch.comm.faults.MeshHealth`
+    over the data ranks), the reference's masked ``psum``.
+
+    The survivors' gradients are computed on their shards, rank after
+    rank, as in the other modes; the dead ranks' shards are skipped (the
+    reference masks their rows to zero: on the emulated ranks of one card
+    their work would only be thrown away). The survivors' rows are summed
+    and the sum divided by their count, so the update is exactly the
+    survivors' data-parallel one (dividing by every rank would shrink the
+    learning rate by ``n_surv / n``). The loss and the metrics are survivor
+    means. Like ``grad_allreduce`` it launches no plan kernel: the
+    reference's is a ``psum``."""
+    from ..comm.faults import DeadRankError
+
+    n = _data_ranks(mesh, "degraded_psum")
+    if health.n != n:
+        raise ValueError(f"health report is for n={health.n}, mesh has n_dp={n}")
+    survivors = health.survivors()
+    if not survivors:
+        raise DeadRankError("no surviving data-parallel ranks; restore from checkpoint")
+    compute = _grad_fn(model, run_cfg)
+
+    def train_step(params, opt_state, batch):
+        treedef = tree_flatten(params)[1]
+        stacked, write = _stacked_writer(len(survivors))
+        loss, metrics = _per_rank(compute, params, batch, n, write, ranks=survivors)
+        grads = [s.sum(0).div_(len(survivors)) for s in stacked]
+        del stacked
+        return _finish(tree_unflatten(treedef, grads), params, opt_state, optimizer, lr_fn,
+                       loss, metrics)
 
     return train_step
 

@@ -7,7 +7,8 @@ every rank's gradients on its shard of the global batch, syncs them with
 the run's sync mode, and applies the update once from row 0 of the synced
 gradients (see :mod:`.train_step`). Under ``compressed_allreduce`` the rows
 may differ: row 0 is rank 0's view, as the reference's replicated output
-reads back rank 0's.
+reads back rank 0's. A ``health`` report with dead ranks replaces the sync
+mode with the mean over the survivors.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from . import checkpoint as ckpt_lib
 from .train_step import (
     make_bcast_train_step,
     make_compressed_allreduce_train_step,
+    make_degraded_psum_train_step,
     make_overlap_allreduce_train_step,
     make_train_step,
     make_tuned_allreduce_train_step,
@@ -44,11 +46,15 @@ class Trainer:
     on the same device) defaults to one rank. ``check_rows=True`` makes the
     ``comm`` sync modes report ``grad_rows_differ`` each step (see
     :mod:`.train_step`); ``grad_allreduce``'s mean leaves one copy, so it
-    has no rows to compare."""
+    has no rows to compare. ``health`` (a
+    :class:`~repro_torch.comm.faults.MeshHealth` over the data ranks) with
+    dead ranks overrides ``sync_mode`` with
+    :func:`~.train_step.make_degraded_psum_train_step`; a report of slow
+    links only changes nothing in the step."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, *, mesh=None,
                  data_path: Optional[str] = None, ckpt_dir: Optional[str] = None,
-                 device="cuda", check_rows: bool = False):
+                 health=None, device="cuda", check_rows: bool = False):
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh(1, device=self.device)
         if self.mesh.device != self.device:
@@ -75,10 +81,18 @@ class Trainer:
         self.source = make_source(cfg, path=data_path, seed=run.seed)
         self.ckpt_dir = ckpt_dir
         self.check_rows = check_rows
+        self.health = health
         self._step_fn = self._build()
 
     def _build(self):
         args = (self.model, self.run, self.optimizer, self.lr_fn, self.mesh)
+        if self.health is not None and self.health.dead_ranks:
+            # the tuned schedules assume every rank is reachable: a dead-rank
+            # report routes the sync to the survivors' mean until a replan
+            print(f"trainer: mesh degraded (dead ranks {self.health.dead_ranks}); "
+                  f"sync_mode {self.run.sync_mode!r} falls back to psum-over-survivors",
+                  flush=True)
+            return make_degraded_psum_train_step(*args, health=self.health)
         if self.run.sync_mode == "grad_allreduce":
             return make_train_step(*args)
         # measured decisions (Tuner.save format) when the run names a table

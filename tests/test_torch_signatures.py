@@ -31,18 +31,6 @@ JAX_ONLY = frozenset({"axis_name", "interpret", "key", "shardings", "grad_specs"
 
 # keywords whose module is queued in ROADMAP, by the item that ports them
 QUEUED = {
-    # A.5 Fault runtime
-    "comm.overlap.simulate_overlap": {"faults"},
-    "comm.plan.CollectivePlan": {"survivors"},
-    "comm.plan.CollectivePlan.timed_rounds_s": {"faults"},
-    "comm.plan.plan_cached": {"health"},
-    "comm.streams.StreamEntry.bucket_times_s": {"faults"},
-    "comm.streams.simulate_streams": {"faults"},
-    "core.simulator.timed_rounds": {"faults"},
-    "core.simulator.simulate_collective": {"faults", "report"},
-    "core.simulator.simulate_lowered": {"faults", "report"},
-    "serve.engine.distribution_stream_graph": {"drain"},
-    "train.trainer.Trainer": {"health"},
     # A.6 Other model families (cross attention, the encoder-decoder)
     "models.blocks.init_block": {"cross", "causal"},
     "models.blocks.apply_block": {"causal", "cross_inputs"},
