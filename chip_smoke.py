@@ -106,6 +106,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernels), int8's last loss within 5e-3 of tuned_allreduce's, finite
    losses; then one f32 smoke
    param_bcast run on the card against the CPU.
+6m. MoE training: mixtral-8x7b at full width (1 of 32 layers, 8 experts
+   top-2, vocab 32000, bf16, seeded weights; the router f32 among bf16
+   leaves) on the 4 emulated ranks, phase 6's batch and 3 steps, through
+   the einsum dispatch: grad_allreduce (one pass over the global batch: the
+   aux of the whole batch), tuned_allreduce with the synced rows compared
+   (each rank's aux its own) and compressed_allreduce over the int8 wire.
+   Checks: finite losses, rows bit-equal, tuned_allreduce's last loss within
+   1e-3 of grad_allreduce's (their aux difference printed), int8's within
+   5e-3 of tuned_allreduce's, the router's leaves in the bucket plan's f32
+   buckets, the int8 residual an f32 row a rank (the router's finite and
+   nonzero); then mixtral-8x7b-smoke in f32 under grad_allreduce and
+   tuned_allreduce on the card against the CPU.
+6v. vision-prefix training: paligemma-3b at full width and depth (18
+   layers, bf16, seeded weights) trains 3 steps of tuned_allreduce on the 4 ranks,
+   one sequence of 256 stub patches + 3840 tokens a rank: attention at
+   4096 keys takes the differentiable block loop, so neither flash kernel
+   launches (checked); merge launches, step and peak printed; then
+   paligemma-3b-smoke in f32 on the card against the CPU.
 7. collectives: ``pallgather``, ``preduce_scatter``, ``preduce`` and
    ``pallreduce`` at minitron-8b's training embedding bucket (1,048,576,000
    bf16 elements a rank) on the 4 emulated ranks, each with
@@ -160,7 +178,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 11. faults: (a) phase 6's tuned_allreduce run with rank 1 reported dead
    (``Trainer(health=MeshHealth(n=4, dead_ranks=(1,)))``): the fallback
    line printed, finite losses, no plan kernel launched, the first step's
-   loss and grad norm within phase 6's limits of a grad_allreduce step on 3
+   loss and grad norm within phase 6's limits of a tuned_allreduce step on 3
    ranks over the batch without rank 1's rows; (b) at the training
    embedding bucket, the allreduce and the bcast from rank 2 replanned on
    the 3 survivors (``plan_degraded``), each run on the survivors' rows
@@ -183,7 +201,8 @@ Launch counts are zeroed right before each path and read right after it:
 phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
 path), phase 4c (the long-prompt serving path), phase 4d (the
 vision-prefix serving path), phase 5's two long-prompt references (the
-f32 flash route), phase 6's runs (the training path), phase 7 (the
+f32 flash route), phase 6's runs (the training path), phase 6m (the MoE
+training path), phase 6v (the vision-prefix training path), phase 7 (the
 collective entry points), phase 7b (the algorithms), phase 8's interleave
 (the stream path), phase 8b (the tree variants), phase 9 (the online
 tuner), phase 10 (the MoE serving path), phase 10b (the expert-parallel
@@ -286,6 +305,19 @@ MOE_LAYERS, MOE_PROMPT = 2, 4096  # phases 10 and 10b: mixtral-8x7b, 2 of 32 lay
 # not 16,384) read 1.207 with 26,826 logits over this limit: the router's
 # ulps sent near-tie tokens to another expert
 MOE_EP_REL, MOE_EP_ABS = 2.0**-7, 5e-2
+# phase 6m: mixtral-8x7b at full width, 1 of 32 layers (1,582,346,240
+# params), phase 6's batch and steps; the timed runs and their fields
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_MODES = (
+    ("grad_allreduce", {"sync_mode": "grad_allreduce"}),
+    ("tuned_allreduce", {"sync_mode": "tuned_allreduce", "compiled_collectives": True}),
+    ("compressed_int8", {"sync_mode": "compressed_allreduce", "wire_format": "int8",
+                         "compiled_collectives": True}),
+)
+# phase 6v: paligemma-3b at full width and depth (18 layers, 2,508,793,856
+# params; the peak stays under 70 GiB, PERF.md §5), one sequence of 256
+# patches + VLM_TEXT tokens a rank
+VLM_TRAIN_LAYERS = 18
 FAULT_DEAD = 1  # phase 11: the rank reported dead
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
@@ -2811,10 +2843,15 @@ def small_long_reference(torch) -> float:
     return max(errs)
 
 
-def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=None):
+def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=None,
+               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ, inspect=None):
     """One Trainer run of TRAIN_STEPS steps from the seeded weights (on a
-    mesh in ``health``'s state, when given). Returns the final parameters
-    and the run's record."""
+    mesh in ``health``'s state, when given) on a global batch of ``batch``
+    x ``seq`` text tokens (and a vision config's prefix). Returns the final
+    parameters and the run's record; its tokens/s count every position the
+    model runs, the prefix included. ``inspect(params, opt_state)``, when
+    given, returns entries for the record, read before the state is
+    dropped."""
     from repro_torch import kernels
     from repro_torch.configs import RunConfig
     from repro_torch.core.tree import tree_leaves
@@ -2828,13 +2865,13 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=
                       health=health)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, opt, hist = trainer.train(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
-                                      log_every=1)
+    params, opt, hist = trainer.train(batch=batch, seq=seq, steps=TRAIN_STEPS, log_every=1)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     after = kernels.launch_counts()
     depths = (overlap_depths(torch, trainer, params)
               if fields["sync_mode"] == "overlap_allreduce" else None)
+    extra = inspect(params, opt) if inspect is not None else {}
     del opt, trainer
     losses = [h["loss"] for h in hist]
     assert all(math.isfinite(x) for x in losses), (fields, losses)
@@ -2842,7 +2879,9 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=
     record = {
         "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
         "first_step_s": hist[0]["time_s"], "step_s": step_s,
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "run_s": total_s,
+        "aux": [h["aux"] for h in hist],
+        "tokens_per_s": batch * (seq + (cfg.prefix_len if cfg.frontend else 0)) / step_s,
+        "run_s": total_s,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": {k: after[k] - before[k] for k in after},
         "params": sum(t.numel() for t in tree_leaves(params)),
@@ -2851,6 +2890,7 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=
         record["grad_rows_differ"] = [int(h["grad_rows_differ"]) for h in hist]
     if depths is not None:
         record["depths"] = depths
+    record.update(extra)
     return params, record
 
 
@@ -3003,14 +3043,153 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
     return out
 
 
+def _train_line(r: dict) -> str:
+    return (f"losses {['%.4f' % x for x in r['losses']]}, aux "
+            f"{['%.6f' % x for x in r['aux']]}, grad norms "
+            f"{['%.4f' % x for x in r['grad_norms']]}, step {r['step_s']:.4f} s (first "
+            f"{r['first_step_s']:.3f} s), {r['tokens_per_s']:.0f} tok/s, peak "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+
+
+def train_moe(torch) -> dict:
+    """Phase 6m: mixtral-8x7b at full width (MOE_TRAIN_LAYERS of 32 layers,
+    8 experts top-2, bf16, seeded weights) trains phase 6's 3 steps of 8 x
+    512 tokens on the 4 emulated ranks: grad_allreduce (one pass over the
+    global batch, the aux of the whole batch), tuned_allreduce with the
+    synced rows compared (each rank's aux its own) and compressed_allreduce
+    over the int8 wire. The router's leaves are f32 among bf16 ones: the
+    bucket plan's f32 buckets are printed, and the int8 run's residual is
+    checked to keep an f32 row a rank, finite and nonzero in the router's
+    rows. Launch counts are zeroed by the caller right before."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import bucketing
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MOE_TRAIN_LAYERS)
+    mesh = make_mesh(RANKS, device="cuda")
+
+    def residual(params, opt):
+        rows = {}
+        for path, p, e in zip(tree_paths(params), tree_leaves(params), tree_leaves(opt["ef"])):
+            assert e.dtype == torch.float32 and tuple(e.shape) == (RANKS,) + tuple(p.shape), \
+                (path, e.dtype, tuple(e.shape))
+            if path.endswith("router"):
+                amax = [float(row.abs().max()) for row in e]
+                assert all(math.isfinite(a) and a > 0 for a in amax), (path, amax)
+                rows[path] = amax
+        return {"router_residual_amax": rows}
+
+    out, spec_line = {}, None
+    for label, fields in MOE_TRAIN_MODES:
+        params, r = train_mode(torch, cfg, mesh, fields, check_rows=label == "tuned_allreduce",
+                               inspect=residual if label == "compressed_int8" else None)
+        if spec_line is None:
+            spec = bucketing.plan_buckets(params, RunConfig().bcast_bucket_bytes)
+            paths = tree_paths(params)
+            f32 = [(b, spec.bucket_sizes[b],
+                    [paths[m.index] for m in spec.leaves if m.bucket == b])
+                   for b, d in enumerate(spec.bucket_dtypes) if d == torch.float32]
+            routers = [p for p in paths if p.endswith("router")]
+            assert all(any(p in leaves for _b, _n, leaves in f32) for p in routers), f32
+            spec_line = f"{spec.num_buckets} buckets, f32 (bucket, elements, leaves) {f32}"
+        del params
+        out[label] = r
+        log(f"train moe {label}: " + _train_line(r)
+            + (f", rows differ {r['grad_rows_differ']}" if "grad_rows_differ" in r else "")
+            + (f", router residual amax by rank {r['router_residual_amax']}"
+               if "router_residual_amax" in r else ""))
+    log(f"train moe buckets: {spec_line}")
+    base, tuned, int8 = out["grad_allreduce"], out["tuned_allreduce"], out["compressed_int8"]
+    assert not any(tuned["grad_rows_differ"]), tuned["grad_rows_differ"]
+    assert tuned["launches"]["fused_combine"] > 0 and int8["launches"]["quantize_blocks"] > 0, \
+        (tuned["launches"], int8["launches"])
+    d_loss = abs(tuned["losses"][-1] - base["losses"][-1])
+    d_aux = [t - g for t, g in zip(tuned["aux"], base["aux"])]
+    d_int8 = abs(int8["losses"][-1] - tuned["losses"][-1])
+    log(f"train moe tuned_allreduce against grad_allreduce: last loss differs by {d_loss:.3e} "
+        f"(bound 1e-3); aux, per-rank mean minus global, {['%.3e' % x for x in d_aux]}; "
+        f"compressed_int8 against tuned_allreduce: last loss differs by {d_int8:.3e} "
+        "(bound 5e-3)")
+    assert d_loss <= 1e-3 and d_int8 <= 5e-3, (base["losses"], tuned["losses"], int8["losses"])
+    return out
+
+
+def train_vlm(torch) -> dict:
+    """Phase 6v: paligemma-3b at full width (VLM_TRAIN_LAYERS of 18
+    layers, bf16, seeded weights) trains 3 steps of tuned_allreduce on the
+    4 emulated ranks, one sequence a rank: 256 stub patch embeddings +
+    VLM_TEXT tokens, 4096 positions. Training attention at 4096 keys takes
+    the differentiable block loop, so neither flash kernel launches.
+    Launch counts are zeroed by the caller right before."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("paligemma-3b"), num_layers=VLM_TRAIN_LAYERS)
+    params, r = train_mode(torch, cfg, make_mesh(RANKS, device="cuda"),
+                           {"sync_mode": "tuned_allreduce", "compiled_collectives": True},
+                           batch=RANKS, seq=VLM_TEXT)
+    del params
+    log(f"train vlm tuned_allreduce ({VLM_TRAIN_LAYERS} layers, {r['params']} params, "
+        f"{RANKS} x ({cfg.prefix_len} + {VLM_TEXT}) positions): " + _train_line(r))
+    flash = {k: r["launches"][k] for k in ("flash_attention", "flash_attention_sm90")}
+    assert not any(flash.values()), f"training launched a flash kernel: {flash}"
+    assert r["launches"]["fused_combine"] > 0, r["launches"]
+    return r
+
+
+def small_train_references(torch) -> dict:
+    """The f32 smoke trainings on the card against the same runs on the
+    CPU, 2 steps each from one initial state (saved as a checkpoint by the
+    CPU trainer and restored by both), per-step losses within 1e-4:
+    minitron-8b-smoke under param_bcast (phase 6), mixtral-8x7b-smoke under
+    grad_allreduce and tuned_allreduce (6m), paligemma-3b-smoke under
+    tuned_allreduce (6v)."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for arch, mode in (("minitron-8b-smoke", "param_bcast"),
+                       ("mixtral-8x7b-smoke", "grad_allreduce"),
+                       ("mixtral-8x7b-smoke", "tuned_allreduce"),
+                       ("paligemma-3b-smoke", "tuned_allreduce")):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        run = RunConfig(sync_mode=mode, **TRAIN_RUN)
+        losses = {}
+        with tempfile.TemporaryDirectory() as d:
+            for dev in ("cpu", "cuda"):
+                tr = Trainer(cfg, run, mesh=make_mesh(RANKS, device=dev), ckpt_dir=d,
+                             device=dev)
+                if dev == "cpu":
+                    params, opt = tr.init_state()
+                    checkpoint.save_checkpoint(d, 0, params)
+                    checkpoint.save_checkpoint(os.path.join(d, "opt"), 0, opt)
+                losses[dev] = [h["loss"] for h in tr.train(batch=8, seq=32, steps=2,
+                                                           log_every=1)[2]]
+        err = [abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"])]
+        assert len(err) == 2 and all(e <= 1e-4 for e in err), (arch, mode, losses, err)
+        errs[f"{arch} {mode}"] = max(err)
+    log("reference: smoke f32 training losses, card vs CPU, max abs diff "
+        f"{ {k: '%.3e' % v for k, v in errs.items()} } (tol 1e-4)")
+    return errs
+
+
 def faults_training(torch, tuned: dict) -> dict:
     """Phase 11a: phase 6's tuned_allreduce run on a mesh whose rank 1 is
     reported dead (``Trainer(health=)``): the trainer prints its fallback
     line and trains on the survivors' mean, launching no plan kernel. Its
-    first step's loss and grad norm are held against a grad_allreduce step
+    first step's loss and grad norm are held against a tuned_allreduce step
     on 3 ranks from the same initial state on the batch without rank 1's
-    two rows (the survivors' mean computed another way), within phase 6's
-    bf16-mode limits."""
+    two rows (the survivors' mean computed another way: a plan's allreduce
+    of the three ranks' gradients), within phase 6's bf16-mode limits. Not
+    against grad_allreduce: its one pass over 6 sequences scales the
+    loss's gradient by 1/3072, which bf16 rounds 0.19% high (a 1.9e-3
+    higher grad norm than the f32 gradient's; tools/grad_precision.py),
+    where each rank's 1/1024 is exact."""
     import contextlib
     import io
 
@@ -3033,7 +3212,8 @@ def faults_training(torch, tuned: dict) -> dict:
     assert rec["launches"]["fused_combine"] == 0 == rec["launches"]["inkernel_rdma"], rec
     gc.collect()
     torch.cuda.empty_cache()
-    ref = Trainer(cfg, RunConfig(**TRAIN_RUN, sync_mode="grad_allreduce"),
+    ref = Trainer(cfg, RunConfig(**TRAIN_RUN, sync_mode="tuned_allreduce",
+                                 compiled_collectives=True),
                   mesh=make_mesh(RANKS - 1, device="cuda"))
     params, opt = ref.init_state()
     batch = next(batches(ref.source, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device="cuda"))
@@ -3049,7 +3229,7 @@ def faults_training(torch, tuned: dict) -> dict:
     log(f"faults train: losses {['%.4f' % x for x in rec['losses']]}, step {rec['step_s']:.4f} "
         f"s, peak {rec['max_memory_allocated'] / 2**30:.2f} GiB (phase 6 tuned_allreduce "
         f"{tuned['step_s']:.4f} s, {tuned['max_memory_allocated'] / 2**30:.2f} GiB), launches "
-        f"{ {k: v for k, v in rec['launches'].items() if v} }; first step against grad_allreduce "
+        f"{ {k: v for k, v in rec['launches'].items() if v} }; first step against tuned_allreduce "
         f"on 3 ranks without rank {FAULT_DEAD}'s rows: loss {rec['losses'][0]:.6f} / "
         f"{want_loss:.6f} ({d_loss:.3e}, bound 1e-3), grad norm {rec['grad_norms'][0]:.6f} / "
         f"{want_norm:.6f} ({d_norm:.3e} relative, bound 2e-4)")
@@ -3364,35 +3544,6 @@ def small_vlm_reference(torch) -> float:
     return max(errs)
 
 
-def small_train_reference(torch) -> list[float]:
-    """One f32 smoke param_bcast run of 2 steps on the card against the
-    same run on the CPU, from one initial state (saved as a checkpoint by
-    the CPU trainer and restored by both)."""
-    from repro_torch.configs import RunConfig, get_config
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.train import checkpoint
-    from repro_torch.train.trainer import Trainer
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("minitron-8b-smoke"), dtype="float32")
-    run = RunConfig(sync_mode="param_bcast", **TRAIN_RUN)
-    losses = {}
-    with tempfile.TemporaryDirectory() as d:
-        for dev in ("cpu", "cuda"):
-            tr = Trainer(cfg, run, mesh=make_mesh(RANKS, device=dev), ckpt_dir=d, device=dev)
-            if dev == "cpu":
-                params, opt = tr.init_state()
-                checkpoint.save_checkpoint(d, 0, params)
-                checkpoint.save_checkpoint(os.path.join(d, "opt"), 0, opt)
-            losses[dev] = [h["loss"] for h in tr.train(batch=8, seq=32, steps=2,
-                                                       log_every=1)[2]]
-    err = [abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"])]
-    assert all(e <= 1e-4 for e in err), (losses, err)
-    log(f"reference: smoke f32 param_bcast losses, card vs CPU, max abs diff {max(err):.3e} "
-        "(tol 1e-4)")
-    return err
-
-
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is missing beside this script", file=sys.stderr)
@@ -3495,6 +3646,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
+    moe_training = train_moe(torch)
+    train_moe_counts = kernels.launch_counts()
+    mark("MoE training (6m)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    vlm_training = train_vlm(torch)
+    train_vlm_counts = kernels.launch_counts()
+    mark("vision-prefix training (6v)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
     colls = collectives(torch)
     coll_counts = kernels.launch_counts()
     gc.collect()
@@ -3537,8 +3700,9 @@ def main() -> int:
     fault_counts = kernels.launch_counts()
     mark("faults (11)")
     # each kernel on the path that runs it: the merge on the serving and
-    # training paths and the streams phase, the staging copy on the serving
-    # paths and the streams phase, the quantize pair on the training path, the
+    # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
+    # too) and the streams phase, the staging copy on the serving paths and
+    # the streams phase, the quantize pair on the training paths (6 and 6m), the
     # device-initiated in-kernel replay on the tuned serving path (phase 4b),
     # the collective entry points (phase 7) and in training, the sm90 flash
     # kernel on both long-prompt serving paths (phases 4c and 4d), the
@@ -3555,12 +3719,12 @@ def main() -> int:
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("faults", "serve_moe", "moe_ep", "serve", "train", "algorithms",
-                               "online", "streams"),
+    paths = {"fused_combine": ("faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
+                               "train_vlm", "algorithms", "online", "streams"),
              "chunked_copy": ("faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
                               "streams"),
-             "quantize_blocks": ("faults", "online", "train"),
-             "dequantize_blocks": ("faults", "online", "train"),
+             "quantize_blocks": ("faults", "online", "train_moe", "train"),
+             "dequantize_blocks": ("faults", "online", "train_moe", "train"),
              "inkernel_replay": (),
              "inkernel_rdma": ("faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
@@ -3568,6 +3732,7 @@ def main() -> int:
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
+              "train_moe": train_moe_counts, "train_vlm": train_vlm_counts,
               "serve_long": long_counts, "serve_vlm": vlm_counts,
               "reference_long": ref_long_counts, "collectives": coll_counts,
               "algorithms": algo_counts, "streams": stream_counts, "trees": tree_counts,
@@ -3585,9 +3750,11 @@ def main() -> int:
             assert k > 0, f"{line['name']} never launched on the {p} path"
         line["launches"] = line["launches_by_path"][paths[line["name"]][-1]]
     assert all(c["inkernel_replay"] == 0 for c in counts.values()), counts
-    small_train_reference(torch)
-    mark("training reference (6)")
+    small_train_references(torch)
+    mark("training references (6, 6m, 6v)")
     log(f"training numbers: {json.dumps(training)}")
+    log(f"moe and vlm training numbers: "
+        f"{json.dumps({'train_moe': moe_training, 'train_vlm': vlm_training})}")
     log(f"collectives numbers: {json.dumps(colls)}")
     log(f"streams numbers: {json.dumps(stream_rec)}")
     log(f"calibrate numbers: {json.dumps(fits)}")

@@ -63,6 +63,7 @@ from .plan import (
     decide,
     expected_wire_bytes,
     plan_cache_clear,
+    plan_cache_info,
     plan_cached,
     plan_collective,
     plan_degraded,
@@ -98,6 +99,7 @@ __all__ = [
     "plan_degraded",
     "plan_cached",
     "plan_cache_clear",
+    "plan_cache_info",
     "cache_stats",
     "decide",
     "expected_wire_bytes",

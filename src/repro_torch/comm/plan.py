@@ -25,6 +25,7 @@ __all__ = [
     "plan_degraded",
     "plan_cached",
     "plan_cache_clear",
+    "plan_cache_info",
     "cache_stats",
     "decide",
     "expected_wire_bytes",
@@ -513,6 +514,10 @@ def cache_stats() -> dict:
     ``hits``/``misses``/``evictions`` since the last
     :func:`plan_cache_clear`, plus current ``size`` and ``maxsize``."""
     return dict(_PLAN_CACHE_STATS, size=len(_PLAN_CACHE), maxsize=_PLAN_CACHE_MAX)
+
+
+# the reference's name for the same snapshot
+plan_cache_info = cache_stats
 
 
 def plan_cache_clear() -> None:

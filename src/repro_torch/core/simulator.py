@@ -1,5 +1,12 @@
 """Pure-numpy schedule replays: the value-level oracles of the executors.
 
+:func:`simulate_bcast` and :func:`simulate_reduce` run a broadcast and a
+reduce-to-root schedule under the causality rule the fabric enforces (a
+rank sends only chunks it owns at the start of the round; a reduce
+partial is consumed once), raising :class:`CausalityError` when a
+schedule breaks it; :func:`check_complete` asserts that a broadcast
+leaves every rank owning every chunk.
+
 :func:`simulate_collective` replays a :class:`~.schedules.Schedule` with
 round-start (concurrent) semantics; :func:`simulate_lowered` replays its
 host-side lowering exactly as the compiled and in-kernel executors do.
@@ -22,7 +29,75 @@ import numpy as np
 
 from .schedules import LoweredSchedule, Schedule
 
-__all__ = ["simulate_collective", "simulate_lowered", "timed_rounds"]
+__all__ = ["CausalityError", "simulate_bcast", "simulate_reduce", "check_complete",
+           "simulate_collective", "simulate_lowered", "timed_rounds"]
+
+
+class CausalityError(AssertionError):
+    """A schedule sends a chunk its sender does not own yet (or a reduce
+    partial that was already merged)."""
+
+
+def simulate_bcast(schedule: Schedule, data: Sequence[np.ndarray]) -> list[np.ndarray]:
+    """Run a bcast schedule over per-rank buffers ``data[r]`` of shape
+    ``(num_chunks, chunk)``; returns the final buffers. The root owns every
+    chunk at the start; a transfer's chunks are owned by its destination
+    after the round (all transfers of a round are concurrent)."""
+    n, root = schedule.n, schedule.root
+    bufs = [np.array(d, copy=True) for d in data]
+    owned = [set() for _ in range(n)]
+    owned[root] = set(range(schedule.num_chunks))
+    for ridx, rnd in enumerate(schedule.rounds):
+        pre = [set(o) for o in owned]
+        staged = []
+        for t in rnd.transfers:
+            for c in t.chunks():
+                if c not in pre[t.src]:
+                    raise CausalityError(
+                        f"{schedule.name}: round {ridx}: rank {t.src} sends chunk {c} "
+                        f"before owning it ({t})")
+            staged.append((t, bufs[t.src][t.chunk_start:t.chunk_start + t.chunk_count].copy()))
+        for t, payload in staged:
+            bufs[t.dst][t.chunk_start:t.chunk_start + t.chunk_count] = payload
+            owned[t.dst].update(t.chunks())
+    return bufs
+
+
+def simulate_reduce(schedule: Schedule, data: Sequence[np.ndarray]) -> list[np.ndarray]:
+    """Run a reduce-to-root schedule (sum combiner): a transfer adds the
+    sender's whole current partial into the receiver, and a rank whose
+    partial was sent may not send again. The root ends with ``sum(data)``."""
+    if schedule.kind != "reduce":
+        raise ValueError("schedule is not a reduce schedule")
+    bufs = [np.array(d, copy=True) for d in data]
+    alive = [True] * schedule.n
+    for ridx, rnd in enumerate(schedule.rounds):
+        staged = []
+        for t in rnd.transfers:
+            if not alive[t.src]:
+                raise CausalityError(
+                    f"{schedule.name}: round {ridx}: rank {t.src} already merged ({t})")
+            staged.append((t, bufs[t.src].copy()))
+        for t, payload in staged:
+            bufs[t.dst] = bufs[t.dst] + payload
+            alive[t.src] = False
+    return bufs
+
+
+def check_complete(schedule: Schedule) -> None:
+    """Raise ``AssertionError`` unless every rank owns every chunk after the
+    bcast ``schedule`` (the root's chunk ids, replayed by
+    :func:`simulate_bcast`)."""
+    n, K = schedule.n, schedule.num_chunks
+    data = [np.full((K, 1), -1.0) for _ in range(n)]
+    data[schedule.root] = np.arange(K, dtype=np.float64).reshape(K, 1)
+    out = simulate_bcast(schedule, data)
+    want = data[schedule.root]
+    for r in range(n):
+        if not np.array_equal(out[r], want):
+            missing = [c for c in range(K) if out[r][c, 0] != want[c, 0]]
+            raise AssertionError(
+                f"{schedule.name}: rank {r} incomplete after schedule; missing chunks {missing}")
 
 
 def _stalled(faults, num_rounds: int) -> int:

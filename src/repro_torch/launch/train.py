@@ -5,8 +5,18 @@
 
 Trains on an emulated data axis of ``--ranks`` ranks on one device (the
 card by default; ``--device cpu`` runs the plain PyTorch path). Sync modes:
-``grad_allreduce`` (plain mean), ``param_bcast`` (the paper's reduce to
-root + tuned broadcast), ``tuned_allreduce`` and ``compressed_allreduce``.
+``grad_allreduce`` (one pass over the global batch), ``param_bcast`` (the
+paper's reduce to root + tuned broadcast), ``tuned_allreduce``,
+``overlap_allreduce`` and ``compressed_allreduce``.
+
+A MoE model and a vision-prefix model train the same way (a vision
+config's batches carry the stub patch embeddings, split over the ranks as
+the tokens are):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b-smoke \
+        --sync-mode tuned_allreduce --device cpu --steps 3 --log-every 1 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b-smoke \
+        --sync-mode tuned_allreduce --device cpu --steps 3 --log-every 1 --seq 32
 """
 from __future__ import annotations
 

@@ -3,9 +3,9 @@
 Five data-parallel synchronization modes, as in the reference's
 ``train/train_step.py``:
 
-* ``grad_allreduce`` (:func:`make_train_step`) — the baseline: the plain
-  mean of the per-rank gradients over the rank axis (the reference lets
-  GSPMD insert the all-reduce).
+* ``grad_allreduce`` (:func:`make_train_step`) — the baseline: one pass
+  over the global batch (the reference's GSPMD step, where the compiler
+  inserts the all-reduce).
 * ``param_bcast`` (:func:`make_bcast_train_step`) — the paper's CA-CNTK
   pattern: per-leaf reduce to the root over the reversed binomial tree,
   then the tuned bucketed broadcast (``core.bcast.pbcast_tree``); with
@@ -22,10 +22,11 @@ Five data-parallel synchronization modes, as in the reference's
 On a mesh with dead ranks the trainer replaces any of them with
 :func:`make_degraded_psum_train_step`, the mean over the surviving ranks.
 
-How ranks are emulated. The reference's ``local_step`` runs once per rank
-inside ``shard_map``. Here rank ``r`` computes its loss and gradients on
-its shard ``torch.tensor_split(batch, n)[r]``, one rank after another, and
-the gradients fill rank-stacked ``(n, *shape)`` leaves that go through the
+How ranks are emulated. In every mode but ``grad_allreduce`` the
+reference's ``local_step`` runs once per rank inside ``shard_map``. Here
+rank ``r`` computes its loss and gradients on its shard
+``torch.tensor_split(batch, n)[r]``, one rank after another, and the
+gradients fill rank-stacked ``(n, *shape)`` leaves that go through the
 same bucketing, plans and executors as the reference's step. Parameters and
 optimizer state are held ONCE: the reference's update is deterministic and
 identical on every rank, so the port applies it once, from row 0 of the
@@ -194,18 +195,22 @@ def _data_ranks(mesh, mode: str) -> int:
 
 def make_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: Callable,
                     mesh=None):
-    """The ``grad_allreduce`` baseline: the plain mean of the per-rank
-    gradients over the rank axis (one rank without ``mesh``)."""
-    n = 1 if mesh is None else _data_ranks(mesh, "grad_allreduce")
+    """The ``grad_allreduce`` baseline: one pass over the GLOBAL batch, the
+    reference's GSPMD step, whose mean gradient is what the all-reduce of
+    the per-rank gradients gives. The loss, and so a MoE model's aux
+    ``E * sum(me * ce)``, reads the whole batch's router statistics: aux is
+    a product of batch means, so the mean of per-rank values (the explicit
+    modes' ``pmean``) is another number. ``mesh`` is checked to be pure
+    data-parallel; its ranks do not split the pass."""
+    if mesh is not None:
+        _data_ranks(mesh, "grad_allreduce")
     compute = _grad_fn(model, run_cfg)
 
     def train_step(params, opt_state, batch):
         treedef = tree_flatten(params)[1]
-        stacked, write = _stacked_writer(n)
-        loss, metrics = _per_rank(compute, params, batch, n, write)
-        grads = tree_unflatten(treedef, [s.mean(0) for s in stacked])
-        del stacked
-        return _finish(grads, params, opt_state, optimizer, lr_fn, loss, metrics)
+        loss, metrics, grads = compute(params, batch)
+        return _finish(tree_unflatten(treedef, grads), params, opt_state, optimizer, lr_fn,
+                       loss, metrics)
 
     return train_step
 

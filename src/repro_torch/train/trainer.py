@@ -2,13 +2,19 @@
 
 ``Trainer(cfg, RunConfig(...), mesh=make_mesh(4)).train(batch=..., seq=...,
 steps=...)`` trains on an emulated data axis of ``mesh.size`` ranks on one
-device. Parameters and optimizer state are held once; each step computes
-every rank's gradients on its shard of the global batch, syncs them with
-the run's sync mode, and applies the update once from row 0 of the synced
-gradients (see :mod:`.train_step`). Under ``compressed_allreduce`` the rows
-may differ: row 0 is rank 0's view, as the reference's replicated output
-reads back rank 0's. A ``health`` report with dead ranks replaces the sync
-mode with the mean over the survivors.
+device. Parameters and optimizer state are held once. ``grad_allreduce``
+takes one pass over the global batch (the reference's GSPMD step); every
+other mode computes every rank's gradients on its shard of the global
+batch, syncs them with the run's sync mode, and applies the update once
+from row 0 of the synced gradients (see :mod:`.train_step`). Under
+``compressed_allreduce`` the rows may differ: row 0 is rank 0's view, as
+the reference's replicated output reads back rank 0's. A ``health`` report
+with dead ranks replaces the sync mode with the mean over the survivors.
+
+MoE and vision-prefix models train as dense ones do. A MoE model's loss
+carries the router's aux loss, which reads the batch its pass sees: the
+global batch under ``grad_allreduce``, each rank's shard in the other
+modes (the reference's ``shard_map`` steps), as in the reference.
 """
 from __future__ import annotations
 
@@ -50,7 +56,13 @@ class Trainer:
     :class:`~repro_torch.comm.faults.MeshHealth` over the data ranks) with
     dead ranks overrides ``sync_mode`` with
     :func:`~.train_step.make_degraded_psum_train_step`; a report of slow
-    links only changes nothing in the step."""
+    links only changes nothing in the step.
+
+    A MoE config trains through the einsum dispatch, whatever its
+    ``moe_dispatch``: the reference's trainer calls ``apply_lm`` without
+    an ``axis_name``, so a ``moe_dispatch='alltoallv'`` config does not
+    move its expert rows through ``palltoallv`` in training. The audio
+    frontend is refused where its model and its batches are built."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, *, mesh=None,
                  data_path: Optional[str] = None, ckpt_dir: Optional[str] = None,
@@ -59,14 +71,6 @@ class Trainer:
         self.mesh = mesh if mesh is not None else make_mesh(1, device=self.device)
         if self.mesh.device != self.device:
             raise ValueError(f"mesh lies on {self.mesh.device}, trainer on {self.device}")
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: training a model with a {cfg.frontend} frontend is not ported "
-                '(ROADMAP item "Training PaliGemma"); the port serves it')
-        if cfg.num_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: training a MoE model is not ported (ROADMAP item \"Training a "
-                'MoE model"); the port serves it')
         if run.sync_mode not in SYNC_MODES:
             raise ValueError(f"unknown sync_mode {run.sync_mode!r} (have {SYNC_MODES})")
         self.cfg = cfg

@@ -20,7 +20,7 @@
   port's existing f32 tolerance (1e-4).
 * The aux loss the port used to drop: ``Model.loss`` returns ``nll + aux``
   with the reference's ``{"nll", "aux"}``; a dense model's aux is exactly
-  0; ``Trainer`` refuses a MoE config.
+  0. Training a MoE model is held in tests/test_torch_train_moe.py.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from repro.models import Model as JModel
 from repro.models import moe as jmoe
 from repro.models import transformer as jt
 from repro_torch.comm import palltoallv
-from repro_torch.configs import ARCHS, RunConfig
+from repro_torch.configs import ARCHS
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs.base import ModelConfig as TConfig
 from repro_torch.core.tree import tree_leaves
@@ -47,7 +47,6 @@ from repro_torch.models import Model as TModel
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 from repro_torch.models.convert import params_from_jax
-from repro_torch.train.trainer import Trainer
 from test_torch_ragged import MOE_B, MOE_CFG, MOE_T, N, moe_reference
 
 # one intra-op thread: the suite runs in several worker processes at once, and
@@ -447,8 +446,3 @@ def test_dense_aux_is_exactly_zero():
         assert float(aux) == 0.0
         loss, metrics = model.loss(params, {"tokens": tokens, "labels": tokens})
     assert float(loss) == float(metrics["nll"]) and float(metrics["aux"]) == 0.0
-
-
-def test_trainer_refuses_a_moe_config():
-    with pytest.raises(NotImplementedError, match="Training a MoE model"):
-        Trainer(t_get_config("mixtral-8x7b-smoke"), RunConfig(), device="cpu")
