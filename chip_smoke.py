@@ -40,8 +40,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    head widths 128 and 256, which must refuse widths 16-64), which sum in
    another order (f32 within the reference test's 2e-4, bf16 within one
    bf16 rounding of the plain version's f32 result), at the reference's
-   cases, at phase 4c's layer shapes and at phase 4d's (a paligemma-3b
-   layer: head width 256, a prefix of 256 under query tiles of 256), with
+   cases, at phase 4c's layer shapes, at phase 4d's (a paligemma-3b
+   layer: head width 256, a prefix of 256 under query tiles of 256) and at
+   phase 12a's (a hymba-1.5b layer: 25 / 5 heads of 64, window 1024), with
    the flops bound and one scaled_dot_product_attention call (its kernel
    named) as yardstick; mix and scaled_add (on no path of either package)
    at the embedding's flat size.
@@ -193,6 +194,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    same bits, each stage's replay fed to a ``Watchdog``; (d) a weight
    distribution with ``drain_dir=`` whose second bucket fails: a
    ``WeightSyncError`` and a checkpoint bit-equal to row 0.
+12. recurrent and hybrid serving: (a) hymba-1.5b at full width and depth
+   (32 layers, 1,918,465,664 params, 4.50 GB a replica, 1.33 GB of it f32)
+   and (b) xlstm-350m (24 layers, 290,927,700 params) on the 4 emulated
+   ranks: ``Engine(distribute=True, double_buffer=True)``, replicas
+   bit-equal; ``generate`` of batch 4 (a 4096-token prompt a rank for
+   hymba, 2048 for xlstm) and 32 decode steps, the recurrent states in the
+   stacked caches; the warm re-run timing prefill and decode apart; the
+   compiled pipelined chain from NaN-filled replicas; one profiled prefill
+   (device ms by kernel class). Every hymba prefill pass launches the
+   CUDA-core flash kernel 32 times (bf16, head width 64) and the sm90 one
+   never; xlstm launches neither. (c) hymba-1.5b-smoke and
+   xlstm-350m-smoke in f32, card against CPU.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -206,7 +219,8 @@ training path), phase 6v (the vision-prefix training path), phase 7 (the
 collective entry points), phase 7b (the algorithms), phase 8's interleave
 (the stream path), phase 8b (the tree variants), phase 9 (the online
 tuner), phase 10 (the MoE serving path), phase 10b (the expert-parallel
-path) and phase 11 (the fault runtime);
+path), phase 11 (the fault runtime) and phases 12a and 12b (the hybrid and
+the recurrent serving paths);
 the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
@@ -319,6 +333,9 @@ MOE_TRAIN_MODES = (
 # patches + VLM_TEXT tokens a rank
 VLM_TRAIN_LAYERS = 18
 FAULT_DEAD = 1  # phase 11: the rank reported dead
+# phase 12: one prompt a rank, hymba-1.5b's of 4096 tokens (past its window
+# of 1024: the long-prompt route), xlstm-350m's of its training context
+HYBRID_PROMPT, RECURRENT_PROMPT = 4096, 2048
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -1231,8 +1248,9 @@ def check_trap(torch) -> float:
 
 def _flash_path_case(torch, gen, arch: str, window):
     """q, k, v of one layer's prefill at 4096 positions: a gemma3-27b layer
-    (phase 4c), or a paligemma-3b layer with its prefix of 256 stub patches
-    under the query tiles its prefill passes (phase 4d)."""
+    (phase 4c), a paligemma-3b layer with its prefix of 256 stub patches
+    under the query tiles its prefill passes (phase 4d), or a hymba-1.5b
+    layer (phase 12a)."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import prefill_tiles
 
@@ -1293,7 +1311,9 @@ def check_flash_attention(torch) -> list[dict]:
     256), then the phase 4c shapes (a gemma3-27b layer at 4096 tokens: the
     global layer and a local one, window 1024) and the phase 4d shape (a
     paligemma-3b layer: 8 query heads and 1 kv head of 256, the prefix of
-    256 under query tiles of 256). Every case goes through the CUDA-core
+    256 under query tiles of 256) and the phase 12a shape (a hymba-1.5b
+    layer: 25 query heads and 5 kv heads of 64, a group of 5, window 1024).
+    Every case goes through the CUDA-core
     kernel in f32 and bf16 and, where its head width is 128 or 256, through
     the sm90 kernel in bf16, which must refuse widths 16-64;
     ``flash_attention`` itself must give the output of the kernel its route
@@ -1304,8 +1324,8 @@ def check_flash_attention(torch) -> list[dict]:
     FLASH_BF16_ABS). At the path shapes each kernel is timed beside the
     plain version and one scaled_dot_product_attention call; the kernels
     JSON gets one line per kernel, at one serving-path shape (the sm90
-    kernel: gemma's global layer; the CUDA-core kernel: paligemma's layer),
-    the other shapes beside it."""
+    kernel: gemma's global layer; the CUDA-core kernel: hymba's layer, the
+    one serving path it is on), the other shapes beside it."""
     from repro_torch.kernels import flash_attention as fa
 
     def held(q, k, v, kw, what) -> dict:
@@ -1368,7 +1388,8 @@ def check_flash_attention(torch) -> list[dict]:
     # (label, arch, window, the kernel whose JSON line this shape is)
     shapes = (("global", "gemma3-27b", None, "flash_attention_sm90"),
               ("local", "gemma3-27b", 1024, None),
-              ("vlm", "paligemma-3b", None, "flash_attention"))
+              ("vlm", "paligemma-3b", None, None),
+              ("hybrid", "hymba-1.5b", 1024, "flash_attention"))
     side_key = {"global": "gemma_global", "local": "local_window_1024", "vlm": "paligemma_layer"}
     lines, sides = {}, {}
     for label, arch, window, line_of in shapes:
@@ -1568,24 +1589,38 @@ def time_prefill_decode(torch, engine, tokens, steps: int, embeds=None) -> tuple
     return prefill_s, decode_s
 
 
+def _kernel_class(name: str) -> str:
+    """A device kernel's class by its name: the flash kernels, matmuls
+    (cuBLAS and CUTLASS GEMMs), PyTorch's element-wise kernels, or other
+    (reductions, copies, concatenations)."""
+    if "flash_fwd" in name:
+        return "flash"
+    if any(s in name for s in ("gemm", "Gemm", "cutlass", "xmma", "gemv", "cublas")):
+        return "matmul"
+    return "elementwise" if "elementwise" in name else "other"
+
+
 def profile_prefill(torch, engine, tokens, top: int = 8, embeds=None,
-                    label: str = "serve long") -> list[dict]:
-    """One warm prefill of each rank's prompt (one request a rank) on its
-    replica under ``torch.profiler``, after one unprofiled warm-up prefill:
-    wall ms, device ms (the kernels of one stream do not overlap, so their
-    sum is the busy time), the flash kernels' ms (both names, ``flash_fwd``
-    and ``flash_fwd_sm90``) and the ``top`` kernels as ``(name, ms,
-    launches)``."""
+                    label: str = "serve long", ranks: int = RANKS) -> list[dict]:
+    """One warm prefill of the prompt of each of the first ``ranks`` ranks
+    (one request a rank) on its replica under ``torch.profiler``, after one
+    unprofiled warm-up prefill: wall ms, device ms (the kernels of one
+    stream do not overlap, so their sum is the busy time), the flash
+    kernels' ms (both names, ``flash_fwd`` and ``flash_fwd_sm90``), the
+    device ms by kernel class (:func:`_kernel_class`) and the ``top``
+    kernels as ``(name, ms, launches)``. The profiler records the device
+    activity alone: with the host's operators too, its own processing of a
+    prefill of about 10^5 launches takes longer than the phase's serving."""
     from torch.profiler import ProfilerActivity, profile
 
     max_len = tokens.shape[1] + STEPS
     out = []
-    for r, batch in enumerate(_rank_batches(torch, tokens, embeds)):
+    for r, batch in enumerate(_rank_batches(torch, tokens, embeds)[:ranks]):
         params = engine.replica(r)
         with torch.no_grad():
             engine.model.prefill(params, batch, max_len=max_len)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 logits = engine.model.prefill(params, batch, max_len=max_len)
                 torch.cuda.synchronize()
@@ -1594,14 +1629,20 @@ def profile_prefill(torch, engine, tokens, top: int = 8, embeds=None,
         kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
                        if e.device_time_total > 0 and not e.key.startswith("aten::")),
                       key=lambda row: -row[1])
+        by_class: dict = {}
+        for name, ms, _n in kern:
+            by_class[_kernel_class(name)] = by_class.get(_kernel_class(name), 0.0) + ms
         res = {"wall_ms": wall_ms, "device_ms": sum(row[1] for row in kern),
                "flash_ms": sum(ms for name, ms, _n in kern
                                if "flash_fwd<" in name or "flash_fwd_sm90" in name),
+               "by_class_ms": {k: round(v, 3) for k, v in sorted(by_class.items())},
+               "launches": sum(row[2] for row in kern),
                "top": [(name[:60], round(ms, 3), n) for name, ms, n in kern[:top]]}
         log(f"{label} profile rank {r} (one warm prefill, profiler on): wall "
             f"{res['wall_ms']:.2f} ms, device kernels {res['device_ms']:.2f} ms "
-            f"({res['device_ms'] / res['wall_ms']:.1%} busy), flash {res['flash_ms']:.2f} "
-            f"ms; top kernels (name, ms, launches): {res['top']}")
+            f"({res['device_ms'] / res['wall_ms']:.1%} busy, {res['launches']} launches), "
+            f"flash {res['flash_ms']:.2f} ms; by class {res['by_class_ms']}; top kernels "
+            f"(name, ms, launches): {res['top']}")
         out.append(res)
     return out
 
@@ -3544,6 +3585,151 @@ def small_vlm_reference(torch) -> float:
     return max(errs)
 
 
+def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int) -> dict:
+    """Phase 12a (hymba-1.5b) or 12b (xlstm-350m): the config at full width
+    and depth (bf16 weights, their f32 leaves in f32, seeded random)
+    distributed to 4 emulated ranks as phase 3 distributes
+    (``Engine(distribute=True, double_buffer=True)``: each bucket staged
+    through chunked_copy), replicas bit-equal to the weights; ``generate``
+    of batch 4 (one ``prompt``-token request a rank) and 32 decode steps,
+    the recurrent states carried in the stacked caches; the warm re-run
+    timing prefill and decode apart; then, as phase 10 does, the weights
+    broadcast again from NaN-filled replicas with the pinned pipelined
+    chain and the compiled executor (fused_combine), replicas bit-equal to
+    the root; last one profiled prefill of rank 0, counted apart. Every
+    prefill pass launches the CUDA-core flash kernel ``flash_per_pass``
+    times (each hybrid layer's attention: bf16 at head width 64, window
+    1024) and the sm90 one never. Launch counts are zeroed by the caller
+    right before."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, distribute_weights
+
+    assert not torch.backends.cuda.matmul.allow_tf32  # the f32 projections stay f32
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    params = Model(cfg).init(seed=0, device="cuda")
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    replica_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    f32_bytes = sum(t.numel() * 4 for t in leaves if t.dtype == torch.float32)
+    del leaves
+    mesh = make_mesh(RANKS, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, params, mesh=mesh, distribute=True, double_buffer=True)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    assert counts["chunked_copy"] > 0 and counts["flash_attention"] == 0, counts
+    assert replicas_equal(torch, engine.params, params), f"a {arch} replica differs"
+    del params
+    dist_peak = torch.cuda.max_memory_allocated()
+
+    rng = np.random.RandomState(12)
+    tokens = rng.randint(0, cfg.vocab_size - 1, size=(RANKS, prompt))
+    t0 = time.perf_counter()
+    res = engine.generate({"tokens": tokens}, steps=STEPS)
+    gen_s = time.perf_counter() - t0
+    cold = kernels.launch_counts()["flash_attention"]
+    assert res.tokens.shape == (RANKS, STEPS) and res.logprobs.shape == (RANKS, STEPS)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
+    assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
+    assert cold == flash_per_pass * RANKS, cold
+    t_warm = time.perf_counter()
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
+    warm_s = time.perf_counter() - t_warm
+    warm = kernels.launch_counts()["flash_attention"] - cold
+    assert warm == flash_per_pass * RANKS, warm
+    assert kernels.launch_counts()["flash_attention_sm90"] == 0, "a width-64 prefill took sm90"
+    peak = torch.cuda.max_memory_allocated()
+
+    for leaf in tree_leaves(engine.params):
+        leaf[1:].fill_(float("nan"))
+    before = kernels.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    distribute_weights(engine.params, mesh, algo="pipelined_chain", compiled=True,
+                       double_buffer=True)
+    torch.cuda.synchronize()
+    compiled_s = time.perf_counter() - t0
+    merges = kernels.launch_counts()["fused_combine"] - before["fused_combine"]
+    assert merges > 0, merges
+    assert replicas_equal(torch, engine.params), f"compiled {arch} replicas differ from the root"
+    out = {
+        "params": n_params, "replica_bytes": replica_bytes, "f32_bytes": f32_bytes,
+        "layers": cfg.num_layers, "distribute_s": dist_s, "distribute_peak": dist_peak,
+        "chunked_copy_launches": counts["chunked_copy"], "generate_s": gen_s,
+        "prefill_ms_per_rank": prefill_s / RANKS * 1e3,
+        "decode_tokens_per_s": RANKS * STEPS / decode_s, "max_memory_allocated": peak,
+        "flash_attention_launches": {"cold": cold, "warm": warm},
+        "compiled_distribute_s": compiled_s, "compiled_fused_combine_launches": merges,
+        "first_tokens": res.tokens[:, :4].tolist(),
+    }
+    log(f"{label}: {arch} {cfg.num_layers} layers, {n_params} params "
+        f"({replica_bytes / 1e9:.2f} GB a replica, {f32_bytes / 1e9:.2f} GB of it f32), "
+        f"distribution {dist_s:.3f} s ({counts['chunked_copy']} chunked_copy launches, peak "
+        f"{dist_peak / 2**30:.2f} GiB), generate {gen_s:.3f} s (cold, {RANKS} x {prompt} "
+        f"tokens + {STEPS} steps); warm: prefill {out['prefill_ms_per_rank']:.2f} ms/rank, "
+        f"decode steps {out['decode_tokens_per_s']:.1f} tok/s; flash_attention launches "
+        f"{cold} cold + {warm} warm, flash_attention_sm90 0; peak {peak / 2**30:.2f} GiB; "
+        f"compiled pipelined chain from NaN replicas {compiled_s:.3f} s ({merges} "
+        "fused_combine launches), replicas bit-equal")
+    out["counts"] = kernels.launch_counts()  # the path's; the profiled prefill comes after
+    t_prof = time.perf_counter()
+    out["profile"] = profile_prefill(torch, engine, tokens, label=label, ranks=1)
+    out["profile_s"] = time.perf_counter() - t_prof
+    out["warm_s"], out["phase_s"] = warm_s, time.perf_counter() - t_start
+    log(f"{label}: phase {out['phase_s']:.1f} s, of which generate {gen_s:.1f}, warm re-run "
+        f"{warm_s:.1f}, profiled prefill {out['profile_s']:.1f}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_smoke_reference(torch) -> float:
+    """hymba-1.5b-smoke and xlstm-350m-smoke in f32: prefill of 80 tokens
+    (past hymba-smoke's window of 64; 5 chunks of 16) and 2 decode steps on
+    the card against the CPU, logits within 1e-3 as phase 5 holds the other
+    smoke configs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import Model
+
+    errs = {}
+    for i, arch in enumerate(("hymba-1.5b", "xlstm-350m")):
+        cfg = dataclasses.replace(get_config(f"{arch}-smoke"), dtype="float32",
+                                  kv_cache_dtype="float32")
+        model = Model(cfg)
+        cpu = model.init(seed=30 + i, device="cpu")
+        gpu = tree_map(lambda t: t.cuda(), cpu)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 80),
+                               generator=torch.Generator().manual_seed(30 + i))
+        e = []
+        with torch.no_grad():
+            a, ca = model.prefill(cpu, {"tokens": tokens}, max_len=82)
+            b, cb = model.prefill(gpu, {"tokens": tokens.cuda()}, max_len=82)
+            e.append(float((a - b.cpu()).abs().max()))
+            nxt = torch.argmax(a[:, -1], dim=-1)[:, None]
+            for s in range(2):
+                a, ca = model.decode_step(cpu, nxt, ca, 80 + s)
+                b, cb = model.decode_step(gpu, nxt.cuda(), cb, 80 + s)
+                e.append(float((a - b.cpu()).abs().max()))
+                nxt = torch.argmax(a[:, 0], dim=-1)[:, None]
+        assert all(math.isfinite(v) and v < 1e-3 for v in e), (arch, e)
+        errs[arch] = max(e)
+    log(f"reference: recurrent and hybrid smoke configs f32, card vs CPU, max abs diff of "
+        f"prefill / decode logits {({k: '%.3e' % v for k, v in errs.items()})} (tol 1e-3)")
+    return max(errs.values())
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is missing beside this script", file=sys.stderr)
@@ -3699,6 +3885,18 @@ def main() -> int:
     fault_rec = faults(torch, training["tuned_allreduce"])
     fault_counts = kernels.launch_counts()
     mark("faults (11)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    hybrid = serve_family(torch, "hymba-1.5b", HYBRID_PROMPT, "serve hybrid",
+                          flash_per_pass=32)  # one attention a layer
+    hybrid_counts = hybrid.pop("counts")
+    kernels.reset_launch_counts()
+    recurrent = serve_family(torch, "xlstm-350m", RECURRENT_PROMPT, "serve recurrent",
+                             flash_per_pass=0)
+    recurrent_counts = recurrent.pop("counts")
+    family_smoke_reference(torch)
+    mark("recurrent and hybrid serving (12)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
     # too) and the streams phase, the staging copy on the serving paths and
@@ -3714,22 +3912,25 @@ def main() -> int:
     # in-kernel replay and the sm90 flash kernel on the expert-parallel path
     # (phase 10b: its two prefills, the transports through the compiled and
     # the in-kernel executor); the merge, the in-kernel replay, the staging
-    # copy and the quantize pair on the fault runtime (phase 11); mix and
+    # copy and the quantize pair on the fault runtime (phase 11); the merge,
+    # the staging copy on both phase-12 serving paths, and the CUDA-core flash
+    # kernel on the hybrid one (hymba-1.5b's prefill, bf16 at width 64); mix and
     # scaled_add are on no path of either package, and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
-                               "train_vlm", "algorithms", "online", "streams"),
-             "chunked_copy": ("faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
-                              "streams"),
+    paths = {"fused_combine": ("serve_hybrid", "serve_recurrent", "faults", "serve_moe", "moe_ep",
+                               "serve", "train", "train_moe", "train_vlm", "algorithms", "online",
+                               "streams"),
+             "chunked_copy": ("serve_hybrid", "serve_recurrent", "faults", "serve_moe", "serve",
+                              "serve_long", "serve_vlm", "trees", "streams"),
              "quantize_blocks": ("faults", "online", "train_moe", "train"),
              "dequantize_blocks": ("faults", "online", "train_moe", "train"),
              "inkernel_replay": (),
              "inkernel_rdma": ("faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
              "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm"),
-             "flash_attention": ("reference_long",),
+             "flash_attention": ("reference_long", "serve_hybrid"),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
               "train_moe": train_moe_counts, "train_vlm": train_vlm_counts,
@@ -3737,9 +3938,12 @@ def main() -> int:
               "reference_long": ref_long_counts, "collectives": coll_counts,
               "algorithms": algo_counts, "streams": stream_counts, "trees": tree_counts,
               "online": online_counts, "serve_moe": moe_serve_counts, "moe_ep": moe_ep_counts,
-              "faults": fault_counts}
+              "faults": fault_counts, "serve_hybrid": hybrid_counts,
+              "serve_recurrent": recurrent_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
+    assert hybrid_counts["flash_attention_sm90"] == 0, hybrid_counts
+    assert recurrent_counts["flash_attention"] == recurrent_counts["flash_attention_sm90"] == 0
     for line in lines:
         if not paths[line["name"]]:
             assert line["name"] in ("mix", "scaled_add", "inkernel_replay"), line["name"]
@@ -3763,6 +3967,8 @@ def main() -> int:
     log(f"online numbers: {json.dumps(online_rec)}")
     log(f"moe numbers: {json.dumps({'serve_moe': moe_serving, 'moe_ep': moe_rec})}")
     log(f"faults numbers: {json.dumps(fault_rec)}")
+    log(f"recurrent and hybrid numbers: "
+        f"{json.dumps({'serve_hybrid': hybrid, 'serve_recurrent': recurrent})}")
     check_trap(torch)
     mark("trap check")
     log("phase ends, s from the build's start: "

@@ -91,6 +91,75 @@ class ModelConfig:
         ap = self.attn_pattern
         return [ap[i % len(ap)] for i in range(self.num_layers)]
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k decode: layers are SSM / windowed
+        attention, allowing a MINORITY of global layers (gemma3's 5:1
+        local:global long-context design — decode against a global cache is
+        linear per token; the windowed majority bounds the cache growth)."""
+        kinds = self.layer_kinds()
+        wins = self.layer_windows()
+        n_global = 0
+        n_attn = 0
+        for k, w in zip(kinds, wins):
+            if k in ("mlstm", "slstm"):
+                continue
+            n_attn += 1
+            if w is None:
+                n_global += 1
+        if n_attn == 0:
+            return True
+        if n_global == 0:
+            return True
+        return n_global / n_attn <= 0.34 and len(self.attn_pattern) > 1
+
+    # ---- parameter counting (for 6*N*D model-FLOPs accounting) ----
+
+    def param_count(self, active_only: bool = False) -> int:
+        d, hd = self.d_model, self.head_dim
+        H, KV = self.num_heads, self.num_kv_heads
+        total = self.padded_vocab * d  # embed
+        if not self.tie_embeddings:
+            total += self.padded_vocab * d
+        kinds = self.layer_kinds()
+
+        def attn_params():
+            p = d * H * hd + 2 * d * KV * hd + H * hd * d
+            if self.qkv_bias:
+                p += H * hd + 2 * KV * hd
+            return p
+
+        def mlp_params(f):
+            return 3 * d * f if self.act in ("silu", "geglu") else 2 * d * f
+
+        def ssm_params():
+            di = self.ssm_expand * d
+            if self.ssm_state:  # mamba
+                return d * di * 2 + di * self.ssm_conv + di * (2 * self.ssm_state + 2) + di * d
+            # mlstm: q,k,v,o over inner dim + gates
+            return d * di * 4 + 2 * d * H + di * d
+
+        for i, kind in enumerate(kinds):
+            if kind == "attn":
+                total += attn_params() + mlp_params(self.d_ff)
+            elif kind == "moe":
+                e = self.experts_per_token if active_only else self.num_experts
+                total += attn_params() + (e + self.num_shared_experts) * mlp_params(self.d_ff)
+                total += d * self.num_experts  # router
+            elif kind == "mlstm":
+                total += ssm_params()
+            elif kind == "slstm":
+                total += 4 * d * d + 4 * d * H  # i,f,z,o projections + gates
+            elif kind == "hybrid":
+                total += attn_params() + ssm_params() + mlp_params(self.d_ff)
+            total += 2 * d  # norms
+        if self.arch_type == "encdec":
+            # encoder layers + decoder cross-attention
+            enc = self.encoder_layers * (attn_params() + mlp_params(self.d_ff) + 2 * d)
+            cross = self.num_layers * (attn_params() + d)
+            total += enc + cross
+        return int(total)
+
     def reduced(self) -> "ModelConfig":
         """CPU smoke variant of the same family: 2 pattern periods of layers,
         d_model <= 512, <= 4 experts."""

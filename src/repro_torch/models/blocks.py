@@ -1,10 +1,15 @@
 """Block assembly with a uniform (init, apply) interface per ``kind``.
 
-The port has two kinds:
+Kinds:
   attn    pre-norm GQA attention + MLP            (dense archs)
   moe     pre-norm GQA attention + MoE FFN        (mixtral / qwen3 / moonshot)
-The other kinds (mlstm, slstm, hybrid) are ROADMAP item "Other model
-families".
+  mlstm   matrix-LSTM mixer                       (xLSTM)
+  slstm   scalar-LSTM mixer                       (xLSTM)
+  hybrid  parallel attention + mamba heads + MLP  (hymba)
+
+Caches are dicts whose structure depends on the kind: ``attn`` for the
+attention's, ``ssm`` for a recurrent state. Decode writes both into the
+caller's cache in place.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ from typing import Optional
 import torch
 
 from . import moe as moe_lib
+from . import ssm
 from .layers import (
     AttnSpec,
     attention,
@@ -39,15 +45,13 @@ def attn_spec_for(cfg, window: Optional[int], causal: bool = True) -> AttnSpec:
     )
 
 
-_KINDS = ("attn", "moe")
+_KINDS = ("attn", "moe", "mlstm", "slstm", "hybrid")
+_ATTN_KINDS = ("attn", "moe", "hybrid")
 
 
 def _check_kind(kind: str) -> None:
     if kind not in _KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP item \"Other model "
-            f"families\"); the port has the kinds {_KINDS}"
-        )
+        raise ValueError(f"unknown block kind {kind!r}; the kinds are {_KINDS}")
 
 
 def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
@@ -57,11 +61,18 @@ def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
     if kind == "moe" and not cfg.d_ff:
         raise ValueError("moe blocks need d_ff (expert width)")
     d = cfg.d_model
-    p = {
-        "norm1": init_rms_norm(d, gen.device, lead),
-        "attn": init_attention(gen, d, attn_spec_for(cfg, window), dtype, lead),
-    }
-    if cfg.d_ff:
+    p = {"norm1": init_rms_norm(d, gen.device, lead)}
+    if kind in _ATTN_KINDS:
+        p["attn"] = init_attention(gen, d, attn_spec_for(cfg, window), dtype, lead)
+    if kind == "hybrid":
+        p["ssm"] = ssm.init_mamba(gen, cfg, dtype, lead)
+        p["mix_a"] = torch.ones(lead, dtype=torch.float32, device=gen.device)
+        p["mix_m"] = torch.ones(lead, dtype=torch.float32, device=gen.device)
+    elif kind == "mlstm":
+        p["ssm"] = ssm.init_mlstm(gen, cfg, dtype, lead)
+    elif kind == "slstm":
+        p["ssm"] = ssm.init_slstm(gen, cfg, dtype, lead)
+    if kind in _ATTN_KINDS and cfg.d_ff:
         p["norm2"] = init_rms_norm(d, gen.device, lead)
         if kind == "moe":
             p["moe"] = moe_lib.init_moe(gen, cfg, dtype, lead)
@@ -70,15 +81,51 @@ def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
     return p
 
 
+# the recurrent state of each kind that carries one, by its cache keys
+_STATE_KEYS = {"hybrid": ("h", "conv"), "mlstm": ("C", "n"), "slstm": ("c", "n", "h")}
+
+
 def init_block_cache(cfg, kind: str, window: Optional[int], batch: int,
                      max_len: int, device, dtype=torch.bfloat16) -> dict:
     """Zero decode cache for one block. ``dtype`` is accepted for the
-    reference's signature and, as there, read by no block kind the port
-    has: the attention cache takes ``cfg.kv_cache_dtype`` (a moe block's
-    cache is its attention's)."""
+    reference's signature and, as there, read by no block kind: the
+    attention cache takes ``cfg.kv_cache_dtype`` (a moe block's cache is
+    its attention's), the recurrent states are f32."""
     _check_kind(kind)
-    kv_dt = getattr(torch, cfg.kv_cache_dtype)
-    return {"attn": init_attn_cache(batch, max_len, attn_spec_for(cfg, window), kv_dt, device)}
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    H = cfg.num_heads
+    cache = {}
+    if kind in _ATTN_KINDS:
+        kv_dt = getattr(torch, cfg.kv_cache_dtype)
+        cache["attn"] = init_attn_cache(batch, max_len, attn_spec_for(cfg, window), kv_dt,
+                                        device)
+    shapes = {"hybrid": ((batch, di, cfg.ssm_state), (batch, cfg.ssm_conv - 1, di)),
+              "mlstm": ((batch, H, di // H, di // H), (batch, H, di // H)),
+              "slstm": ((batch, d),) * 3}
+    if kind in _STATE_KEYS:
+        cache["ssm"] = {key: torch.zeros(shape, dtype=torch.float32, device=device)
+                        for key, shape in zip(_STATE_KEYS[kind], shapes[kind])}
+    return cache
+
+
+def _mixer(p, h: torch.Tensor, cfg, kind: str, mode: str, cache: dict | None):
+    """A recurrent mixer over the normed input ``h``: Mamba (a hybrid
+    block's), mLSTM or sLSTM. Returns (y, the new state as its cache dict,
+    None in train mode); decode copies the new state into ``cache['ssm']``
+    in place and returns that dict."""
+    seq, step = {"hybrid": (ssm.mamba_seq, ssm.mamba_step),
+                 "mlstm": (ssm.mlstm_seq, ssm.mlstm_step),
+                 "slstm": (ssm.slstm_seq, ssm.slstm_step)}[kind]
+    keys = _STATE_KEYS[kind]
+    if mode in ("train", "prefill"):
+        y, st = seq(p["ssm"], h, cfg)
+        return y, (None if mode == "train" else dict(zip(keys, st)))
+    state = cache["ssm"]
+    y, st = step(p["ssm"], h, tuple(state[key] for key in keys), cfg)
+    for key, new in zip(keys, st):
+        state[key].copy_(new)
+    return y, state
 
 
 def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
@@ -86,25 +133,37 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
                 max_len: int = 0, prefix_len: int = 0, positions=None, mesh=None,
                 transport=None):
     """Returns (x, cache, aux): the cache is None in train mode, the
-    prefill-built cache (grown to ``max_len``) or the decode cache with the
-    new token appended in place; ``aux`` is the block's 0-d f32 auxiliary
-    loss (the router's load-balancing loss of a moe block, 0 otherwise).
-    ``positions`` as :func:`attention`'s. ``mesh`` (an emulated mesh)
-    routes a moe block's expert dispatch over its ranks when
-    ``cfg.moe_dispatch == 'alltoallv'``, its rows moved by ``transport``
-    (see :func:`.moe.moe_ffn`); None keeps the dense einsum formulation."""
+    prefill-built cache (attention grown to ``max_len``, the final
+    recurrent state) or the decode cache with the new token appended and
+    the new recurrent state written, in place; ``aux`` is the block's 0-d
+    f32 auxiliary loss (the router's load-balancing loss of a moe block, 0
+    otherwise). ``positions`` as :func:`attention`'s. ``mesh`` (an
+    emulated mesh) routes a moe block's expert dispatch over its ranks
+    when ``cfg.moe_dispatch == 'alltoallv'``, its rows moved by
+    ``transport`` (see :func:`.moe.moe_ffn`); None keeps the dense einsum
+    formulation. A hybrid block runs attention and Mamba on the same normed
+    input and mixes them with its 0-d f32 ``mix_a``/``mix_m`` in the
+    compute dtype."""
     _check_kind(kind)
     spec = attn_spec_for(cfg, window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = {}
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
-    y, ac = attention(p["attn"], h, spec, mode=mode, positions=positions,
-                      prefix_len=prefix_len,
-                      cache=None if cache is None else cache["attn"], cur_pos=cur_pos)
-    if mode == "prefill":
-        if max_len:
-            ac = _grow_cache(ac, max_len, spec)
-        kv_dt = getattr(torch, cfg.kv_cache_dtype)
-        ac = {**ac, "k": ac["k"].to(kv_dt), "v": ac["v"].to(kv_dt)}
+    if kind in _ATTN_KINDS:
+        y, ac = attention(p["attn"], h, spec, mode=mode, positions=positions,
+                          prefix_len=prefix_len,
+                          cache=None if cache is None else cache["attn"], cur_pos=cur_pos)
+        if mode == "prefill":
+            if max_len:
+                ac = _grow_cache(ac, max_len, spec)
+            kv_dt = getattr(torch, cfg.kv_cache_dtype)
+            ac = {**ac, "k": ac["k"].to(kv_dt), "v": ac["v"].to(kv_dt)}
+        new_cache["attn"] = ac
+        if kind == "hybrid":
+            m, new_cache["ssm"] = _mixer(p, h, cfg, kind, mode, cache)
+            y = p["mix_a"].to(x.dtype) * y + p["mix_m"].to(x.dtype) * m
+    else:
+        y, new_cache["ssm"] = _mixer(p, h, cfg, kind, mode, cache)
     x = x + y
     if "mlp" in p:
         x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg.act)
@@ -113,7 +172,7 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
                                mesh=mesh, transport=transport)
         x = x + y
         aux = aux + a
-    return x, (None if mode == "train" else {"attn": ac}), aux
+    return x, (None if mode == "train" else new_cache), aux
 
 
 def _grow_cache(cache: dict, max_len: int, spec: AttnSpec) -> dict:

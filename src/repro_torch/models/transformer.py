@@ -136,7 +136,7 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
         if mode == "prefill":
             new_caches["blocks"] = [tree_map(lambda *ts: torch.stack(ts), *cs)
                                     for cs in slot_caches]
-        else:  # decode appended in place into the stacked caches
+        else:  # decode wrote its token and recurrent states into the stacked caches in place
             new_caches["blocks"] = caches["blocks"]
     for j, tp in enumerate(stack["tail"]):
         i = (layout.num_super * P + j) % P
