@@ -37,12 +37,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    beside the compiled executor's replay of the same plan; both
    flash attention kernels, the CUDA-core
    one (head widths 16-128 and 256) and the sm90 one (bf16 wgmma + TMA,
-   head widths 128 and 256, which must refuse widths 16-64), which sum in
+   head widths 64, 128 and 256, which must refuse widths 16 and 32), which sum in
    another order (f32 within the reference test's 2e-4, bf16 within one
    bf16 rounding of the plain version's f32 result), at the reference's
    cases, at phase 4c's layer shapes, at phase 4d's (a paligemma-3b
    layer: head width 256, a prefix of 256 under query tiles of 256) and at
-   phase 12a's (a hymba-1.5b layer: 25 / 5 heads of 64, window 1024), with
+   phase 12a's (a hymba-1.5b layer: 25 / 5 heads of 64, window 1024: both
+   kernels timed, the sm90 one with its TFLOP/s and its share of the
+   bound), with
    the flops bound and one scaled_dot_product_attention call (its kernel
    named) as yardstick; mix and scaled_add (on no path of either package)
    at the embedding's flat size.
@@ -202,9 +204,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    hymba, 2048 for xlstm) and 32 decode steps, the recurrent states in the
    stacked caches; the warm re-run timing prefill and decode apart; the
    compiled pipelined chain from NaN-filled replicas; one profiled prefill
-   (device ms by kernel class). Every hymba prefill pass launches the
-   CUDA-core flash kernel 32 times (bf16, head width 64) and the sm90 one
-   never; xlstm launches neither. (c) hymba-1.5b-smoke and
+   (device ms by kernel class, hymba's flash device ms printed beside the
+   52 ms the CUDA-core kernel took there). Every hymba prefill pass launches
+   the sm90 flash kernel 32 times (bf16, head width 64) and the CUDA-core
+   one never; xlstm launches neither. (c) hymba-1.5b-smoke and
    xlstm-350m-smoke in f32, card against CPU.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
@@ -273,6 +276,15 @@ FLASH_CASES = (
     (1, 96, 96, 4, 2, 256, True, 40, 0, 32, 32),
     (1, 384, 384, 2, 1, 256, True, 100, 48, 64, 32),
     (1, 512, 512, 4, 1, 256, True, None, 256, 256, 128),
+    # head width 64, both kernels (the sm90 one on 128 x 128 tiles): an odd
+    # group (hymba-1.5b's 25 / 5 is a group of 5), a window with a prefix,
+    # partial row and key tiles under caller tiles below 128, window 0, a
+    # window over an odd group
+    (1, 256, 256, 10, 2, 64, True, None, 0, 128, 128),
+    (1, 384, 384, 2, 1, 64, True, 100, 48, 64, 32),
+    (1, 200, 200, 5, 1, 64, True, None, 0, 40, 40),
+    (1, 256, 256, 2, 2, 64, False, 0, 0, 64, 64),
+    (2, 512, 512, 10, 2, 64, True, 128, 0, 128, 128),
 )
 FLASH_F32_TOL = 2e-4  # the reference test's f32 tolerance, atol = rtol
 # bf16 output against the plain version's f32 result: one rounding to bf16
@@ -1314,8 +1326,8 @@ def check_flash_attention(torch) -> list[dict]:
     256 under query tiles of 256) and the phase 12a shape (a hymba-1.5b
     layer: 25 query heads and 5 kv heads of 64, a group of 5, window 1024).
     Every case goes through the CUDA-core
-    kernel in f32 and bf16 and, where its head width is 128 or 256, through
-    the sm90 kernel in bf16, which must refuse widths 16-64;
+    kernel in f32 and bf16 and, where its head width is 64, 128 or 256,
+    through the sm90 kernel in bf16, which must refuse widths 16 and 32;
     ``flash_attention`` itself must give the output of the kernel its route
     names. Not bit-equal to the plain version: the kernels sum in another
     order. f32 is held as the reference's test holds its kernel, |kernel -
@@ -1325,7 +1337,9 @@ def check_flash_attention(torch) -> list[dict]:
     plain version and one scaled_dot_product_attention call; the kernels
     JSON gets one line per kernel, at one serving-path shape (the sm90
     kernel: gemma's global layer; the CUDA-core kernel: hymba's layer, the
-    one serving path it is on), the other shapes beside it."""
+    serving path it took until the sm90 kernel took width 64, kept as the
+    row's earlier time), the other shapes beside it (the sm90 kernel's
+    ``hymba_layer``)."""
     from repro_torch.kernels import flash_attention as fa
 
     def held(q, k, v, kw, what) -> dict:
@@ -1379,7 +1393,7 @@ def check_flash_attention(torch) -> list[dict]:
         f"(CUDA-core) max abs err {worst['f32_err']:.3e} (tol 2e-4 + 2e-4 |plain|); bf16 "
         f"against plain's f32, limit 2^-8 |plain| + 1e-5: CUDA-core kernel "
         f"{worst['flash_attention']['bf16_err']:.3e} ({worst['flash_attention']['bf16_share']:.3f}"
-        f" of the limit), sm90 kernel on the {sm90_cases} cases of head widths 128 and 256 "
+        f" of the limit), sm90 kernel on the {sm90_cases} cases of head widths 64, 128 and 256 "
         f"{worst['flash_attention_sm90']['bf16_err']:.3e} "
         f"({worst['flash_attention_sm90']['bf16_share']:.3f} of the limit)")
 
@@ -1390,7 +1404,8 @@ def check_flash_attention(torch) -> list[dict]:
               ("local", "gemma3-27b", 1024, None),
               ("vlm", "paligemma-3b", None, None),
               ("hybrid", "hymba-1.5b", 1024, "flash_attention"))
-    side_key = {"global": "gemma_global", "local": "local_window_1024", "vlm": "paligemma_layer"}
+    side_key = {"global": "gemma_global", "local": "local_window_1024", "vlm": "paligemma_layer",
+                "hybrid": "hymba_layer"}
     lines, sides = {}, {}
     for label, arch, window, line_of in shapes:
         q, k, v, kw = _flash_path_case(torch, gen, arch, window)
@@ -3597,10 +3612,10 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     broadcast again from NaN-filled replicas with the pinned pipelined
     chain and the compiled executor (fused_combine), replicas bit-equal to
     the root; last one profiled prefill of rank 0, counted apart. Every
-    prefill pass launches the CUDA-core flash kernel ``flash_per_pass``
-    times (each hybrid layer's attention: bf16 at head width 64, window
-    1024) and the sm90 one never. Launch counts are zeroed by the caller
-    right before."""
+    prefill pass launches the sm90 flash kernel ``flash_per_pass`` times
+    (each hybrid layer's attention: bf16 at head width 64, window 1024) and
+    the CUDA-core one never. Launch counts are zeroed by the caller right
+    before."""
     import numpy as np
 
     from repro_torch import kernels
@@ -3627,7 +3642,8 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     torch.cuda.synchronize()
     dist_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    assert counts["chunked_copy"] > 0 and counts["flash_attention"] == 0, counts
+    assert counts["chunked_copy"] > 0, counts
+    assert counts["flash_attention"] == counts["flash_attention_sm90"] == 0, counts
     assert replicas_equal(torch, engine.params, params), f"a {arch} replica differs"
     del params
     dist_peak = torch.cuda.max_memory_allocated()
@@ -3637,7 +3653,7 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     t0 = time.perf_counter()
     res = engine.generate({"tokens": tokens}, steps=STEPS)
     gen_s = time.perf_counter() - t0
-    cold = kernels.launch_counts()["flash_attention"]
+    cold = kernels.launch_counts()["flash_attention_sm90"]
     assert res.tokens.shape == (RANKS, STEPS) and res.logprobs.shape == (RANKS, STEPS)
     assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
     assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
@@ -3645,9 +3661,10 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     t_warm = time.perf_counter()
     prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
     warm_s = time.perf_counter() - t_warm
-    warm = kernels.launch_counts()["flash_attention"] - cold
+    warm = kernels.launch_counts()["flash_attention_sm90"] - cold
     assert warm == flash_per_pass * RANKS, warm
-    assert kernels.launch_counts()["flash_attention_sm90"] == 0, "a width-64 prefill took sm90"
+    assert kernels.launch_counts()["flash_attention"] == 0, "a bf16 width-64 prefill took the " \
+        "CUDA-core kernel"
     peak = torch.cuda.max_memory_allocated()
 
     for leaf in tree_leaves(engine.params):
@@ -3668,7 +3685,7 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
         "chunked_copy_launches": counts["chunked_copy"], "generate_s": gen_s,
         "prefill_ms_per_rank": prefill_s / RANKS * 1e3,
         "decode_tokens_per_s": RANKS * STEPS / decode_s, "max_memory_allocated": peak,
-        "flash_attention_launches": {"cold": cold, "warm": warm},
+        "flash_attention_sm90_launches": {"cold": cold, "warm": warm},
         "compiled_distribute_s": compiled_s, "compiled_fused_combine_launches": merges,
         "first_tokens": res.tokens[:, :4].tolist(),
     }
@@ -3677,14 +3694,18 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
         f"distribution {dist_s:.3f} s ({counts['chunked_copy']} chunked_copy launches, peak "
         f"{dist_peak / 2**30:.2f} GiB), generate {gen_s:.3f} s (cold, {RANKS} x {prompt} "
         f"tokens + {STEPS} steps); warm: prefill {out['prefill_ms_per_rank']:.2f} ms/rank, "
-        f"decode steps {out['decode_tokens_per_s']:.1f} tok/s; flash_attention launches "
-        f"{cold} cold + {warm} warm, flash_attention_sm90 0; peak {peak / 2**30:.2f} GiB; "
+        f"decode steps {out['decode_tokens_per_s']:.1f} tok/s; flash_attention_sm90 launches "
+        f"{cold} cold + {warm} warm, flash_attention 0; peak {peak / 2**30:.2f} GiB; "
         f"compiled pipelined chain from NaN replicas {compiled_s:.3f} s ({merges} "
         "fused_combine launches), replicas bit-equal")
     out["counts"] = kernels.launch_counts()  # the path's; the profiled prefill comes after
     t_prof = time.perf_counter()
     out["profile"] = profile_prefill(torch, engine, tokens, label=label, ranks=1)
     out["profile_s"] = time.perf_counter() - t_prof
+    if flash_per_pass:
+        log(f"{label}: flash device time of one profiled prefill "
+            f"{out['profile'][0]['flash_ms']:.3f} ms ({flash_per_pass} launches of the sm90 "
+            "kernel), beside 52 ms when the CUDA-core kernel took width 64 (PERF.md §5)")
     out["warm_s"], out["phase_s"] = warm_s, time.perf_counter() - t_start
     log(f"{label}: phase {out['phase_s']:.1f} s, of which generate {gen_s:.1f}, warm re-run "
         f"{warm_s:.1f}, profiled prefill {out['profile_s']:.1f}")
@@ -3913,7 +3934,7 @@ def main() -> int:
     # (phase 10b: its two prefills, the transports through the compiled and
     # the in-kernel executor); the merge, the in-kernel replay, the staging
     # copy and the quantize pair on the fault runtime (phase 11); the merge,
-    # the staging copy on both phase-12 serving paths, and the CUDA-core flash
+    # the staging copy on both phase-12 serving paths, and the sm90 flash
     # kernel on the hybrid one (hymba-1.5b's prefill, bf16 at width 64); mix and
     # scaled_add are on no path of either package, and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
@@ -3929,8 +3950,8 @@ def main() -> int:
              "inkernel_replay": (),
              "inkernel_rdma": ("faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
-             "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm"),
-             "flash_attention": ("reference_long", "serve_hybrid"),
+             "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm", "serve_hybrid"),
+             "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
               "train_moe": train_moe_counts, "train_vlm": train_vlm_counts,
@@ -3942,7 +3963,7 @@ def main() -> int:
               "serve_recurrent": recurrent_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
-    assert hybrid_counts["flash_attention_sm90"] == 0, hybrid_counts
+    assert hybrid_counts["flash_attention"] == 0, hybrid_counts
     assert recurrent_counts["flash_attention"] == recurrent_counts["flash_attention_sm90"] == 0
     for line in lines:
         if not paths[line["name"]]:

@@ -1,7 +1,8 @@
 // Blocked online-softmax attention, forward, on CUDA cores: the route of
-// every call that flash_attention_sm90.cu (bf16, head width 128) does not
-// take, that is f32 (phase 5's smoke models) and head widths 16, 32, 64
-// and 256 (PaliGemma's) in either dtype. It takes 16, 32, 64, 128 and 256.
+// every call that flash_attention_sm90.cu (bf16, head widths 64, 128 and
+// 256) does not take, that is f32 at every width (phase 5's smoke models,
+// the f32 smoke configs' prefill) and bf16 at head widths 16 and 32. It
+// takes 16, 32, 64, 128 and 256 in either dtype.
 //
 // Replaces: src/repro/kernels/flash_attention.py:102 flash_attention (its
 //   pallas_call at :141; the body is _kernel, :38-95). q (B, T, H, hd),

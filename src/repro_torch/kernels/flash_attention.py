@@ -3,9 +3,9 @@
 Replaces the reference's Pallas ``flash_attention``
 (``src/repro/kernels/flash_attention.py:102``) with two hand-written
 kernels, each with its design note in its source: ``csrc/flash_attention_sm90.cu``
-(bf16 ``wgmma`` and TMA, head widths 128 and 256, one instantiation each) and
-``csrc/flash_attention.cu`` (f32 FMAs on CUDA cores, f32 or bf16, head widths
-16 to 128 and 256: the route of f32 and of widths 16 to 64).
+(bf16 ``wgmma`` and TMA, head widths 64, 128 and 256, one instantiation each)
+and ``csrc/flash_attention.cu`` (f32 FMAs on CUDA cores, f32 or bf16, head
+widths 16 to 128 and 256: the route of f32 and of bf16 at widths 16 and 32).
 :func:`kernel_route` picks one by dtype and head width alone. Same signature
 as the reference's ``kernels/ops.py::flash_attention``: q ``(B, T, H, hd)``, k/v
 ``(B, S, KV, hd)`` with ``H % KV == 0``, causal / sliding-window /
@@ -36,7 +36,7 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the CUDA-core kernel's
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the sm90 kernel's own (query rows, keys) per tile, by head width: 64-key
 # tiles at 256 leave registers for O's 64 x 256 f32 accumulator
-SM90_TILES = {128: (128, 128), 256: (128, 64)}
+SM90_TILES = {64: (128, 128), 128: (128, 128), 256: (128, 64)}
 SM90_HEAD_DIMS = tuple(SM90_TILES)
 
 
@@ -231,7 +231,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
               bk: int = 128) -> torch.Tensor:
     """The CUDA-core kernel (``csrc/flash_attention.cu``): f32 or bf16,
     head widths 16, 32, 64, 128 and 256. The route of every call that the
-    sm90 kernel does not take."""
+    sm90 kernel does not take: f32 at every width, bf16 at 16 and 32."""
     bq, bk = _checked(q, k, v, bq, bk, window, _KERNEL_DTYPES, _KERNEL_HEAD_DIMS,
                       "flash_attention")
     fn = _build.load("flash_attention").repro_flash_attention
@@ -249,7 +249,7 @@ def flash_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
                window: Optional[int] = None, prefix: int = 0, bq: int = 128,
                bk: int = 128) -> torch.Tensor:
     """The Hopper kernel (``csrc/flash_attention_sm90.cu``): bf16, head
-    widths 128 and 256, q, k and v 16-byte aligned (TMA's rule)."""
+    widths 64, 128 and 256, q, k and v 16-byte aligned (TMA's rule)."""
     bq, bk = _checked(q, k, v, bq, bk, window, (torch.bfloat16,), SM90_HEAD_DIMS,
                       "flash_attention_sm90")
     if any(t.data_ptr() % 16 for t in (q, k, v)):

@@ -19,8 +19,8 @@ from repro_torch.kernels import flash_attention as fa
 torch.set_num_threads(1)
 
 # B, T, S, H, KV, hd, causal, window, prefix, bq, bk: the reference's cases
-# (tests/test_kernels.py), then tile skipping, partial tiles, head widths 128
-# and 256
+# (tests/test_kernels.py), then tile skipping, partial tiles, head widths 128,
+# 256 and 64
 CASES = [
     (2, 128, 128, 4, 2, 32, True, None, 0, 64, 64),
     (1, 256, 256, 4, 1, 64, True, 64, 0, 64, 64),
@@ -42,10 +42,19 @@ CASES = [
     (1, 96, 96, 4, 2, 256, True, 40, 0, 32, 32),
     (1, 384, 384, 2, 1, 256, True, 100, 48, 64, 32),
     (1, 512, 512, 4, 1, 256, True, None, 256, 256, 128),
+    # head width 64 on 128 x 128 kernel tiles: an odd group (hymba-1.5b's
+    # 25 / 5 has a group of 5), a window with a prefix, partial row and key
+    # tiles under caller tiles below 128, window 0, a window over an odd group
+    (1, 256, 256, 10, 2, 64, True, None, 0, 128, 128),
+    (1, 384, 384, 2, 1, 64, True, 100, 48, 64, 32),
+    (1, 200, 200, 5, 1, 64, True, None, 0, 40, 40),
+    (1, 256, 256, 2, 2, 64, False, 0, 0, 64, 64),
+    (1, 512, 512, 5, 1, 64, True, 128, 0, 128, 128),
 ]
 # the serving paths at 4096 positions: a gemma3-27b layer's prefill (caller
-# tiles 128 x 128, the kernel's own) and a paligemma-3b layer's (the prefix of
-# 256 under caller tiles 256 x 128, kernel tiles 128 x 64):
+# tiles 128 x 128, the kernel's own), a paligemma-3b layer's (the prefix of
+# 256 under caller tiles 256 x 128, kernel tiles 128 x 64) and a hymba-1.5b
+# layer's (width 64, window 1024, tiles 128 x 128):
 # (hd, window, prefix, bq, bk, kernel tiles kept, kernel tiles of class 2)
 PATH = [
     (128, None, 0, 128, 128, 528, 32),
@@ -58,6 +67,10 @@ PATH = [
     # Class 2: none at A = 0, 1; from A = 2 on, 4 (keys 4 (A // 2) .. +3) at
     # an even A and 2 at an odd one: 15 x 4 + 15 x 2 = 90.
     (256, None, 256, 256, 128, 1088, 90),
+    # q tile A keeps k tiles A - 8 .. A: 1 + 2 + ... + 8 over A < 8, 9 a row
+    # after, 36 + 24 x 9 = 252; class 2 the diagonal (32) and the window's far
+    # edge (24), as at width 128
+    (64, 1024, 0, 128, 128, 252, 32 + 24),
 ]
 LIMIT_REL, LIMIT_ABS = 2.0**-8, 1e-5  # chip_smoke.py's bf16 limit: one bf16 rounding
 
@@ -126,7 +139,8 @@ def test_route_picks_the_kernel_by_dtype_and_head_width(monkeypatch):
     """Read without a launch: the route of CUDA (here: meta) tensors, and no
     fallback from either kernel's wrapper."""
     want = {(torch.bfloat16, 128): "flash_attention_sm90", (torch.float32, 128): "flash_attention",
-            (torch.bfloat16, 64): "flash_attention", (torch.bfloat16, 32): "flash_attention",
+            (torch.bfloat16, 64): "flash_attention_sm90", (torch.float32, 64): "flash_attention",
+            (torch.bfloat16, 32): "flash_attention",
             (torch.float32, 16): "flash_attention", (torch.float16, 128): "flash_attention",
             (torch.bfloat16, 256): "flash_attention_sm90", (torch.float32, 256): "flash_attention",
             (torch.float16, 256): "flash_attention"}
@@ -152,7 +166,7 @@ def test_route_picks_the_kernel_by_dtype_and_head_width(monkeypatch):
 def _emulate_sm90(q, k, v, *, causal=True, window=None, prefix=0, bq=128, bk=128,
                   p_terms="two"):
     """The sm90 kernel's arithmetic on the CPU: its tiles at this head width
-    (128 x 128, or 128 x 64 at width 256) walked with tile_classes, S = q k^T
+    (128 x 128 at widths 64 and 128, 128 x 64 at 256) walked with tile_classes, S = q k^T
     in f32 with the scale after the dot, class 1 unmasked, class 2 with the
     reference's element rule (-inf outside a kept caller tile and past S,
     -1e30 where masked), the online softmax with the row sum from the f32 p,
@@ -223,9 +237,10 @@ def test_emulated_kernel_processes_the_plain_versions_pairs(case):
 
 def test_emulated_kernel_matches_reference_kernel():
     """One case at each of the kernel's head widths (128 x 128 tiles, then
-    128 x 64 at width 256) straight against the reference's Pallas kernel
-    (interpret mode), at the reference test's f32 tolerance."""
-    for i in (9, 16):
+    128 x 64 at width 256, then width 64's odd group) straight against the
+    reference's Pallas kernel (interpret mode), at the reference test's f32
+    tolerance."""
+    for i in (9, 16, 18):
         B, T, S, H, KV, hd, causal, window, prefix, bq, bk = CASES[i]
         kw = dict(causal=causal, window=window, prefix=prefix, bq=bq, bk=bk)
         q, k, v = _inputs((B, T, H, hd), (B, S, KV, hd), i, torch.float32)
@@ -234,15 +249,16 @@ def test_emulated_kernel_matches_reference_kernel():
                                    np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_p_in_two_bf16_terms_keeps_the_bf16_limit(seed):
+@pytest.mark.parametrize("seed, hd", [(0, 128), (1, 128), (2, 128), (3, 64)],
+                         ids=["0", "1", "2", "64-3"])
+def test_p_in_two_bf16_terms_keeps_the_bf16_limit(seed, hd):
     """Why P V takes p as p_hi + p_lo: the bf16 output is held within one
     bf16 rounding of the plain version's f32 result (2^-8 |plain| + 1e-5),
     which the output's own rounding nearly fills. Two bf16 terms carry p to
     about 2^-17 and stay within the limit, as f32 p does; a single bf16
     rounding of p adds an error of the output rounding's order and exceeds
-    it many times over. Causal, T 1024, head width 128."""
-    q, k, v = _inputs((1, 1024, 2, 128), (1, 1024, 1, 128), seed, torch.bfloat16)
+    it many times over. Causal, T 1024, head widths 128 and 64."""
+    q, k, v = _inputs((1, 1024, 2, hd), (1, 1024, 1, hd), seed, torch.bfloat16)
     want = fa.flash_attention_plain(q.float(), k.float(), v.float())
     share = {t: _bf16_share(_emulate_sm90(q, k, v, p_terms=t), want)
              for t in ("two", "f32", "one")}

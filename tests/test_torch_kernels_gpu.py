@@ -333,13 +333,18 @@ def _flash_inputs(case, dt, seed):
     (1, 80, 80, 2, 1, 256, True, None, 0, 16, 16),
     (1, 384, 384, 2, 1, 256, True, 100, 48, 64, 32),
     (1, 512, 512, 4, 1, 256, True, None, 256, 256, 128),
+    # head width 64 (both kernels): an odd group with a window, partial row
+    # and key tiles under caller tiles below 128, window 0
+    (1, 512, 512, 10, 2, 64, True, 128, 0, 128, 128),
+    (1, 200, 200, 5, 1, 64, True, None, 0, 40, 40),
+    (1, 256, 256, 2, 2, 64, False, 0, 0, 64, 64),
 ])
 def test_flash_attention_matches_plain(kernel, dt, case):
     """Each kernel: one launch per call on its own counter, and within the
     tolerances of the plain version's f32 result (the kernels sum in another
     order): f32 as the reference's test, 2e-4; bf16 within one bf16
-    rounding, 2^-8 |plain| + 1e-5. The sm90 kernel takes widths 128 and 256
-    and refuses 16-64."""
+    rounding, 2^-8 |plain| + 1e-5. The sm90 kernel takes widths 64, 128 and
+    256 and refuses 16 and 32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch import kernels
@@ -387,6 +392,37 @@ def test_flash_sm90_at_the_serving_path_shape(window):
     assert counts["flash_attention_sm90"] == 1 and counts["flash_attention"] == 0
     want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     assert float(((got.float() - want).abs() / (2**-8 * want.abs() + 1e-5)).max()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_flash_sm90_at_the_hybrid_path_shape():
+    """A hymba-1.5b layer's prefill at 4096 tokens (phase 12a of
+    chip_smoke.py): q (1, 4096, 25, 64) over 5 kv heads (a group of 5),
+    window 1024, caller tiles 128 x 128. One launch of the sm90 kernel and
+    none of the CUDA-core one, within one bf16 rounding of the plain
+    version's f32 result; a misaligned or a non-contiguous input raises and
+    launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_inputs((1, 4096, 4096, 25, 5, 64), torch.bfloat16, 5)
+    kw = dict(causal=True, window=1024, prefix=0, bq=128, bk=128)
+    kernels.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, **kw)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_sm90"] == 1 and counts["flash_attention"] == 0, counts
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert float(((got.float() - want).abs() / (2**-8 * want.abs() + 1e-5)).max()) <= 1.0
+    misaligned = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")[1:1 + q.numel()]
+    misaligned = misaligned.view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(misaligned, k, v, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, **kw)
+    after = kernels.launch_counts()
+    assert after["flash_attention_sm90"] == 1 and after["flash_attention"] == 0, after
 
 
 @pytest.mark.gpu
