@@ -44,7 +44,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    layer: head width 256, a prefix of 256 under query tiles of 256) and at
    phase 12a's (a hymba-1.5b layer: 25 / 5 heads of 64, window 1024: both
    kernels timed, the sm90 one with its TFLOP/s and its share of the
-   bound), with
+   bound) and at phase 13b's (a qwen1.5-32b layer: 40 / 40 heads of 128,
+   causal and global: a group of 1), with
    the flops bound and one scaled_dot_product_attention call (its kernel
    named) as yardstick; mix and scaled_add (on no path of either package)
    at the embedding's flat size.
@@ -209,6 +210,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the sm90 flash kernel 32 times (bf16, head width 64) and the CUDA-core
    one never; xlstm launches neither. (c) hymba-1.5b-smoke and
    xlstm-350m-smoke in f32, card against CPU.
+13. encoder-decoder and MHA serving, as phase 12 serves: (a) whisper-large-v3
+   at full width and depth (32 encoder and 32 decoder layers, d_model 1280,
+   20 heads of 64, QKV biases) with one 30-second segment (1500 stub frames
+   from the port's ``batches``) and a 4-token prompt a rank: the encoder
+   in train mode, bidirectional, then the decoder with cross attention; no
+   flash launch (every attention under 4096 keys); one cross K/V pair a
+   decoder layer in the caches, which decode hands back uncopied. (b)
+   qwen1.5-32b at full width (MHA_LAYERS of 64 layers, 40 / 40 heads of
+   128, QKV biases, d_ff 27392; the phase's peak under 70 GiB, asserted)
+   with one 4096-token prompt a rank: each
+   layer's prefill through the sm90 flash kernel at a group of 1, none of
+   the CUDA-core one; then rank 0's request prefilled again and decoded
+   32 steps over an f8 cache of 8192 slots (every step of every layer the
+   head-blocked softmax, counted) and over a bf16 cache, peaks and decode
+   ms printed; the head-blocked softmax at layer 0's f8 cache against
+   ``_sdpa`` over the cast cache within one bf16 step. (c)
+   whisper-large-v3-smoke and qwen1.5-32b-smoke (and its MHA variant) in
+   f32 with nonzero QKV biases, card against CPU.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -222,8 +241,9 @@ training path), phase 6v (the vision-prefix training path), phase 7 (the
 collective entry points), phase 7b (the algorithms), phase 8's interleave
 (the stream path), phase 8b (the tree variants), phase 9 (the online
 tuner), phase 10 (the MoE serving path), phase 10b (the expert-parallel
-path), phase 11 (the fault runtime) and phases 12a and 12b (the hybrid and
-the recurrent serving paths);
+path), phase 11 (the fault runtime), phases 12a and 12b (the hybrid and
+the recurrent serving paths) and phases 13a and 13b (the encoder-decoder
+and the MHA serving paths);
 the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
@@ -348,6 +368,15 @@ FAULT_DEAD = 1  # phase 11: the rank reported dead
 # phase 12: one prompt a rank, hymba-1.5b's of 4096 tokens (past its window
 # of 1024: the long-prompt route), xlstm-350m's of its training context
 HYBRID_PROMPT, RECURRENT_PROMPT = 4096, 2048
+# phase 13: whisper-large-v3 at full width and depth, one 30-second segment
+# (1500 stub frames) and a 4-token prompt a rank; qwen1.5-32b at full width,
+# MHA_LAYERS of 64 layers, one 4096-token prompt a rank, then decode over an
+# f8 cache of F8_MAX_LEN slots. The depth is the deepest whose phase peak
+# stays under 70 GiB: the staged distribution holds the root's weights, 4
+# replicas and the rank-stacked buckets in flight, each MLP matrix of every
+# layer a bucket of 4 x 0.28 GB a layer; 8 layers peaked at 71.70 GiB
+# (PERF.md §4)
+ENCDEC_PROMPT, MHA_PROMPT, MHA_LAYERS, F8_MAX_LEN = 4, 4096, 7, 8192
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -1261,8 +1290,8 @@ def check_trap(torch) -> float:
 def _flash_path_case(torch, gen, arch: str, window):
     """q, k, v of one layer's prefill at 4096 positions: a gemma3-27b layer
     (phase 4c), a paligemma-3b layer with its prefix of 256 stub patches
-    under the query tiles its prefill passes (phase 4d), or a hymba-1.5b
-    layer (phase 12a)."""
+    under the query tiles its prefill passes (phase 4d), a hymba-1.5b
+    layer (phase 12a) or a qwen1.5-32b layer (phase 13b)."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import prefill_tiles
 
@@ -1324,7 +1353,9 @@ def check_flash_attention(torch) -> list[dict]:
     global layer and a local one, window 1024) and the phase 4d shape (a
     paligemma-3b layer: 8 query heads and 1 kv head of 256, the prefix of
     256 under query tiles of 256) and the phase 12a shape (a hymba-1.5b
-    layer: 25 query heads and 5 kv heads of 64, a group of 5, window 1024).
+    layer: 25 query heads and 5 kv heads of 64, a group of 5, window 1024)
+    and the phase 13b shape (a qwen1.5-32b layer: 40 query and 40 kv heads
+    of 128, a group of 1, causal and global).
     Every case goes through the CUDA-core
     kernel in f32 and bf16 and, where its head width is 64, 128 or 256,
     through the sm90 kernel in bf16, which must refuse widths 16 and 32;
@@ -1403,9 +1434,10 @@ def check_flash_attention(torch) -> list[dict]:
     shapes = (("global", "gemma3-27b", None, "flash_attention_sm90"),
               ("local", "gemma3-27b", 1024, None),
               ("vlm", "paligemma-3b", None, None),
-              ("hybrid", "hymba-1.5b", 1024, "flash_attention"))
+              ("hybrid", "hymba-1.5b", 1024, "flash_attention"),
+              ("mha", "qwen1.5-32b", None, None))
     side_key = {"global": "gemma_global", "local": "local_window_1024", "vlm": "paligemma_layer",
-                "hybrid": "hymba_layer"}
+                "hybrid": "hymba_layer", "mha": "qwen_layer"}
     lines, sides = {}, {}
     for label, arch, window, line_of in shapes:
         q, k, v, kw = _flash_path_case(torch, gen, arch, window)
@@ -1606,11 +1638,11 @@ def time_prefill_decode(torch, engine, tokens, steps: int, embeds=None) -> tuple
 
 def _kernel_class(name: str) -> str:
     """A device kernel's class by its name: the flash kernels, matmuls
-    (cuBLAS and CUTLASS GEMMs), PyTorch's element-wise kernels, or other
-    (reductions, copies, concatenations)."""
+    (cuBLAS and CUTLASS GEMMs, cuBLAS's ``nvjet`` ones included), PyTorch's
+    element-wise kernels, or other (reductions, copies, concatenations)."""
     if "flash_fwd" in name:
         return "flash"
-    if any(s in name for s in ("gemm", "Gemm", "cutlass", "xmma", "gemv", "cublas")):
+    if any(s in name for s in ("gemm", "Gemm", "cutlass", "xmma", "gemv", "cublas", "nvjet")):
         return "matmul"
     return "elementwise" if "elementwise" in name else "other"
 
@@ -3600,10 +3632,13 @@ def small_vlm_reference(torch) -> float:
     return max(errs)
 
 
-def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int) -> dict:
-    """Phase 12a (hymba-1.5b) or 12b (xlstm-350m): the config at full width
-    and depth (bf16 weights, their f32 leaves in f32, seeded random)
-    distributed to 4 emulated ranks as phase 3 distributes
+def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int, *,
+                 layers: int | None = None, flash_note: str = "", after=None) -> dict:
+    """Phase 12a (hymba-1.5b), 12b (xlstm-350m), 13a (whisper-large-v3) or
+    13b (qwen1.5-32b, ``layers`` of its 64): the config at full width
+    and depth (bf16 weights, their f32 leaves in f32, seeded random; an
+    encoder-decoder's requests each one 30-second segment of stub frames
+    from the port's ``batches``) distributed to 4 emulated ranks as phase 3 distributes
     (``Engine(distribute=True, double_buffer=True)``: each bucket staged
     through chunked_copy), replicas bit-equal to the weights; ``generate``
     of batch 4 (one ``prompt``-token request a rank) and 32 decode steps,
@@ -3611,16 +3646,19 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     timing prefill and decode apart; then, as phase 10 does, the weights
     broadcast again from NaN-filled replicas with the pinned pipelined
     chain and the compiled executor (fused_combine), replicas bit-equal to
-    the root; last one profiled prefill of rank 0, counted apart. Every
-    prefill pass launches the sm90 flash kernel ``flash_per_pass`` times
-    (each hybrid layer's attention: bf16 at head width 64, window 1024) and
-    the CUDA-core one never. Launch counts are zeroed by the caller right
-    before."""
+    the root; then ``after(engine, tokens, embeds)``, whose dict joins the
+    result; last one profiled prefill of rank 0, counted apart (its flash
+    device ms printed beside ``flash_note``). Every prefill pass launches
+    the sm90 flash kernel ``flash_per_pass`` times (hymba's: each layer's
+    windowed attention at bf16 width 64; qwen's: each layer's at width 128)
+    and the CUDA-core one never. Launch counts are zeroed by the caller right
+    before; ``after`` reads them first."""
     import numpy as np
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import batches, make_source
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import Model
     from repro_torch.serve import Engine, distribute_weights
@@ -3628,6 +3666,8 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     assert not torch.backends.cuda.matmul.allow_tf32  # the f32 projections stay f32
     t_start = time.perf_counter()
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params = Model(cfg).init(seed=0, device="cuda")
     leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
@@ -3650,8 +3690,13 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
 
     rng = np.random.RandomState(12)
     tokens = rng.randint(0, cfg.vocab_size - 1, size=(RANKS, prompt))
+    embeds = None
+    if cfg.arch_type == "encdec":
+        embeds = next(batches(make_source(cfg, seed=13), cfg, batch=RANKS, seq=prompt,
+                              device="cuda"))["embeds"]
+        assert tuple(embeds.shape) == (RANKS, cfg.frontend_len, cfg.d_model)
     t0 = time.perf_counter()
-    res = engine.generate({"tokens": tokens}, steps=STEPS)
+    res = engine.generate({"tokens": tokens, "embeds": embeds}, steps=STEPS)
     gen_s = time.perf_counter() - t0
     cold = kernels.launch_counts()["flash_attention_sm90"]
     assert res.tokens.shape == (RANKS, STEPS) and res.logprobs.shape == (RANKS, STEPS)
@@ -3659,13 +3704,12 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
     assert cold == flash_per_pass * RANKS, cold
     t_warm = time.perf_counter()
-    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS, embeds)
     warm_s = time.perf_counter() - t_warm
     warm = kernels.launch_counts()["flash_attention_sm90"] - cold
     assert warm == flash_per_pass * RANKS, warm
-    assert kernels.launch_counts()["flash_attention"] == 0, "a bf16 width-64 prefill took the " \
+    assert kernels.launch_counts()["flash_attention"] == 0, "a bf16 prefill took the " \
         "CUDA-core kernel"
-    peak = torch.cuda.max_memory_allocated()
 
     for leaf in tree_leaves(engine.params):
         leaf[1:].fill_(float("nan"))
@@ -3679,6 +3723,7 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     merges = kernels.launch_counts()["fused_combine"] - before["fused_combine"]
     assert merges > 0, merges
     assert replicas_equal(torch, engine.params), f"compiled {arch} replicas differ from the root"
+    peak = torch.cuda.max_memory_allocated()  # the phase's, from the distribution on
     out = {
         "params": n_params, "replica_bytes": replica_bytes, "f32_bytes": f32_bytes,
         "layers": cfg.num_layers, "distribute_s": dist_s, "distribute_peak": dist_peak,
@@ -3689,23 +3734,28 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
         "compiled_distribute_s": compiled_s, "compiled_fused_combine_launches": merges,
         "first_tokens": res.tokens[:, :4].tolist(),
     }
-    log(f"{label}: {arch} {cfg.num_layers} layers, {n_params} params "
+    frames = "" if embeds is None else f" and {cfg.frontend_len} frames"
+    enc = f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else ""
+    log(f"{label}: {arch} {cfg.num_layers} of {get_config(arch).num_layers} layers{enc}, "
+        f"{n_params} params "
         f"({replica_bytes / 1e9:.2f} GB a replica, {f32_bytes / 1e9:.2f} GB of it f32), "
         f"distribution {dist_s:.3f} s ({counts['chunked_copy']} chunked_copy launches, peak "
         f"{dist_peak / 2**30:.2f} GiB), generate {gen_s:.3f} s (cold, {RANKS} x {prompt} "
-        f"tokens + {STEPS} steps); warm: prefill {out['prefill_ms_per_rank']:.2f} ms/rank, "
+        f"tokens{frames} + {STEPS} steps); warm: prefill {out['prefill_ms_per_rank']:.2f} ms/rank, "
         f"decode steps {out['decode_tokens_per_s']:.1f} tok/s; flash_attention_sm90 launches "
-        f"{cold} cold + {warm} warm, flash_attention 0; peak {peak / 2**30:.2f} GiB; "
-        f"compiled pipelined chain from NaN replicas {compiled_s:.3f} s ({merges} "
-        "fused_combine launches), replicas bit-equal")
+        f"{cold} cold + {warm} warm, flash_attention 0; compiled pipelined chain from NaN "
+        f"replicas {compiled_s:.3f} s ({merges} fused_combine launches), replicas bit-equal; "
+        f"phase peak {peak / 2**30:.2f} GiB")
     out["counts"] = kernels.launch_counts()  # the path's; the profiled prefill comes after
+    if after is not None:
+        out.update(after(engine, tokens, embeds))
     t_prof = time.perf_counter()
-    out["profile"] = profile_prefill(torch, engine, tokens, label=label, ranks=1)
+    out["profile"] = profile_prefill(torch, engine, tokens, embeds=embeds, label=label, ranks=1)
     out["profile_s"] = time.perf_counter() - t_prof
     if flash_per_pass:
         log(f"{label}: flash device time of one profiled prefill "
             f"{out['profile'][0]['flash_ms']:.3f} ms ({flash_per_pass} launches of the sm90 "
-            "kernel), beside 52 ms when the CUDA-core kernel took width 64 (PERF.md §5)")
+            f"kernel){flash_note}")
     out["warm_s"], out["phase_s"] = warm_s, time.perf_counter() - t_start
     log(f"{label}: phase {out['phase_s']:.1f} s, of which generate {gen_s:.1f}, warm re-run "
         f"{warm_s:.1f}, profiled prefill {out['profile_s']:.1f}")
@@ -3713,6 +3763,210 @@ def serve_family(torch, arch: str, prompt: int, label: str, flash_per_pass: int)
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def cross_caches(torch, engine, tokens, embeds) -> dict:
+    """Phase 13a's check of the caches, rank 0's request: one ``cross``
+    key and value pair a decoder layer (stacked over the layers, one
+    segment of frames each, in the compute dtype), the self-attention
+    caches sized by the text alone (the frames take no position), and a
+    decode step that hands back the same cross tensors (no copy a step)."""
+    from repro_torch.core.tree import tree_leaves
+
+    cfg = engine.cfg
+    batch = _rank_batches(torch, tokens, embeds)[0]
+    T = tokens.shape[1]
+    shape = (cfg.frontend_len, cfg.num_kv_heads, cfg.head_dim)
+    with torch.no_grad():
+        logits, caches = engine.model.prefill(engine.replica(0), batch, max_len=T + STEPS)
+        crosses = [c["cross"] for c in caches["blocks"] + caches["tail"]]
+        pairs = sum(c["cross"]["k"].shape[0] for c in caches["blocks"]) + len(caches["tail"])
+        assert pairs == cfg.num_layers, pairs
+        for c in crosses:
+            for t in (c["k"], c["v"]):
+                assert tuple(t.shape[-3:]) == shape and t.dtype == torch.bfloat16, t.shape
+        assert all(tuple(c["attn"]["k"].shape[-3:-2]) == (T + STEPS,) for c in caches["blocks"])
+        ptrs = [t.data_ptr() for c in crosses for t in (c["k"], c["v"])]
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        _lg, caches = engine.model.decode_step(engine.replica(0), nxt, caches, T)
+        assert [t.data_ptr() for c in caches["blocks"] + caches["tail"]
+                for t in (c["cross"]["k"], c["cross"]["v"])] == ptrs, "decode copied the cross K/V"
+    cross_bytes = sum(t.numel() * t.element_size() for c in crosses for t in (c["k"], c["v"]))
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(caches))
+    log(f"serve encdec caches: {pairs} cross K/V pairs (one a decoder layer, "
+        f"{cfg.frontend_len} frames x {cfg.num_kv_heads} x {cfg.head_dim} bf16 each), "
+        f"{cross_bytes / 1e6:.1f} MB of the request's {cache_bytes / 1e6:.1f} MB of caches; "
+        f"self-attention caches of {T + STEPS} slots; decode hands back the same tensors")
+    return {"cross_pairs": pairs, "cross_bytes": cross_bytes, "cache_bytes": cache_bytes}
+
+
+def f8_decode(torch, engine, tokens, _embeds) -> dict:
+    """Phase 13b's narrow-cache decode, rank 0's request on its replica:
+    prefill and ``STEPS`` greedy decode steps at ``max_len`` F8_MAX_LEN with
+    ``kv_cache_dtype='float8_e5m2'`` (the reference's dry-run override),
+    every step of every layer through ``_decode_sdpa_headblocked`` (counted),
+    then the same with a bf16 cache; each run's peak GiB (and the decode
+    steps' own rise over the memory held before them), decode ms a step,
+    finite log-probs <= 0 and tokens in the vocab. Then at layer 0's real
+    f8 cache one decode query (seeded, bf16) through the head-blocked
+    softmax against ``_sdpa`` over the whole cache cast to bf16: within one
+    bf16 step, 2^-7 |sdpa| + 1e-5; each call timed (CUDA events) with the
+    memory it adds."""
+    import numpy as np
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import Model
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+
+    assert F8_MAX_LEN >= L.HEADBLOCKED_MIN_S
+    params = engine.replica(0)
+    batch = {"tokens": torch.as_tensor(tokens[:1], device="cuda")}
+    T = tokens.shape[1]
+    inner, calls = L._decode_sdpa_headblocked, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    runs, keep = {}, None
+    for kv in ("float8_e5m2", "bfloat16"):
+        cfg = dataclasses.replace(engine.cfg, kv_cache_dtype=kv)
+        model = Model(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        L._decode_sdpa_headblocked = counted
+        try:
+            with torch.no_grad():
+                logits, caches = model.prefill(params, batch, max_len=F8_MAX_LEN)
+                cur = logits[:, -1]
+                del logits
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                prefill_peak = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                calls[0] = 0
+                toks, lps = [], []
+                t0 = time.perf_counter()
+                for i in range(STEPS):
+                    nxt = torch.argmax(cur, dim=-1)
+                    lps.append(torch.log_softmax(cur, dim=-1).gather(1, nxt[:, None])[:, 0])
+                    toks.append(nxt)
+                    logits, caches = model.decode_step(params, nxt[:, None], caches, T + i)
+                    cur = logits[:, 0]
+                torch.cuda.synchronize()
+                decode_s = time.perf_counter() - t0
+        finally:
+            L._decode_sdpa_headblocked = inner
+        decode_peak = torch.cuda.max_memory_allocated()
+        toks = torch.stack(toks, dim=1).cpu().numpy()
+        lps = torch.stack(lps, dim=1).float().cpu().numpy()
+        assert ((toks >= 0) & (toks < cfg.padded_vocab)).all()
+        assert np.isfinite(lps).all() and (lps <= 0).all()
+        attn = caches["blocks"][0]["attn"]
+        assert attn["k"].dtype == getattr(torch, kv) and attn["k"].shape[2] == F8_MAX_LEN
+        want_calls = STEPS * cfg.num_layers if kv == "float8_e5m2" else 0
+        assert calls[0] == want_calls, (kv, calls[0], want_calls)
+        runs[kv] = {"peak": max(prefill_peak, decode_peak), "decode_rise": decode_peak - held,
+                    "cache_bytes": sum(t.numel() * t.element_size()
+                                       for t in tree_leaves(caches)),
+                    "decode_ms_per_step": decode_s / STEPS * 1e3, "headblocked_calls": calls[0],
+                    "first_tokens": toks[0, :4].tolist()}
+        if kv == "float8_e5m2":
+            keep = {key: attn[key][0] for key in ("k", "v", "pos")}
+        del caches, cur, attn
+
+    cfg = engine.cfg
+    spec = B.attn_spec_for(cfg, None)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((1, 1, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    mask = (keep["pos"] >= 0)[None, None, :]
+    k, v = keep["k"], keep["v"]
+    calls_mem = {}
+    for name, fn in (("headblocked", lambda: L._decode_sdpa_headblocked(q, k, v, mask, spec)),
+                     ("sdpa_cast", lambda: L._sdpa(q, k.to(q.dtype), v.to(q.dtype), mask, spec))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        calls_mem[name] = {"adds_bytes": torch.cuda.max_memory_allocated() - base,
+                           "ms": time_ms(torch, fn, reps=20)}
+    got, want = L._decode_sdpa_headblocked(q, k, v, mask, spec), L._sdpa(
+        q, k.to(q.dtype), v.to(q.dtype), mask, spec)
+    lim = 2.0**-7 * want.float().abs() + 1e-5
+    share = float(((got.float() - want.float()).abs() / lim).max())
+    same = float((bits(torch, got) == bits(torch, want)).float().mean())
+    assert share <= 1.0, share
+    f8, b16 = runs["float8_e5m2"], runs["bfloat16"]
+    log(f"serve mha f8 decode: rank 0, prefill {T} tokens then {STEPS} steps at max_len "
+        f"{F8_MAX_LEN}: f8 cache {f8['cache_bytes'] / 1e9:.3f} GB, peak "
+        f"{f8['peak'] / 2**30:.2f} GiB, decode rise {f8['decode_rise'] / 2**20:.1f} MiB, "
+        f"{f8['decode_ms_per_step']:.2f} ms a step, {f8['headblocked_calls']} head-blocked "
+        f"calls ({STEPS} steps x {cfg.num_layers} layers); bf16 cache "
+        f"{b16['cache_bytes'] / 1e9:.3f} GB, peak {b16['peak'] / 2**30:.2f} GiB, decode rise "
+        f"{b16['decode_rise'] / 2**20:.1f} MiB, {b16['decode_ms_per_step']:.2f} ms a step; "
+        f"log-probs finite <= 0, tokens in the vocab")
+    hb = min(8, cfg.num_kv_heads)  # _decode_sdpa_headblocked's block of kv heads
+    while cfg.num_kv_heads % hb:
+        hb -= 1
+    log(f"serve mha head-blocked check, layer 0's f8 cache ({int(mask.sum())} of {F8_MAX_LEN} "
+        f"slots, {cfg.num_kv_heads} kv heads in blocks of {hb}): against _sdpa over the cache "
+        f"cast to bf16 {share:.3f} of the limit 2^-7 |sdpa| + 1e-5 ({same:.1%} bit-equal); "
+        f"head-blocked {calls_mem['headblocked']['ms']:.4f} ms adding "
+        f"{calls_mem['headblocked']['adds_bytes'] / 2**20:.1f} MiB, cast + _sdpa "
+        f"{calls_mem['sdpa_cast']['ms']:.4f} ms adding "
+        f"{calls_mem['sdpa_cast']['adds_bytes'] / 2**20:.1f} MiB")
+    return {"f8_decode": runs, "headblocked_check": {"share_of_limit": share,
+                                                     "bit_equal_share": same, **calls_mem}}
+
+
+def encdec_mha_smoke_reference(torch) -> float:
+    """whisper-large-v3-smoke (16 stub frames from ``batches``) and
+    qwen1.5-32b-smoke, with its MHA variant (2 query and 2 kv heads), in
+    f32 with seeded nonzero QKV biases: prefill of 24 tokens and 2 decode
+    steps on the card against the CPU, logits within 1e-3 as phase 5 holds
+    the other smoke configs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+    from repro_torch.data.pipeline import batches, make_source
+    from repro_torch.models import Model
+
+    errs = {}
+    variants = (("whisper-large-v3", {}), ("qwen1.5-32b", {}), ("qwen1.5-32b", {"num_heads": 2}))
+    for i, (arch, extra) in enumerate(variants):
+        cfg = dataclasses.replace(get_config(f"{arch}-smoke"), dtype="float32",
+                                  kv_cache_dtype="float32", **extra)
+        model = Model(cfg)
+        cpu = model.init(seed=40 + i, device="cpu")
+        gen = torch.Generator().manual_seed(40 + i)
+        for path, t in zip(tree_paths(cpu), tree_leaves(cpu)):
+            if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
+        gpu = tree_map(lambda t: t.cuda(), cpu)
+        batch = next(batches(make_source(cfg, seed=40 + i), cfg, batch=2, seq=24))
+        batch.pop("labels")
+        on_card = {key: t.cuda() for key, t in batch.items()}
+        e = []
+        with torch.no_grad():
+            a, ca = model.prefill(cpu, batch, max_len=26)
+            b, cb = model.prefill(gpu, on_card, max_len=26)
+            e.append(float((a - b.cpu()).abs().max()))
+            nxt = torch.argmax(a[:, -1], dim=-1)[:, None]
+            for s in range(2):
+                a, ca = model.decode_step(cpu, nxt, ca, 24 + s)
+                b, cb = model.decode_step(gpu, nxt.cuda(), cb, 24 + s)
+                e.append(float((a - b.cpu()).abs().max()))
+                nxt = torch.argmax(a[:, 0], dim=-1)[:, None]
+        assert all(math.isfinite(v) and v < 1e-3 for v in e), (cfg.name, extra, e)
+        errs[f"{cfg.name}{'-mha' if extra else ''}"] = max(e)
+    log(f"reference: encoder-decoder and MHA smoke configs f32 (nonzero QKV biases), card vs "
+        f"CPU, max abs diff of prefill / decode logits "
+        f"{({k: '%.3e' % v for k, v in errs.items()})} (tol 1e-3)")
+    return max(errs.values())
 
 
 def family_smoke_reference(torch) -> float:
@@ -3910,7 +4164,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     hybrid = serve_family(torch, "hymba-1.5b", HYBRID_PROMPT, "serve hybrid",
-                          flash_per_pass=32)  # one attention a layer
+                          flash_per_pass=32,  # one attention a layer
+                          flash_note=", beside 52 ms when the CUDA-core kernel took width 64 "
+                                     "(PERF.md §5)")
     hybrid_counts = hybrid.pop("counts")
     kernels.reset_launch_counts()
     recurrent = serve_family(torch, "xlstm-350m", RECURRENT_PROMPT, "serve recurrent",
@@ -3918,6 +4174,18 @@ def main() -> int:
     recurrent_counts = recurrent.pop("counts")
     family_smoke_reference(torch)
     mark("recurrent and hybrid serving (12)")
+    kernels.reset_launch_counts()
+    encdec = serve_family(torch, "whisper-large-v3", ENCDEC_PROMPT, "serve encdec",
+                          flash_per_pass=0, after=lambda *a: cross_caches(torch, *a))
+    encdec_counts = encdec.pop("counts")
+    kernels.reset_launch_counts()
+    mha = serve_family(torch, "qwen1.5-32b", MHA_PROMPT, "serve mha",
+                       flash_per_pass=MHA_LAYERS, layers=MHA_LAYERS,  # one attention a layer
+                       after=lambda *a: f8_decode(torch, *a))
+    mha_counts = mha.pop("counts")
+    assert mha["max_memory_allocated"] < 70 * 2**30, "phase 13b's depth cut leaves 70 GiB"
+    encdec_mha_smoke_reference(torch)
+    mark("encoder-decoder and MHA serving (13)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
     # too) and the streams phase, the staging copy on the serving paths and
@@ -3934,23 +4202,27 @@ def main() -> int:
     # (phase 10b: its two prefills, the transports through the compiled and
     # the in-kernel executor); the merge, the in-kernel replay, the staging
     # copy and the quantize pair on the fault runtime (phase 11); the merge,
-    # the staging copy on both phase-12 serving paths, and the sm90 flash
-    # kernel on the hybrid one (hymba-1.5b's prefill, bf16 at width 64); mix and
+    # the staging copy on both phase-12 serving paths and both phase-13 ones,
+    # and the sm90 flash kernel on the hybrid one (hymba-1.5b's prefill, bf16
+    # at width 64) and the MHA one (qwen1.5-32b's, width 128, a group of 1;
+    # whisper's attention stays dense under 4096 keys); mix and
     # scaled_add are on no path of either package, and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("serve_hybrid", "serve_recurrent", "faults", "serve_moe", "moe_ep",
-                               "serve", "train", "train_moe", "train_vlm", "algorithms", "online",
-                               "streams"),
-             "chunked_copy": ("serve_hybrid", "serve_recurrent", "faults", "serve_moe", "serve",
-                              "serve_long", "serve_vlm", "trees", "streams"),
+    paths = {"fused_combine": ("serve_encdec", "serve_mha", "serve_hybrid", "serve_recurrent",
+                               "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
+                               "train_vlm", "algorithms", "online", "streams"),
+             "chunked_copy": ("serve_encdec", "serve_mha", "serve_hybrid", "serve_recurrent",
+                              "faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
+                              "streams"),
              "quantize_blocks": ("faults", "online", "train_moe", "train"),
              "dequantize_blocks": ("faults", "online", "train_moe", "train"),
              "inkernel_replay": (),
              "inkernel_rdma": ("faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
-             "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm", "serve_hybrid"),
+             "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
+                                      "serve_mha"),
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
     counts = {"serve": serve_counts, "serve_tuned": tuned_counts, "train": train_counts,
@@ -3960,11 +4232,14 @@ def main() -> int:
               "algorithms": algo_counts, "streams": stream_counts, "trees": tree_counts,
               "online": online_counts, "serve_moe": moe_serve_counts, "moe_ep": moe_ep_counts,
               "faults": fault_counts, "serve_hybrid": hybrid_counts,
-              "serve_recurrent": recurrent_counts}
+              "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
+              "serve_mha": mha_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     assert hybrid_counts["flash_attention"] == 0, hybrid_counts
     assert recurrent_counts["flash_attention"] == recurrent_counts["flash_attention_sm90"] == 0
+    assert encdec_counts["flash_attention"] == encdec_counts["flash_attention_sm90"] == 0
+    assert mha_counts["flash_attention"] == 0, mha_counts
     for line in lines:
         if not paths[line["name"]]:
             assert line["name"] in ("mix", "scaled_add", "inkernel_replay"), line["name"]
@@ -3990,6 +4265,8 @@ def main() -> int:
     log(f"faults numbers: {json.dumps(fault_rec)}")
     log(f"recurrent and hybrid numbers: "
         f"{json.dumps({'serve_hybrid': hybrid, 'serve_recurrent': recurrent})}")
+    log(f"encoder-decoder and MHA numbers: "
+        f"{json.dumps({'serve_encdec': encdec, 'serve_mha': mha})}")
     check_trap(torch)
     mark("trap check")
     log("phase ends, s from the build's start: "

@@ -7,8 +7,8 @@ Sources are numpy, so the port draws exactly the reference's tokens:
 
 Both produce global ``{"tokens", "labels"}`` batches (labels = next token)
 as int64 tensors on the requested device; a vision config's batches also
-hold the stub patch ``embeds``, the reference's values bit for bit. The
-audio frontend's frames wait for its model family (ROADMAP A.6).
+hold the stub patch ``embeds`` and an encoder-decoder's the stub frame
+``embeds``, the reference's values bit for bit.
 """
 from __future__ import annotations
 
@@ -65,18 +65,19 @@ def make_source(cfg, *, path: Optional[str] = None, seed: int = 0):
 def batches(source, cfg, *, batch: int, seq: int, start_step: int = 0,
             device="cpu") -> Iterator[dict]:
     """Yield global batches of ``seq`` text tokens on ``device``; for a
-    vision config also ``embeds`` (batch, prefix_len, d_model) in the
-    config's dtype, standard normal draws seeded with the step, as the
-    reference's stub frontend makes them."""
-    if cfg.frontend not in (None, "vision") or cfg.arch_type != "decoder":
-        raise NotImplementedError(f"{cfg.name}: the audio frontend's frames are ROADMAP A.6")
+    vision config also ``embeds`` (batch, prefix_len, d_model), for an
+    encoder-decoder ``embeds`` (batch, frontend_len, d_model), in the
+    config's dtype: standard normal draws seeded with the step, as the
+    reference's stub frontends make them."""
     step = start_step
     while True:
         toks = torch.from_numpy(source.batch(step, batch, seq)).long()
         out = {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
-        if cfg.frontend == "vision":
+        n_embeds = (cfg.prefix_len if cfg.frontend == "vision"
+                    else cfg.frontend_len if cfg.arch_type == "encdec" else None)
+        if n_embeds is not None:
             rng = np.random.RandomState(step % (2**31))
-            emb = rng.randn(batch, cfg.prefix_len, cfg.d_model).astype(np.float32)
+            emb = rng.randn(batch, n_embeds, cfg.d_model).astype(np.float32)
             out["embeds"] = torch.from_numpy(emb).to(device=device, dtype=getattr(torch, cfg.dtype))
         yield out
         step += 1

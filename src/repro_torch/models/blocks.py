@@ -8,8 +8,9 @@ Kinds:
   hybrid  parallel attention + mamba heads + MLP  (hymba)
 
 Caches are dicts whose structure depends on the kind: ``attn`` for the
-attention's, ``ssm`` for a recurrent state. Decode writes both into the
-caller's cache in place.
+attention's, ``ssm`` for a recurrent state, and ``cross`` for a whisper
+decoder block's cross-attention keys and values. Decode writes the first
+two into the caller's cache in place and reads the third.
 """
 from __future__ import annotations
 
@@ -55,15 +56,19 @@ def _check_kind(kind: str) -> None:
 
 
 def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
-               dtype=torch.bfloat16, lead: tuple = ()) -> dict:
-    """One block's parameters; ``lead`` stacks several layers' blocks."""
+               cross: bool = False, causal: bool = True, dtype=torch.bfloat16,
+               lead: tuple = ()) -> dict:
+    """One block's parameters; ``lead`` stacks several layers' blocks.
+    ``cross`` adds a whisper decoder block's ``norm_x`` and ``cross``
+    attention (with the config's QKV biases)."""
     _check_kind(kind)
     if kind == "moe" and not cfg.d_ff:
         raise ValueError("moe blocks need d_ff (expert width)")
     d = cfg.d_model
+    spec = attn_spec_for(cfg, window, causal)
     p = {"norm1": init_rms_norm(d, gen.device, lead)}
     if kind in _ATTN_KINDS:
-        p["attn"] = init_attention(gen, d, attn_spec_for(cfg, window), dtype, lead)
+        p["attn"] = init_attention(gen, d, spec, dtype, lead)
     if kind == "hybrid":
         p["ssm"] = ssm.init_mamba(gen, cfg, dtype, lead)
         p["mix_a"] = torch.ones(lead, dtype=torch.float32, device=gen.device)
@@ -78,6 +83,9 @@ def init_block(gen: torch.Generator, cfg, kind: str, window: Optional[int], *,
             p["moe"] = moe_lib.init_moe(gen, cfg, dtype, lead)
         else:
             p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, lead)
+    if cross:
+        p["norm_x"] = init_rms_norm(d, gen.device, lead)
+        p["cross"] = init_attention(gen, d, spec, dtype, lead)
     return p
 
 
@@ -130,8 +138,8 @@ def _mixer(p, h: torch.Tensor, cfg, kind: str, mode: str, cache: dict | None):
 
 def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
                 mode: str = "train", cache: dict | None = None, cur_pos: int | None = None,
-                max_len: int = 0, prefix_len: int = 0, positions=None, mesh=None,
-                transport=None):
+                max_len: int = 0, prefix_len: int = 0, positions=None, causal: bool = True,
+                cross_inputs: torch.Tensor | None = None, mesh=None, transport=None):
     """Returns (x, cache, aux): the cache is None in train mode, the
     prefill-built cache (attention grown to ``max_len``, the final
     recurrent state) or the decode cache with the new token appended and
@@ -143,9 +151,14 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
     ``transport`` (see :func:`.moe.moe_ffn`); None keeps the dense einsum
     formulation. A hybrid block runs attention and Mamba on the same normed
     input and mixes them with its 0-d f32 ``mix_a``/``mix_m`` in the
-    compute dtype."""
+    compute dtype. ``causal=False`` makes the self-attention bidirectional
+    (a whisper encoder block). A block with ``cross`` parameters attends
+    after its self-attention to the encoder's normed output
+    ``cross_inputs`` (B, frames, D) in train and prefill; prefill keeps
+    those keys and values (biases added) as ``cache['cross']``, which
+    decode reads and hands back, the same tensors."""
     _check_kind(kind)
-    spec = attn_spec_for(cfg, window)
+    spec = attn_spec_for(cfg, window, causal)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
@@ -165,6 +178,19 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
     else:
         y, new_cache["ssm"] = _mixer(p, h, cfg, kind, mode, cache)
     x = x + y
+    if "cross" in p:
+        cp = p["cross"]
+        if mode == "decode":
+            ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+            new_cache["cross"] = cache["cross"]
+        else:
+            ck = torch.einsum("bsd,dhk->bshk", cross_inputs, cp["wk"])
+            cv = torch.einsum("bsd,dhk->bshk", cross_inputs, cp["wv"])
+            if spec.qkv_bias:
+                ck, cv = ck + cp["bk"], cv + cp["bv"]
+            new_cache["cross"] = {"k": ck, "v": cv}
+        y, _ = attention(cp, rms_norm(p["norm_x"], x, cfg.norm_eps), spec, cross_kv=(ck, cv))
+        x = x + y
     if "mlp" in p:
         x = x + mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg.act)
     elif "moe" in p:

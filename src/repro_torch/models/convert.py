@@ -1,10 +1,11 @@
 """Carry the reference's parameters over to the port.
 
 The reference draws parameters with ``jax.random``, which the port cannot
-reproduce; tests hand its tree across as numpy arrays. bf16 arrives as an
-``ml_dtypes`` array that ``torch.from_numpy`` refuses, so it crosses as
-its raw 16-bit pattern: ``.view(np.int16)`` -> ``torch.from_numpy`` ->
-``.view(torch.bfloat16)``, bit for bit.
+reproduce; tests hand its tree across as numpy arrays. bf16 and the f8
+types arrive as ``ml_dtypes`` arrays that ``torch.from_numpy`` refuses, so
+they cross as their raw bit patterns: ``.view(np.int16)`` (or ``np.uint8``)
+-> ``torch.from_numpy`` -> ``.view(torch.bfloat16)`` (or the f8 type), bit
+for bit.
 """
 from __future__ import annotations
 
@@ -22,11 +23,18 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
     """One numpy (or numpy-convertible) array as a tensor of the same dtype
     and bits, in memory of its own (the port updates buffers in place)."""
     a = np.array(a, order="C")  # a writable copy of its own
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    else:
+    raw = _RAW.get(a.dtype.name)
+    if raw is None:
         t = torch.from_numpy(a)
+    else:
+        t = torch.from_numpy(a.view(raw[0])).view(raw[1])
     return t.to(device)
+
+
+# ml_dtypes types by name: the integer view that carries their bits, the torch dtype
+_RAW = {"bfloat16": (np.int16, torch.bfloat16),
+        "float8_e5m2": (np.uint8, torch.float8_e5m2),
+        "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:

@@ -1,6 +1,7 @@
-"""Shared model layers (dense path): norms, RoPE, GQA attention, SwiGLU MLP,
-embeddings. Plain functions over dicts of tensors, in the reference's
-layouts so both packages are compared like with like.
+"""Shared model layers (dense path): norms, RoPE, GQA attention (windowed,
+prefix-LM, cross), SwiGLU MLP, dense, embeddings. Plain functions over
+dicts of tensors, in the reference's layouts so both packages are compared
+like with like.
 
 Conventions:
   * activations ``(B, T, D)``; attention heads ``(B, T, H, hd)``.
@@ -27,6 +28,8 @@ __all__ = [
     "rms_norm",
     "init_rms_norm",
     "rope",
+    "init_dense",
+    "dense",
     "init_attention",
     "attention",
     "init_attn_cache",
@@ -75,6 +78,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense
+# ---------------------------------------------------------------------------
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, bias: bool = False,
+               dtype=torch.bfloat16) -> dict:
+    p = {"w": _norm_init(gen, (d_in, d_out), d_in**-0.5, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def dense(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -243,13 +266,26 @@ def attention(
     prefix_len: int = 0,
     cache: dict | None = None,
     cur_pos: int | None = None,    # absolute position of the new token
+    cross_kv: tuple | None = None,  # (k, v) (B, S, KV, hd): cross attention
 ):
     """Returns (out, cache): None in train mode, the prefill-built cache, or
     ``cache`` with the new token appended in place. ``positions``
     (broadcastable to (B, T)) rotate q and k in train and prefill in place
     of ``0..T-1``, as the reference's do; the mask and the cache's slots
-    keep ``0..T-1``."""
+    keep ``0..T-1``.
+
+    ``cross_kv`` (a whisper decoder's cross attention, any mode): keys and
+    values precomputed from the encoder's output, their biases added by the
+    caller; every query sees every key, nothing is rotated, no cache is
+    read or written, and the cache returned is None."""
     B, T, _D = x.shape
+    if cross_kv is not None:
+        k, v = cross_kv
+        q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+        if spec.qkv_bias:
+            q = q + p["bq"]
+        mask = torch.ones((1, T, k.shape[1]), dtype=torch.bool, device=x.device)
+        return _out_proj(_sdpa(q, k, v, mask, spec), p["wo"]), None
     if mode in ("train", "prefill"):
         if positions is None:
             positions = torch.arange(T, device=x.device)[None, :]
@@ -287,8 +323,40 @@ def attention(
     valid = cache["pos"] >= 0
     if spec.window is not None:
         valid = valid & (cache["pos"] > cur_pos - spec.window)
-    out = _sdpa(q, cache["k"], cache["v"], valid[None, None, :], spec)
+    if cache["k"].dtype != q.dtype and S >= HEADBLOCKED_MIN_S:
+        out = _decode_sdpa_headblocked(q, cache["k"], cache["v"], valid[None, None, :], spec)
+    else:
+        out = _sdpa(q, cache["k"], cache["v"], valid[None, None, :], spec)
     return _out_proj(out, p["wo"]), cache
+
+
+# S from which decode over a cache narrower than the compute dtype (an f8
+# cache) takes the head-blocked softmax, as in the reference: ``_sdpa``'s
+# cast of the whole cache would hold a compute-dtype copy of k and v, twice
+# the bytes of the f8 cache itself
+HEADBLOCKED_MIN_S = 8192
+
+
+def _decode_sdpa_headblocked(q, k, v, mask, spec: AttnSpec, heads_per_block: int = 8):
+    """q: (B, 1, H, hd); k/v: (B, S, KV, hd) in a narrower cache dtype.
+    Heads are independent under the softmax, so a loop over blocks of at
+    most ``heads_per_block`` kv heads (lowered until it divides KV) runs a
+    whole ``_sdpa`` a block; only one block of the cache is ever cast to the
+    compute dtype."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    hb = min(heads_per_block, KV)
+    while KV % hb:
+        hb -= 1
+    qg = q.reshape(B, T, KV, G, hd)
+    outs = []
+    for k0 in range(0, KV, hb):
+        qb = qg[:, :, k0:k0 + hb].reshape(B, T, hb * G, hd)
+        kb = k[:, :, k0:k0 + hb].to(q.dtype)
+        vb = v[:, :, k0:k0 + hb].to(q.dtype)
+        outs.append(_sdpa(qb, kb, vb, mask, spec).reshape(B, T, hb, G, hd))
+    return torch.cat(outs, dim=2).reshape(B, T, H, hd)
 
 
 def _fill_cache(k, v, spec: AttnSpec, T: int) -> dict:

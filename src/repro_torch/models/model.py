@@ -44,9 +44,12 @@ class Model:
         return nll + aux, {"nll": nll, "aux": aux}
 
     def prefill(self, params, batch: dict, *, max_len: int):
-        """``batch['tokens']`` (B, T) int, and ``batch['embeds']`` (B,
-        prefix, D) for a vision config. Returns (logits (B, T, V) f32,
-        caches grown to ``max_len``, plus the prefix's slots for vision)."""
+        """``batch['tokens']`` (B, T) int, and ``batch['embeds']``: (B,
+        prefix, D) for a vision config, (B, frames, D) for an
+        encoder-decoder. Returns (logits (B, T, V) f32, caches grown to
+        ``max_len``, plus the prefix's slots for vision; the frames take no
+        slot of the self-attention caches, their keys and values are the
+        ``cross`` entries)."""
         if self.cfg.frontend == "vision":
             max_len = max_len + self.cfg.prefix_len  # the cache holds the prefix too
         logits, caches, _ = apply_lm(params, self.cfg, tokens=batch["tokens"],

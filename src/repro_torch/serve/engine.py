@@ -92,11 +92,12 @@ class Engine:
     @torch.no_grad()
     def generate(self, batch: dict, *, steps: int, greedy: bool = True,
                  temperature: float = 1.0, seed: int = 0) -> GenerationResult:
-        """``batch['tokens']``: (B, T) integer array or tensor, and for a
-        vision config ``batch['embeds']`` (B, prefix, D), the stub patch
-        embeddings. The batch is split over the data ranks (``tensor_split``,
-        as even as B allows); decode positions follow the prefix and the
-        text."""
+        """``batch['tokens']``: (B, T) integer array or tensor, and
+        ``batch['embeds']``: for a vision config (B, prefix, D), the stub
+        patch embeddings, for an encoder-decoder (B, frames, D), the stub
+        frame embeddings. The batch is split over the data ranks
+        (``tensor_split``, as even as B allows); decode positions follow the
+        text, and a vision prefix (audio frames take no position)."""
         tokens = batch["tokens"]
         if not torch.is_tensor(tokens):
             tokens = torch.as_tensor(np.asarray(tokens))

@@ -99,15 +99,22 @@ def test_stub_embeds_bit_equal_to_reference(name, dtype):
 
 
 def test_audio_frontend_and_vision_training_are_refused():
-    """The audio frontend is refused by the data pipeline, the model and so
-    the trainer. Training the vision prefix is ported (held in
-    tests/test_torch_train_vlm.py): only the audio refusals remain."""
+    """Training the vision prefix is ported (held in
+    tests/test_torch_train_vlm.py), and so is the audio frontend with its
+    encoder-decoder (tests/test_torch_encdec.py). What stays refused is
+    audio frames on a decoder-only config, which has no encoder to read
+    them: by the model and so the trainer. Its batches are the reference's,
+    tokens and labels without frames."""
     audio = dataclasses.replace(t_get_config(ARCH), frontend="audio")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        next(tpipe.batches(tpipe.make_source(audio), audio, batch=1, seq=4))
-    with pytest.raises(NotImplementedError, match="Other model families"):
+    jaudio = dataclasses.replace(j_get_config(ARCH), frontend="audio")
+    got = next(tpipe.batches(tpipe.make_source(audio), audio, batch=1, seq=4))
+    want = next(jpipe.batches(jpipe.make_source(jaudio), jaudio, batch=1, seq=4))
+    assert sorted(got) == sorted(want) == ["labels", "tokens"]
+    for key in got:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    with pytest.raises(ValueError, match="encoder-decoders over audio frames"):
         TModel(audio).init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Other model families"):
+    with pytest.raises(ValueError, match="encoder-decoders over audio frames"):
         Trainer(audio, RunConfig(), device="cpu").train(batch=1, seq=4, steps=1)
 
 

@@ -31,11 +31,6 @@ JAX_ONLY = frozenset({"axis_name", "interpret", "key", "shardings", "grad_specs"
 
 # keywords whose module is queued in ROADMAP, by the item that ports them
 QUEUED = {
-    # A.6 Other model families (cross attention, the encoder-decoder)
-    "models.blocks.init_block": {"cross", "causal"},
-    "models.blocks.apply_block": {"causal", "cross_inputs"},
-    "models.layers.attention": {"cross_kv"},
-    "models.transformer.StackLayout": {"encoder"},
     # A.7 Serving remainder and hierarchical meshes
     "serve.engine.distribute_weights": {"specs"},
 }
