@@ -228,6 +228,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``_sdpa`` over the cast cache within one bf16 step. (c)
    whisper-large-v3-smoke and qwen1.5-32b-smoke (and its MHA variant) in
    f32 with nonzero QKV biases, card against CPU.
+14. the hierarchical mesh, every rank of a ('pod', 'data') mesh emulated on
+   the one card (a transfer across pods is an HBM copy, as one within a
+   pod): (a) on two pods of 4 at phase 7's embedding bucket a rank
+   (1,048,576,000 bf16, 16.8 GB over 8 ranks), ``hierarchical_bcast``
+   (pod level first), ``pallreduce_tree`` and ``overlap_allreduce_tree``
+   (``hierarchical_allreduce_axes``: pod level last, priced inter-pod), each
+   compiled and in-kernel, bit-equal to the plain replay of the same
+   per-level plans, each level's plan printed and its replay timed by CUDA
+   events, the strided pod level's gather and scatter copies timed; the
+   broadcast on (1, 8), (8, 1) and one 8-rank axis bit-equal to the root's
+   row; (b) phase 6's minitron-8b on a (2, 2) mesh in param_bcast, its ring,
+   tuned_allreduce, overlap_allreduce and the int8 wire, rows compared,
+   losses and grad norms within phase 6's limits of phase 6's one-axis runs;
+   (c) phase 3's minitron-8b on a (2, 2) mesh, the staged and the compiled
+   distribution (pod level first, replicas bit-equal), a generate and a warm
+   prefill and decode; (d) minitron-8b-smoke in f32 under tuned_allreduce
+   on (2, 2), card against CPU.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -243,7 +260,7 @@ collective entry points), phase 7b (the algorithms), phase 8's interleave
 tuner), phase 10 (the MoE serving path), phase 10b (the expert-parallel
 path), phase 11 (the fault runtime), phases 12a and 12b (the hybrid and
 the recurrent serving paths) and phases 13a and 13b (the encoder-decoder
-and the MHA serving paths);
+and the MHA serving paths) and phase 14 (the hierarchical mesh's path);
 the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
@@ -377,6 +394,11 @@ HYBRID_PROMPT, RECURRENT_PROMPT = 4096, 2048
 # layer a bucket of 4 x 0.28 GB a layer; 8 layers peaked at 71.70 GiB
 # (PERF.md §4)
 ENCDEC_PROMPT, MHA_PROMPT, MHA_LAYERS, F8_MAX_LEN = 4, 4096, 7, 8192
+# phase 14: the hierarchical mesh. 14a's two pods of 4 at phase 7's
+# embedding bucket a rank; 14b's modes
+POD_MESH, HIER_ELEMS = (2, 4), 1_048_576_000
+HIER_TRAIN_MODES = ("param_bcast", "param_bcast_ring", "tuned_allreduce", "overlap_allreduce",
+                    "compressed_int8")
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -2987,17 +3009,20 @@ def overlap_depths(torch, trainer, params) -> dict:
     run: the prefetch form's planned graph (the step's ``graph``), or the
     plan ``overlap_allreduce_tree`` resolves in every step of the
     single-stream form (cached, so this call returns the same plan)."""
-    from repro_torch.comm import plan_overlap
+    from repro_torch.comm import hierarchical_allreduce_axes, plan_overlap
     from repro_torch.core.tree import tree_map
+    from repro_torch.dist import topology
 
     graph = getattr(trainer._step_fn, "graph", None)
     if graph is not None:
         return {e.name: [e.overlap_depth, e.depth_source] for e in graph.entries}
-    run = trainer.run
+    run, sizes = trainer.run, topology.axis_sizes(trainer.mesh)
     shapes = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
-    oplan = plan_overlap(shapes, [("data", RANKS)], algo=run.allreduce_algo,
-                         bucket_bytes=run.bcast_bucket_bytes, compute_s=run.overlap_compute_s,
-                         overlap_depth=run.overlap_depth)
+    oplan = plan_overlap(shapes, [(a, sizes[a]) for a in hierarchical_allreduce_axes(trainer.mesh)
+                                  if sizes[a] > 1],
+                         algo=run.allreduce_algo, bucket_bytes=run.bcast_bucket_bytes,
+                         inter_pod_axes=topology.inter_pod_axes(trainer.mesh),
+                         compute_s=run.overlap_compute_s, overlap_depth=run.overlap_depth)
     return {"overlap": [oplan.overlap_depth, oplan.depth_source]}
 
 
@@ -4005,6 +4030,305 @@ def family_smoke_reference(torch) -> float:
     return max(errs.values())
 
 
+def _level_plan_line(ax: str, plan) -> str:
+    return (f"{ax}: {plan.n} ranks, inter_pod {plan.inter_pod}, {plan.algo} K={plan.num_chunks}, "
+            f"predicted {plan.predicted_s * 1e3:.3f} ms, wire {plan.wire_bytes()} B")
+
+
+def _rows_equal(torch, a, b) -> bool:
+    """``a`` and ``b`` bit-equal, compared a rank row at a time (a whole
+    8-rank comparison would hold one bool a byte of the buffer)."""
+    return a.shape == b.shape and all(same_bits(torch, a[r], b[r]) for r in range(a.shape[0]))
+
+
+def _levels_replayed(torch, x, mesh, plans: dict, replay) -> tuple:
+    """``x`` through each level of ``plans`` (``{axis: plan}`` in level
+    order), every group of ranks along the axis replayed by ``replay(plan,
+    frame)`` (``comm.api.level_replay``); each level's ms by CUDA events.
+    Returns the result and the ms by axis."""
+    import functools
+
+    from repro_torch.comm import level_replay
+
+    ms = {}
+    for ax, plan in plans.items():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        x = level_replay(x, ax, functools.partial(replay, plan), mesh=mesh)
+        end.record()
+        end.synchronize()
+        ms[ax] = start.elapsed_time(end)
+    return x, ms
+
+
+def hierarchical_collectives(torch) -> dict:
+    """Phase 14a: the two-level collectives on a ('pod', 'data') mesh of
+    POD_MESH ranks at HIER_ELEMS bf16 elements a rank (phase 7's embedding
+    bucket: 16.8 GB over the 8 ranks), each entry point compiled and
+    in-kernel: ``hierarchical_bcast``
+    (the pod level first), ``pallreduce_tree`` and ``overlap_allreduce_tree``
+    over ``hierarchical_allreduce_axes`` (the pod level last, priced
+    inter-pod). Each result bit-equal to the plain replay of the same
+    per-level plans (every group of every level through
+    ``rdma_replay_plain``, which launches nothing), so compiled and
+    in-kernel are bit-equal to each other; each level replayed again alone
+    and timed by CUDA events; the strided level's gather and scatter copies
+    timed apart (each group's rows gathered, and scattered back). Then the
+    broadcast on the (1, 8) and (8, 1) meshes and as
+    one 8-rank ('data',) axis, each bit-equal to the root's row."""
+    import functools
+
+    from repro_torch import comm, kernels
+    from repro_torch.comm import apply_plan, plan_cached, plan_overlap
+    from repro_torch.core.bcast import hierarchical_bcast
+    from repro_torch.dist import topology
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(POD_MESH, axis_names=("pod", "data"), device="cuda")
+    n, M = mesh.size, HIER_ELEMS * 2
+    sizes = topology.axis_sizes(mesh)
+    gen = torch.Generator(device="cuda")
+
+    def fresh():
+        return torch.randn((n, HIER_ELEMS), generator=gen.manual_seed(14), device="cuda",
+                           dtype=torch.bfloat16)
+
+    down, up = topology.bcast_axes(mesh), comm.hierarchical_allreduce_axes(mesh)
+    inter = topology.INTER_POD_AXES
+    overlap = plan_overlap({"embed": torch.empty((HIER_ELEMS,), dtype=torch.bfloat16,
+                                                 device="meta")},
+                           [(ax, sizes[ax]) for ax in up], inter_pod_axes=inter)
+    ops = {
+        "hierarchical_bcast": (
+            {ax: plan_cached("bcast", M, sizes[ax], inter_pod=ax in inter) for ax in down},
+            lambda x, **ex: hierarchical_bcast(x, mesh=mesh, **ex)),
+        "pallreduce_tree": (
+            {ax: plan_cached("allreduce", M, sizes[ax], inter_pod=ax in inter) for ax in up},
+            lambda x, **ex: comm.pallreduce_tree({"embed": x}, up, inter_pod_axes=inter,
+                                                 mesh=mesh, **ex)["embed"]),
+        "overlap_allreduce_tree": (
+            {ax: overlap.plans[ax][0] for ax in up},
+            lambda x, **ex: comm.overlap_allreduce_tree({"embed": x}, up, inter_pod_axes=inter,
+                                                        mesh=mesh, **ex)["embed"]),
+    }
+    out = {}
+    for name, (plans, entry) in ops.items():
+        for ax, plan in plans.items():
+            log(f"hierarchical {name} plan {_level_plan_line(ax, plan)}")
+        t0 = time.perf_counter()
+        want, _ = _levels_replayed(torch, fresh(), mesh, plans,
+                                   lambda plan, f: _plain_collective(torch, plan, f))
+        plain_s = time.perf_counter() - t0
+        rec = {"plans": {ax: {"ranks": p.n, "inter_pod": p.inter_pod, "algo": p.algo,
+                              "chunks": p.num_chunks, "predicted_s": p.predicted_s,
+                              "wire_bytes": p.wire_bytes()} for ax, p in plans.items()},
+               "plain_s": plain_s}
+        for flag in ("compiled", "inkernel"):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = entry(fresh(), **{flag: True})
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = kernels.launch_counts()
+            launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            assert _rows_equal(torch, got, want), f"{name} {flag}: differs from the plain replay"
+            del got
+            if flag == "inkernel":
+                assert set(launched) == {"inkernel_rdma"}, (name, launched)
+            else:
+                assert "inkernel_rdma" not in launched and launched["fused_combine"] > 0, \
+                    (name, launched)
+            replay = functools.partial(apply_plan, **{flag: True})
+            got, ms = _levels_replayed(torch, fresh(), mesh, plans,
+                                       lambda plan, f, r=replay: r(plan, f))
+            assert _rows_equal(torch, got, want), f"{name} {flag}: a level replay differs"
+            del got
+            rec[flag] = {"s": secs, "launches": launched, "level_ms": ms}
+            log(f"hierarchical {name} {flag}: {secs:.4f} s ({launched}), levels "
+                f"{ {ax: round(v, 3) for ax, v in ms.items()} } ms (CUDA events); bit-equal "
+                f"to the plain per-level replay ({plain_s:.4f} s)")
+        del want
+        torch.cuda.empty_cache()
+        out[name] = rec
+    # the strided (pod) level's copies: each group's rows gathered into a
+    # contiguous frame, and scattered back, as level_replay makes them
+    x = fresh()
+    view = x.view(POD_MESH[0], POD_MESH[1], -1)
+    frames = [view[:, d].contiguous() for d in range(POD_MESH[1])]
+    gather_ms = time_ms(torch, lambda: [f.copy_(view[:, d]) for d, f in enumerate(frames)],
+                        reps=5, warmup=1)
+    scatter_ms = time_ms(torch, lambda: [view[:, d].copy_(f) for d, f in enumerate(frames)],
+                         reps=5, warmup=1)
+    copy_bound = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+    del x, view, frames
+    out["strided_copies"] = {"gather_ms": gather_ms, "scatter_ms": scatter_ms,
+                             "bound_ms": copy_bound}
+    log(f"hierarchical strided level: the {POD_MESH[1]} groups' gathers {gather_ms:.3f} ms + "
+        f"scatters back {scatter_ms:.3f} ms over the {n} x {HIER_ELEMS} bf16 buffer (bound "
+        f"{copy_bound:.3f} ms each, bytes read and written / 3.35 TB/s), once a pod level")
+    # the degenerate meshes and one 8-rank axis: the root's row everywhere
+    root = fresh()[0].clone()
+    degenerate = {}
+    for shape in ((8,), (1, 8), (8, 1)):
+        m = make_mesh(shape, axis_names=("data",) if len(shape) == 1 else ("pod", "data"),
+                      device="cuda")
+        t0 = time.perf_counter()
+        got = (comm.pbcast(fresh(), compiled=True) if len(shape) == 1
+               else hierarchical_bcast(fresh(), mesh=m, compiled=True))
+        torch.cuda.synchronize()
+        degenerate["x".join(map(str, shape))] = time.perf_counter() - t0
+        assert all(same_bits(torch, got[r], root) for r in range(n)), shape
+        del got
+    del root
+    torch.cuda.empty_cache()
+    out["degenerate_s"] = degenerate
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"hierarchical degenerate: the broadcast on (1, 8), (8, 1) and one 8-rank axis, each "
+        f"bit-equal to the root's row (s: { {k: round(v, 4) for k, v in degenerate.items()} }); "
+        f"phase peak {out['max_memory_allocated'] / 2**30:.2f} GiB")
+    return out
+
+
+def hierarchical_training(torch, training: dict) -> dict:
+    """Phase 14b: phase 6's minitron-8b (TRAIN_LAYERS layer, 8 x 512 tokens,
+    3 steps) on a (2, 2) ('pod', 'data') mesh, the same 4 ranks, in the
+    HIER_TRAIN_MODES, every run comparing its synced rows: zero rows differ
+    on the bf16 wire; each run's last loss and grad norms within phase 6's
+    limits of phase 6's one-axis run of the same mode (``training``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
+    mesh = make_mesh((2, 2), axis_names=("pod", "data"), device="cuda")
+    out = {}
+    for label in HIER_TRAIN_MODES:
+        params, r = train_mode(torch, cfg, mesh, dict(TRAIN_MODES)[label], check_rows=True)
+        del params
+        one = training.get(label + "+check_rows", training[label])
+        d_loss = abs(r["losses"][-1] - one["losses"][-1])
+        d_norm = max(abs(a - b) / b for a, b in zip(r["grad_norms"], one["grad_norms"]))
+        int8 = label == "compressed_int8"
+        if int8:
+            assert d_loss <= 5e-3, (label, r["losses"], one["losses"])
+        else:
+            assert not any(r["grad_rows_differ"]), (label, r["grad_rows_differ"])
+            assert d_loss <= 1e-3 and d_norm <= 2e-4, (label, r, one)
+        out[label] = r
+        log(f"hierarchical train {label}: losses {['%.4f' % x for x in r['losses']]}, step "
+            f"{r['step_s']:.3f} s beside the one-axis {one['step_s']:.3f} s, peak "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB beside "
+            f"{one['max_memory_allocated'] / 2**30:.2f} GiB, rows differ "
+            f"{r['grad_rows_differ']}, last loss {d_loss:.3e} from the one-axis run "
+            f"(bound {'5e-3' if int8 else '1e-3'}), grad norms {d_norm:.3e} relative"
+            + ("" if int8 else " (bound 2e-4)") + f", launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+    return out
+
+
+def hierarchical_serving(torch, phase3: dict) -> dict:
+    """Phase 14c: phase 3's minitron-8b (LAYERS layers) on a (2, 2) ('pod',
+    'data') mesh: the staged distribution of ``Engine(distribute=True,
+    double_buffer=True)`` and the compiled pipelined chain from NaN-filled
+    replicas, each planned pod level first with every replica bit-equal to
+    the loaded weights; one generate and a warm prefill and decode."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, distribute_weights
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=LAYERS)
+    params = Model(cfg).init(seed=0, device="cuda")
+    mesh = make_mesh((2, 2), axis_names=("pod", "data"), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, params, mesh=mesh, distribute=True, double_buffer=True)
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    assert replicas_equal(torch, engine.params, params), "a staged replica differs"
+    stacked = engine.params
+    for leaf in tree_leaves(stacked):
+        leaf[1:].fill_(float("nan"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, plans = distribute_weights(stacked, mesh, algo="pipelined_chain", compiled=True,
+                                  double_buffer=True, return_plans=True)
+    torch.cuda.synchronize()
+    compiled_s = time.perf_counter() - t0
+    assert list(plans) == ["pod", "data"], list(plans)
+    assert replicas_equal(torch, stacked, params), "a compiled replica differs"
+    del params
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size - 1, size=(BATCH, PROMPT))
+    res = engine.generate({"tokens": tokens}, steps=STEPS)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
+    assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    del engine, stacked
+    out = {"staged_s": staged_s, "compiled_s": compiled_s, "phase3_s": phase3["distribute_s"],
+           "prefill_ms_per_rank": prefill_s / RANKS * 1e3,
+           "decode_tokens_per_s": BATCH * STEPS / decode_s, "max_memory_allocated": peak,
+           "plans": {ax: [p.algo for p in ps] for ax, ps in plans.items()}}
+    log(f"hierarchical serve: (2, 2) mesh, staged distribution {staged_s:.3f} s and compiled "
+        f"pipelined chain {compiled_s:.3f} s (pod level first, replicas bit-equal) beside phase "
+        f"3's one-axis {phase3['distribute_s']:.3f} s; warm prefill "
+        f"{out['prefill_ms_per_rank']:.2f} ms/rank, decode {out['decode_tokens_per_s']:.1f} "
+        f"tok/s; peak {peak / 2**30:.2f} GiB")
+    return out
+
+
+def hierarchical_smoke(torch) -> float:
+    """Phase 14d: minitron-8b-smoke in f32 under tuned_allreduce on a (2, 2)
+    ('pod', 'data') mesh, 2 steps on the card and on the CPU from one
+    initial state, losses within 1e-4."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("minitron-8b-smoke"), dtype="float32")
+    run = RunConfig(sync_mode="tuned_allreduce", compiled_collectives=True, **TRAIN_RUN)
+    losses = {}
+    with tempfile.TemporaryDirectory() as d:
+        for dev in ("cpu", "cuda"):
+            tr = Trainer(cfg, run, mesh=make_mesh((2, 2), axis_names=("pod", "data"),
+                                                  device=dev), ckpt_dir=d, device=dev)
+            if dev == "cpu":
+                params, opt = tr.init_state()
+                checkpoint.save_checkpoint(d, 0, params)
+                checkpoint.save_checkpoint(os.path.join(d, "opt"), 0, opt)
+            losses[dev] = [h["loss"] for h in tr.train(batch=8, seq=32, steps=2,
+                                                       log_every=1)[2]]
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    assert len(losses["cuda"]) == 2 and err <= 1e-4, (losses, err)
+    log(f"hierarchical smoke: minitron-8b-smoke f32 tuned_allreduce on (2, 2), card vs CPU, "
+        f"max abs loss diff {err:.3e} (tol 1e-4)")
+    return err
+
+
+def hierarchical(torch, training: dict, phase3: dict) -> dict:
+    """Phase 14, the hierarchical mesh: 14a to 14d."""
+    out = {"collectives": hierarchical_collectives(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["training"] = hierarchical_training(torch, training)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serving"] = hierarchical_serving(torch, phase3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smoke_err"] = hierarchical_smoke(torch)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is missing beside this script", file=sys.stderr)
@@ -4186,6 +4510,12 @@ def main() -> int:
     assert mha["max_memory_allocated"] < 70 * 2**30, "phase 13b's depth cut leaves 70 GiB"
     encdec_mha_smoke_reference(torch)
     mark("encoder-decoder and MHA serving (13)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    hier = hierarchical(torch, training, serving)
+    hier_counts = kernels.launch_counts()
+    mark("hierarchical mesh (14)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
     # too) and the streams phase, the staging copy on the serving paths and
@@ -4206,20 +4536,22 @@ def main() -> int:
     # and the sm90 flash kernel on the hybrid one (hymba-1.5b's prefill, bf16
     # at width 64) and the MHA one (qwen1.5-32b's, width 128, a group of 1;
     # whisper's attention stays dense under 4096 keys); mix and
-    # scaled_add are on no path of either package, and the shared-buffer
+    # scaled_add are on no path of either package; the merge, the staging
+    # copy, the quantize pair and the in-kernel replay on the hierarchical
+    # mesh's path (phase 14: its collectives, trainings and distributions), and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("serve_encdec", "serve_mha", "serve_hybrid", "serve_recurrent",
+    paths = {"fused_combine": ("hierarchical", "serve_encdec", "serve_mha", "serve_hybrid", "serve_recurrent",
                                "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
                                "train_vlm", "algorithms", "online", "streams"),
-             "chunked_copy": ("serve_encdec", "serve_mha", "serve_hybrid", "serve_recurrent",
+             "chunked_copy": ("hierarchical", "serve_encdec", "serve_mha", "serve_hybrid", "serve_recurrent",
                               "faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
                               "streams"),
-             "quantize_blocks": ("faults", "online", "train_moe", "train"),
-             "dequantize_blocks": ("faults", "online", "train_moe", "train"),
+             "quantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
+             "dequantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
              "inkernel_replay": (),
-             "inkernel_rdma": ("faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
+             "inkernel_rdma": ("hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
              "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
                                       "serve_mha"),
@@ -4233,7 +4565,7 @@ def main() -> int:
               "online": online_counts, "serve_moe": moe_serve_counts, "moe_ep": moe_ep_counts,
               "faults": fault_counts, "serve_hybrid": hybrid_counts,
               "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
-              "serve_mha": mha_counts}
+              "serve_mha": mha_counts, "hierarchical": hier_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     assert hybrid_counts["flash_attention"] == 0, hybrid_counts
@@ -4267,6 +4599,7 @@ def main() -> int:
         f"{json.dumps({'serve_hybrid': hybrid, 'serve_recurrent': recurrent})}")
     log(f"encoder-decoder and MHA numbers: "
         f"{json.dumps({'serve_encdec': encdec, 'serve_mha': mha})}")
+    log(f"hierarchical numbers: {json.dumps(hier)}")
     check_trap(torch)
     mark("trap check")
     log("phase ends, s from the build's start: "

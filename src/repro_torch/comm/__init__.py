@@ -22,6 +22,7 @@ from .api import (
     apply_plan,
     apply_plan_resilient,
     hierarchical_allreduce_axes,
+    level_replay,
     pallgather,
     pallgatherv,
     pallreduce,
@@ -118,6 +119,7 @@ __all__ = [
     "pbcast_tree",
     "pallreduce_tree",
     "hierarchical_allreduce_axes",
+    "level_replay",
     "OverlapPlan",
     "plan_overlap",
     "simulate_overlap",

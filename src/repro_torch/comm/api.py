@@ -55,6 +55,7 @@ __all__ = [
     "pbcast_tree",
     "pallreduce_tree",
     "hierarchical_allreduce_axes",
+    "level_replay",
 ]
 
 # unrolled-executor round budget before the auto policy switches to the
@@ -802,24 +803,92 @@ def palltoallv(
     return _run_alltoallv(plan, x, run, in_padded=in_padded, out_padded=out_padded)
 
 
-def _check_one_axis(axes: Sequence) -> tuple:
+def _levels(axes: Sequence, mesh, x: torch.Tensor | None = None) -> tuple:
+    """``axes`` as a tuple, checked against ``mesh``: every axis must be one
+    of the mesh's, and a value stacked over it must have ``mesh.size`` rank
+    rows. Without a mesh the rank rows are one axis, so ``axes`` may name
+    at most one."""
     axes = tuple(axes)
-    if len(axes) > 1:
-        raise NotImplementedError(
-            f"a hierarchical collective over {axes}: the emulated mesh has one data "
-            'axis; multi-level meshes are ROADMAP item "Serving remainder and '
-            'hierarchical meshes"')
+    if mesh is None:
+        if len(axes) > 1:
+            raise ValueError(f"a collective over the axes {axes} needs the mesh (mesh=) "
+                             "to lay its ranks out")
+        return axes
+    missing = [a for a in axes if a not in tuple(mesh.axis_names)]
+    if missing:
+        raise ValueError(f"mesh has no axis {missing[0]!r}: {tuple(mesh.axis_names)}")
+    if x is not None and x.shape[0] != mesh.size:
+        raise ValueError(f"value has {x.shape[0]} rank rows, the mesh {mesh.size} ranks")
     return axes
 
 
-def _tree_collective(op_fn, tree, *, bucket_bytes, stage, **kw):
+def level_replay(x: torch.Tensor, axis, fn, *, mesh=None, out=None) -> torch.Tensor:
+    """One level of a multi-level collective: ``fn`` (a one-axis collective
+    of a rank-stacked ``(axis_size, *shape)`` value, such as
+    ``functools.partial(apply_plan, plan)``) run on every group of ranks
+    along ``axis`` of the ``mesh``-stacked ``x`` ``(mesh.size, *shape)``.
+
+    A group is the ranks whose coordinates on the other axes agree: what
+    one device's ``shard_map`` body sees of the axis in the reference. Each
+    group replays on its own ``(axis_size, *shape)`` frame, so every sum is
+    taken in the reference's order and each plan's message size is one
+    rank's row. The groups of the innermost axis are runs of consecutive
+    rows, and their frames are views of ``x``; the groups of an outer axis
+    are strided (rows ``d, d + D, ...`` for the pod axis of a ('pod',
+    'data') mesh), so each is gathered into a contiguous frame (one copy of
+    its rows) and its result scattered back (a second copy): the kernels
+    see the frames a one-axis mesh gives them, and one group's frame is the
+    only buffer the level adds. A level of one rank is ``x`` itself.
+
+    Without ``mesh`` (or on a one-axis mesh) the rank rows are the one
+    axis and this is ``fn(x)``. Otherwise, when ``fn`` updates its frame in
+    place, the result is ``x`` so updated; when it returns new buffers (a
+    compressed wire, a padded buffer), every group's result is written
+    into ``out`` (default a new tensor, ``x`` left as it was; pass ``out=x``
+    when ``x`` may be overwritten), which is returned."""
+    if mesh is None or len(tuple(mesh.axis_names)) == 1:
+        return fn(x)
+    names, shape = tuple(mesh.axis_names), tuple(mesh.devices.shape)
+    _levels((axis,), mesh, x)
+    i = names.index(axis)
+    A, outer, inner = shape[i], math.prod(shape[:i]), math.prod(shape[i + 1:])
+    if A == 1:
+        return x
+    x = x.contiguous()
+    rest = tuple(x.shape[1:])
+    view = x.view(outer, A, inner, -1)
+    dst = None  # the result, once the first group tells in place from new
+    for o in range(outer):
+        for j in range(inner):
+            src = view[o, :, j]
+            frame = src if inner == 1 else src.contiguous()
+            res = fn(frame.view((A,) + rest))
+            fresh = res.data_ptr() != frame.data_ptr()
+            if dst is None:
+                dst = view if not fresh else (
+                    torch.empty_like(x) if out is None else out).view(outer, A, inner, -1)
+            target = dst[o, :, j]
+            if fresh:
+                target.copy_(res.reshape(A, -1))
+            elif target.data_ptr() != frame.data_ptr():
+                target.copy_(frame)
+            del res, frame
+    return dst.view(x.shape)
+
+
+def _tree_collective(op_fn, tree, *, bucket_bytes, stage, levels, mesh, **kw):
+    """``op_fn(bucket, **kw, **level_kw)`` over every non-empty bucket of the
+    rank-stacked ``tree``, one level after another: ``levels`` holds each
+    level's ``(axis, level_kw)`` (axis ``None``: the rank rows as one
+    axis)."""
     spec = bucketing.plan_buckets(_rank_view(tree), bucket_bytes)
     out = []
     for b in bucketing.pack_buckets(tree, spec):
         if b.shape[-1]:
             if stage:
                 b = chunked_copy(b.reshape(-1)).view(b.shape)
-            b = op_fn(b, **kw)
+            for ax, lkw in levels:
+                b = level_replay(b, ax, functools.partial(op_fn, **kw, **lkw), mesh=mesh)
         out.append(b)
     return bucketing.unpack_buckets(out, spec)
 
@@ -839,6 +908,8 @@ def pbcast_tree(
     inter_pod: bool = False,
     stage: bool = False,
     stage_chunk: int = 64 * 1024,
+    axis: str | None = None,
+    mesh=None,
 ) -> Any:
     """Broadcast a rank-stacked pytree via same-dtype buckets, each tuned
     independently (``inter_pod`` prices every bucket on the inter-pod
@@ -846,9 +917,15 @@ def pbcast_tree(
     the ``chunked_copy`` kernel (the paper's pipelined staging copy, Sec.
     IV-C), one launch a bucket; ``stage_chunk``, the reference's chunk of
     that copy, is accepted and ignored, as ``chunked_copy(chunk_elems=)``
-    ignores it."""
-    return _tree_collective(pbcast, tree, bucket_bytes=bucket_bytes, stage=stage, root=root,
-                            algo=algo, tuner=tuner, inter_pod=inter_pod)
+    ignores it. On a multi-axis ``mesh`` the broadcast runs over its
+    ``axis`` (the reference's ``axis_name``), every group of ranks along it
+    from its own root (:func:`level_replay`)."""
+    if mesh is not None and len(tuple(mesh.axis_names)) > 1 and axis is None:
+        raise ValueError("pbcast_tree on a multi-axis mesh needs the axis (axis=)")
+    _levels(() if axis is None else (axis,), mesh)
+    return _tree_collective(pbcast, tree, bucket_bytes=bucket_bytes, stage=stage,
+                            levels=((axis, {}),), mesh=mesh, root=root, algo=algo,
+                            tuner=tuner, inter_pod=inter_pod)
 
 
 def pallreduce_tree(
@@ -863,18 +940,28 @@ def pallreduce_tree(
     stage_chunk: int = 64 * 1024,
     compiled: bool | None = None,
     wire_format: str | None = None,
+    mesh=None,
+    inkernel: bool | None = None,
 ) -> Any:
     """Bucketed all-reduce of a rank-stacked pytree over the mesh axes
-    ``axes`` (:func:`hierarchical_allreduce_axes` order). The emulated mesh
-    has one data axis, so ``axes`` names at most one; ``wire_format``
-    applies to every bucket. ``stage`` and ``stage_chunk`` act as in
-    :func:`pbcast_tree`."""
-    axes = _check_one_axis(axes)
+    ``axes``, one level after another in the given order
+    (:func:`hierarchical_allreduce_axes` gives the intra-pod-first one);
+    an axis named in ``inter_pod_axes`` is priced with the inter-pod
+    constants. The tree is packed into buckets once and every level runs
+    over the packed buffers, each on every group of ranks along its axis
+    (:func:`level_replay`). Over more than one axis the leaves are stacked
+    over ``mesh``'s ranks and ``mesh`` is required. ``wire_format`` applies
+    to every bucket at every level; ``stage`` and ``stage_chunk`` act as in
+    :func:`pbcast_tree`; ``compiled`` and ``inkernel`` route every level's
+    replay as :func:`apply_plan`'s do."""
+    axes = _levels(axes, mesh)
     if not axes:
         return tree
+    inter = tuple(inter_pod_axes)
+    levels = tuple((ax, {"inter_pod": ax in inter}) for ax in axes)
     return _tree_collective(
-        pallreduce, tree, bucket_bytes=bucket_bytes, stage=stage, algo=algo, tuner=tuner,
-        inter_pod=axes[0] in tuple(inter_pod_axes), compiled=compiled, wire_format=wire_format,
+        pallreduce, tree, bucket_bytes=bucket_bytes, stage=stage, levels=levels, mesh=mesh,
+        algo=algo, tuner=tuner, compiled=compiled, inkernel=inkernel, wire_format=wire_format,
     )
 
 

@@ -33,7 +33,7 @@ from ..core.bucketing import BucketSpec
 from ..core.tree import tree_leaves
 from ..core.tuner import Tuner
 from . import streams
-from .api import _check_one_axis, _rank_view
+from .api import _levels, _rank_view
 from .plan import CollectivePlan
 
 __all__ = [
@@ -217,17 +217,20 @@ def execute_overlap(
     stage_chunk: int = 64 * 1024,
     fused: bool = True,
     compiled: bool | None = None,
+    mesh=None,
+    inkernel: bool | None = None,
 ) -> Any:
     """Replay an :class:`OverlapPlan` over a rank-stacked tree (leaves
     ``(n, *shape)``), updated in place and returned: buckets issue in
     dispatch order, and the next ``overlap_depth - 1`` buckets are staged
     (``chunked_copy`` when ``stage=True``) before the current bucket's
     collectives. Per-bucket math is the barrier ``*_tree`` path's (same
-    plans, same executors). Delegates to
-    :func:`streams.execute_stream_entry` on the 1-entry graph."""
+    plans, same executors, the same levels). Delegates to
+    :func:`streams.execute_stream_entry` on the 1-entry graph; ``mesh`` and
+    ``inkernel`` as there."""
     return streams.execute_stream_entry(
         oplan.as_entry(), tree, stage=stage, stage_chunk=stage_chunk,
-        fused=fused, compiled=compiled,
+        fused=fused, compiled=compiled, mesh=mesh, inkernel=inkernel,
     )
 
 
@@ -244,21 +247,30 @@ def overlap_allreduce_tree(
     stage: bool = False,
     stage_chunk: int = 64 * 1024,
     compiled: bool | None = None,
+    mesh=None,
+    inkernel: bool | None = None,
 ) -> Any:
     """Bucket-streamed all-reduce of a rank-stacked pytree: the overlap
     engine's counterpart of :func:`~repro_torch.comm.api.pallreduce_tree`
-    (same bucketing, same per-bucket plans, so the same bits), with buckets
-    dispatched in backward-streaming order inside the tuned in-flight
-    window. The axis size is the leaves' leading (rank) dimension; as for
-    ``pallreduce_tree``, ``axes`` names at most one axis."""
-    axes = _check_one_axis(axes)
+    (same bucketing, same hierarchy levels, same per-bucket plans, so the
+    same bits), with buckets dispatched in backward-streaming order inside
+    the tuned in-flight window. Over one axis and without ``mesh`` the
+    axis size is the leaves' leading (rank) dimension; over more, as for
+    ``pallreduce_tree``, the leaves are stacked over ``mesh``'s ranks and
+    each axis's size is the mesh's."""
+    axes = _levels(axes, mesh)
     leaves = tree_leaves(tree)
     if not axes or not leaves:
         return tree
+    if mesh is None:
+        sized = [(axes[0], leaves[0].shape[0])]
+    else:
+        sizes = dict(zip(tuple(mesh.axis_names), tuple(mesh.devices.shape)))
+        sized = [(ax, sizes[ax]) for ax in axes]
     view = _rank_view(tree)
     oplan = plan_overlap(
         view,
-        [(axes[0], leaves[0].shape[0])],
+        sized,
         op="allreduce",
         algo=algo,
         tuner=tuner,
@@ -270,5 +282,6 @@ def overlap_allreduce_tree(
         spec=bucketing.plan_buckets(view, bucket_bytes),
     )
     return execute_overlap(
-        oplan, tree, stage=stage, stage_chunk=stage_chunk, compiled=compiled
+        oplan, tree, stage=stage, stage_chunk=stage_chunk, compiled=compiled, mesh=mesh,
+        inkernel=inkernel,
     )

@@ -45,6 +45,7 @@ high-priority stream waits at most one round, never a whole bucket.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 from typing import Any, Mapping, Sequence
@@ -54,7 +55,7 @@ from ..core.bucketing import BucketSpec
 from ..core.tree import tree_leaves
 from ..core.tuner import Tuner, default_tuner
 from ..kernels.chunked_copy import chunked_copy
-from .api import apply_plan
+from .api import _levels, apply_plan, level_replay
 from .plan import CollectivePlan, plan_cached
 
 __all__ = [
@@ -589,9 +590,10 @@ class _Replay:
     held beside it."""
 
     def __init__(self, entry: StreamEntry, tree: Any, *, stage: bool, fused: bool,
-                 compiled: bool | None):
-        self.entry, self.tree = entry, tree
-        self.stage, self.fused, self.compiled = stage, fused, compiled
+                 compiled: bool | None, mesh=None, inkernel: bool | None = None):
+        _levels(entry.axes, mesh)
+        self.entry, self.tree, self.mesh = entry, tree, mesh
+        self.stage, self.fused, self.compiled, self.inkernel = stage, fused, compiled, inkernel
         self.buckets = bucketing.pack_buckets(tree, entry.spec)
         self.order = [k for k in entry.order if self.buckets[k].numel()]
         self.staged: dict[int, Any] = {}
@@ -612,8 +614,9 @@ class _Replay:
                 self._stage(j)
         b = self.staged.pop(k)
         for ax in self.entry.axes:
-            b = apply_plan(self.entry.plans[ax][k], b, fused=self.fused,
-                           compiled=self.compiled)
+            b = level_replay(b, ax, functools.partial(
+                apply_plan, self.entry.plans[ax][k], fused=self.fused,
+                compiled=self.compiled, inkernel=self.inkernel), mesh=self.mesh)
         if b.data_ptr() != self.buckets[k].data_ptr():
             self.buckets[k].copy_(b)
         del b
@@ -636,19 +639,26 @@ def execute_stream_entry(
     stage_chunk: int = 64 * 1024,
     fused: bool = True,
     compiled: bool | None = None,
+    mesh=None,
+    inkernel: bool | None = None,
 ) -> Any:
     """Replay ONE stream entry over a rank-stacked tree (leaves
-    ``(n, *shape)``) and return the tree, updated in place. With ``stage``
+    ``(n, *shape)``) and return the tree, updated in place. Each bucket
+    runs the entry's levels in order, each level's plan on every group of
+    ranks along its axis (``comm.api.level_replay``); an entry of more than
+    one level needs the ``mesh`` the leaves are stacked over. With ``stage``
     every bucket is first copied through the ``chunked_copy`` kernel; the
     collectives update the copy, which is then written back.
     ``stage_chunk`` is accepted and ignored: in the reference it is the
     staging copy's chunk, and the port's copy moves 32 KiB tiles whatever
     the chunk (``chunked_copy(chunk_elems=)``). ``fused`` and ``compiled``
     route each bucket's replay as :func:`apply_plan`'s do (``fused=False``:
-    the unrolled replay). Consumers whose streams run at different points
+    the unrolled replay), and ``inkernel`` as :func:`apply_plan`'s does.
+    Consumers whose streams run at different points
     of a step (grad sync inside it, weight prefetch after the update: the
     DAG edge realized by program order) call this per entry."""
-    run = _Replay(entry, tree, stage=stage, fused=fused, compiled=compiled)
+    run = _Replay(entry, tree, stage=stage, fused=fused, compiled=compiled, mesh=mesh,
+                  inkernel=inkernel)
     for k in run.order:
         run.step(k)
     return run.finish()
@@ -663,13 +673,16 @@ def execute_streams(
     stage_chunk: int = 64 * 1024,
     fused: bool = True,
     compiled: bool | None = None,
+    mesh=None,
+    inkernel: bool | None = None,
 ) -> dict[str, Any]:
     """Replay every stream of ``graph`` over its rank-stacked tree
     (``trees`` maps stream name -> tree), interleaving bucket dispatches in
     the arbiter's commit order (:func:`dispatch_schedule`, on ``hw``).
     Per-bucket math is identical to the per-entry path — only the
     cross-stream interleave differs. Returns the trees, each updated in
-    place. ``stage_chunk`` as :func:`execute_stream_entry`'s."""
+    place. ``stage_chunk``, ``mesh`` and ``inkernel`` as
+    :func:`execute_stream_entry`'s."""
     missing = set(graph.names) - set(trees)
     if missing:
         raise KeyError(f"execute_streams: no tree for streams {sorted(missing)}")
@@ -677,9 +690,10 @@ def execute_streams(
         e = graph.entries[0]
         return {e.name: execute_stream_entry(
             e, trees[e.name], stage=stage, stage_chunk=stage_chunk,
-            fused=fused, compiled=compiled)}
+            fused=fused, compiled=compiled, mesh=mesh, inkernel=inkernel)}
 
-    runs = {e.name: _Replay(e, trees[e.name], stage=stage, fused=fused, compiled=compiled)
+    runs = {e.name: _Replay(e, trees[e.name], stage=stage, fused=fused, compiled=compiled,
+                            mesh=mesh, inkernel=inkernel)
             for e in graph.entries}
     for name, k in dispatch_schedule(graph, hw):
         if runs[name].buckets[k].numel():

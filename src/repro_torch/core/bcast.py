@@ -7,6 +7,7 @@ hierarchical designs) and ``bcast_stacked`` broadcasts a rank-stacked
 value over a mesh."""
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -36,13 +37,21 @@ def hierarchical_bcast(
     algo: str = "auto",
     tuner: Tuner | None = None,
     inter_pod_axes: Sequence | None = None,
+    compiled: bool | None = None,
+    inkernel: bool | None = None,
 ) -> torch.Tensor:
     """Broadcast the rank-stacked ``x`` over the mesh axes one level at a
-    time, the inter-pod level first; an axis named in ``inter_pod_axes``
-    (default ``topology.INTER_POD_AXES``) is priced with the inter-pod
-    constants. ``axes`` come from ``topology.bcast_axes(mesh)`` when not
-    given. The emulated mesh has one data axis, so ``axes`` names at most
-    one (as ``pallreduce_tree``'s)."""
+    time, the inter-pod level first (pod leaders exchange, then each pod
+    fans out); an axis named in ``inter_pod_axes`` (default
+    ``topology.INTER_POD_AXES``) is priced with the inter-pod constants.
+    ``axes`` come from ``topology.bcast_axes(mesh)`` when not given. Each
+    level broadcasts from coordinate ``root`` of its axis on every group of
+    ranks along it (``comm.api.level_replay``), so every rank ends with the
+    row at coordinate ``root`` of every level's axis, per coordinate of the
+    axes not broadcast over (a model axis). Over more than one axis ``x``
+    is stacked over ``mesh``'s ranks and ``mesh`` is required.
+    ``compiled`` and ``inkernel`` route every level's replay as
+    ``comm.apply_plan``'s do."""
     from ..dist import topology
 
     if axes is None:
@@ -51,9 +60,12 @@ def hierarchical_bcast(
         axes = topology.bcast_axes(mesh)
     if inter_pod_axes is None:
         inter_pod_axes = topology.INTER_POD_AXES
-    for ax in _api._check_one_axis(axes):
-        x = _api.pbcast(x, root=root, algo=algo, tuner=tuner,
-                        inter_pod=ax in tuple(inter_pod_axes))
+    for ax in _api._levels(axes, mesh, None if mesh is None else x):
+        x = _api.level_replay(
+            x, ax, functools.partial(_api.pbcast, root=root, algo=algo, tuner=tuner,
+                                     inter_pod=ax in tuple(inter_pod_axes),
+                                     compiled=compiled, inkernel=inkernel),
+            mesh=mesh)
     return x
 
 

@@ -1,11 +1,13 @@
 """Serving engine: batched prefill + step-synchronous decode, after the
 paper's tuned broadcast has distributed the weights.
 
-On an emulated mesh of ``n`` data ranks the engine holds one replica per
-rank as a rank-stacked tree (leaf ``(n, *shape)``). With ``distribute=True``
+On an emulated mesh of ``n`` data ranks (a ('data',) or a ('pod', 'data')
+mesh, ``n = mesh.size``) the engine holds one replica per rank as a
+rank-stacked tree (leaf ``(n, *shape)``). With ``distribute=True``
 the loaded weights enter on row 0 (the root) and the other rows start
 empty; :func:`distribute_weights` broadcasts them with the planned
-collectives. :meth:`Engine.generate` splits the batch over the data ranks
+collectives, level by level, the pod level first.
+:meth:`Engine.generate` splits the batch over the data ranks
 and serves rank ``r``'s requests from rank ``r``'s replica, one rank after
 another on the one card, so every served token depends on the broadcast.
 """
@@ -23,7 +25,7 @@ from ..configs.base import ModelConfig
 from ..core import bucketing
 from ..core.tree import tree_leaves, tree_map
 from ..dist import topology
-from ..launch.mesh import EmulatedMesh, resolve_device
+from ..launch.mesh import EmulatedMesh, refuse_model_axis, resolve_device
 from ..models import Model
 
 __all__ = [
@@ -59,7 +61,8 @@ def replicate(params, n: int, *, fill_root_only: bool) -> dict:
 class Engine:
     """``params`` is the loaded (unstacked) parameter tree on ``device``.
     With ``mesh`` (an :class:`~repro_torch.launch.mesh.EmulatedMesh` on the
-    same device) the engine serves from one replica per data rank."""
+    same device; a ``model`` axis of more than one rank is refused) the
+    engine serves from one replica per data rank."""
 
     def __init__(self, cfg: ModelConfig, params, *, mesh: EmulatedMesh | None = None,
                  max_len: int = 0, distribute: bool = False, double_buffer: bool = False,
@@ -68,8 +71,10 @@ class Engine:
         for leaf in tree_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(f"parameters lie on {leaf.device}, engine on {self.device}")
-        if mesh is not None and mesh.device != self.device:
-            raise ValueError(f"mesh lies on {mesh.device}, engine on {self.device}")
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"mesh lies on {mesh.device}, engine on {self.device}")
+            refuse_model_axis(mesh, "the engine")
         self.cfg = cfg
         self.model = Model(cfg)
         self.mesh = mesh
@@ -228,7 +233,10 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     every row equal to row 0.
 
     The sequence is planned on the host (:func:`distribution_stream_graph`)
-    and replayed bucket by bucket through ``comm.apply_plan``.
+    and replayed bucket by bucket through ``comm.apply_plan``, one level of
+    ``topology.bcast_axes(mesh)`` after another (the pod level first), each
+    level's plan on every group of ranks along its axis
+    (``comm.api.level_replay``).
     ``double_buffer=True`` stages each bucket through the ``chunked_copy``
     kernel, ``overlap_depth`` buckets ahead; the per-bucket collectives are
     the same plans either way, so the weights are identical.
@@ -271,6 +279,7 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     try:
         out = comm_streams.execute_stream_entry(
             graph.entry("distribute"), stacked, stage=double_buffer, compiled=compiled,
+            mesh=mesh,
         )
     except Exception as e:  # noqa: BLE001 — rewrapped as a typed, actionable error
         if snapshot is None:

@@ -1,4 +1,5 @@
-"""Train-step factories on the emulated data axis.
+"""Train-step factories on an emulated data-parallel mesh: a ('data',) or a
+('pod', 'data') mesh (a model axis of one rank allowed).
 
 Five data-parallel synchronization modes, as in the reference's
 ``train/train_step.py``:
@@ -27,7 +28,13 @@ reference's ``local_step`` runs once per rank inside ``shard_map``. Here
 rank ``r`` computes its loss and gradients on its shard
 ``torch.tensor_split(batch, n)[r]``, one rank after another, and the
 gradients fill rank-stacked ``(n, *shape)`` leaves that go through the
-same bucketing, plans and executors as the reference's step. Parameters and
+same bucketing, plans and executors as the reference's step. On a
+('pod', 'data') mesh rank ``r`` is the row-major position over the two
+axes (the reference's ``P(('pod', 'data'))`` batch split) and every
+explicit mode syncs level by level in the reference's order, each level on
+every group of ranks along its axis (``comm.api.level_replay``); the
+degraded step and ``grad_allreduce`` take one pass over the ``n_dp``
+ranks, as one mean does not depend on the levels. Parameters and
 optimizer state are held ONCE: the reference's update is deterministic and
 identical on every rank, so the port applies it once, from row 0 of the
 synced gradients. With ``check_rows=True`` the ``comm`` modes' steps also
@@ -45,12 +52,14 @@ step's metrics ``(params, opt_state, out)``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
 from ..comm import (
     hierarchical_allreduce_axes,
+    level_replay,
     overlap_allreduce_tree,
     pallreduce,
     pallreduce_tree,
@@ -64,7 +73,7 @@ from ..core.bcast import pbcast_tree, preduce_sum
 from ..core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..core.tuner import Tuner
 from ..dist import topology
-from ..launch.mesh import dp_axes
+from ..launch.mesh import dp_axes, refuse_model_axis
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 
 __all__ = [
@@ -186,11 +195,13 @@ def _finish(grads, params, opt_state, optimizer: Optimizer, lr_fn, loss, metrics
 
 
 def _data_ranks(mesh, mode: str) -> int:
-    dp = dp_axes(mesh)
-    if len(dp) != 1 or topology.tp_size(mesh) != 1:
-        raise ValueError(f"{mode} runs on a pure data-parallel mesh with one data axis, "
-                         f"not {tuple(mesh.axis_names)}")
-    return topology.axis_sizes(mesh)[dp[0]]
+    """The data-parallel ranks ``n_dp`` of a ('data',) or ('pod', 'data')
+    mesh (a model axis of one rank allowed): the rank rows of the stacked
+    gradients, rank ``r`` the row-major position over the data axes."""
+    if not dp_axes(mesh):
+        raise ValueError(f"{mode} needs a data axis, not {tuple(mesh.axis_names)}")
+    refuse_model_axis(mesh, mode)
+    return topology.dp_size(mesh)
 
 
 def make_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: Callable,
@@ -261,25 +272,40 @@ def make_bcast_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn
     ``run_cfg.bcast_algo='ring_allreduce'`` (the paper's Sec. VII future
     work) each rank-stacked gradient leaf goes through the explicit ring
     allreduce of ``core.algorithms`` instead, then is divided by ``n``:
-    no reduce to the root and no broadcast."""
+    no reduce to the root and no broadcast.
+
+    On a ('pod', 'data') mesh the levels run as the reference's: the reduce
+    over each data axis in mesh order, the division by ``n_dp``, then the
+    broadcast over the axes in reverse order, the pod level priced with the
+    inter-pod constants; the ring runs once per data axis in mesh order.
+    Each level runs on every group of ranks along its axis
+    (``comm.api.level_replay``)."""
     n = _data_ranks(mesh, "param_bcast")
+    dp = dp_axes(mesh)
     compute = _grad_fn(model, run_cfg)
     ring = run_cfg.bcast_algo == "ring_allreduce"
+    reduce = functools.partial(preduce_sum, root=root)
+
+    def per_axis(fn, s):
+        for ax in dp:
+            s = level_replay(s, ax, fn, mesh=mesh)
+        return s
 
     def train_step(params, opt_state, batch):
         treedef = tree_flatten(params)[1]
         stacked, write = _stacked_writer(n)
         loss, metrics = _per_rank(compute, params, batch, n, write)
         if ring:
-            synced = tree_unflatten(treedef, [ring_allreduce(s).div_(n) for s in stacked])
+            synced = tree_unflatten(treedef, [per_axis(ring_allreduce, s).div_(n)
+                                              for s in stacked])
             del stacked
         else:
-            reduced = [preduce_sum(s, root=root).div_(n) for s in stacked]
+            synced = tree_unflatten(treedef, [per_axis(reduce, s).div_(n) for s in stacked])
             del stacked
-            synced = pbcast_tree(tree_unflatten(treedef, reduced), root=root,
-                                 algo=run_cfg.bcast_algo, tuner=tuner,
-                                 bucket_bytes=run_cfg.bcast_bucket_bytes)
-            del reduced
+            for ax in reversed(dp):
+                synced = pbcast_tree(synced, root=root, algo=run_cfg.bcast_algo, tuner=tuner,
+                                     bucket_bytes=run_cfg.bcast_bucket_bytes,
+                                     inter_pod=ax == "pod", axis=ax, mesh=mesh)
         rows_differ = _tree_rows_differ(synced, check_rows)
         grads = tree_map(lambda t: t[0], synced)
         del synced
@@ -296,7 +322,7 @@ def make_tuned_allreduce_train_step(model, run_cfg: RunConfig, optimizer: Optimi
     bucket's algorithm and chunking a tuned ``CollectivePlan``
     (``run_cfg.allreduce_algo`` pins one; ``compiled_collectives`` routes
     the replay)."""
-    return _make_comm_sync_step(model, run_cfg, mesh, _tree_allreduce(run_cfg, tuner),
+    return _make_comm_sync_step(model, run_cfg, mesh, _tree_allreduce(run_cfg, tuner, mesh),
                                 optimizer, lr_fn, mode="tuned_allreduce", check_rows=check_rows)
 
 
@@ -328,7 +354,7 @@ def make_overlap_allreduce_train_step(model, run_cfg: RunConfig, optimizer: Opti
                 grads, axes, algo=run_cfg.allreduce_algo, tuner=tuner,
                 bucket_bytes=run_cfg.bcast_bucket_bytes, inter_pod_axes=inter_pod_axes,
                 overlap_depth=run_cfg.overlap_depth, compute_s=run_cfg.overlap_compute_s,
-                compiled=run_cfg.compiled_collectives,
+                compiled=run_cfg.compiled_collectives, mesh=mesh,
             )
 
         return _make_comm_sync_step(model, run_cfg, mesh, sync, optimizer, lr_fn,
@@ -366,14 +392,14 @@ def make_overlap_allreduce_train_step(model, run_cfg: RunConfig, optimizer: Opti
 
     def sync(grads, axes, inter_pod_axes):
         return execute_stream_entry(train_step.graph.entry("grad_sync"), grads,
-                                    compiled=run_cfg.compiled_collectives)
+                                    compiled=run_cfg.compiled_collectives, mesh=mesh)
 
     def post_update(params, axes, inter_pod_axes):
         # every rank's row holds the updated parameters; row 0 is the root
         stacked = tree_map(lambda p: p.expand((n,) + tuple(p.shape)).clone(
             memory_format=torch.contiguous_format), params)
         execute_stream_entry(train_step.graph.entry("weight_prefetch"), stacked,
-                             compiled=run_cfg.compiled_collectives)
+                             compiled=run_cfg.compiled_collectives, mesh=mesh)
         for p, s in zip(tree_leaves(params), tree_leaves(stacked)):
             p.copy_(s[0])
         return params
@@ -391,13 +417,13 @@ def make_overlap_allreduce_train_step(model, run_cfg: RunConfig, optimizer: Opti
     return train_step
 
 
-def _tree_allreduce(run_cfg: RunConfig, tuner, wire_format: str | None = None):
+def _tree_allreduce(run_cfg: RunConfig, tuner, mesh, wire_format: str | None = None):
     """The bucketed tuned allreduce of the ``comm`` sync modes."""
     def sync(grads, axes, inter_pod_axes):
         return pallreduce_tree(
             grads, axes, algo=run_cfg.allreduce_algo, tuner=tuner,
             bucket_bytes=run_cfg.bcast_bucket_bytes, inter_pod_axes=inter_pod_axes,
-            compiled=run_cfg.compiled_collectives, wire_format=wire_format,
+            compiled=run_cfg.compiled_collectives, wire_format=wire_format, mesh=mesh,
         )
 
     return sync
@@ -443,7 +469,7 @@ def make_compressed_allreduce_train_step(model, run_cfg: RunConfig, optimizer: O
     fmt = normalize_wire_format(run_cfg.wire_format)
     if not fmt.compressed:
         return _make_comm_sync_step(model, run_cfg, mesh,
-                                    _tree_allreduce(run_cfg, tuner, fmt.value),
+                                    _tree_allreduce(run_cfg, tuner, mesh, fmt.value),
                                     optimizer, lr_fn, mode="compressed_allreduce",
                                     check_rows=check_rows)
 
@@ -468,9 +494,13 @@ def make_compressed_allreduce_train_step(model, run_cfg: RunConfig, optimizer: O
         rows_differ = torch.zeros((), dtype=torch.int64, device=loss.device) if check_rows else None
         for b in bucketing.pack_buckets(residual, spec):
             if b.shape[-1] and axes:
-                b = pallreduce(b, algo=run_cfg.allreduce_algo, tuner=tuner,
-                               inter_pod=axes[0] in inter,
-                               compiled=run_cfg.compiled_collectives, wire_format=fmt.value)
+                c = b
+                for ax in axes:  # the first level's result is new: the residual stays
+                    b = level_replay(b, ax, functools.partial(
+                        pallreduce, algo=run_cfg.allreduce_algo, tuner=tuner,
+                        inter_pod=ax in inter, compiled=run_cfg.compiled_collectives,
+                        wire_format=fmt.value), mesh=mesh, out=None if b is c else b)
+                del c
                 if check_rows:
                     rows_differ += _rows_differ(b)
             rows.append(b[0].div(n))

@@ -2,7 +2,9 @@
 
 ``Trainer(cfg, RunConfig(...), mesh=make_mesh(4)).train(batch=..., seq=...,
 steps=...)`` trains on an emulated data axis of ``mesh.size`` ranks on one
-device. Parameters and optimizer state are held once. ``grad_allreduce``
+device; ``mesh=make_mesh((2, 2), axis_names=('pod', 'data'))`` trains on
+two pods of two, each explicit sync mode level by level as the reference
+syncs on its ('pod', 'data') mesh (see :mod:`.train_step`). Parameters and optimizer state are held once. ``grad_allreduce``
 takes one pass over the global batch (the reference's GSPMD step); every
 other mode computes every rank's gradients on its shard of the global
 batch, syncs them with the run's sync mode, and applies the update once
@@ -25,7 +27,7 @@ from typing import Optional
 from ..configs.base import ModelConfig, RunConfig
 from ..core.tuner import Tuner
 from ..data.pipeline import batches, make_source
-from ..launch.mesh import make_mesh, resolve_device
+from ..launch.mesh import make_mesh, refuse_model_axis, resolve_device
 from ..models import Model
 from ..optim.optimizers import get_optimizer
 from ..optim.schedules import warmup_cosine
@@ -61,8 +63,14 @@ class Trainer:
     A MoE config trains through the einsum dispatch, whatever its
     ``moe_dispatch``: the reference's trainer calls ``apply_lm`` without
     an ``axis_name``, so a ``moe_dispatch='alltoallv'`` config does not
-    move its expert rows through ``palltoallv`` in training. The audio
-    frontend is refused where its model and its batches are built."""
+    move its expert rows through ``palltoallv`` in training. The vision and
+    audio frontends train as the text models do, on the stub embeddings of
+    the port's ``batches``.
+
+    ``mesh`` may be a ('data',) or a ('pod', 'data') mesh (a ``model`` axis
+    of one rank allowed): the global batch splits over its ``mesh.size``
+    ranks in row-major rank order. A ``model`` axis of more than one rank
+    is refused (``ValueError``): the port has no tensor parallelism."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, *, mesh=None,
                  data_path: Optional[str] = None, ckpt_dir: Optional[str] = None,
@@ -71,6 +79,7 @@ class Trainer:
         self.mesh = mesh if mesh is not None else make_mesh(1, device=self.device)
         if self.mesh.device != self.device:
             raise ValueError(f"mesh lies on {self.mesh.device}, trainer on {self.device}")
+        refuse_model_axis(self.mesh, "the trainer")
         if run.sync_mode not in SYNC_MODES:
             raise ValueError(f"unknown sync_mode {run.sync_mode!r} (have {SYNC_MODES})")
         self.cfg = cfg

@@ -301,7 +301,13 @@ def test_hierarchical_bcast_over_one_axis_and_refusals():
     assert torch.equal(tbcast.hierarchical_bcast(x.clone(), ("data",), root=3, algo="chain"),
                        want)
     assert tbcast.hierarchical_bcast(x, ()) is x
-    with pytest.raises(NotImplementedError, match="Serving remainder and hierarchical meshes"):
+    # two pods of two: every rank ends with the root's row, pod level first
+    pods = make_mesh((2, 2), axis_names=("pod", "data"), device="cpu")
+    want0 = x[:1].expand_as(x).clone()
+    assert torch.equal(tbcast.hierarchical_bcast(x.clone(), ("pod", "data"), mesh=pods), want0)
+    assert torch.equal(tbcast.hierarchical_bcast(x.clone(), mesh=pods, root=1),
+                       x[3:4].expand_as(x).clone())  # coordinate 1 of each axis: rank 3
+    with pytest.raises(ValueError, match="needs the mesh"):
         tbcast.hierarchical_bcast(x, ("pod", "data"))
     with pytest.raises(ValueError, match="needs `axes` or a `mesh`"):
         tbcast.hierarchical_bcast(x)

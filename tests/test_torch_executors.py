@@ -109,7 +109,19 @@ def test_unported_paths_raise():
     x = torch.arange(4 * 9, dtype=torch.float32).reshape(4, 9)
     want = torch.cat([x[0, :5], x[2, :9], x[3, :2]])
     assert torch.equal(comm.apply_plan(ragged, x), want.expand(4, 16))
-    with pytest.raises(NotImplementedError, match="hierarchical meshes"):
+    # over ('pod', 'data') the data level (rows 0-1, 2-3) then the pod level
+    # (rows 0 and 2, 1 and 3), each a one-axis allreduce applied by hand
+    pods = tmesh.make_mesh((2, 2), axis_names=("pod", "data"), device="cpu")
+    w = torch.randn((4, 37))
+    got = comm.pallreduce_tree({"w": w.clone()}, ("data", "pod"), mesh=pods,
+                               inter_pod_axes=("pod",))["w"]
+    want = w.clone()
+    for rows in ([0, 1], [2, 3]):
+        want[rows] = comm.pallreduce(want[rows].clone())
+    for rows in ([0, 2], [1, 3]):
+        want[rows] = comm.pallreduce(want[rows].clone(), inter_pod=True)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="needs the mesh"):
         comm.pallreduce_tree({"w": torch.zeros((4, 8))}, ("pod", "data"))
     plan = comm.plan_collective("bcast", 4096, 4, algo="binomial", wire_format="int8")
     with pytest.raises(ValueError):

@@ -167,8 +167,6 @@ def test_plan_cache_info_is_cache_stats():
 # they have no port)
 MISSING_ALLOWED = {
     "Tooling": {"configs.base": {"ShapeSpec", "INPUT_SHAPES"}},
-    "Serving remainder and hierarchical meshes": {
-        "launch.mesh": {"make_local_mesh", "make_production_mesh"}},
     "JAX-only: a TPU v5e cost profile": {"core.cost_model": {"TPU_V5E"}},
 }
 

@@ -31,7 +31,7 @@ JAX_ONLY = frozenset({"axis_name", "interpret", "key", "shardings", "grad_specs"
 
 # keywords whose module is queued in ROADMAP, by the item that ports them
 QUEUED = {
-    # A.7 Serving remainder and hierarchical meshes
+    # A.7 Serving remainder
     "serve.engine.distribute_weights": {"specs"},
 }
 

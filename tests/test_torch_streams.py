@@ -36,6 +36,7 @@ from repro_torch.comm import overlap as tov
 from repro_torch.comm import streams as tst
 from repro_torch.core import cost_model as tcm
 from repro_torch.core.tuner import Tuner as TTuner
+from repro_torch.launch.mesh import make_mesh
 
 # one intra-op thread: the suite runs in several worker processes at once, and
 # the spinning OpenMP threads of each would contend for the same cores
@@ -345,7 +346,14 @@ def test_overlap_allreduce_tree_bit_identical_to_pallreduce_tree(dtype):
             assert _same(got, want), (compiled, algo)
             assert all(got[k] is tree[k] for k in tree)  # updated in place
     assert comm.overlap_allreduce_tree({}, ("data",)) == {}
-    with pytest.raises(NotImplementedError, match="hierarchical meshes"):
+    # over two axes: the same levels, bit for bit
+    pods = make_mesh((2, 2), axis_names=("pod", "data"), device="cpu")
+    kw = dict(bucket_bytes=8 << 10, inter_pod_axes=("pod",), mesh=pods)
+    want = comm.pallreduce_tree(_stacked(leaves, 1, dtype), ("data", "pod"), **kw)
+    got = comm.overlap_allreduce_tree(_stacked(leaves, 1, dtype), ("data", "pod"),
+                                      overlap_depth=2, **kw)
+    assert _same(got, want)
+    with pytest.raises(ValueError, match="needs the mesh"):
         comm.overlap_allreduce_tree(_stacked(leaves, 1), ("pod", "data"))
 
 
