@@ -245,6 +245,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    distribution (pod level first, replicas bit-equal), a generate and a warm
    prefill and decode; (d) minitron-8b-smoke in f32 under tuned_allreduce
    on (2, 2), card against CPU.
+15. tensor-parallel serving, every rank of a (2, 2) ('data', 'model') mesh
+   emulated on the card (the 4 ranks of phase 3: 2 data ranks of 2 model
+   ranks): (a) phase 3's minitron-8b (8 layers) distributed staged
+   (``Engine(distribute=True, double_buffer=True)``) and by the compiled
+   pipelined chain, both with ``specs=`` (``param_specs(fsdp=False,
+   attn_fallback='head_dim')``): the broadcast along the strided data
+   groups (rows m, m + 2), then the cut, every rank's row bit-equal to its
+   block of the loaded weights; s beside phase 3's, peaks, the memory held
+   after the cut, the strided data level's gathers and scatters at the
+   embedding bucket; (b) ``generate`` of batch 4 (2 a data rank), prompt
+   128, 32 steps (tokens in the vocab, log-probs finite and at most 0); the
+   warm prefill ms a data rank and decode tok/s beside phase 3's; (c) one
+   4096-token prompt a data rank: 32 ``flash_attention_sm90`` launches a
+   pass (8 layers x 2 model ranks x 2 data ranks, 16 query and 4 kv heads
+   a model rank) and none of the CUDA-core kernel, the warm prefill ms, one
+   prefill under ``torch.profiler``. Then, after the path's counts are
+   read, (b)'s references: the greedy tokens and each data rank's prefill
+   logits beside the one-axis engine's on the same weights, held against
+   the control of the one-axis engine with one weight element one bf16
+   step up (within 2x its largest ratio to 2^-7 |ref| + 1e-2 and 10x its
+   share over that limit), every TP layer held against the layer in f32
+   (its largest error at most the one-axis layer's plus one bf16 rounding
+   of its largest output), the same weights in f32 end to end within 1e-3;
+   and (c)'s kernel check: every flash call of one data rank's 4096-token
+   prefill recorded, each the sm90 kernel's on a head shard, within one
+   bf16 rounding of the plain version's f32 result on its inputs, the
+   first timed beside the plain version and scaled_dot_product_attention
+   (``serve_tp_shard`` in the sm90 kernel's JSON line); (d)
+   minitron-8b-smoke in f32 on (2, 2), card against CPU (prefill logits
+   within 1e-3, greedy tokens equal).
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -260,8 +290,9 @@ collective entry points), phase 7b (the algorithms), phase 8's interleave
 tuner), phase 10 (the MoE serving path), phase 10b (the expert-parallel
 path), phase 11 (the fault runtime), phases 12a and 12b (the hybrid and
 the recurrent serving paths) and phases 13a and 13b (the encoder-decoder
-and the MHA serving paths) and phase 14 (the hierarchical mesh's path);
-the launches that compare
+and the MHA serving paths), phase 14 (the hierarchical mesh's path) and
+phases 15a-15c's own runs (the tensor-parallel serving path,
+``serve_tp``, without 15b's references and 15c's kernel check); the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
 JSON, the card, and ``{"ok": true, "device": ...}``.
@@ -305,6 +336,11 @@ FLASH_CASES = (
     (1, 80, 80, 2, 1, 128, True, None, 0, 16, 16),
     (1, 256, 256, 2, 2, 128, False, 0, 0, 64, 64),
     (1, 128, 128, 2, 1, 128, True, 0, 0, 32, 32),
+    # head width 128 at a group of 4, a tensor-parallel head shard's
+    # (minitron-8b at M = 2: 16 query and 4 kv heads a model rank): whole
+    # tiles, then partial tiles over 2 sequences
+    (1, 256, 256, 16, 4, 128, True, None, 0, 128, 128),
+    (2, 200, 200, 8, 2, 128, True, None, 0, 40, 40),
     # head width 256, both kernels (the sm90 one on 64-key tiles): a skipped
     # prefix tile, partial row and key tiles, a window with a prefix,
     # paligemma's caller tiles (256, 128) over a prefix of 256
@@ -399,6 +435,22 @@ ENCDEC_PROMPT, MHA_PROMPT, MHA_LAYERS, F8_MAX_LEN = 4, 4096, 7, 8192
 POD_MESH, HIER_ELEMS = (2, 4), 1_048_576_000
 HIER_TRAIN_MODES = ("param_bcast", "param_bcast_ring", "tuned_allreduce", "overlap_allreduce",
                     "compressed_int8")
+# phase 15: tensor-parallel serving on a ('data', 'model') mesh of the same
+# 4 ranks as phase 3 (2 data ranks of 2 model ranks); 15c's prompt a data
+# rank. 15b reads the prefill logits against the one-axis engine's beside
+# one bf16 rounding of them (TP_REL |ref| + TP_ABS), and holds every TP
+# layer against the layer in f32: its largest error at most the one-axis
+# layer's plus one bf16 rounding (2^-8, half a step) of the layer's
+# largest output, the extra rounding of each partial before the model
+# axis's sum. End to end the bf16 logits are held against a control, the
+# one-axis engine's own logits with one weight element moved one bf16
+# step: the TP engine's largest ratio to the limit at most TP_RATIO_MULT x
+# the control's, its share of logits over the limit at most TP_SHARE_MULT
+# x the control's (read 7.49 against 5.12, and 26.17% against 3.59%: PERF.md
+# §6); a fault that moves most logits fails it
+TP_MESH, TP_LONG_PROMPT = (2, 2), 4096
+TP_REL, TP_ABS, TP_LAYER_REL = 2.0**-7, 1e-2, 2.0**-8
+TP_RATIO_MULT, TP_SHARE_MULT = 2.0, 10.0
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -1360,6 +1412,20 @@ def _sdpa_kernel(torch, fn) -> str:
     return max(kern)[1][:100] if kern else "not measured"
 
 
+def _flash_bound(q, k, v, kw) -> tuple[float, float, str]:
+    """The flops of the allowed pairs in kept tiles, the bound ms (the
+    larger of those flops at the bf16 peak and q, k, v in and the output
+    out, bf16, at the HBM rate) and what bounds it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, T, H, hd = q.shape
+    flops = fa.attention_flops(T, k.shape[1], H, hd, B, **kw)
+    moved = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+    by = "operations" if flops / BF16_FLOPS_PER_S >= moved / HBM_BYTES_PER_S else "bytes"
+    return flops, bound, by
+
+
 def flash_bf16_share(torch, got, want32) -> float:
     """The largest |got - want32| / (2^-8 |want32| + 1e-5) of a bf16 output
     against the plain version's f32 result: at most 1 when the kernel's f32
@@ -1470,10 +1536,7 @@ def check_flash_attention(torch) -> list[dict]:
         library_ms = time_ms(torch, sdpa, reps=10)
         library_kernel = _sdpa_kernel(torch, sdpa)
         B, T, H, hd = q.shape
-        flops = fa.attention_flops(T, k.shape[1], H, hd, B, **kw)
-        moved = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in, out; bf16
-        bound = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
-        by = "operations" if flops / BF16_FLOPS_PER_S >= moved / HBM_BYTES_PER_S else "bytes"
+        flops, bound, by = _flash_bound(q, k, v, kw)
         for name, (fn, src) in kernels.items():
             if name not in res:  # the sm90 kernel refused this width (held checked it)
                 continue
@@ -1620,37 +1683,39 @@ def serve(torch) -> tuple[dict, object]:
     return out, engine
 
 
-def _rank_batches(torch, tokens, embeds=None) -> list[dict]:
-    """Each rank's request, split as ``Engine.generate`` splits the batch."""
+def _rank_batches(torch, tokens, embeds=None, ranks: int = RANKS) -> list[dict]:
+    """Each data rank's requests, split as ``Engine.generate`` splits the
+    batch over ``ranks`` data ranks."""
     tok = torch.as_tensor(tokens, device="cuda")
-    embs = [None] * RANKS if embeds is None else torch.tensor_split(embeds, RANKS)
+    embs = [None] * ranks if embeds is None else torch.tensor_split(embeds, ranks)
     return [{"tokens": part, "embeds": emb}
-            for part, emb in zip(torch.tensor_split(tok, RANKS), embs)]
+            for part, emb in zip(torch.tensor_split(tok, ranks), embs)]
 
 
 def time_prefill_decode(torch, engine, tokens, steps: int, embeds=None) -> tuple[float, float]:
     """A warm re-run of ``generate``'s greedy loop over ``tokens`` (B, T)
-    (and a vision config's patch ``embeds``), rank by rank on each rank's
-    replica, with prefill and the ``steps`` decode steps (``decode_step``
-    and the argmax, at positions after the prefix and the text) timed in
-    separate windows, each closed by a synchronize. Returns the seconds of
-    all ranks' prefills and of all their decode steps."""
+    (and a vision config's patch ``embeds``), data rank by data rank on
+    each one's replica (on a model axis, its model ranks' shards), with
+    prefill and the ``steps`` decode steps (``decode_step`` and the argmax,
+    at positions after the prefix and the text) timed in separate windows,
+    each closed by a synchronize. Returns the seconds of all data ranks'
+    prefills and of all their decode steps."""
     T = tokens.shape[1]
     offset = engine.cfg.prefix_len if engine.cfg.frontend == "vision" else 0
     prefill_s = decode_s = 0.0
     with torch.no_grad():
-        for r, batch in enumerate(_rank_batches(torch, tokens, embeds)):
+        for r, batch in enumerate(_rank_batches(torch, tokens, embeds, engine.n)):
             params = engine.replica(r)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, caches = engine.model.prefill(params, batch, max_len=T + steps)
+            logits, caches = engine.prefill(params, batch, max_len=T + steps)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             nxt = torch.argmax(logits[:, -1], dim=-1)
             del logits  # (B, T, vocab) f32: 4.3 GB a rank at gemma's 4096 x 262,144
             for i in range(steps):
-                logits, caches = engine.model.decode_step(params, nxt[:, None], caches,
-                                                          T + offset + i)
+                logits, caches = engine.decode_step(params, nxt[:, None], caches,
+                                                    T + offset + i)
                 nxt = torch.argmax(logits[:, 0], dim=-1)
             torch.cuda.synchronize()
             prefill_s += t1 - t0
@@ -1684,14 +1749,14 @@ def profile_prefill(torch, engine, tokens, top: int = 8, embeds=None,
 
     max_len = tokens.shape[1] + STEPS
     out = []
-    for r, batch in enumerate(_rank_batches(torch, tokens, embeds)[:ranks]):
+    for r, batch in enumerate(_rank_batches(torch, tokens, embeds, engine.n)[:ranks]):
         params = engine.replica(r)
         with torch.no_grad():
-            engine.model.prefill(params, batch, max_len=max_len)
+            engine.prefill(params, batch, max_len=max_len)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                logits = engine.model.prefill(params, batch, max_len=max_len)
+                logits = engine.prefill(params, batch, max_len=max_len)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             del logits
@@ -4329,6 +4394,414 @@ def hierarchical(torch, training: dict, phase3: dict) -> dict:
     return out
 
 
+def _tp_mesh(dev: str = "cuda"):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(TP_MESH, axis_names=("data", "model"), device=dev)
+
+
+def _shards_equal(torch, stacked, params, specs, mesh) -> bool:
+    """Every rank's row of every leaf bit-equal to the block of the loaded
+    leaf that its spec names."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.sharding import is_spec, shard_slices
+
+    for leaf, full, spec in zip(tree_leaves(stacked), tree_leaves(params),
+                                tree_leaves(specs, is_spec), strict=True):
+        for r in range(mesh.size):
+            if not same_bits(torch, leaf[r], full[shard_slices(spec, tuple(full.shape), mesh,
+                                                                r)]):
+                return False
+    return True
+
+
+def tp_distribution(torch, phase3: dict) -> tuple[dict, object, object]:
+    """Phase 15a: phase 3's minitron-8b (LAYERS layers) on a (2, 2) ('data',
+    'model') mesh: the staged distribution of ``Engine(distribute=True,
+    double_buffer=True)`` and the compiled pipelined chain, both with
+    ``specs=`` (the TP serving layout), every rank's row bit-equal to its
+    block of the loaded weights; host-clock s beside phase 3's, the peak
+    during each and the memory held after the cut; then the strided data
+    level's gather and scatter copies at the largest bucket (the embedding),
+    timed as phase 14a times the pod level's. Returns the numbers, the
+    staged engine and the loaded weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, distribute_weights, replicate
+    from repro_torch.serve.engine import rank_rows
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=LAYERS)
+    params = Model(cfg).init(seed=0, device="cuda")
+    mesh = _tp_mesh()
+    specs = param_specs(Model(cfg).param_shapes(), mesh, fsdp=False, attn_fallback="head_dim")
+    root_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, params, mesh=mesh, distribute=True, double_buffer=True)
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    staged_peak = torch.cuda.max_memory_allocated() / 2**30
+    held = torch.cuda.memory_allocated() / 2**30
+    assert _shards_equal(torch, engine.params, params, specs, mesh), "a staged shard differs"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, plans = distribute_weights(
+        replicate(params, mesh.size, fill_root_only=True, roots=rank_rows(mesh)[0]), mesh,
+        specs=specs, algo="pipelined_chain", compiled=True, double_buffer=True,
+        return_plans=True)
+    torch.cuda.synchronize()
+    compiled_s = time.perf_counter() - t0
+    compiled_peak = torch.cuda.max_memory_allocated() / 2**30
+    assert list(plans) == ["data"], list(plans)
+    assert _shards_equal(torch, out, params, specs, mesh), "a compiled shard differs"
+    del out
+    torch.cuda.empty_cache()
+    # the strided data level's copies: each group (rows m, m + 2) gathered
+    # into a contiguous frame, and scattered back, as level_replay makes them
+    E = cfg.padded_vocab * cfg.d_model
+    x = torch.empty((mesh.size, E), dtype=torch.bfloat16, device="cuda")
+    view = x.view(TP_MESH[0], TP_MESH[1], -1)
+    frames = [view[:, m].contiguous() for m in range(TP_MESH[1])]
+    gather_ms = time_ms(torch, lambda: [f.copy_(view[:, m]) for m, f in enumerate(frames)],
+                        reps=5, warmup=1)
+    scatter_ms = time_ms(torch, lambda: [view[:, m].copy_(f) for m, f in enumerate(frames)],
+                         reps=5, warmup=1)
+    copy_bound = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+    del x, view, frames
+    torch.cuda.empty_cache()
+    out = {"staged_s": staged_s, "compiled_s": compiled_s, "phase3_s": phase3["distribute_s"],
+           "plans": {ax: [p.algo for p in ps] for ax, ps in plans.items()},
+           "root_gib": root_gib, "staged_peak_gib": staged_peak,
+           "compiled_peak_gib": compiled_peak, "held_after_cut_gib": held,
+           "strided_gather_ms": gather_ms, "strided_scatter_ms": scatter_ms,
+           "strided_bound_ms": copy_bound}
+    log(f"serve tp distribution: (2, 2) ('data', 'model'), staged {staged_s:.3f} s and "
+        f"compiled pipelined chain {compiled_s:.3f} s (data level, {len(plans['data'])} "
+        f"bucket plans), each cut to the TP specs with every shard bit-equal, beside phase "
+        f"3's one-axis {phase3['distribute_s']:.3f} s; peak {staged_peak:.2f} GiB staged, "
+        f"{compiled_peak:.2f} compiled; held after the cut {held:.2f} GiB (the loaded "
+        f"weights {root_gib:.2f} of it); strided data level at the embedding bucket: "
+        f"gathers {gather_ms:.3f} ms + scatters {scatter_ms:.3f} ms (bound {copy_bound:.3f} "
+        f"ms each, bytes read and written / 3.35 TB/s)")
+    return out, engine, params
+
+
+def _layer_check(torch, engine, one, batch) -> tuple[float, float]:
+    """Every layer of the TP engine on data rank 0's shards and the
+    one-axis engine's layer, each on the same input (the one-axis hidden
+    state entering it), against that layer computed in f32 from the same
+    bf16 input and weights (TF32 off): the TP layer's largest error may
+    exceed the one-axis layer's by one bf16 rounding of the layer's largest
+    output (TP_LAYER_REL max |out|, the extra rounding of the partials
+    before the model-axis sum). Returns the largest ratio of the TP
+    layer's largest error to that limit, and of its mean error to the
+    one-axis layer's, over the layers."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import tensor_parallel as tp_lib
+    from repro_torch.models.blocks import apply_block
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.models.transformer import _dtype
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = engine.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    full, shards = one.replica(0), engine.replica(0)
+    x = embed_tokens(full["embed"], batch["tokens"]) * torch.tensor(
+        cfg.d_model**0.5, dtype=_dtype(cfg), device=batch["tokens"].device)
+    worst, worst_mean = 0.0, 0.0
+    for l in range(cfg.num_layers):
+        p = tree_map(lambda t, l=l: t[l], full["decoder"]["blocks"][0])
+        ps = [tree_map(lambda t, l=l: t[l], s["decoder"]["blocks"][0]) for s in shards]
+        want = apply_block(p, x, cfg, "attn", None, mode="prefill")[0]
+        got = tp_lib._block(ps, x, cfg, "attn", None, mode="prefill")[0]
+        exact = apply_block(tree_map(lambda t: t.float(), p), x.float(), cfg32, "attn", None,
+                            mode="prefill")[0]
+        e_tp, e_one = (got.float() - exact).abs(), (want.float() - exact).abs()
+        limit = float(e_one.max()) + TP_LAYER_REL * float(want.abs().max())
+        worst = max(worst, float(e_tp.max()) / limit)
+        worst_mean = max(worst_mean, float(e_tp.mean()) / float(e_one.mean()))
+        x = want
+        del got, exact, e_tp, e_one
+    return worst, worst_mean
+
+
+def _logit_diff(got, want) -> tuple[float, float, float]:
+    """Max abs difference, its largest ratio to TP_REL |ref| + TP_ABS and
+    the share of logits beyond that limit."""
+    err = (got - want).abs()
+    ratio = err / (TP_REL * want.abs() + TP_ABS)
+    return float(err.max()), float(ratio.max()), float((ratio > 1).float().mean())
+
+
+def tp_serving(torch, engine, phase3: dict) -> tuple[dict, object, object]:
+    """Phase 15b, the TP engine's own runs: it serves batch BATCH (BATCH / 2
+    a data rank), prompt PROMPT, STEPS decode steps (tokens in the vocab,
+    log-probs finite and at most 0); the warm prefill ms a data rank and
+    decode tok/s beside phase 3's. Returns the numbers, the prompts and the
+    greedy tokens, which :func:`tp_against_one_axis` holds afterwards."""
+    import numpy as np
+
+    cfg = engine.cfg
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size - 1, size=(BATCH, PROMPT))
+    t0 = time.perf_counter()
+    res = engine.generate({"tokens": tokens}, steps=STEPS)
+    gen_s = time.perf_counter() - t0
+    assert res.tokens.shape == (BATCH, STEPS)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
+    assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS)
+    out = {"generate_s": gen_s, "prefill_ms_per_data_rank": prefill_s / engine.n * 1e3,
+           "decode_tokens_per_s": BATCH * STEPS / decode_s,
+           "phase3_prefill_ms_per_rank": phase3["prefill_ms_per_rank"],
+           "phase3_decode_tokens_per_s": phase3["decode_tokens_per_s"]}
+    log(f"serve tp: batch {BATCH} ({BATCH // engine.n} a data rank), generate {gen_s:.3f} s "
+        f"(cold); warm prefill {out['prefill_ms_per_data_rank']:.2f} ms a data rank, decode "
+        f"{out['decode_tokens_per_s']:.1f} tok/s, beside phase 3's "
+        f"{phase3['prefill_ms_per_rank']:.2f} ms a rank (1 request) and "
+        f"{phase3['decode_tokens_per_s']:.1f} tok/s")
+    return out, tokens, res.tokens
+
+
+def tp_against_one_axis(torch, engine, params, tokens, tp_tokens) -> dict:
+    """Phase 15b's references, run after the ``serve_tp`` path's counts are
+    read: the TP engine's greedy tokens and each data rank's prefill logits
+    beside the one-axis engine's on the same weights (the loaded tree,
+    served as one replica).
+
+    The model axis's partial sums round each partial to bf16 before they
+    are added, so the TP engine's bits differ from the one-axis engine's,
+    and a bf16 model of random weights 8 layers deep carries such a
+    difference to its logits at far more than one rounding (TP_REL |ref| +
+    TP_ABS): the one-axis engine's own logits move that far when one
+    element of one weight moves by one bf16 step. That move is the control:
+    the TP logits' largest ratio to the limit and their share over it are
+    held within TP_RATIO_MULT and TP_SHARE_MULT of the control's. Held
+    besides: every layer, fed the one-axis hidden state, against the layer
+    in f32 as accurate as the one-axis layer but for one bf16 rounding
+    (:func:`_layer_check`); and the same weights in f32 (TF32 off), TP
+    against one-axis end to end, logits within 1e-3."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.serve import Engine
+
+    cfg = engine.cfg
+    one = Engine(cfg, params)  # the one-axis engine: one replica, the loaded tree itself
+    ref = one.generate({"tokens": tokens}, steps=STEPS)
+    agree = int((tp_tokens == ref.tokens).sum())
+    batches = _rank_batches(torch, tokens, ranks=engine.n)
+    bf16, moved = [], None
+    with torch.no_grad():
+        for d, batch in enumerate(batches):
+            want = one.prefill(one.replica(0), batch, max_len=PROMPT + STEPS)[0]
+            got = engine.prefill(engine.replica(d), batch, max_len=PROMPT + STEPS)[0]
+            assert bool(torch.isfinite(got).all())
+            bf16.append(_logit_diff(got, want))
+            if d == 0:  # the control: one element of layer 0's w_down one bf16 step up
+                w = params["decoder"]["blocks"][0]["mlp"]["w_down"].view(-1)
+                keep = w[12345].clone()
+                w[12345] = keep * (1 + 2.0**-7)
+                moved = _logit_diff(one.prefill(one.replica(0), batch,
+                                                max_len=PROMPT + STEPS)[0], want)
+                w[12345] = keep
+            del got, want
+        layer_ratio, mean_ratio = _layer_check(torch, engine, one, batches[0])
+    assert layer_ratio <= 1.0, f"a TP layer lies off the f32 layer: {layer_ratio}"
+    worst = max(bf16, key=lambda r: r[1])
+    share = max(r[2] for r in bf16)
+    assert worst[1] <= TP_RATIO_MULT * moved[1] and share <= TP_SHARE_MULT * moved[2], \
+        ("the bf16 TP logits lie farther from the one-axis engine's than the control allows",
+         worst, share, moved)
+    del one
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    one32, tp32 = Engine(cfg32, p32), Engine(cfg32, p32, mesh=engine.mesh)
+    del p32
+    f32_err = 0.0
+    with torch.no_grad():
+        for d, batch in enumerate(batches):
+            want = one32.prefill(one32.replica(0), batch, max_len=PROMPT)[0]
+            got = tp32.prefill(tp32.replica(d), batch, max_len=PROMPT)[0]
+            f32_err = max(f32_err, float((got - want).abs().max()))
+            del got, want
+    del one32, tp32
+    torch.cuda.empty_cache()
+    assert f32_err <= 1e-3, f"f32 TP logits off the one-axis engine's: {f32_err}"
+    out = {"bf16_logits": {"max_abs_err": worst[0], "limit_ratio": worst[1],
+                           "share_over_limit": share},
+           "one_ulp_weight_logits": {"max_abs_err": moved[0], "limit_ratio": moved[1],
+                                     "share_over_limit": moved[2]},
+           "layer_limit_ratio": layer_ratio, "layer_mean_err_ratio": mean_ratio,
+           "f32_logits_max_abs_err": f32_err, "tokens_agree": agree, "tokens": BATCH * STEPS}
+    log(f"serve tp logits: greedy tokens agree {agree} / {BATCH * STEPS} with the one-axis "
+        f"engine's; every layer fed the one-axis state, against the layer in f32: "
+        f"the TP layer's largest error within {layer_ratio:.3f} of the one-axis layer's plus "
+        f"one bf16 rounding (2^-8) of its largest output, its mean error at most "
+        f"{mean_ratio:.3f} x the one-axis layer's; f32 weights end to end max abs diff "
+        f"{f32_err:.3e} (tol 1e-3); bf16 end to end max abs diff {worst[0]:.4f}, "
+        f"{worst[1]:.2f} x the limit, {share:.2%} of logits over it, beside the control (one "
+        f"weight element one bf16 step up in the one-axis engine): {moved[0]:.4f}, "
+        f"{moved[1]:.2f} x, {moved[2]:.2%} (held within {TP_RATIO_MULT:g} x and "
+        f"{TP_SHARE_MULT:g} x: {worst[1] / moved[1]:.2f} x and "
+        f"{share / moved[2] if moved[2] else math.inf:.2f} x)")
+    return out
+
+
+def tp_long(torch, engine) -> dict:
+    """Phase 15c: one TP_LONG_PROMPT-token prompt a data rank through the TP
+    engine: each pass's flash launches counted (LAYERS x 2 model ranks x 2
+    data ranks of the sm90 kernel at 16 query and 4 kv heads a model rank,
+    none of the CUDA-core one), the warm prefill ms a data rank, one
+    prefill under ``torch.profiler``."""
+    import numpy as np
+
+    from repro_torch import kernels
+
+    cfg = engine.cfg
+    tokens = np.random.RandomState(15).randint(0, cfg.vocab_size - 1,
+                                               size=(engine.n, TP_LONG_PROMPT))
+    before = kernels.launch_counts()
+    with torch.no_grad():
+        for d, batch in enumerate(_rank_batches(torch, tokens, ranks=engine.n)):
+            logits, _ = engine.prefill(engine.replica(d), batch, max_len=TP_LONG_PROMPT)
+            assert bool(torch.isfinite(logits[:, -1]).all())
+            del logits
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    sm90 = after["flash_attention_sm90"] - before["flash_attention_sm90"]
+    core = after["flash_attention"] - before["flash_attention"]
+    want = LAYERS * engine.tp * engine.n
+    assert sm90 == want and core == 0, (sm90, core, want)
+    prefill_s, _ = time_prefill_decode(torch, engine, tokens, 1)
+    prof = profile_prefill(torch, engine, tokens, label="serve tp long", ranks=1)
+    out = {"sm90_launches_a_pass": sm90, "cuda_core_launches": core,
+           "prefill_ms_per_data_rank": prefill_s / engine.n * 1e3, "profile": prof}
+    log(f"serve tp long: one {TP_LONG_PROMPT}-token prompt a data rank, "
+        f"{sm90} flash_attention_sm90 launches a pass ({LAYERS} layers x {engine.tp} model "
+        f"ranks x {engine.n} data ranks, 16 query / 4 kv heads a model rank), {core} of the "
+        f"CUDA-core kernel; warm prefill {out['prefill_ms_per_data_rank']:.2f} ms a data rank; "
+        f"profiled {prof[0]['device_ms'] / prof[0]['wall_ms']:.1%} busy")
+    return out
+
+
+def tp_flash_shard(torch, engine) -> dict:
+    """Phase 15c's kernel check, run after the ``serve_tp`` path's counts
+    are read: data rank 0's TP_LONG_PROMPT-token prefill again, with every
+    call of ``flash_attention`` recorded (its q, k, v, keywords and the
+    output the path went on with). Each is the sm90 kernel's, on a head
+    shard (the config's heads and kv heads over the model ranks), and lies
+    within one bf16 rounding of the plain version's f32 result on the same
+    inputs. The first call is timed beside the plain version and one
+    scaled_dot_product_attention call, for the kernels JSON."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = engine.cfg
+    tokens = np.random.RandomState(15).randint(0, cfg.vocab_size - 1, size=(1, TP_LONG_PROMPT))
+    batch = _rank_batches(torch, tokens, ranks=1)[0]
+    calls, launched = [], fa.flash_attention
+
+    def record(q, k, v, **kw):
+        out = launched(q, k, v, **kw)
+        calls.append((q.clone(), k.clone(), v.clone(), kw, out))
+        return out
+
+    fa.flash_attention = record
+    try:
+        with torch.no_grad():
+            engine.prefill(engine.replica(0), batch, max_len=TP_LONG_PROMPT)
+    finally:
+        fa.flash_attention = launched
+    heads = (cfg.num_heads // engine.tp, cfg.num_kv_heads // engine.tp)
+    assert len(calls) == LAYERS * engine.tp, len(calls)
+    worst, err = 0.0, 0.0
+    for q, k, v, kw, out in calls:
+        assert (q.shape[2], k.shape[2]) == heads and q.shape[1] == TP_LONG_PROMPT, \
+            (q.shape, k.shape, heads)
+        assert fa.kernel_route(q.dtype, q.shape[3]) == "flash_attention_sm90"
+        want32 = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        worst = max(worst, flash_bf16_share(torch, out, want32))
+        err = max(err, max_abs_err(torch, out, want32))
+        del want32
+    assert worst <= 1.0, f"sm90 flash on the TP head shard off the plain version: {worst}"
+    q, k, v, kw, _ = calls[0]
+    del calls
+    ms = time_ms(torch, lambda: fa.flash_sm90(q, k, v, **kw), reps=20)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3, warmup=1)
+    library_ms = time_ms(torch, _sdpa_call(torch, q, k, v, kw), reps=10)
+    flops, bound, by = _flash_bound(q, k, v, kw)
+    out = {"calls_checked": LAYERS * engine.tp, "shape": [list(q.shape), list(k.shape)],
+           "tiles": [kw["bq"], kw["bk"]], "max_abs_err": err, "bf16_share_of_limit": worst,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": library_ms, "gflop": flops / 1e9}
+    log(f"serve tp flash: data rank 0's {LAYERS * engine.tp} flash_attention_sm90 calls on "
+        f"head shards {tuple(q.shape)} x {tuple(k.shape)} tiles ({kw['bq']}, {kw['bk']}), "
+        f"each against the plain version's f32 result on its inputs: max abs err {err:.3e}, "
+        f"{worst:.3f} of the limit 2^-8 |plain| + 1e-5; bf16 {ms:.4f} ms (bound {bound:.4f} "
+        f"ms by {by}, {bound / ms:.1%}), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms")
+    return out
+
+
+def tp_smoke(torch) -> float:
+    """Phase 15d: minitron-8b-smoke in f32 on (2, 2) ('data', 'model'),
+    distributed and served on the card and on the CPU from one tree: each
+    data rank's prefill logits within 1e-3, the greedy tokens equal."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("minitron-8b-smoke"), dtype="float32")
+    params = Model(cfg).init(seed=0, device="cpu")
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size - 1, size=(BATCH, 16))
+    logits, toks = {}, {}
+    for dev in ("cpu", "cuda"):
+        engine = Engine(cfg, tree_map(lambda t: t.to(dev), params), mesh=_tp_mesh(dev),
+                        distribute=True, device=dev)
+        with torch.no_grad():
+            logits[dev] = torch.cat([
+                engine.prefill(engine.replica(d), {"tokens": b["tokens"].to(dev)},
+                               max_len=24)[0].cpu()
+                for d, b in enumerate(_rank_batches(torch, tokens, ranks=engine.n))])
+        toks[dev] = engine.generate({"tokens": tokens}, steps=8).tokens
+    err = float((logits["cpu"] - logits["cuda"]).abs().max())
+    assert err <= 1e-3 and (toks["cpu"] == toks["cuda"]).all(), (err, toks)
+    log(f"serve tp smoke: minitron-8b-smoke f32 on (2, 2) ('data', 'model'), card vs CPU, "
+        f"max abs prefill logit diff {err:.3e} (tol 1e-3), greedy tokens equal")
+    return err
+
+
+def tensor_parallel(torch, phase3: dict) -> tuple[dict, dict]:
+    """Phase 15, TP serving: 15a to 15c, the TP engine's own runs, counted
+    as the ``serve_tp`` path; then, uncounted, 15b's one-axis and f32
+    references and 15c's flash check; then 15d. Returns the numbers and the
+    path's launch counts."""
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    dist_rec, engine, params = tp_distribution(torch, phase3)
+    serve_rec, tokens, tp_tokens = tp_serving(torch, engine, phase3)
+    long_rec = tp_long(torch, engine)
+    counts = kernels.launch_counts()
+    serve_rec.update(tp_against_one_axis(torch, engine, params, tokens, tp_tokens))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_rec["flash_check"] = tp_flash_shard(torch, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"distribution": dist_rec, "serving": serve_rec, "long": long_rec,
+           "smoke_err": tp_smoke(torch)}
+    return out, counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is missing beside this script", file=sys.stderr)
@@ -4516,6 +4989,10 @@ def main() -> int:
     hier = hierarchical(torch, training, serving)
     hier_counts = kernels.launch_counts()
     mark("hierarchical mesh (14)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp, tp_counts = tensor_parallel(torch, serving)
+    mark("tensor-parallel serving (15)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
     # too) and the streams phase, the staging copy on the serving paths and
@@ -4538,14 +5015,18 @@ def main() -> int:
     # whisper's attention stays dense under 4096 keys); mix and
     # scaled_add are on no path of either package; the merge, the staging
     # copy, the quantize pair and the in-kernel replay on the hierarchical
-    # mesh's path (phase 14: its collectives, trainings and distributions), and the shared-buffer
+    # mesh's path (phase 14: its collectives, trainings and distributions); the merge, the
+    # staging copy and the sm90 flash kernel on the tensor-parallel serving path (phase 15:
+    # its two distributions and the long prompt's prefills); and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("hierarchical", "serve_encdec", "serve_mha", "serve_hybrid", "serve_recurrent",
+    paths = {"fused_combine": ("serve_tp", "hierarchical", "serve_encdec", "serve_mha",
+                               "serve_hybrid", "serve_recurrent",
                                "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
                                "train_vlm", "algorithms", "online", "streams"),
-             "chunked_copy": ("hierarchical", "serve_encdec", "serve_mha", "serve_hybrid", "serve_recurrent",
+             "chunked_copy": ("serve_tp", "hierarchical", "serve_encdec", "serve_mha",
+                              "serve_hybrid", "serve_recurrent",
                               "faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
                               "streams"),
              "quantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
@@ -4553,7 +5034,7 @@ def main() -> int:
              "inkernel_replay": (),
              "inkernel_rdma": ("hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
-             "flash_attention_sm90": ("moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
+             "flash_attention_sm90": ("serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
                                       "serve_mha"),
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
@@ -4565,13 +5046,17 @@ def main() -> int:
               "online": online_counts, "serve_moe": moe_serve_counts, "moe_ep": moe_ep_counts,
               "faults": fault_counts, "serve_hybrid": hybrid_counts,
               "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
-              "serve_mha": mha_counts, "hierarchical": hier_counts}
+              "serve_mha": mha_counts, "hierarchical": hier_counts, "serve_tp": tp_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     assert hybrid_counts["flash_attention"] == 0, hybrid_counts
     assert recurrent_counts["flash_attention"] == recurrent_counts["flash_attention_sm90"] == 0
     assert encdec_counts["flash_attention"] == encdec_counts["flash_attention_sm90"] == 0
     assert mha_counts["flash_attention"] == 0, mha_counts
+    assert tp_counts["flash_attention"] == 0, tp_counts
+    # the sm90 kernel on the TP path's head shard (phase 15c's check)
+    next(ln for ln in lines if ln["name"] == "flash_attention_sm90")["serve_tp_shard"] = \
+        tp["long"]["flash_check"]
     for line in lines:
         if not paths[line["name"]]:
             assert line["name"] in ("mix", "scaled_add", "inkernel_replay"), line["name"]
@@ -4600,6 +5085,7 @@ def main() -> int:
     log(f"encoder-decoder and MHA numbers: "
         f"{json.dumps({'serve_encdec': encdec, 'serve_mha': mha})}")
     log(f"hierarchical numbers: {json.dumps(hier)}")
+    log(f"tensor-parallel numbers: {json.dumps(tp)}")
     check_trap(torch)
     mark("trap check")
     log("phase ends, s from the build's start: "

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map", "tree_paths"]
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "tree_map", "tree_map_with_path",
+           "tree_paths"]
 
 _LEAF = "leaf"
 
@@ -21,19 +22,24 @@ _LEAF = "leaf"
 # leaf (gigabytes of device memory) alive until the garbage collector runs
 
 
-def _walk(node, leaves: list):
+def _walk(node, leaves: list, is_leaf=None):
     if node is None:
         return None
+    if is_leaf is not None and is_leaf(node):
+        leaves.append(node)
+        return _LEAF
     if isinstance(node, dict):
         keys = sorted(node)
-        return ("dict", tuple(keys), tuple(_walk(node[k], leaves) for k in keys))
+        return ("dict", tuple(keys), tuple(_walk(node[k], leaves, is_leaf) for k in keys))
     if isinstance(node, (list, tuple)):
-        return (type(node).__name__, None, tuple(_walk(c, leaves) for c in node))
+        return (type(node).__name__, None, tuple(_walk(c, leaves, is_leaf) for c in node))
     leaves.append(node)
     return _LEAF
 
 
 def _paths(node, prefix: tuple, out: list):
+    """Each leaf's path as a tuple of keys: dict keys as ``str``, sequence
+    indices as ``int``."""
     if node is None:
         return
     if isinstance(node, dict):
@@ -41,9 +47,9 @@ def _paths(node, prefix: tuple, out: list):
             _paths(node[k], prefix + (str(k),), out)
     elif isinstance(node, (list, tuple)):
         for i, c in enumerate(node):
-            _paths(c, prefix + (str(i),), out)
+            _paths(c, prefix + (i,), out)
     else:
-        out.append("/".join(prefix))
+        out.append(prefix)
 
 
 def _build(d, it):
@@ -58,11 +64,12 @@ def _build(d, it):
     return tuple(vals) if kind == "tuple" else vals
 
 
-def tree_flatten(tree: Any) -> tuple[list, Any]:
+def tree_flatten(tree: Any, is_leaf: Callable | None = None) -> tuple[list, Any]:
     """``(leaves, treedef)``; ``treedef`` is a nested description that
-    :func:`tree_unflatten` consumes."""
+    :func:`tree_unflatten` consumes. ``is_leaf`` stops the walk at a node
+    (a sharding spec, which is a tuple), as jax's does."""
     leaves: list = []
-    return leaves, _walk(tree, leaves)
+    return leaves, _walk(tree, leaves, is_leaf)
 
 
 def tree_unflatten(treedef: Any, leaves) -> Any:
@@ -73,8 +80,8 @@ def tree_unflatten(treedef: Any, leaves) -> Any:
     return out
 
 
-def tree_leaves(tree: Any) -> list:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree: Any, is_leaf: Callable | None = None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -83,10 +90,19 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tree_map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` over the leaves, ``path`` a tuple of dict keys
+    (``str``) and sequence indices (``int``) from the root."""
+    leaves, treedef = tree_flatten(tree)
+    paths: list = []
+    _paths(tree, (), paths)
+    return tree_unflatten(treedef, [fn(p, x) for p, x in zip(paths, leaves)])
+
+
 def tree_paths(tree: Any) -> list[str]:
     """Each leaf's path in flatten order, joined with '/': dict keys and
     sequence indices, as the reference's checkpoint keys
     (``jax.tree_util.tree_flatten_with_path``)."""
-    out: list[str] = []
+    out: list = []
     _paths(tree, (), out)
-    return out
+    return ["/".join(map(str, p)) for p in out]

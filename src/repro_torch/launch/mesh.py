@@ -80,13 +80,14 @@ class EmulatedMesh:
 
 
 def refuse_model_axis(mesh, what: str) -> None:
-    """The port has no tensor parallelism: ``what`` (the trainer, a sync
-    mode, the engine) refuses a ``model`` axis of more than one rank."""
+    """The port trains data-parallel only: ``what`` (the trainer, a sync
+    mode) refuses a ``model`` axis of more than one rank. A model axis of
+    one rank is a data-parallel mesh; the engine serves tensor-parallel."""
     if tp_size(mesh) != 1:
         raise ValueError(
             f"{what} runs on a data-parallel mesh; the model axis of {tuple(mesh.axis_names)} "
-            f"{tuple(mesh.devices.shape)} has {tp_size(mesh)} ranks and the port has no tensor "
-            'parallelism (ROADMAP item "Serving remainder")')
+            f"{tuple(mesh.devices.shape)} has {tp_size(mesh)} ranks and the port trains "
+            'without tensor parallelism (ROADMAP item "Training on a model axis")')
 
 
 def make_mesh(shape, *, axis_names=None, device="cuda") -> EmulatedMesh:

@@ -31,7 +31,7 @@ from .layers import (
     rms_norm,
 )
 
-__all__ = ["attn_spec_for", "init_block", "apply_block", "init_block_cache"]
+__all__ = ["attn_spec_for", "init_block", "apply_block", "init_block_cache", "prefill_cache"]
 
 
 def attn_spec_for(cfg, window: Optional[int], causal: bool = True) -> AttnSpec:
@@ -166,12 +166,7 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
         y, ac = attention(p["attn"], h, spec, mode=mode, positions=positions,
                           prefix_len=prefix_len,
                           cache=None if cache is None else cache["attn"], cur_pos=cur_pos)
-        if mode == "prefill":
-            if max_len:
-                ac = _grow_cache(ac, max_len, spec)
-            kv_dt = getattr(torch, cfg.kv_cache_dtype)
-            ac = {**ac, "k": ac["k"].to(kv_dt), "v": ac["v"].to(kv_dt)}
-        new_cache["attn"] = ac
+        new_cache["attn"] = prefill_cache(ac, max_len, spec, cfg) if mode == "prefill" else ac
         if kind == "hybrid":
             m, new_cache["ssm"] = _mixer(p, h, cfg, kind, mode, cache)
             y = p["mix_a"].to(x.dtype) * y + p["mix_m"].to(x.dtype) * m
@@ -199,6 +194,15 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, window: Optional[int], *,
         x = x + y
         aux = aux + a
     return x, (None if mode == "train" else new_cache), aux
+
+
+def prefill_cache(cache: dict, max_len: int, spec: AttnSpec, cfg) -> dict:
+    """A prefill-built attention cache as decode keeps it: grown to
+    ``max_len`` (when given) and cast to ``cfg.kv_cache_dtype``."""
+    if max_len:
+        cache = _grow_cache(cache, max_len, spec)
+    kv_dt = getattr(torch, cfg.kv_cache_dtype)
+    return {**cache, "k": cache["k"].to(kv_dt), "v": cache["v"].to(kv_dt)}
 
 
 def _grow_cache(cache: dict, max_len: int, spec: AttnSpec) -> dict:

@@ -13,6 +13,15 @@ from .transformer import apply_lm, init_decode_cache, init_lm
 __all__ = ["Model"]
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is the meta device: the init's walk
+    draws every leaf on it (shape and dtype, no storage)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -26,6 +35,12 @@ class Model:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return init_lm(gen, self.cfg)
+
+    def param_shapes(self) -> Any:
+        """The parameter tree as meta tensors, from the init's own walk:
+        shapes and dtypes, nothing allocated (the layout rules of
+        :mod:`repro_torch.dist.sharding` read it)."""
+        return init_lm(_MetaGenerator(), self.cfg)
 
     def forward(self, params, batch: dict, *, remat: bool = False):
         """Train-mode forward. Returns (logits (B, T, V) f32, aux): the

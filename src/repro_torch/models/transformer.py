@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.tree import tree_map
+from ..dist.hints import hint
 from .blocks import apply_block, init_block, init_block_cache
 from .layers import embed_tokens, init_embedding, init_rms_norm, rms_norm, unembed
 
@@ -111,13 +112,15 @@ def _train_superblock(x, stack, l: int, cfg, layout: StackLayout, prefix_len: in
         x, _, a = apply_block(p, x, cfg, layout.kinds[i], layout.windows[i], mode="train",
                               prefix_len=prefix_len, causal=causal, cross_inputs=cross_inputs,
                               mesh=mesh, transport=transport)
+        x = hint(x, "btd_res")  # optional sequence-parallel residual
         aux = aux + a
     return x, aux
 
 
 def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
                  cur_pos=None, max_len: int = 0, prefix_len: int = 0, causal: bool = True,
-                 cross_inputs=None, remat: bool = False, mesh=None, transport=None):
+                 cross_inputs=None, remat: bool = False, mesh=None, transport=None,
+                 block=apply_block):
     """Returns (x, caches, aux) with caches ``{'blocks': [...], 'tail':
     [...]}``, or ``None`` in train mode, and ``aux`` the blocks' summed
     auxiliary loss (0-d f32). ``prefix_len`` reaches every block (the
@@ -127,7 +130,10 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
     bidirectional blocks, a decoder's cross attention to the encoder's
     output). ``remat`` (train mode) recomputes each superblock in the
     backward pass instead of keeping its activations: the reference's
-    ``jax.checkpoint`` around its scan body."""
+    ``jax.checkpoint`` around its scan body. ``block`` computes a block in
+    prefill and decode (:func:`apply_block`, or the tensor-parallel block
+    of :mod:`.tensor_parallel`, whose stack holds each layer's rank shards
+    as a list)."""
     P = layout.period
     kinds, wins = layout.kinds, layout.windows
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -157,10 +163,11 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
         for i in range(P):
             p = tree_map(lambda t: t[l], stack["blocks"][i])
             c = None if caches is None else tree_map(lambda t: t[l], caches["blocks"][i])
-            x, nc, a = apply_block(p, x, cfg, kinds[i], wins[i], mode=mode, cache=c,
-                                   cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
-                                   causal=causal, cross_inputs=cross_inputs, mesh=mesh,
-                                   transport=transport)
+            x, nc, a = block(p, x, cfg, kinds[i], wins[i], mode=mode, cache=c,
+                             cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
+                             causal=causal, cross_inputs=cross_inputs, mesh=mesh,
+                             transport=transport)
+            x = hint(x, "btd_res")  # optional sequence-parallel residual
             aux = aux + a
             slot_caches[i].append(nc)
         auxs.append(aux)
@@ -175,10 +182,10 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
     for j, tp in enumerate(stack["tail"]):
         i = (layout.num_super * P + j) % P
         tc = None if caches is None else caches["tail"][j]
-        x, nc, a = apply_block(tp, x, cfg, kinds[i], wins[i], mode=mode, cache=tc,
-                               cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
-                               causal=causal, cross_inputs=cross_inputs, mesh=mesh,
-                               transport=transport)
+        x, nc, a = block(tp, x, cfg, kinds[i], wins[i], mode=mode, cache=tc,
+                         cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
+                         causal=causal, cross_inputs=cross_inputs, mesh=mesh,
+                         transport=transport)
         aux_total = aux_total + a
         new_caches["tail"].append(nc)
     return x, new_caches, aux_total
@@ -231,6 +238,7 @@ def apply_lm(params, cfg, *, tokens: torch.Tensor | None = None,
                 raise ValueError(f"{cfg.name}: train and prefill need the patch embeddings")
             x = torch.cat([embeds.to(dt), x], dim=1)
             prefix_len = embeds.shape[1]
+    x = hint(x, "btd")
     x, new_caches, aux = _apply_stack(params["decoder"], x, cfg, layout, mode=mode,
                                       caches=caches, cur_pos=cur_pos, max_len=max_len,
                                       prefix_len=prefix_len, cross_inputs=cross_inputs,
@@ -238,7 +246,7 @@ def apply_lm(params, cfg, *, tokens: torch.Tensor | None = None,
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if mode != "decode" and prefix_len:
         x = x[:, prefix_len:]
-    return unembed(params["embed"], x), new_caches, aux
+    return hint(unembed(params["embed"], x), "btv"), new_caches, aux
 
 
 def init_decode_cache(cfg, batch: int, max_len: int, device) -> dict:

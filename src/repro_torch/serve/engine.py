@@ -10,6 +10,18 @@ collectives, level by level, the pod level first.
 :meth:`Engine.generate` splits the batch over the data ranks
 and serves rank ``r``'s requests from rank ``r``'s replica, one rank after
 another on the one card, so every served token depends on the broadcast.
+
+On a mesh with a ``model`` axis of M > 1 ranks (('data', 'model') or
+('pod', 'data', 'model')) the engine serves tensor-parallel, in the
+reference's TP serving layout: the weights land on
+``param_specs(fsdp=False, attn_fallback='head_dim')``, every leaf
+``(mesh.size, *block)`` with row ``r`` rank ``r``'s block (ranks
+row-major, so a data rank's M model ranks are consecutive rows); with
+``distribute=True`` they arrive by the tuned broadcast along the data
+axes, from the rows of data coordinate 0, and are then cut to the specs
+(``distribute_weights(specs=)``). Each data rank's requests are computed by
+its M model ranks together (:mod:`repro_torch.models.tensor_parallel`),
+whose caches hold their kv heads, as ``cache_specs`` places them.
 """
 from __future__ import annotations
 
@@ -23,10 +35,12 @@ from .. import comm
 from ..comm import streams as comm_streams
 from ..configs.base import ModelConfig
 from ..core import bucketing
-from ..core.tree import tree_leaves, tree_map
+from ..core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..dist import topology
-from ..launch.mesh import EmulatedMesh, refuse_model_axis, resolve_device
+from ..dist.sharding import cut_leaves, param_specs, shard_stacked
+from ..launch.mesh import EmulatedMesh, resolve_device
 from ..models import Model
+from ..models import tensor_parallel as tp_lib
 
 __all__ = [
     "Engine",
@@ -45,24 +59,40 @@ class GenerationResult:
     prefill_len: int
 
 
-def replicate(params, n: int, *, fill_root_only: bool) -> dict:
-    """The rank-stacked tree for ``n`` ranks: row 0 holds ``params``; the
+def replicate(params, n: int, *, fill_root_only: bool, roots=(0,)) -> dict:
+    """The rank-stacked tree for ``n`` ranks: the rows ``roots`` hold
+    ``params`` (row 0; on a model axis, the rows of data coordinate 0); the
     other rows are copies, or left uninitialized (``torch.empty``) when
     ``fill_root_only`` — the state right before a weight broadcast."""
     def stack(t):
         out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
-        out[0] = t
-        if not fill_root_only:
-            out[1:] = t
+        if fill_root_only:
+            for r in roots:
+                out[r] = t
+        else:
+            out[:] = t
         return out
     return tree_map(stack, params)
+
+
+def rank_rows(mesh) -> np.ndarray:
+    """``(dp_size, tp_size)``: the row of each (data rank, model rank) of
+    ``mesh``, data ranks row-major over the data axes."""
+    names = tuple(mesh.axis_names)
+    rows = np.arange(mesh.size).reshape(tuple(mesh.devices.shape))
+    order = [names.index(a) for a in topology.dp_axes(mesh)]
+    if topology.tp_axis(mesh):
+        order.append(names.index(topology.tp_axis(mesh)))
+    return rows.transpose(order).reshape(topology.dp_size(mesh), topology.tp_size(mesh))
 
 
 class Engine:
     """``params`` is the loaded (unstacked) parameter tree on ``device``.
     With ``mesh`` (an :class:`~repro_torch.launch.mesh.EmulatedMesh` on the
-    same device; a ``model`` axis of more than one rank is refused) the
-    engine serves from one replica per data rank."""
+    same device) the engine serves from one replica per data rank, or, on a
+    ``model`` axis of more than one rank, from each data rank's model-rank
+    shards in the TP serving layout (see the module docstring; a config the
+    tensor-parallel forward does not cover raises ``ValueError``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, mesh: EmulatedMesh | None = None,
                  max_len: int = 0, distribute: bool = False, double_buffer: bool = False,
@@ -71,16 +101,26 @@ class Engine:
         for leaf in tree_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(f"parameters lie on {leaf.device}, engine on {self.device}")
-        if mesh is not None:
-            if mesh.device != self.device:
-                raise ValueError(f"mesh lies on {mesh.device}, engine on {self.device}")
-            refuse_model_axis(mesh, "the engine")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"mesh lies on {mesh.device}, engine on {self.device}")
         self.cfg = cfg
         self.model = Model(cfg)
         self.mesh = mesh
         self.max_len = max_len
-        self.n = 1 if mesh is None else mesh.size
-        if self.n == 1:
+        self.n = 1 if mesh is None else topology.dp_size(mesh)  # data ranks
+        self.tp = 1 if mesh is None else topology.tp_size(mesh)  # model ranks
+        if self.tp > 1:
+            tp_lib.check_tensor_parallel(cfg, self.tp)
+            self.rows = rank_rows(mesh)
+            pspecs = param_specs(self.model.param_shapes(), mesh, fsdp=False,
+                                 attn_fallback="head_dim")
+            if distribute:
+                stacked = distribute_weights(
+                    replicate(params, mesh.size, fill_root_only=True, roots=self.rows[0]),
+                    mesh, specs=pspecs, double_buffer=double_buffer, drain_dir=drain_dir)
+            else:
+                stacked = shard_stacked(params, pspecs, mesh)
+        elif self.n == 1:
             stacked = tree_map(lambda t: t.unsqueeze(0), params)
         elif distribute:
             stacked = replicate(params, self.n, fill_root_only=True)
@@ -91,8 +131,28 @@ class Engine:
         self.params = stacked
 
     def replica(self, rank: int):
-        """Rank ``rank``'s parameters (views of the stacked tree)."""
+        """Data rank ``rank``'s parameters (views of the stacked tree): its
+        replica, or on a model axis its model ranks' shards (a list in
+        model-rank order)."""
+        if self.tp > 1:
+            return [tree_map(lambda t, r=r: t[r], self.params) for r in self.rows[rank]]
         return tree_map(lambda t: t[rank], self.params)
+
+    def prefill(self, params, batch: dict, *, max_len: int):
+        """One data rank's prefill on its :meth:`replica` (``Model.prefill``,
+        or the tensor-parallel forward)."""
+        if self.tp > 1:
+            return tp_lib.apply_lm_tp(params, self.cfg, tokens=batch["tokens"], mode="prefill",
+                                      max_len=max_len)
+        return self.model.prefill(params, batch, max_len=max_len)
+
+    def decode_step(self, params, tokens: torch.Tensor, caches, cur_pos: int):
+        """One data rank's decode step (``Model.decode_step``, or the
+        tensor-parallel forward); the caches are updated in place."""
+        if self.tp > 1:
+            return tp_lib.apply_lm_tp(params, self.cfg, tokens=tokens, mode="decode",
+                                      caches=caches, cur_pos=int(cur_pos))
+        return self.model.decode_step(params, tokens, caches, cur_pos)
 
     @torch.no_grad()
     def generate(self, batch: dict, *, steps: int, greedy: bool = True,
@@ -101,12 +161,18 @@ class Engine:
         ``batch['embeds']``: for a vision config (B, prefix, D), the stub
         patch embeddings, for an encoder-decoder (B, frames, D), the stub
         frame embeddings. The batch is split over the data ranks
-        (``tensor_split``, as even as B allows); decode positions follow the
-        text, and a vision prefix (audio frames take no position)."""
+        (``tensor_split``, as even as B allows; on a model axis B must
+        divide, or ``cache_specs`` would split the caches' sequence);
+        decode positions follow the text, and a vision prefix (audio frames
+        take no position)."""
         tokens = batch["tokens"]
         if not torch.is_tensor(tokens):
             tokens = torch.as_tensor(np.asarray(tokens))
         tokens = tokens.to(self.device).long()
+        if self.tp > 1 and tokens.shape[0] % self.n:
+            raise ValueError(
+                f"a batch of {tokens.shape[0]} over {self.n} data ranks on a model axis: "
+                f"cache_specs would split the caches' sequence ({tp_lib.TP_REMAINDER})")
         T = tokens.shape[1]
         max_len = self.max_len or (T + steps)
         offset = self.cfg.prefix_len if self.cfg.frontend == "vision" else 0
@@ -122,8 +188,8 @@ class Engine:
             if not part.shape[0]:
                 continue
             params = self.replica(rank)
-            logits, caches = self.model.prefill(params, {"tokens": part, "embeds": emb},
-                                                max_len=max_len)
+            logits, caches = self.prefill(params, {"tokens": part, "embeds": emb},
+                                          max_len=max_len)
             cur = logits[:, -1]
             rt, rl = [], []
             for i in range(steps):
@@ -135,8 +201,8 @@ class Engine:
                 lp = torch.log_softmax(cur, dim=-1)
                 rl.append(torch.gather(lp, 1, nxt[:, None])[:, 0])
                 rt.append(nxt)
-                logits, caches = self.model.decode_step(params, nxt[:, None], caches,
-                                                        T + offset + i)
+                logits, caches = self.decode_step(params, nxt[:, None], caches,
+                                                  T + offset + i)
                 cur = logits[:, 0]
             toks.append(torch.stack(rt, dim=1))
             lps.append(torch.stack(rl, dim=1))
@@ -221,7 +287,7 @@ def distribution_stream_graph(stacked, mesh, *, algo: str = "auto", tuner=None,
     return comm_streams.StreamGraph(tuple(entries), key=gkey), bucket_spec, plans
 
 
-def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
+def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None, specs=None,
                        bucket_bytes: int = 4 << 20, return_plans: bool = False,
                        double_buffer: bool = False, overlap_depth: int = 2,
                        stage_chunk: int = 64 * 1024, donate: bool = False,
@@ -230,7 +296,17 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     """Broadcast the root's weights (row 0 of the rank-stacked tree) to
     every data rank with the tuned library (the paper's 'training
     parameters exchange' applied at load), and return the stacked tree with
-    every row equal to row 0.
+    every row equal to row 0. On a mesh with a ``model`` axis, every model
+    coordinate has its root (the rows of data coordinate 0), and each
+    broadcasts along the data axes to its own rows.
+
+    ``specs`` (a ``param_specs`` tree): the replicated result is then laid
+    out per those specs, as the reference's ``device_put`` does: each leaf
+    becomes ``(mesh.size, *block)``, row ``r`` rank ``r``'s block
+    (:func:`~repro_torch.dist.sharding.shard_stacked`), a contiguous copy,
+    and each full leaf is dropped once it is cut (freed, unless the caller
+    holds it). The broadcast itself is planned and replayed on the full
+    buckets, as without ``specs``.
 
     The sequence is planned on the host (:func:`distribution_stream_graph`)
     and replayed bucket by bucket through ``comm.apply_plan``, one level of
@@ -247,11 +323,11 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
     are updated in place, which holds no second copy either. ``compiled``
     routes the per-bucket replay (None = the tuned policy).
 
-    ``stacked`` is updated in place and returned: every leaf keeps its own
-    contiguous layout, so each rank's replica starts where the leaf's row
-    starts (a result left in a padded bucket buffer would put rank ``r``'s
-    row ``r`` padded bucket lengths in, off the 16-byte boundary that
-    cuBLAS's fast matmul kernels need).
+    Without ``specs``, ``stacked`` is updated in place and returned: every
+    leaf keeps its own contiguous layout, so each rank's replica starts
+    where the leaf's row starts (a result left in a padded bucket buffer
+    would put rank ``r``'s row ``r`` padded bucket lengths in, off the
+    16-byte boundary that cuBLAS's fast matmul kernels need).
 
     ``drain_dir``: graceful degradation on an unrecoverable failure. Before
     the first bucket moves, a host copy of row 0 of every leaf (the root's
@@ -281,6 +357,10 @@ def distribute_weights(stacked, mesh, *, algo: str = "auto", tuner=None,
             graph.entry("distribute"), stacked, stage=double_buffer, compiled=compiled,
             mesh=mesh,
         )
+        if specs is not None:
+            leaves, treedef = tree_flatten(out)
+            stacked = out = None  # the leaves list holds the full leaves, cut one by one
+            out = tree_unflatten(treedef, cut_leaves(leaves, specs, mesh, rows_full=True))
     except Exception as e:  # noqa: BLE001 — rewrapped as a typed, actionable error
         if snapshot is None:
             raise

@@ -625,12 +625,20 @@ def test_engine_on_pods_matches_reference():
 
 
 def test_model_axis_is_refused_naming_serving_remainder():
+    """The trainer refuses a model axis of more than one rank, naming the
+    ROADMAP item that ports training there; the engine serves on it
+    tensor-parallel, every weight cut to its rank's block."""
     cfg = _f32(get_config(ARCH))
     mesh = _mesh((2, 2, 2))
-    with pytest.raises(ValueError, match="Serving remainder"):
+    with pytest.raises(ValueError, match="Training on a model axis"):
         Trainer(cfg, RunConfig(**RUN), mesh=mesh, device="cpu")
-    with pytest.raises(ValueError, match="Serving remainder"):
-        Engine(cfg, {}, mesh=mesh, device="cpu")
+    params = Model(cfg).init(0, device="cpu")
+    engine = Engine(cfg, params, mesh=mesh, distribute=True, device="cpu")
+    wq = params["decoder"]["blocks"][0]["attn"]["wq"]
+    assert engine.params["decoder"]["blocks"][0]["attn"]["wq"].shape == \
+        (8,) + wq.shape[:2] + (cfg.num_heads // 2,) + wq.shape[3:]
+    res = engine.generate({"tokens": np.arange(48).reshape(4, 12) % cfg.vocab_size}, steps=2)
+    assert res.tokens.shape == (4, 2) and np.isfinite(res.logprobs).all()
     # a model axis of one rank is a data-parallel mesh
     tr = Trainer(cfg, RunConfig(**RUN), mesh=tmesh.make_local_mesh(1, n=4, device="cpu"),
                  device="cpu")

@@ -30,10 +30,7 @@ JAX_ONLY = frozenset({"axis_name", "interpret", "key", "shardings", "grad_specs"
                       "tile", "unroll"})
 
 # keywords whose module is queued in ROADMAP, by the item that ports them
-QUEUED = {
-    # A.7 Serving remainder
-    "serve.engine.distribute_weights": {"specs"},
-}
+QUEUED: dict = {}
 
 # plain-value defaults (None, bool, int, float, str, and dtypes by name) the
 # port holds otherwise, with the reason
@@ -332,3 +329,21 @@ def test_decompress_casts_to_dtype():
     np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                   np.asarray(want).view(np.int16))
     assert tw.decompress(tv, ts, out_cols=300).dtype == torch.float32
+
+
+def test_distribute_weights_takes_specs():
+    """``specs`` lays the broadcast result out per a spec tree: on a (2, 2)
+    ('data', 'model') mesh whose rows of data coordinate 0 hold the
+    weights, each rank's row is its model coordinate's block."""
+    from repro_torch.dist.sharding import P
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import distribute_weights
+
+    mesh = make_mesh((2, 2), axis_names=("data", "model"), device="cpu")
+    w = torch.from_numpy(np.random.RandomState(1).randn(4, 6).astype(np.float32))
+    stacked = {"w": torch.full((4, 4, 6), float("nan"))}
+    stacked["w"][:2] = w
+    got = distribute_weights(stacked, mesh, specs={"w": P(None, "model")}, bucket_bytes=64)
+    assert got["w"].shape == (4, 4, 3) and got["w"].is_contiguous()
+    for r in range(4):
+        assert torch.equal(got["w"][r], w[:, 3 * (r % 2):3 * (r % 2) + 3])
