@@ -128,6 +128,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    4096 keys takes the differentiable block loop, so neither flash kernel
    launches (checked); merge launches, step and peak printed; then
    paligemma-3b-smoke in f32 on the card against the CPU.
+6f. the recurrent, hybrid, encoder-decoder and MHA families: xlstm-350m
+   (24 layers), hymba-1.5b (32), whisper-large-v3 (32 + 32, 1500 stub
+   frames a sequence) and qwen1.5-32b (FAMILY_MHA_LAYERS of 64, the deepest
+   whose peak stays under 70 GiB) at full width, bf16, seeded weights, on
+   the 4 emulated ranks, phase 6's batch and 3 steps: each under
+   grad_allreduce and under tuned_allreduce (compiled, the synced rows
+   compared), xlstm also under param_bcast (the paper's mode, rows
+   compared); xlstm's explicit modes, with a grad_allreduce beside them,
+   at one superblock of 8 layers (host-bound at full depth). Checks:
+   finite losses, rows bit-equal, every run's peak under 70 GiB, merge
+   launches on each family's path and no flash launch (training has no
+   flash kernel); each explicit mode's last loss and grad norms against
+   grad_allreduce's at its depth within the larger of phase 6's limits
+   (1e-3, 2e-4 relative) and FAMILY_CONTROL_MULT times the distance of a
+   bf16 control that splits grad_allreduce into the ranks' passes and runs
+   no sync (FAMILY_BF16_CONTROL, measured by tools/family_controls.py);
+   then, after the path's counts are read, each family in f32 at one
+   layer (encoder too), full width, every explicit mode
+   within 1e-4 / 1e-5 relative of grad_allreduce. Then the memory probe:
+   one forward and backward of one 4096-token sequence through hymba-1.5b
+   at full depth with remat (one rank's share of the reference's
+   ``train_4k``), its peak and seconds. Last (after the kernels line is
+   read), the four smoke configs in f32 under tuned_allreduce on the card
+   against the CPU.
 7. collectives: ``pallgather``, ``preduce_scatter``, ``preduce`` and
    ``pallreduce`` at minitron-8b's training embedding bucket (1,048,576,000
    bf16 elements a rank) on the 4 emulated ranks, each with
@@ -284,7 +308,10 @@ phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
 path), phase 4c (the long-prompt serving path), phase 4d (the
 vision-prefix serving path), phase 5's two long-prompt references (the
 f32 flash route), phase 6's runs (the training path), phase 6m (the MoE
-training path), phase 6v (the vision-prefix training path), phase 7 (the
+training path), phase 6v (the vision-prefix training path), phase 6f's
+four families' runs, each a path of its own (``train_recurrent``,
+``train_hybrid``, ``train_encdec``, ``train_mha``; not their controls or
+the probe), phase 7 (the
 collective entry points), phase 7b (the algorithms), phase 8's interleave
 (the stream path), phase 8b (the tree variants), phase 9 (the online
 tuner), phase 10 (the MoE serving path), phase 10b (the expert-parallel
@@ -417,6 +444,62 @@ MOE_TRAIN_MODES = (
 # params; the peak stays under 70 GiB, PERF.md §5), one sequence of 256
 # patches + VLM_TEXT tokens a rank
 VLM_TRAIN_LAYERS = 18
+# phase 6f: (path, arch, layers, runs, the f32 control's layers) at full
+# width, phase 6's batch and steps; None keeps the config's depth.
+# qwen1.5-32b runs at the deepest depth whose tuned_allreduce peak stays
+# under 70 GiB: about 20 bytes a parameter (bf16 weights and gradient, 4
+# rank rows of bf16 gradients, AdamW's f32 m and v) over 779 M + 526 M x L
+# parameters, and the sync's padded copy of a bucket. 4 layers ran out of
+# the card's memory there: 60.90 GiB allocated and 11.94 GiB of the cache
+# free but in pieces, under a 5.80 GiB request for the embedding bucket's
+# padded copy (PERF.md §6)
+FAMILY_MHA_LAYERS = 3
+FAMILY_RUNS = {  # label: (RunConfig fields, rows compared)
+    "grad_allreduce": ({"sync_mode": "grad_allreduce"}, False),
+    "tuned_allreduce": ({"sync_mode": "tuned_allreduce", "compiled_collectives": True}, True),
+    "param_bcast": ({"sync_mode": "param_bcast"}, True),
+    # the bf16 control of tools/family_controls.py: the ranks' passes of 2
+    # sequences, no sync
+    "grad_allreduce_split": ({"sync_mode": "grad_allreduce", "num_microbatches": RANKS}, False),
+}
+# phase 6f's bf16 hold: each explicit mode's last loss and grad norms
+# (relative, the largest over the steps) within the larger of phase 6's
+# limits (1e-3, 2e-4) and FAMILY_CONTROL_MULT times the bf16 control's
+# distance from grad_allreduce at the mode's depth. The control is
+# grad_allreduce over the ranks' own pass shapes (``num_microbatches`` =
+# RANKS: the same passes of 2 sequences, their gradients' mean in f32, no
+# sync), so its distance is what the split alone costs in bf16. It runs no
+# sync code and its readings repeat to every digit, so they are held here
+# and tools/family_controls.py measures them again (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md §6). The modes read at most 1.52x the control
+# (xlstm), 1.23x (hymba), 1.29x (whisper) and 2.35x (qwen's grad norms;
+# its loss 4.768e-5, inside 1e-3)
+FAMILY_CONTROL_MULT = 3.0
+FAMILY_BF16_CONTROL = {  # arch: the control's (last loss, grad norms) distance
+    "xlstm-350m": (4.8065185546875e-04, 1.3794130824902154e-04),  # 8 layers
+    "hymba-1.5b": (7.844924926757812e-03, 2.5286742395500025e-03),
+    "whisper-large-v3": (1.7642974853515625e-03, 2.7829578322423505e-04),
+    "qwen1.5-32b": (1.33514404296875e-05, 2.360481482253643e-04),  # 3 layers
+}
+# and the sync in f32: each family at FAMILY_F32_LAYERS layers (encoder
+# too), full width, every explicit mode within FAMILY_F32_LOSS (last loss)
+# and FAMILY_F32_NORM (grad norms, relative) of grad_allreduce
+FAMILY_F32_LAYERS, FAMILY_F32_LOSS, FAMILY_F32_NORM = 1, 1e-4, 1e-5
+# xlstm's explicit modes, and a grad_allreduce to hold them to, run at one
+# superblock (7 mLSTM blocks and the sLSTM one): each of their steps is
+# four passes through sLSTM's token loop, host-bound at 15-22 s a step at
+# 24 layers (PERF.md §5); its grad_allreduce runs at full depth too, for
+# the peak
+FAMILY_RECURRENT_SYNC_LAYERS = 8
+FAMILY_TRAIN = (  # (path, arch, layers, runs, the explicit runs' layers)
+    ("train_recurrent", "xlstm-350m", None, ("grad_allreduce", "tuned_allreduce", "param_bcast"),
+     FAMILY_RECURRENT_SYNC_LAYERS),
+    ("train_hybrid", "hymba-1.5b", None, ("grad_allreduce", "tuned_allreduce"), None),
+    ("train_encdec", "whisper-large-v3", None, ("grad_allreduce", "tuned_allreduce"), None),
+    ("train_mha", "qwen1.5-32b", FAMILY_MHA_LAYERS, ("grad_allreduce", "tuned_allreduce"), None),
+)
+FAMILY_PEAK_LIMIT = 70 * 2**30
+PROBE_SEQ = 4096  # the memory probe: one sequence of the reference's train_4k
 FAULT_DEAD = 1  # phase 11: the rank reported dead
 # phase 12: one prompt a rank, hymba-1.5b's of 4096 tokens (past its window
 # of 1024: the long-prompt route), xlstm-350m's of its training context
@@ -3124,6 +3207,13 @@ def train_tables(torch, d: str) -> tuple[dict, int]:
     return paths, replayed
 
 
+def _deviation(r: dict, base: dict) -> tuple[float, float]:
+    """A run's last loss's distance from ``base``'s and its grad norms'
+    largest relative distance over the steps."""
+    return (abs(r["losses"][-1] - base["losses"][-1]),
+            max(abs(a - b) / b for a, b in zip(r["grad_norms"], base["grad_norms"])))
+
+
 def train(torch, table_runs: list, plans_per_step: int) -> dict:
     """Phase 6: each sync mode trains 3 steps from the same seeded weights
     and batches; then param_bcast and tuned_allreduce again with the synced
@@ -3208,8 +3298,7 @@ def train(torch, table_runs: list, plans_per_step: int) -> dict:
     for label in ("param_bcast", "param_bcast_ring", "tuned_allreduce", "overlap_allreduce",
                   "overlap_prefetch", "compressed_bf16"):
         r = out[label]
-        d_loss = abs(r["losses"][-1] - base["losses"][-1])
-        d_norm = max(abs(a - b) / b for a, b in zip(r["grad_norms"], base["grad_norms"]))
+        d_loss, d_norm = _deviation(r, base)
         log(f"train {label} against grad_allreduce: last loss differs by {d_loss:.3e} "
             f"(bound 1e-3), grad norms by {d_norm:.3e} relative at most (bound 2e-4)")
         assert d_loss <= 1e-3 and d_norm <= 2e-4, (label, r["losses"], r["grad_norms"],
@@ -3317,26 +3406,208 @@ def train_vlm(torch) -> dict:
     return r
 
 
+def _family_run(torch, arch: str, cfg, label: str, what: str = "") -> dict:
+    """One phase-6f run: ``cfg`` trains phase 6's 3 steps of 8 x 512 tokens
+    (an encoder-decoder adds its stub frames) on the 4 emulated ranks under
+    FAMILY_RUNS[``label``]. Its peak under 70 GiB, no flash launch, the
+    synced rows bit-equal where compared. Returns the run's record."""
+    from repro_torch.launch.mesh import make_mesh
+
+    fields, check_rows = FAMILY_RUNS[label]
+    params, r = train_mode(torch, cfg, make_mesh(RANKS, device="cuda"), fields,
+                           check_rows=check_rows)
+    del params
+    r["layers"] = cfg.num_layers
+    log(f"train {arch} {what}{label} ({cfg.num_layers} layers, {r['params']} params): "
+        + _train_line(r) + (f", rows differ {r['grad_rows_differ']}" if check_rows else ""))
+    assert r["max_memory_allocated"] < FAMILY_PEAK_LIMIT, (arch, label, r)
+    flash = {k: r["launches"][k] for k in ("flash_attention", "flash_attention_sm90")}
+    assert not any(flash.values()), f"training launched a flash kernel: {flash}"
+    if check_rows:
+        assert not any(r["grad_rows_differ"]), (arch, label, r["grad_rows_differ"])
+    return r
+
+
+def train_family(torch, arch: str, cfg, sync_cfg, labels) -> dict:
+    """Phase 6f, one family's path: ``cfg`` (full width) under
+    grad_allreduce and ``sync_cfg`` (``cfg``, or it at fewer layers) under
+    each explicit run of ``labels``, with a grad_allreduce of its own where
+    it is cut (``grad_allreduce_cut``). The merge must launch. Returns the
+    runs by label."""
+    from repro_torch.data.pipeline import batches, make_source
+
+    out = {"grad_allreduce": _family_run(torch, arch, cfg, "grad_allreduce")}
+    if sync_cfg is not cfg:
+        out["grad_allreduce_cut"] = _family_run(torch, arch, sync_cfg, "grad_allreduce")
+    for label in labels:
+        if label != "grad_allreduce":
+            out[label] = _family_run(torch, arch, sync_cfg, label)
+    assert out["tuned_allreduce"]["launches"]["fused_combine"] > 0, out["tuned_allreduce"]
+    if cfg.arch_type == "encdec":  # the host's share of each step: the stub frames
+        it = batches(make_source(cfg, seed=0), cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = next(it)
+        torch.cuda.synchronize()
+        out["frames_s"] = time.perf_counter() - t0
+        log(f"train {arch}: one batch's {tuple(b['embeds'].shape)} stub frames drawn on the "
+            f"host and copied in {out['frames_s']:.3f} s (inside each step's time)")
+        del b, it
+    return out
+
+
+def family_checks(torch, arch: str, sync_cfg, labels, out: dict) -> None:
+    """Phase 6f, one family's agreement, after its path's counts are read:
+    each explicit run of ``out`` against the grad_allreduce at its depth,
+    last loss and grad norms within the larger of phase 6's limits (1e-3,
+    2e-4 relative) and FAMILY_CONTROL_MULT times the bf16 control's
+    distance (FAMILY_BF16_CONTROL); then the family in f32 at
+    FAMILY_F32_LAYERS layers (encoder too), every explicit mode within
+    FAMILY_F32_LOSS / FAMILY_F32_NORM of grad_allreduce (its records go
+    into ``out``)."""
+    base = out.get("grad_allreduce_cut", out["grad_allreduce"])
+    explicit = [label for label in labels if label != "grad_allreduce"]
+    c_loss, c_norm = FAMILY_BF16_CONTROL[arch]
+    lim_loss = max(1e-3, FAMILY_CONTROL_MULT * c_loss)
+    lim_norm = max(2e-4, FAMILY_CONTROL_MULT * c_norm)
+    for label in explicit:
+        d_loss, d_norm = out[label]["against_grad_allreduce"] = _deviation(out[label], base)
+        log(f"train {arch} {label} against grad_allreduce ({sync_cfg.num_layers} layers): last "
+            f"loss differs by {d_loss:.3e}, grad norms by {d_norm:.3e} relative at most "
+            f"(bound {lim_loss:.3e} / {lim_norm:.3e}: phase 6's 1e-3 / 2e-4 or "
+            f"{FAMILY_CONTROL_MULT:g}x the bf16 control's {c_loss:.3e} / {c_norm:.3e}; "
+            f"{d_loss / c_loss:.2f}x / {d_norm / c_norm:.2f}x the control)")
+        assert d_loss <= lim_loss and d_norm <= lim_norm, (
+            arch, label, out[label]["losses"], out[label]["grad_norms"], base["losses"],
+            base["grad_norms"])
+    f32 = dataclasses.replace(sync_cfg, dtype="float32", num_layers=FAMILY_F32_LAYERS,
+                              encoder_layers=FAMILY_F32_LAYERS if sync_cfg.encoder_layers else 0)
+    exact = {label: _family_run(torch, arch, f32, label, "f32 control ")
+             for label in ["grad_allreduce", *explicit]}
+    out["control_f32"] = {}
+    for label in explicit:
+        d_loss, d_norm = out["control_f32"][label] = _deviation(exact[label],
+                                                                exact["grad_allreduce"])
+        log(f"train {arch} f32 control {label} against grad_allreduce ({FAMILY_F32_LAYERS} "
+            f"layer): last loss differs by {d_loss:.3e} (bound {FAMILY_F32_LOSS}), grad norms "
+            f"by {d_norm:.3e} relative at most (bound {FAMILY_F32_NORM})")
+        assert d_loss <= FAMILY_F32_LOSS and d_norm <= FAMILY_F32_NORM, (arch, label, exact)
+    assert exact["tuned_allreduce"]["launches"]["fused_combine"] > 0, exact["tuned_allreduce"]
+
+
+def hybrid_memory_probe(torch) -> dict:
+    """Phase 6f's probe: one forward and backward (remat, as the trainer
+    runs it) of one PROBE_SEQ-token sequence through hymba-1.5b at full
+    depth, bf16, seeded weights: one rank's share of the reference's
+    ``train_4k``. The peak above the weights and their gradients is what a
+    sequence costs; four of them in one grad_allreduce pass are projected
+    from it beside AdamW's state (one sample, host clock)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.models import Model
+
+    cfg = get_config("hymba-1.5b")
+    model = Model(cfg)
+    leaves, treedef = tree_flatten(model.init(seed=0, device="cuda"))
+    ps = [p.requires_grad_(True) for p in leaves]
+    n_params = sum(p.numel() for p in ps)
+    toks = torch.randint(0, cfg.vocab_size, (1, PROBE_SEQ + 1),
+                         generator=torch.Generator().manual_seed(0)).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = model.loss(tree_unflatten(treedef, ps), batch, remat=True)
+    grads = torch.autograd.grad(loss, ps)
+    loss = float(loss.detach())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    del grads, ps, leaves
+    assert math.isfinite(loss), loss
+    per_seq = peak - weights - grad_bytes
+    # a grad_allreduce pass of 4 such sequences: the weights, their
+    # gradients, AdamW's f32 m and v, and 4 sequences' share
+    four = weights + grad_bytes + 8 * n_params + 4 * per_seq
+    out = {"seq": PROBE_SEQ, "peak": peak, "weights": weights, "per_seq": per_seq,
+           "s": secs, "four_projected": four, "loss": loss}
+    log(f"train probe hymba-1.5b ({cfg.num_layers} layers, {n_params} params, remat): one "
+        f"{PROBE_SEQ}-token sequence forward and backward {secs:.3f} s, peak "
+        f"{peak / 2**30:.2f} GiB (weights {weights / 2**30:.2f}, their gradients "
+        f"{grad_bytes / 2**30:.2f}, the sequence {per_seq / 2**30:.2f}); 4 sequences in one "
+        f"grad_allreduce pass projected at {four / 2**30:.2f} GiB "
+        f"({'fits' if four < 80e9 else 'does not fit'} in 80 GB)")
+    return out
+
+
+def train_families(torch) -> tuple[dict, dict]:
+    """Phase 6f: the four families of FAMILY_TRAIN, each a path whose
+    launch counts are zeroed right before its runs and read right after
+    them, before its agreement checks run the f32 control; then the hybrid
+    memory probe (counted on no path). Returns the numbers and the counts
+    by path."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+
+    out, counts = {}, {}
+    for path, arch, layers, labels, sync_layers in FAMILY_TRAIN:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        sync_cfg = (cfg if sync_layers is None
+                    else dataclasses.replace(cfg, num_layers=sync_layers))
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        out[path] = train_family(torch, arch, cfg, sync_cfg, labels)
+        counts[path] = kernels.launch_counts()
+        runs = [r for r in out[path].values() if isinstance(r, dict)]
+        assert all(c == sum(r["launches"][k] for r in runs) for k, c in counts[path].items()), \
+            (path, counts[path], [r["launches"] for r in runs])
+        family_checks(torch, arch, sync_cfg, labels, out[path])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["probe"] = hybrid_memory_probe(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def small_train_references(torch) -> dict:
     """The f32 smoke trainings on the card against the same runs on the
     CPU, 2 steps each from one initial state (saved as a checkpoint by the
     CPU trainer and restored by both), per-step losses within 1e-4:
     minitron-8b-smoke under param_bcast (phase 6), mixtral-8x7b-smoke under
     grad_allreduce and tuned_allreduce (6m), paligemma-3b-smoke under
-    tuned_allreduce (6v)."""
+    tuned_allreduce (6v); xlstm-350m-smoke, hymba-1.5b-smoke,
+    whisper-large-v3-smoke and qwen1.5-32b-smoke under tuned_allreduce
+    with compiled collectives (6f: the merge on the card, its plain version
+    on the CPU), every QKV bias drawn nonzero from a seed before the
+    checkpoint is saved."""
     from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.tree import tree_leaves, tree_paths
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import checkpoint
     from repro_torch.train.trainer import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = {}
-    for arch, mode in (("minitron-8b-smoke", "param_bcast"),
-                       ("mixtral-8x7b-smoke", "grad_allreduce"),
-                       ("mixtral-8x7b-smoke", "tuned_allreduce"),
-                       ("paligemma-3b-smoke", "tuned_allreduce")):
+    compiled = {"compiled_collectives": True}
+    for arch, mode, extra in (("minitron-8b-smoke", "param_bcast", {}),
+                              ("mixtral-8x7b-smoke", "grad_allreduce", {}),
+                              ("mixtral-8x7b-smoke", "tuned_allreduce", {}),
+                              ("paligemma-3b-smoke", "tuned_allreduce", {}),
+                              ("xlstm-350m-smoke", "tuned_allreduce", compiled),
+                              ("hymba-1.5b-smoke", "tuned_allreduce", compiled),
+                              ("whisper-large-v3-smoke", "tuned_allreduce", compiled),
+                              ("qwen1.5-32b-smoke", "tuned_allreduce", compiled)):
         cfg = dataclasses.replace(get_config(arch), dtype="float32")
-        run = RunConfig(sync_mode=mode, **TRAIN_RUN)
+        run = RunConfig(sync_mode=mode, **TRAIN_RUN, **extra)
         losses = {}
         with tempfile.TemporaryDirectory() as d:
             for dev in ("cpu", "cuda"):
@@ -3344,6 +3615,10 @@ def small_train_references(torch) -> dict:
                              device=dev)
                 if dev == "cpu":
                     params, opt = tr.init_state()
+                    gen = torch.Generator().manual_seed(50)
+                    for path, t in zip(tree_paths(params), tree_leaves(params)):
+                        if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"):
+                            t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
                     checkpoint.save_checkpoint(d, 0, params)
                     checkpoint.save_checkpoint(os.path.join(d, "opt"), 0, opt)
                 losses[dev] = [h["loss"] for h in tr.train(batch=8, seq=32, steps=2,
@@ -4274,8 +4549,7 @@ def hierarchical_training(torch, training: dict) -> dict:
         params, r = train_mode(torch, cfg, mesh, dict(TRAIN_MODES)[label], check_rows=True)
         del params
         one = training.get(label + "+check_rows", training[label])
-        d_loss = abs(r["losses"][-1] - one["losses"][-1])
-        d_norm = max(abs(a - b) / b for a, b in zip(r["grad_norms"], one["grad_norms"]))
+        d_loss, d_norm = _deviation(r, one)
         int8 = label == "compressed_int8"
         if int8:
             assert d_loss <= 5e-3, (label, r["losses"], one["losses"])
@@ -4913,6 +5187,8 @@ def main() -> int:
     vlm_training = train_vlm(torch)
     train_vlm_counts = kernels.launch_counts()
     mark("vision-prefix training (6v)")
+    family_training, family_counts = train_families(torch)
+    mark("family training and the hybrid probe (6f)")
     gc.collect()
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
@@ -4995,9 +5271,10 @@ def main() -> int:
     mark("tensor-parallel serving (15)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
-    # too) and the streams phase, the staging copy on the serving paths and
-    # the streams phase, the quantize pair on the training paths (6 and 6m), the
-    # device-initiated in-kernel replay on the tuned serving path (phase 4b),
+    # and the four families' of 6f too) and the streams phase, the staging
+    # copy on the serving paths and the streams phase, the quantize pair on
+    # the training paths (6 and 6m), the device-initiated in-kernel replay
+    # on the tuned serving path (phase 4b),
     # the collective entry points (phase 7) and in training, the sm90 flash
     # kernel on both long-prompt serving paths (phases 4c and 4d), the
     # CUDA-core one on phase 5's f32 long-prompt references; the merge also
@@ -5024,7 +5301,8 @@ def main() -> int:
     paths = {"fused_combine": ("serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                                "serve_hybrid", "serve_recurrent",
                                "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
-                               "train_vlm", "algorithms", "online", "streams"),
+                               "train_vlm", *family_counts, "algorithms", "online",
+                               "streams"),
              "chunked_copy": ("serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                               "serve_hybrid", "serve_recurrent",
                               "faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
@@ -5046,7 +5324,8 @@ def main() -> int:
               "online": online_counts, "serve_moe": moe_serve_counts, "moe_ep": moe_ep_counts,
               "faults": fault_counts, "serve_hybrid": hybrid_counts,
               "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
-              "serve_mha": mha_counts, "hierarchical": hier_counts, "serve_tp": tp_counts}
+              "serve_mha": mha_counts, "hierarchical": hier_counts, "serve_tp": tp_counts,
+              **family_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     assert hybrid_counts["flash_attention"] == 0, hybrid_counts
@@ -5054,6 +5333,8 @@ def main() -> int:
     assert encdec_counts["flash_attention"] == encdec_counts["flash_attention_sm90"] == 0
     assert mha_counts["flash_attention"] == 0, mha_counts
     assert tp_counts["flash_attention"] == 0, tp_counts
+    for path, c in family_counts.items():  # training has no flash kernel
+        assert c["flash_attention"] == c["flash_attention_sm90"] == 0, (path, c)
     # the sm90 kernel on the TP path's head shard (phase 15c's check)
     next(ln for ln in lines if ln["name"] == "flash_attention_sm90")["serve_tp_shard"] = \
         tp["long"]["flash_check"]
@@ -5068,10 +5349,11 @@ def main() -> int:
         line["launches"] = line["launches_by_path"][paths[line["name"]][-1]]
     assert all(c["inkernel_replay"] == 0 for c in counts.values()), counts
     small_train_references(torch)
-    mark("training references (6, 6m, 6v)")
+    mark("training references (6, 6m, 6v, 6f)")
     log(f"training numbers: {json.dumps(training)}")
     log(f"moe and vlm training numbers: "
         f"{json.dumps({'train_moe': moe_training, 'train_vlm': vlm_training})}")
+    log(f"family training numbers: {json.dumps(family_training)}")
     log(f"collectives numbers: {json.dumps(colls)}")
     log(f"streams numbers: {json.dumps(stream_rec)}")
     log(f"calibrate numbers: {json.dumps(fits)}")

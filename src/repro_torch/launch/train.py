@@ -17,6 +17,23 @@ the tokens are):
         --sync-mode tuned_allreduce --device cpu --steps 3 --log-every 1 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b-smoke \
         --sync-mode tuned_allreduce --device cpu --steps 3 --log-every 1 --seq 32
+
+So do the recurrent (xlstm-350m), hybrid (hymba-1.5b), encoder-decoder
+(whisper-large-v3: its batches carry 1500 stub frames a sequence, 16 in
+the smoke config, split over the ranks with the tokens) and MHA
+(qwen1.5-32b) families, on the CPU at smoke size and on the card at full
+width. The whole qwen1.5-32b does not fit one card's 80 GB with its
+optimizer state; ``chip_smoke.py`` phase 6f trains it at 3 of its 64
+layers through the library (``dataclasses.replace(cfg, num_layers=3)``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-large-v3-smoke \
+        --sync-mode param_bcast --device cpu --steps 3 --log-every 1 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --sync-mode tuned_allreduce --device cuda --steps 3 --log-every 1 --seq 512
+
+``tests/test_torch_train_recurrent.py``, ``tests/test_torch_train_hybrid.py``
+and ``tests/test_torch_train_encdec_mha.py`` hold these trainings against
+the reference's ``Trainer``.
 """
 from __future__ import annotations
 

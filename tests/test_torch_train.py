@@ -7,9 +7,6 @@ own npz checkpoint), the compressed sync modes, and the compressed
 allreduce against the reference's on 4 host devices."""
 from __future__ import annotations
 
-import dataclasses
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,15 +14,11 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
-from repro.configs.base import RunConfig as JRunConfig
 from repro.data.pipeline import SyntheticZipf as JZipf
-from repro.launch.mesh import make_local_mesh
 from repro.models import Model as JModel
 from repro.optim import optimizers as jopt
 from repro.optim.schedules import constant as jconstant
 from repro.optim.schedules import warmup_cosine as jwarmup_cosine
-from repro.train import checkpoint as jckpt
-from repro.train.trainer import Trainer as JTrainer
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.data.pipeline import MemmapTokens, SyntheticZipf, batches
@@ -37,17 +30,24 @@ from repro_torch.optim.schedules import constant, warmup_cosine
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train.trainer import Trainer
 
+from _torch_train_reference import (  # noqa: F401 (the fixture)
+    BATCH,
+    RUN,
+    SEQ,
+    STEPS,
+    TOL,
+    assert_restores,
+    f32,
+    port_trainer,
+    reference,
+    track,
+)
+
 # one intra-op thread: the suite runs in several worker processes at once, and
 # the spinning OpenMP threads of each would contend for the same cores
 torch.set_num_threads(1)
 
 ARCH = "minitron-8b-smoke"
-BATCH, SEQ, STEPS = 8, 16, 3
-RUN = dict(total_steps=STEPS, warmup_steps=0, learning_rate=1e-3, seed=7)
-
-
-def _f32(cfg):
-    return dataclasses.replace(cfg, dtype="float32")
 
 
 def _np(tree):
@@ -127,7 +127,7 @@ def test_synthetic_and_memmap_batches_equal_reference(tmp_path):
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_grads_match_value_and_grad(remat):
-    jcfg, tcfg = _f32(jget_config(ARCH)), _f32(get_config(ARCH))
+    jcfg, tcfg = f32(jget_config(ARCH)), f32(get_config(ARCH))
     jm, tm = JModel(jcfg), Model(tcfg)
     jp = jm.init(jax.random.PRNGKey(1))
     toks = np.random.RandomState(1).randint(0, jcfg.vocab_size, size=(2, SEQ + 1))
@@ -152,55 +152,23 @@ def test_loss_and_grads_match_value_and_grad(remat):
 # --------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def reference_run(tmp_path_factory):
-    """The reference's single-device trainer: its initial state saved as
-    its own npz checkpoint at step 0, then 3 full-batch steps from it."""
-    ckpt = str(tmp_path_factory.mktemp("ref_ckpt"))
-    trainer = JTrainer(_f32(jget_config(ARCH)), JRunConfig(**RUN), mesh=make_local_mesh(1),
-                       ckpt_dir=ckpt)
-    params, opt = trainer.init_state()
-    jckpt.save_checkpoint(ckpt, 0, params)
-    jckpt.save_checkpoint(os.path.join(ckpt, "opt"), 0, opt)
-    _, _, hist = trainer.train(batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
-    return ckpt, jax.device_get(params), [h["loss"] for h in hist]
-
-
-def _port_trainer(sync_mode: str, ckpt=None, check_rows=False, **kw) -> Trainer:
-    run = RunConfig(sync_mode=sync_mode, **RUN, **kw)
-    return Trainer(_f32(get_config(ARCH)), run, mesh=make_mesh(4, device="cpu"),
-                   ckpt_dir=ckpt, device="cpu", check_rows=check_rows)
-
-
-def test_reference_checkpoint_restores_into_the_port(reference_run):
-    ckpt, ref_params, _ = reference_run
-    params, opt, step = _port_trainer("tuned_allreduce", ckpt).restore_or_init()
-    assert step == 0 and int(opt["step"]) == 0
-    for a, b in zip(_np(ref_params), tree_leaves(params)):
-        np.testing.assert_array_equal(b.numpy(), a)
+def test_reference_checkpoint_restores_into_the_port(reference):
+    ckpt, ref_params, _ = reference(ARCH)
+    assert_restores(ARCH, ckpt, ref_params)
 
 
 @pytest.mark.parametrize("sync_mode", ["param_bcast", "tuned_allreduce", "overlap_allreduce",
                                        "grad_allreduce", "param_bcast_ring"])
-def test_trainer_tracks_reference_full_batch_steps(reference_run, sync_mode):
+def test_trainer_tracks_reference_full_batch_steps(reference, sync_mode):
     """``param_bcast_ring`` is ``param_bcast`` with
     ``bcast_algo='ring_allreduce'``: the explicit ring of
     ``core.algorithms`` in place of the reduce and the broadcast."""
-    ckpt, _, ref_losses = reference_run
-    check = sync_mode != "grad_allreduce"  # its mean leaves one copy
+    ckpt, _, ref_losses = reference(ARCH)
     kw = {"bcast_algo": "ring_allreduce"} if sync_mode == "param_bcast_ring" else {}
-    _, _, hist = _port_trainer(sync_mode.removesuffix("_ring"), ckpt, check_rows=check,
-                               **kw).train(batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
-    losses = [h["loss"] for h in hist]
-    assert len(losses) == STEPS
-    assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= 1e-4, (losses, ref_losses)
-    if check:
-        assert all(h["grad_rows_differ"] == 0 for h in hist)
-    else:
-        assert all("grad_rows_differ" not in h for h in hist)
+    track(ARCH, ckpt, ref_losses, sync_mode.removesuffix("_ring"), **kw)
 
 
-def test_prefetch_stream_leaves_parameters_bit_equal(reference_run):
+def test_prefetch_stream_leaves_parameters_bit_equal(reference):
     """``overlap_allreduce`` with ``prefetch_stream``: the updated
     parameters, broadcast as a rank-stacked copy after every update, come
     back bit-equal to the run without the second stream (and to
@@ -209,12 +177,12 @@ def test_prefetch_stream_leaves_parameters_bit_equal(reference_run):
     from repro_torch.core.tuner import Tuner
     from repro_torch.train import train_step
 
-    ckpt, _, ref_losses = reference_run
+    ckpt, _, ref_losses = reference(ARCH)
     out = {}
     for label, mode, kw in (("tuned", "tuned_allreduce", {}),
                             ("overlap", "overlap_allreduce", {}),
                             ("prefetch", "overlap_allreduce", {"prefetch_stream": True})):
-        tr = _port_trainer(mode, ckpt, compiled_collectives=True, **kw)
+        tr = port_trainer(ARCH, mode, ckpt, compiled_collectives=True, **kw)
         params, opt, hist = tr.train(batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
         out[label] = (tree_leaves(params), tree_leaves(opt), [h["loss"] for h in hist])
     for label in ("overlap", "prefetch"):
@@ -222,8 +190,8 @@ def test_prefetch_stream_leaves_parameters_bit_equal(reference_run):
             assert torch.equal(a, b), label
         assert out[label][2] == out["tuned"][2]
     losses = out["prefetch"][2]
-    assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= 1e-4, (losses, ref_losses)
-    tr = _port_trainer("overlap_allreduce", prefetch_stream=True)
+    assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= TOL, (losses, ref_losses)
+    tr = port_trainer(ARCH, "overlap_allreduce", prefetch_stream=True)
     tuner = Tuner()
     train_step.make_overlap_allreduce_train_step(tr.model, tr.run, tr.optimizer, tr.lr_fn,
                                                  tr.mesh, tuner=tuner)
@@ -231,14 +199,14 @@ def test_prefetch_stream_leaves_parameters_bit_equal(reference_run):
     assert tuner.stream_decision("weight_prefetch") == {"priority": 0}
 
 
-def test_microbatches_track_reference_full_batch_steps(reference_run):
+def test_microbatches_track_reference_full_batch_steps(reference):
     """Two microbatches per rank: the f32 mean of their gradients, as the
     reference accumulates them, follows the same trajectory."""
-    ckpt, _, ref_losses = reference_run
-    _, _, hist = _port_trainer("tuned_allreduce", ckpt, num_microbatches=2).train(
+    ckpt, _, ref_losses = reference(ARCH)
+    _, _, hist = port_trainer(ARCH, "tuned_allreduce", ckpt, num_microbatches=2).train(
         batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
     losses = [h["loss"] for h in hist]
-    assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= 1e-4, (losses, ref_losses)
+    assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= TOL, (losses, ref_losses)
 
 
 def test_compressed_allreduce_tracks_tuned_allreduce(tmp_path):
@@ -249,7 +217,7 @@ def test_compressed_allreduce_tracks_tuned_allreduce(tmp_path):
     out = {}
     for mode, fmt in (("tuned_allreduce", "bf16"), ("compressed_allreduce", "bf16"),
                       ("compressed_allreduce", "int8")):
-        tr = _port_trainer(mode, wire_format=fmt, compiled_collectives=True, check_rows=True)
+        tr = port_trainer(ARCH, mode, wire_format=fmt, compiled_collectives=True, check_rows=True)
         out[(mode, fmt)] = tr.train(batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
     pt, _, ht = out[("tuned_allreduce", "bf16")]
     pp, op, hp = out[("compressed_allreduce", "bf16")]
@@ -275,7 +243,7 @@ def _exec_path_table(path: str, exec_path: str) -> None:
     from repro_torch.core import bucketing
     from repro_torch.core.tuner import Tuner
 
-    tr = _port_trainer("tuned_allreduce")
+    tr = port_trainer(ARCH, "tuned_allreduce")
     params, _ = tr.init_state()
     analytic, table = Tuner(), Tuner()
     for M in bucketing.plan_buckets(params, tr.run.bcast_bucket_bytes).bucket_bytes():
@@ -302,7 +270,7 @@ def test_tuner_table_routes_the_trainer_to_the_inkernel_executor(tmp_path, monke
         table = str(tmp_path / f"{exec_path}.json")
         _exec_path_table(table, exec_path)
         before = dict(calls)
-        tr = _port_trainer("tuned_allreduce", tuner_table=table)
+        tr = port_trainer(ARCH, "tuned_allreduce", tuner_table=table)
         out[exec_path] = tr.train(batch=BATCH, seq=SEQ, steps=STEPS, log_every=1)
         used = {k: calls[k] - before[k] for k in calls}
         assert used[exec_path] > 0 and sum(used.values()) == used[exec_path], used
@@ -312,19 +280,14 @@ def test_tuner_table_routes_the_trainer_to_the_inkernel_executor(tmp_path, monke
     assert [h["loss"] for h in hc] == [h["loss"] for h in hi]
 
 
-def test_inkernel_table_trainer_tracks_reference_full_batch_steps(reference_run, tmp_path):
+def test_inkernel_table_trainer_tracks_reference_full_batch_steps(reference, tmp_path):
     """The slice end to end: the reference's initial state, a tuner table
     routing every bucket to the in-kernel executor, 3 steps on 4 emulated
     ranks, losses within 1e-4 of the reference's full-batch steps."""
-    ckpt, _, ref_losses = reference_run
+    ckpt, _, ref_losses = reference(ARCH)
     table = str(tmp_path / "inkernel.json")
     _exec_path_table(table, "inkernel")
-    _, _, hist = _port_trainer("tuned_allreduce", ckpt, check_rows=True,
-                               tuner_table=table).train(batch=BATCH, seq=SEQ, steps=STEPS,
-                                                        log_every=1)
-    losses = [h["loss"] for h in hist]
-    assert max(abs(a - b) for a, b in zip(losses, ref_losses)) <= 1e-4, (losses, ref_losses)
-    assert all(h["grad_rows_differ"] == 0 for h in hist)
+    track(ARCH, ckpt, ref_losses, "tuned_allreduce", tuner_table=table)
 
 
 def test_compressed_step_follows_reference_error_feedback():
@@ -347,7 +310,7 @@ def test_compressed_step_follows_reference_error_feedback():
     )
 
     n = 4
-    jcfg, tcfg = _f32(jget_config(ARCH)), _f32(get_config(ARCH))
+    jcfg, tcfg = f32(jget_config(ARCH)), f32(get_config(ARCH))
     jm, tm = JModel(jcfg), Model(tcfg)
     run = RunConfig(sync_mode="compressed_allreduce", wire_format="int8",
                     compiled_collectives=True, **RUN)
@@ -386,7 +349,7 @@ def test_trainer_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(get_config(ARCH), RunConfig())
     with pytest.raises(ValueError, match="unknown sync_mode"):
-        _port_trainer("degraded_psum")
+        port_trainer(ARCH, "degraded_psum")
 
 
 # --------------------------------------------------------------------------
