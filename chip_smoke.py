@@ -152,6 +152,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``train_4k``), its peak and seconds. Last (after the kernels line is
    read), the four smoke configs in f32 under tuned_allreduce on the card
    against the CPU.
+6t. training on a model axis: phase 6's minitron-8b (1 layer, full width,
+   8 x 512 tokens, remat, 3 steps, bf16) under grad_allreduce on a (2, 2)
+   ('data', 'model') mesh of the same 4 emulated ranks, the parameters and
+   AdamW state blocked by ``param_specs(fsdp=True)``: each step gathers
+   every model rank's shard from its data ranks' blocks (``pallgather`` on
+   the strided data groups), runs the tensor-parallel forward and backward
+   and updates the blocks. Twice: with ``compiled_collectives`` (the merge
+   in every gather round) and through a tuner table that routes every
+   gather in-kernel (``rdma_replay``), the two runs' parameters bit-equal.
+   Printed beside phase 6's one-axis grad_allreduce: step seconds, peak
+   GiB, each rank row's held bytes of parameters + AdamW state, the
+   gather's milliseconds a step (CUDA events). Checks: the last loss and
+   grad norms within phase 6's limits (1e-3, 2e-4 relative) of phase 6's
+   one-axis grad_allreduce, peaks under 70 GiB; after the path's counts
+   are read, one step from the initial blocks with each model rank's
+   gathered shard bit-equal to the plain concatenation of its blocks and
+   every row holding a copy of a block bit-equal to its owner's (the
+   parameters and both moments), the same run in f32 within 1e-4 (last
+   loss) and 1e-5 (grad norms, relative) of the one-axis f32 run, and
+   minitron-8b-smoke in f32 on (2, 2), card against CPU, within 1e-4.
 7. collectives: ``pallgather``, ``preduce_scatter``, ``preduce`` and
    ``pallreduce`` at minitron-8b's training embedding bucket (1,048,576,000
    bf16 elements a rank) on the 4 emulated ranks, each with
@@ -307,7 +327,8 @@ Launch counts are zeroed right before each path and read right after it:
 phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
 path), phase 4c (the long-prompt serving path), phase 4d (the
 vision-prefix serving path), phase 5's two long-prompt references (the
-f32 flash route), phase 6's runs (the training path), phase 6m (the MoE
+f32 flash route), phase 6's runs (the training path), phase 6t's two timed
+runs (the model-axis training path, ``train_tp``), phase 6m (the MoE
 training path), phase 6v (the vision-prefix training path), phase 6f's
 four families' runs, each a path of its own (``train_recurrent``,
 ``train_hybrid``, ``train_encdec``, ``train_mha``; not their controls or
@@ -532,6 +553,9 @@ HIER_TRAIN_MODES = ("param_bcast", "param_bcast_ring", "tuned_allreduce", "overl
 # x the control's (read 7.49 against 5.12, and 26.17% against 3.59%: PERF.md
 # §6); a fault that moves most logits fails it
 TP_MESH, TP_LONG_PROMPT = (2, 2), 4096
+# phase 6t: grad_allreduce on the (2, 2) ('data', 'model') mesh, the gathers
+# through the compiled replay (the merge in every round)
+TP_TRAIN_FIELDS = {"sync_mode": "grad_allreduce", "compiled_collectives": True}
 TP_REL, TP_ABS, TP_LAYER_REL = 2.0**-7, 1e-2, 2.0**-8
 TP_RATIO_MULT, TP_SHARE_MULT = 2.0, 10.0
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
@@ -3107,7 +3131,7 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=
     mesh in ``health``'s state, when given) on a global batch of ``batch``
     x ``seq`` text tokens (and a vision config's prefix). Returns the final
     parameters and the run's record; its tokens/s count every position the
-    model runs, the prefix included. ``inspect(params, opt_state)``, when
+    model runs, the prefix included. ``inspect(params, opt_state, trainer)``, when
     given, returns entries for the record, read before the state is
     dropped."""
     from repro_torch import kernels
@@ -3129,7 +3153,7 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=
     after = kernels.launch_counts()
     depths = (overlap_depths(torch, trainer, params)
               if fields["sync_mode"] == "overlap_allreduce" else None)
-    extra = inspect(params, opt) if inspect is not None else {}
+    extra = inspect(params, opt, trainer) if inspect is not None else {}
     del opt, trainer
     losses = [h["loss"] for h in hist]
     assert all(math.isfinite(x) for x in losses), (fields, losses)
@@ -3319,6 +3343,222 @@ def _train_line(r: dict) -> str:
             f"{ {k: v for k, v in r['launches'].items() if v} }")
 
 
+def _tp_train_mesh(dev: str = "cuda"):
+    from repro_torch.launch.mesh import make_local_mesh
+
+    return make_local_mesh(TP_MESH[1], n=RANKS, device=dev)
+
+
+def _held_bytes(trainer) -> tuple[int, int]:
+    """Bytes one rank row holds of the parameters and AdamW's two f32
+    moments in the trainer's blocked layout, and the one-axis total."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.dist import sharding
+
+    shapes = tree_flatten(trainer.model.param_shapes())[0]
+    specs = tree_flatten(trainer.specs, sharding.is_spec)[0]
+    row = one = 0
+    for t, spec in zip(shapes, specs):
+        block = sharding.shard_slices(spec, tuple(t.shape), trainer.mesh, 0)
+        n = math.prod(sl.stop - sl.start for sl in block)
+        row += n * (t.element_size() + 8)
+        one += t.numel() * (t.element_size() + 8)
+    return row, one
+
+
+def _gather_table(torch, cfg, mesh, d: str) -> tuple[str, list]:
+    """A tuner table that routes every gather of the model-axis step
+    in-kernel: for each distinct frame a data group gathers (a leaf's block
+    a rank, 2 data ranks), one ``pallgather(inkernel=True)`` of such a
+    frame timed on the card (after one warm-up) and recorded with
+    ``exec_path='inkernel'``; saved under ``d``. Returns the path and the
+    (bytes, algo, chunks, ms) rows."""
+    from repro_torch import comm
+    from repro_torch.comm import plan_cached
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.core.tuner import Tuner
+    from repro_torch.dist import sharding
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import _fsdp_dim, tp_specs
+
+    model = Model(cfg)
+    shapes = tree_flatten(model.param_shapes())[0]
+    specs = tree_flatten(tp_specs(model, mesh), sharding.is_spec)[0]
+    n = dict(zip(mesh.axis_names, mesh.devices.shape))["data"]
+    frames = set()
+    for t, spec in zip(shapes, specs):
+        if _fsdp_dim(spec)[1]:
+            block = sharding.shard_slices(spec, tuple(t.shape), mesh, 0)
+            frames.add((math.prod(sl.stop - sl.start for sl in block), t.dtype))
+    tuner, rows = Tuner(), []
+    for elems, dtype in sorted(frames, key=lambda f: f[0]):
+        frame = torch.zeros((n, elems), dtype=dtype, device="cuda")
+        M = n * elems * frame.element_size()
+        plan = plan_cached("allgather", M, n)
+        ms = time_ms(torch, lambda: comm.pallgather(frame, inkernel=True), reps=1, warmup=1)
+        del frame
+        tuner.record(M, n, plan.algo, plan.num_chunks, ms * 1e-3, op="allgather",
+                     extras={"exec_path": "inkernel"})
+        rows.append((M, plan.algo, plan.num_chunks, round(ms, 4)))
+    torch.cuda.empty_cache()
+    path = os.path.join(d, "train_tp_inkernel.json")
+    tuner.save(path)
+    return path, rows
+
+
+def _tp_copies_and_gather(torch, cfg) -> dict:
+    """One step of the model-axis trainer from its initial blocks: each
+    model rank's gathered shard of every leaf bit-equal to the plain
+    concatenation of its data ranks' blocks, and after the step every row
+    holding a copy of a block bit-equal to its owner's, in the parameters
+    and both AdamW moments."""
+    import numpy as np
+
+    from repro_torch import comm
+    from repro_torch.configs import RunConfig
+    from repro_torch.core.tree import tree_flatten, tree_leaves
+    from repro_torch.data.pipeline import batches
+    from repro_torch.dist import sharding
+    from repro_torch.train.train_step import _fsdp_dim, gather_model_shards
+    from repro_torch.train.trainer import Trainer
+
+    mesh = _tp_train_mesh()
+    trainer = Trainer(cfg, RunConfig(**TRAIN_RUN, **TP_TRAIN_FIELDS), mesh=mesh)
+    params, opt = trainer.init_state()
+    specs = tree_flatten(trainer.specs, sharding.is_spec)[0]
+    shape, names = tuple(mesh.devices.shape), tuple(mesh.axis_names)
+    def gather(frame, axis):
+        return comm.pallgather(frame, compiled=True)
+
+    gathered = 0
+    for leaf, spec in zip(tree_leaves(params), specs):
+        k, axes = _fsdp_dim(spec)
+        for j, g in enumerate(gather_model_shards(leaf, spec, mesh, gather)):
+            ranks = [r for r in range(mesh.size) if np.unravel_index(r, shape)[-1] == j]
+            want = torch.cat([leaf[r] for r in ranks], dim=k) if axes else leaf[ranks[0]]
+            assert same_bits(torch, g, want), ("gather", spec, j)
+            gathered += g.numel()
+            del g, want
+    it = batches(trainer.source, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device="cuda")
+    params, opt, _ = trainer._step_fn(params, opt, next(it))
+    copies = 0
+    for tree in (params, opt["m"], opt["v"]):
+        for leaf, spec in zip(tree_leaves(tree), specs):
+            named = set(sharding.spec_axes(spec))
+            for r in range(mesh.size):
+                coords = np.unravel_index(r, shape)
+                owner = int(np.ravel_multi_index(
+                    [c if a in named else 0 for a, c in zip(names, coords)], shape))
+                if owner != r:
+                    assert same_bits(torch, leaf[r], leaf[owner]), ("copy", spec, r)
+                    copies += leaf[r].numel()
+    del params, opt, trainer
+    return {"gathered_elements": gathered, "copied_elements_equal": copies}
+
+
+def train_tp(torch, training: dict) -> tuple[dict, dict]:
+    """Phase 6t (see the module's docstring). Returns the phase's numbers
+    and the launch counts of its two timed runs (the ``train_tp`` path)."""
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(get_config("minitron-8b"), num_layers=TRAIN_LAYERS)
+    mesh = _tp_train_mesh()
+    one = training["grad_allreduce"]
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        table, table_rows = _gather_table(torch, cfg, mesh, d)
+        log(f"train tp table: in-kernel gathers (bytes, algo, chunks, ms) {table_rows}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def gather_ms(_params, _opt, trainer):
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in trainer._step_fn.gather_events]
+            return {"gather_ms": ms, "held": _held_bytes(trainer)}
+
+        kernels.reset_launch_counts()
+        held = None
+        for label, fields in (("compiled", TP_TRAIN_FIELDS),
+                              ("inkernel", {"sync_mode": "grad_allreduce",
+                                            "tuner_table": table})):
+            params, r = train_mode(torch, cfg, mesh, fields, inspect=gather_ms)
+            if label == "compiled":
+                held = [t.cpu() for t in tree_leaves(params)]
+            else:
+                assert all(same_bits(torch, a, b.cpu()) for a, b in
+                           zip(held, tree_leaves(params))), \
+                    "the in-kernel gathers' parameters differ from the compiled ones'"
+                held = None
+            del params
+            out[label] = r
+        counts = kernels.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    comp, ink = out["compiled"], out["inkernel"]
+    assert comp["launches"]["fused_combine"] > 0 == comp["launches"]["inkernel_rdma"], comp
+    assert ink["launches"]["inkernel_rdma"] > 0 == ink["launches"]["fused_combine"], ink
+    row, total = comp["held"]
+    for label, r in out.items():
+        d_loss, d_norm = _deviation(r, one)
+        log(f"train tp {label}: " + _train_line(r) + f"; beside phase 6's one-axis "
+            f"grad_allreduce step {one['step_s']:.4f} s, peak "
+            f"{one['max_memory_allocated'] / 2**30:.2f} GiB; gather ms a step "
+            f"{['%.3f' % x for x in r['gather_ms']]}; last loss {d_loss:.3e} from the "
+            f"one-axis run (bound 1e-3), grad norms {d_norm:.3e} relative (bound 2e-4)")
+        assert d_loss <= 1e-3 and d_norm <= 2e-4, (label, r, one)
+        assert r["max_memory_allocated"] < 70 * 2**30, (label, r["max_memory_allocated"])
+    log(f"train tp held: {row} bytes of parameters + AdamW state a rank row "
+        f"({row / 2**30:.3f} GiB), {row / total:.4f} of the one-axis {total} bytes")
+    out["held_row_bytes"], out["held_one_axis_bytes"] = row, total
+
+    # after the path's counts: the gather and the copies, f32, the smoke run
+    out["checks"] = _tp_copies_and_gather(torch, cfg)
+    log(f"train tp checks: {out['checks']} (gathered shards bit-equal to the "
+        "concatenation of their blocks; copies bit-equal to their owners)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    runs = {}
+    for label, m in (("one-axis", make_mesh(RANKS, device="cuda")), ("tp", mesh)):
+        params, runs[label] = train_mode(torch, f32, m, TP_TRAIN_FIELDS)
+        del params
+    d_loss, d_norm = _deviation(runs["tp"], runs["one-axis"])
+    log(f"train tp f32: losses {['%.6f' % x for x in runs['tp']['losses']]} beside the "
+        f"one-axis {['%.6f' % x for x in runs['one-axis']['losses']]}; last loss {d_loss:.3e} "
+        f"(bound 1e-4), grad norms {d_norm:.3e} relative (bound 1e-5); peaks "
+        f"{runs['tp']['max_memory_allocated'] / 2**30:.2f} and "
+        f"{runs['one-axis']['max_memory_allocated'] / 2**30:.2f} GiB")
+    assert d_loss <= 1e-4 and d_norm <= 1e-5, runs
+    out["f32"] = {"d_loss": d_loss, "d_norm": d_norm,
+                  **{k: {"losses": v["losses"], "grad_norms": v["grad_norms"]}
+                     for k, v in runs.items()}}
+    smoke = dataclasses.replace(get_config("minitron-8b-smoke"), dtype="float32")
+    run = RunConfig(**TRAIN_RUN, **TP_TRAIN_FIELDS)
+    losses = {}
+    with tempfile.TemporaryDirectory() as d:
+        for dev in ("cpu", "cuda"):
+            tr = Trainer(smoke, run, mesh=_tp_train_mesh(dev), ckpt_dir=d, device=dev)
+            if dev == "cpu":
+                params, opt = tr.init_state()
+                checkpoint.save_checkpoint(d, 0, tr._full(params))
+                checkpoint.save_checkpoint(os.path.join(d, "opt"), 0,
+                                           tr._opt_map(tr._full, opt))
+            losses[dev] = [h["loss"] for h in tr.train(batch=8, seq=32, steps=2,
+                                                       log_every=1)[2]]
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    log(f"train tp smoke: minitron-8b-smoke f32 on (2, 2), card against CPU, losses "
+        f"{losses['cuda']} and {losses['cpu']}, max abs diff {err:.3e} (tol 1e-4)")
+    assert len(losses["cuda"]) == 2 and err <= 1e-4, losses
+    out["smoke_err"] = err
+    return out, counts
+
+
 def train_moe(torch) -> dict:
     """Phase 6m: mixtral-8x7b at full width (MOE_TRAIN_LAYERS of 32 layers,
     8 experts top-2, bf16, seeded weights) trains phase 6's 3 steps of 8 x
@@ -3337,7 +3577,7 @@ def train_moe(torch) -> dict:
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=MOE_TRAIN_LAYERS)
     mesh = make_mesh(RANKS, device="cuda")
 
-    def residual(params, opt):
+    def residual(params, opt, _trainer):
         rows = {}
         for path, p, e in zip(tree_paths(params), tree_leaves(params), tree_leaves(opt["ef"])):
             assert e.dtype == torch.float32 and tuple(e.shape) == (RANKS,) + tuple(p.shape), \
@@ -5177,6 +5417,10 @@ def main() -> int:
     mark("training (6)")
     gc.collect()
     torch.cuda.empty_cache()
+    tp_training, train_tp_counts = train_tp(torch, training)
+    mark("model-axis training (6t)")
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     moe_training = train_moe(torch)
     train_moe_counts = kernels.launch_counts()
@@ -5292,13 +5536,15 @@ def main() -> int:
     # whisper's attention stays dense under 4096 keys); mix and
     # scaled_add are on no path of either package; the merge, the staging
     # copy, the quantize pair and the in-kernel replay on the hierarchical
-    # mesh's path (phase 14: its collectives, trainings and distributions); the merge, the
+    # mesh's path (phase 14: its collectives, trainings and distributions); the
+    # merge and the in-kernel replay on the model-axis training path (phase 6t:
+    # its compiled and its in-kernel-table run's gathers); the merge, the
     # staging copy and the sm90 flash kernel on the tensor-parallel serving path (phase 15:
     # its two distributions and the long prompt's prefills); and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("serve_tp", "hierarchical", "serve_encdec", "serve_mha",
+    paths = {"fused_combine": ("train_tp", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                                "serve_hybrid", "serve_recurrent",
                                "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
                                "train_vlm", *family_counts, "algorithms", "online",
@@ -5310,7 +5556,7 @@ def main() -> int:
              "quantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
              "dequantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
              "inkernel_replay": (),
-             "inkernel_rdma": ("hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
+             "inkernel_rdma": ("train_tp", "hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
              "flash_attention_sm90": ("serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
                                       "serve_mha"),
@@ -5325,6 +5571,7 @@ def main() -> int:
               "faults": fault_counts, "serve_hybrid": hybrid_counts,
               "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
               "serve_mha": mha_counts, "hierarchical": hier_counts, "serve_tp": tp_counts,
+              "train_tp": train_tp_counts,
               **family_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
@@ -5351,6 +5598,7 @@ def main() -> int:
     small_train_references(torch)
     mark("training references (6, 6m, 6v, 6f)")
     log(f"training numbers: {json.dumps(training)}")
+    log(f"model-axis training numbers: {json.dumps(tp_training)}")
     log(f"moe and vlm training numbers: "
         f"{json.dumps({'train_moe': moe_training, 'train_vlm': vlm_training})}")
     log(f"family training numbers: {json.dumps(family_training)}")

@@ -845,7 +845,10 @@ def level_replay(x: torch.Tensor, axis, fn, *, mesh=None, out=None) -> torch.Ten
     place, the result is ``x`` so updated; when it returns new buffers (a
     compressed wire, a padded buffer), every group's result is written
     into ``out`` (default a new tensor, ``x`` left as it was; pass ``out=x``
-    when ``x`` may be overwritten), which is returned."""
+    when ``x`` may be overwritten), which is returned. A result whose rows
+    differ in shape from ``x``'s (an all-gather's ``(A, A, *shape)``) is
+    written into a new ``(mesh.size, A, *shape)`` tensor (or ``out`` of
+    that shape): row ``r`` what rank ``r``'s group handed it."""
     if mesh is None or len(tuple(mesh.axis_names)) == 1:
         return fn(x)
     names, shape = tuple(mesh.axis_names), tuple(mesh.devices.shape)
@@ -865,15 +868,16 @@ def level_replay(x: torch.Tensor, axis, fn, *, mesh=None, out=None) -> torch.Ten
             res = fn(frame.view((A,) + rest))
             fresh = res.data_ptr() != frame.data_ptr()
             if dst is None:
+                shape_out = (x.shape[0],) + tuple(res.shape[1:]) if fresh else x.shape
                 dst = view if not fresh else (
-                    torch.empty_like(x) if out is None else out).view(outer, A, inner, -1)
+                    x.new_empty(shape_out) if out is None else out).view(outer, A, inner, -1)
             target = dst[o, :, j]
             if fresh:
                 target.copy_(res.reshape(A, -1))
             elif target.data_ptr() != frame.data_ptr():
                 target.copy_(frame)
             del res, frame
-    return dst.view(x.shape)
+    return dst.view(shape_out)
 
 
 def _tree_collective(op_fn, tree, *, bucket_bytes, stage, levels, mesh, **kw):

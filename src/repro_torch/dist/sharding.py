@@ -36,6 +36,11 @@ The port has no GSPMD to place a value by its spec: :func:`shard_slices`
 names the block of a leaf that one rank holds, and
 :func:`shard_stacked` (and :func:`cut_leaves`) cut a tree into the
 rank-stacked layout the emulated mesh keeps (row ``r`` rank ``r``'s block).
+:func:`assemble_leaves` puts the full leaves back together from that
+layout, what ``jax.device_get`` reads back from a
+global array; :func:`owner_ranks` names the ranks that hold each distinct
+block once, so a sum over the layout counts every element of the full
+tree once.
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ from ..core.tree import tree_flatten, tree_map_with_path, tree_unflatten
 from .topology import DP_AXES, TP_AXIS, axis_sizes
 
 __all__ = ["PartitionSpec", "param_specs", "batch_specs", "cache_specs", "cut_leaves",
-           "is_spec", "shard_slices", "shard_stacked"]
+           "is_spec", "shard_slices", "shard_stacked", "assemble_leaves", "drop_axis",
+           "owner_ranks", "spec_axes"]
 
 _ATTN_PROJ = {"wq", "wk", "wv", "wo", "bq", "bk", "bv"}
 
@@ -304,3 +310,63 @@ def shard_stacked(tree: Any, specs: Any, mesh) -> Any:
     (:func:`cut_leaves`)."""
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(treedef, cut_leaves(leaves, specs, mesh))
+
+
+def _entry_axes(e) -> tuple:
+    return () if e is None else (e if isinstance(e, tuple) else (e,))
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes ``spec`` names, in the order of its entries."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def drop_axis(spec, axis: str):
+    """``spec`` with ``axis`` taken out of every entry: the spec of a leaf's
+    block within the slice of it that one coordinate on ``axis`` holds."""
+    out = []
+    for e in spec:
+        axes = tuple(a for a in _entry_axes(e) if a != axis)
+        out.append(axes if axes else None)
+    return P(*out)
+
+
+def _full_shape(spec, block_shape, mesh) -> tuple:
+    """The shape of the full leaf whose blocks under ``spec`` are
+    ``block_shape``."""
+    sizes = axis_sizes(mesh)
+    return tuple(b * math.prod(sizes[a] for a in _entry_axes(e))
+                 for b, e in zip(block_shape, spec))
+
+
+def owner_ranks(spec, mesh) -> list:
+    """The ranks at coordinate 0 on every axis ``spec`` does not name: each
+    distinct block of a leaf under ``spec`` is held by exactly one of them
+    (the others hold copies)."""
+    named = set(spec_axes(spec))
+    shape = tuple(mesh.devices.shape)
+    keep = [slice(None) if a in named else slice(0, 1) for a in tuple(mesh.axis_names)]
+    return [int(r) for r in np.arange(math.prod(shape)).reshape(shape)[tuple(keep)].reshape(-1)]
+
+
+def assemble_leaves(leaves: list, specs: Any, mesh) -> list:
+    """The full leaves of rank-stacked ones (``(mesh.size, *block)``, as
+    :func:`cut_leaves` makes them, in flatten order beside ``specs``): each
+    block written into its place from the rank that owns it
+    (:func:`owner_ranks`). ``leaves`` is emptied as it is assembled, so a
+    stacked leaf the caller holds nowhere else is freed once its full value
+    is made."""
+    spec_leaves = tree_flatten(specs, is_spec)[0]
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(spec_leaves)} specs for {len(leaves)} leaves")
+    out = []
+    for i, spec in enumerate(spec_leaves):
+        leaf, leaves[i] = leaves[i], None
+        shape = _full_shape(spec, tuple(leaf.shape[1:]), mesh)
+        full = torch.empty(shape, dtype=leaf.dtype, device=leaf.device)
+        for r in owner_ranks(spec, mesh):
+            full[shard_slices(spec, shape, mesh, r)] = leaf[r]
+        del leaf
+        out.append(full)
+    return out
+

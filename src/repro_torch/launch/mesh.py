@@ -80,14 +80,16 @@ class EmulatedMesh:
 
 
 def refuse_model_axis(mesh, what: str) -> None:
-    """The port trains data-parallel only: ``what`` (the trainer, a sync
-    mode) refuses a ``model`` axis of more than one rank. A model axis of
-    one rank is a data-parallel mesh; the engine serves tensor-parallel."""
+    """``what`` (an explicit sync mode, the degraded step) is pure
+    data-parallel, the paper's setting, as the reference asserts: it
+    refuses a ``model`` axis of more than one rank. A model axis of one
+    rank is a data-parallel mesh; on a larger one ``grad_allreduce`` trains
+    (the FSDP + tensor-parallel step) and the engine serves."""
     if tp_size(mesh) != 1:
         raise ValueError(
-            f"{what} runs on a data-parallel mesh; the model axis of {tuple(mesh.axis_names)} "
-            f"{tuple(mesh.devices.shape)} has {tp_size(mesh)} ranks and the port trains "
-            'without tensor parallelism (ROADMAP item "Training on a model axis")')
+            f"{what} is pure data-parallel (the paper's setting): the model axis of "
+            f"{tuple(mesh.axis_names)} {tuple(mesh.devices.shape)} has {tp_size(mesh)} ranks; "
+            "on a model axis, train with sync_mode='grad_allreduce'")
 
 
 def make_mesh(shape, *, axis_names=None, device="cuda") -> EmulatedMesh:

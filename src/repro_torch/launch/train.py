@@ -34,6 +34,19 @@ layers through the library (``dataclasses.replace(cfg, num_layers=3)``):
 ``tests/test_torch_train_recurrent.py``, ``tests/test_torch_train_hybrid.py``
 and ``tests/test_torch_train_encdec_mha.py`` hold these trainings against
 the reference's ``Trainer``.
+
+``--model-parallel M`` trains on the reference's local mesh,
+``(ranks // M, M)`` over ('data', 'model'): ``grad_allreduce`` in the
+reference's FSDP + tensor-parallel layout, for the dense decoders whose
+heads, kv heads, MLP width and padded vocab divide ``M`` (minitron-8b,
+gemma3-27b, qwen1.5-32b); the other sync modes stay data-parallel and
+refuse it, as the reference's do:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b-smoke \
+        --model-parallel 2 --ranks 8 --device cpu --steps 2 --log-every 1
+
+``tests/test_torch_train_tp.py`` holds it against the reference's
+model-axis ``Trainer``.
 """
 from __future__ import annotations
 
@@ -41,7 +54,7 @@ import argparse
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.train.trainer import SYNC_MODES, Trainer
 
 
@@ -59,7 +72,8 @@ def main(argv=None) -> None:
     ap.add_argument("--allreduce-algo", default="auto")
     ap.add_argument("--wire-format", default="bf16", choices=["bf16", "int8", "fp8"])
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--ranks", type=int, default=4, help="emulated data-parallel ranks")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--ranks", type=int, default=4, help="emulated ranks")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--data", default=None, help="packed int32 token .npy file")
     ap.add_argument("--ckpt-dir", default=None)
@@ -81,9 +95,10 @@ def main(argv=None) -> None:
         num_microbatches=args.microbatches,
         seed=args.seed,
     )
-    mesh = make_mesh(args.ranks, device=args.device)
-    print(f"arch={cfg.name} ranks={mesh.size} device={mesh.device} sync={run.sync_mode} "
-          f"wire={run.wire_format}", flush=True)
+    mesh = (make_mesh(args.ranks, device=args.device) if args.model_parallel == 1 else
+            make_local_mesh(args.model_parallel, n=args.ranks, device=args.device))
+    print(f"arch={cfg.name} mesh={dict(zip(mesh.axis_names, mesh.devices.shape))} "
+          f"device={mesh.device} sync={run.sync_mode} wire={run.wire_format}", flush=True)
     Trainer(cfg, run, mesh=mesh, data_path=args.data, ckpt_dir=args.ckpt_dir,
             device=args.device).train(
         batch=args.batch, seq=args.seq, steps=args.steps, log_every=args.log_every,

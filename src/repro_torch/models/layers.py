@@ -433,13 +433,21 @@ class _RowGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (tokens,) = ctx.saved_tensors
-        rows, where = torch.unique(tokens.reshape(-1), return_inverse=True)
-        acc = torch.zeros((rows.numel(), grad.shape[-1]), dtype=torch.float32,
-                          device=grad.device)
-        acc.index_put_((where,), grad.reshape(-1, grad.shape[-1]).float(), accumulate=True)
-        out = torch.zeros(ctx.table_shape, dtype=ctx.table_dtype, device=grad.device)
-        out[rows] = acc.to(ctx.table_dtype)
-        return out, None
+        return row_grad(tokens.reshape(-1), grad.reshape(-1, grad.shape[-1]),
+                        ctx.table_shape, ctx.table_dtype), None
+
+
+def row_grad(index: torch.Tensor, grad: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """The gradient of a table of ``shape`` and ``dtype`` whose rows
+    ``index`` (N,) were read with upstream gradients ``grad`` (N, D): each
+    row's gradients summed in f32, in the order they come, and rounded once
+    (:class:`_RowGather`'s backward)."""
+    rows, where = torch.unique(index, return_inverse=True)
+    acc = torch.zeros((rows.numel(), grad.shape[-1]), dtype=torch.float32, device=grad.device)
+    acc.index_put_((where,), grad.float(), accumulate=True)
+    out = torch.zeros(shape, dtype=dtype, device=grad.device)
+    out[rows] = acc.to(dtype)
+    return out
 
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:

@@ -103,15 +103,15 @@ def init_lm(gen: torch.Generator, cfg) -> dict:
 
 
 def _train_superblock(x, stack, l: int, cfg, layout: StackLayout, prefix_len: int, causal,
-                      cross_inputs, mesh, transport):
+                      cross_inputs, mesh, transport, block=apply_block):
     """Superblock ``l`` in train mode (the reference's scan body). Returns
     (x, aux) with ``aux`` the superblock's summed auxiliary loss."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(layout.period):
         p = tree_map(lambda t: t[l], stack["blocks"][i])
-        x, _, a = apply_block(p, x, cfg, layout.kinds[i], layout.windows[i], mode="train",
-                              prefix_len=prefix_len, causal=causal, cross_inputs=cross_inputs,
-                              mesh=mesh, transport=transport)
+        x, _, a = block(p, x, cfg, layout.kinds[i], layout.windows[i], mode="train",
+                        prefix_len=prefix_len, causal=causal, cross_inputs=cross_inputs,
+                        mesh=mesh, transport=transport)
         x = hint(x, "btd_res")  # optional sequence-parallel residual
         aux = aux + a
     return x, aux
@@ -131,9 +131,9 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
     output). ``remat`` (train mode) recomputes each superblock in the
     backward pass instead of keeping its activations: the reference's
     ``jax.checkpoint`` around its scan body. ``block`` computes a block in
-    prefill and decode (:func:`apply_block`, or the tensor-parallel block
-    of :mod:`.tensor_parallel`, whose stack holds each layer's rank shards
-    as a list)."""
+    every mode (:func:`apply_block`, or the tensor-parallel block of
+    :mod:`.tensor_parallel`, whose stack holds each layer's rank shards as
+    a list)."""
     P = layout.period
     kinds, wins = layout.kinds, layout.windows
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -142,18 +142,19 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
         for l in range(layout.num_super):
             if remat:
                 x, a = checkpoint(_train_superblock, x, stack, l, cfg, layout, prefix_len,
-                                  causal, cross_inputs, mesh, transport, use_reentrant=False)
+                                  causal, cross_inputs, mesh, transport, block,
+                                  use_reentrant=False)
             else:
                 x, a = _train_superblock(x, stack, l, cfg, layout, prefix_len, causal,
-                                         cross_inputs, mesh, transport)
+                                         cross_inputs, mesh, transport, block)
             auxs.append(a)
         if auxs:
             aux_total = aux_total + torch.stack(auxs).sum()
         for j, tp in enumerate(stack["tail"]):
             i = (layout.num_super * P + j) % P
-            x, _, a = apply_block(tp, x, cfg, kinds[i], wins[i], mode="train",
-                                  prefix_len=prefix_len, causal=causal,
-                                  cross_inputs=cross_inputs, mesh=mesh, transport=transport)
+            x, _, a = block(tp, x, cfg, kinds[i], wins[i], mode="train",
+                            prefix_len=prefix_len, causal=causal,
+                            cross_inputs=cross_inputs, mesh=mesh, transport=transport)
             aux_total = aux_total + a
         return x, None, aux_total
     slot_caches: list[list] = [[] for _ in range(P)]

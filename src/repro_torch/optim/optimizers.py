@@ -39,18 +39,28 @@ def _step0() -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, rows: list | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a 0-d tensor
-    on the leaves' device)."""
-    sq = [torch.linalg.vector_norm(leaf, dtype=torch.float32) ** 2 for leaf in tree_leaves(tree)]
+    on the leaves' device). ``rows`` (one list a leaf, in flatten order)
+    counts only those rows of each rank-stacked leaf: in a blocked tree
+    the ranks that own each distinct block
+    (:func:`repro_torch.dist.sharding.owner_ranks`), so every element of
+    the full tree counts once, a replicated block not once per copy."""
+    leaves = tree_leaves(tree)
+    if rows is None:
+        sq = [torch.linalg.vector_norm(leaf, dtype=torch.float32) ** 2 for leaf in leaves]
+    else:
+        sq = [torch.linalg.vector_norm(leaf[r], dtype=torch.float32) ** 2
+              for leaf, rs in zip(leaves, rows) for r in rs]
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, rows: list | None = None):
     """Scale ``grads`` by ``min(1, max_norm / (norm + 1e-9))`` in float32,
     cast back to each leaf's dtype. Returns ``(grads, norm)``; the leaves
-    are new tensors (the scale is applied in f32, as the reference does)."""
-    norm = global_norm(grads)
+    are new tensors (the scale is applied in f32, as the reference does).
+    ``rows`` as :func:`global_norm`'s."""
+    norm = global_norm(grads, rows)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 

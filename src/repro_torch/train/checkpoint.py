@@ -68,19 +68,21 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(path: str, step: int, like: Any) -> Any:
+def restore_checkpoint(path: str, step: int, like: Any, *, device=None) -> Any:
     """The checkpoint's tree, structured as ``like`` (a tree of tensors);
-    each leaf lands on the device of ``like``'s leaf and must match its
-    shape and dtype."""
+    each leaf lands on the device of ``like``'s leaf (a meta leaf, one that
+    gives only its shape and dtype, on ``device``) and must match its shape
+    and dtype."""
     data = np.load(os.path.join(path, f"ckpt_{step:08d}.npz"))
     leaves, treedef = tree_flatten(like)
     out = []
     for key, ref in zip(tree_paths(like), leaves):
+        dev = device if ref.device.type == "meta" else ref.device
         if key + _BF16_TAG in data:
             arr = data[key + _BF16_TAG].view(np.int16)
-            t = torch.from_numpy(arr.copy()).view(torch.bfloat16).to(ref.device)
+            t = torch.from_numpy(arr.copy()).view(torch.bfloat16).to(dev)
         else:
-            t = to_tensor(data[key], ref.device)
+            t = to_tensor(data[key], dev)
         if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
             raise ValueError(f"checkpoint leaf {key!r} is {tuple(t.shape)} {t.dtype}; "
                              f"expected {tuple(ref.shape)} {ref.dtype}")

@@ -1,5 +1,6 @@
-"""Train-step factories on an emulated data-parallel mesh: a ('data',) or a
-('pod', 'data') mesh (a model axis of one rank allowed).
+"""Train-step factories on an emulated mesh: a ('data',) or a ('pod',
+'data') mesh (a model axis of one rank allowed), and for ``grad_allreduce``
+also a ('data', 'model') or ('pod', 'data', 'model') mesh.
 
 Five data-parallel synchronization modes, as in the reference's
 ``train/train_step.py``:
@@ -22,6 +23,10 @@ Five data-parallel synchronization modes, as in the reference's
 
 On a mesh with dead ranks the trainer replaces any of them with
 :func:`make_degraded_psum_train_step`, the mean over the surviving ranks.
+The explicit modes and the degraded step are pure data-parallel, the
+paper's setting, and refuse a model axis of more than one rank, as the
+reference asserts. On a model axis ``grad_allreduce`` is the reference's
+FSDP + tensor-parallel step (:func:`make_train_step`).
 
 How ranks are emulated. In every mode but ``grad_allreduce`` the
 reference's ``local_step`` runs once per rank inside ``shard_map``. Here
@@ -53,14 +58,17 @@ step's metrics ``(params, opt_state, out)``.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..comm import (
     hierarchical_allreduce_axes,
     level_replay,
     overlap_allreduce_tree,
+    pallgather,
     pallreduce,
     pallreduce_tree,
 )
@@ -73,11 +81,21 @@ from ..core.bcast import pbcast_tree, preduce_sum
 from ..core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..core.tuner import Tuner
 from ..dist import topology
+from ..dist.sharding import (
+    drop_axis,
+    is_spec,
+    owner_ranks,
+    param_specs,
+    shard_slices,
+    spec_axes,
+)
 from ..launch.mesh import dp_axes, refuse_model_axis
+from ..models.tensor_parallel import check_tensor_parallel, tp_loss
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 
 __all__ = [
     "make_train_step",
+    "make_tp_train_step",
     "make_bcast_train_step",
     "make_tuned_allreduce_train_step",
     "make_overlap_allreduce_train_step",
@@ -105,17 +123,24 @@ def _grad_fn(model, run_cfg: RunConfig):
         grads = torch.autograd.grad(loss, ps)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
-    def compute(params, batch):
-        k = run_cfg.num_microbatches
+    return _over_microbatches(one, run_cfg.num_microbatches)
+
+
+def _over_microbatches(one, k: int):
+    """``compute(state, batch)``: ``one(state, batch) -> (loss, metrics,
+    grads)`` over the batch, or with ``k`` microbatches their mean loss and
+    metrics and the f32 mean of their gradients."""
+    def compute(state, batch):
         if k == 1:
-            return one(params, batch)
+            return one(state, batch)
         acc, losses, metricss = None, [], []
         for mb in _microbatches(batch, k):
-            loss, metrics, grads = one(params, mb)
+            loss, metrics, grads = one(state, mb)
             if acc is None:
                 acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device) for g in grads]
             for a, g in zip(acc, grads):
                 a.add_(g.float() / k)
+            del grads
             losses.append(loss)
             metricss.append(metrics)
         return _mean(losses), {key: _mean([m[key] for m in metricss]) for key in metricss[0]}, acc
@@ -211,8 +236,11 @@ def make_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: Call
     the per-rank gradients gives. The loss, and so a MoE model's aux
     ``E * sum(me * ce)``, reads the whole batch's router statistics: aux is
     a product of batch means, so the mean of per-rank values (the explicit
-    modes' ``pmean``) is another number. ``mesh`` is checked to be pure
-    data-parallel; its ranks do not split the pass."""
+    modes' ``pmean``) is another number. On a data-parallel ``mesh`` its
+    ranks do not split the pass; on a model axis of more than one rank the
+    step is :func:`make_tp_train_step`'s."""
+    if mesh is not None and topology.tp_size(mesh) > 1:
+        return make_tp_train_step(model, run_cfg, optimizer, lr_fn, mesh)
     if mesh is not None:
         _data_ranks(mesh, "grad_allreduce")
     compute = _grad_fn(model, run_cfg)
@@ -223,6 +251,166 @@ def make_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: Call
         return _finish(tree_unflatten(treedef, grads), params, opt_state, optimizer, lr_fn,
                        loss, metrics)
 
+    return train_step
+
+
+def tp_specs(model, mesh):
+    """The training layout of ``model`` on ``mesh``: the reference's
+    ``param_specs(shapes, mesh)``, FSDP on the data axes and
+    ``attn_fallback='replicate'``."""
+    return param_specs(model.param_shapes(), mesh, fsdp=True, attn_fallback="replicate")
+
+
+def _fsdp_dim(spec) -> tuple:
+    """``(dim, axes)`` of the one dim a training spec shards over data
+    axes, or ``(None, ())``."""
+    dims = [(i, e if isinstance(e, tuple) else (e,)) for i, e in enumerate(spec)
+            if e is not None and e != topology.TP_AXIS]
+    if len(dims) > 1:
+        raise ValueError(f"spec {spec} shards more than one dim over the data axes")
+    return dims[0] if dims else (None, ())
+
+
+def gather_model_shards(leaf: torch.Tensor, spec, mesh, gather) -> list:
+    """Each model rank's shard of a blocked leaf ``(mesh.size, *block)``
+    (the training layout, row ``r`` rank ``r``'s block), in model-rank
+    order: the FSDP blocks of its data ranks assembled along the dim they
+    split. ``gather(frame, axis)`` all-gathers a rank-stacked frame over
+    one data axis; it runs on every group of ranks along that axis
+    (:func:`~repro_torch.comm.api.level_replay`, each model rank's strided
+    data group), the innermost data axis first, so a dim split over
+    ('pod', 'data') jointly ends in pod-major order. A leaf the model axis
+    does not split comes back as one tensor, model rank 0's (the ranks
+    hold copies). Without data axes in ``spec`` a shard is a view of its
+    rank's row; otherwise a new tensor, bit-equal to the concatenation of
+    the blocks."""
+    names, shape = tuple(mesh.axis_names), tuple(mesh.devices.shape)
+    k, axes = _fsdp_dim(spec)
+    block = tuple(leaf.shape[1:])
+    x = leaf
+    for ax in reversed(axes):
+        x = level_replay(x.reshape(mesh.size, -1), ax, functools.partial(gather, axis=ax),
+                         mesh=mesh)
+    parts = math.prod(shape[names.index(a)] for a in axes)
+    sharded = topology.TP_AXIS in spec_axes(spec)
+    out = []
+    for j in range(shape[-1] if sharded else 1):
+        row = x[_model_rank_row(mesh, j)]
+        if axes:
+            row = row.reshape((parts,) + block).movedim(0, k).clone(
+                memory_format=torch.contiguous_format)
+            row = row.view(block[:k] + (parts * block[k],) + block[k + 1:])
+        out.append(row)
+    return out
+
+
+def _model_rank_row(mesh, j: int) -> int:
+    """The rank at coordinate ``j`` on the model axis and 0 elsewhere."""
+    names, shape = tuple(mesh.axis_names), tuple(mesh.devices.shape)
+    coords = [j if a == topology.TP_AXIS else 0 for a in names]
+    return int(np.ravel_multi_index(coords, shape))
+
+
+def cut_model_grads(grads: list, spec, mesh) -> torch.Tensor:
+    """The blocked gradient ``(mesh.size, *block)`` of a leaf from the
+    gradients of its model ranks' shards ``grads`` (one tensor when the
+    model axis does not split the leaf): row ``r`` rank ``r``'s block of
+    its model rank's gradient under ``spec``."""
+    inner = drop_axis(spec, topology.TP_AXIS)
+    shape = tuple(grads[0].shape)
+    blocks = [shard_slices(inner, shape, mesh, r) for r in range(mesh.size)]
+    out = torch.empty((mesh.size,) + tuple(s.stop - s.start for s in blocks[0]),
+                      dtype=grads[0].dtype, device=grads[0].device)
+    model = np.unravel_index(np.arange(mesh.size), tuple(mesh.devices.shape))[
+        tuple(mesh.axis_names).index(topology.TP_AXIS)]
+    for r, sl in enumerate(blocks):
+        out[r] = grads[int(model[r]) if len(grads) > 1 else 0][sl]
+    return out
+
+
+def make_tp_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: Callable,
+                       mesh):
+    """``grad_allreduce`` on a ('data', 'model') or ('pod', 'data',
+    'model') mesh: the reference's GSPMD step over its FSDP + TP layout,
+    still one pass over the global batch.
+
+    The parameters and the optimizer state are blocked: each leaf is
+    ``(mesh.size, *block)``, row ``r`` rank ``r``'s block under
+    :func:`tp_specs`. A step
+
+    1. gathers each model rank's shard of every leaf from its data ranks'
+       FSDP blocks (:func:`gather_model_shards`), through ``pallgather`` on
+       each model rank's data group with the run's tuner table and
+       ``compiled_collectives``: the all-gather GSPMD inserts;
+    2. runs the tensor-parallel forward and backward
+       (:func:`~repro_torch.models.tensor_parallel.tp_loss`, ``remat`` as
+       the run says) over the global batch and takes
+       ``torch.autograd.grad`` over the shards (the f32 mean over
+       microbatches, as :func:`_grad_fn`); a leaf the model axis does not
+       split is one tensor in every rank's tree, so its gradient is the sum
+       of the ranks' uses;
+    3. keeps each rank's FSDP block of its model rank's gradient (the
+       reduce-scatter: the pass already took the data mean), clips by the
+       global norm over the blocks their owners hold, each element of the
+       full tree once (:func:`~repro_torch.dist.sharding.owner_ranks`),
+       and steps the optimizer on every block in place. The ranks that
+       hold copies of a block receive the same bits, so their rows stay
+       bit-equal.
+
+    The step's ``gather_events`` collects a CUDA event pair around each
+    step's gathers on the card (empty on the CPU)."""
+    cfg = model.cfg
+    check_tensor_parallel(cfg, topology.tp_size(mesh))
+    if not dp_axes(mesh):
+        raise ValueError(f"grad_allreduce needs a data axis, not {tuple(mesh.axis_names)}")
+    specs = tree_flatten(tp_specs(model, mesh), is_spec)[0]
+    owners = [owner_ranks(sp, mesh) for sp in specs]
+    tuner = Tuner.load(run_cfg.tuner_table) if run_cfg.tuner_table else None
+    inter = topology.inter_pod_axes(mesh)
+    m = topology.tp_size(mesh)
+
+    def gather(frame, axis):
+        return pallgather(frame, tuner=tuner, inter_pod=axis in inter,
+                          compiled=run_cfg.compiled_collectives)
+
+    def one(state, mb):
+        shards, treedef = state
+        trees = [tree_unflatten(treedef, [ts[j] if len(ts) > 1 else ts[0] for ts in shards])
+                 for j in range(m)]
+        loss, metrics = tp_loss(trees, cfg, mb, remat=run_cfg.remat)
+        grads = torch.autograd.grad(loss, [t for ts in shards for t in ts])
+        return loss.detach(), {key: v.detach() for key, v in metrics.items()}, list(grads)
+
+    compute = _over_microbatches(one, run_cfg.num_microbatches)
+
+    def train_step(params, opt_state, batch):
+        leaves, treedef = tree_flatten(params)
+        on_card = leaves[0].is_cuda
+        if on_card:
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        with torch.no_grad():
+            shards = [[t.detach().requires_grad_(True)
+                       for t in gather_model_shards(leaf, sp, mesh, gather)]
+                      for leaf, sp in zip(leaves, specs)]
+        if on_card:
+            events[1].record()
+            train_step.gather_events.append(events)
+        counts = [len(ts) for ts in shards]
+        loss, metrics, flat = compute((shards, treedef), batch)
+        del shards
+        blocked = []
+        for sp, c in zip(specs, counts):  # each shard's gradient freed once cut
+            blocked.append(cut_model_grads([flat.pop(0) for _ in range(c)], sp, mesh))
+        grads, gnorm = clip_by_global_norm(tree_unflatten(treedef, blocked), 1.0, owners)
+        del blocked
+        lr = lr_fn(opt_state["step"])
+        params, opt_state = optimizer.update(grads, opt_state, params, lr)
+        out = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        out.update(metrics)
+        return params, opt_state, out
+
+    train_step.gather_events = []
     return train_step
 
 

@@ -22,9 +22,10 @@ Then the host side (``dist.topology`` of every port mesh read by both
 packages, ``plan_distribution``'s per-level plans on a (2, 4) mesh), the
 trainer on a (2, 2) mesh in every sync mode and the degraded step against
 the reference's full-batch steps, ``Engine.generate`` on a (2, 2) mesh
-after a distribution whose replicas are bit-equal, and the refusals: a
-model axis of more than one rank (``Trainer``, ``Engine``) and a
-multi-level collective without its ``mesh=``.
+after a distribution whose replicas are bit-equal, a ('pod', 'data',
+'model') mesh (the explicit sync modes refuse its model axis,
+``grad_allreduce`` trains and ``Engine`` serves there), and a multi-level
+collective without its ``mesh=`` refused.
 """
 from __future__ import annotations
 
@@ -625,13 +626,19 @@ def test_engine_on_pods_matches_reference():
 
 
 def test_model_axis_is_refused_naming_serving_remainder():
-    """The trainer refuses a model axis of more than one rank, naming the
-    ROADMAP item that ports training there; the engine serves on it
-    tensor-parallel, every weight cut to its rank's block."""
+    """On a ('pod', 'data', 'model') mesh the explicit sync modes refuse the
+    model axis with the reference's pure data-parallel reason, while
+    ``grad_allreduce`` trains there in the blocked FSDP + TP layout and the
+    engine serves on it tensor-parallel, every weight cut to its rank's
+    block."""
     cfg = _f32(get_config(ARCH))
     mesh = _mesh((2, 2, 2))
-    with pytest.raises(ValueError, match="Training on a model axis"):
-        Trainer(cfg, RunConfig(**RUN), mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="pure data-parallel"):
+        Trainer(cfg, RunConfig(sync_mode="param_bcast", **RUN), mesh=mesh, device="cpu")
+    tr = Trainer(cfg, RunConfig(**RUN), mesh=mesh, device="cpu")
+    blocked, _ = tr.init_state()
+    assert blocked["decoder"]["blocks"][0]["attn"]["wq"].shape[0] == 8
+    assert np.isfinite(tr.train(batch=BATCH, seq=SEQ, steps=1, log_every=1)[2][0]["loss"])
     params = Model(cfg).init(0, device="cpu")
     engine = Engine(cfg, params, mesh=mesh, distribute=True, device="cpu")
     wq = params["decoder"]["blocks"][0]["attn"]["wq"]

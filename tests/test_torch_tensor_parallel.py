@@ -482,15 +482,35 @@ def test_outside_the_slice_raises_naming_tensor_parallel_remainder(case):
 
 
 def test_training_on_a_model_axis_is_refused():
-    """The trainer, its sync modes and the tensor-parallel forward in train
-    mode name "Training on a model axis"; a model axis of one rank trains."""
+    """On a model axis of more than one rank the explicit sync modes and
+    the degraded step stay pure data-parallel and are refused with the
+    reference's reason; ``grad_allreduce`` trains there, the
+    tensor-parallel forward runs in train mode (the one-axis model's
+    logits on one model rank), and a family it does not cover names
+    "Tensor-parallel remainder"; a model axis of one rank trains every
+    mode."""
+    from repro_torch.comm.faults import MeshHealth
+
     cfg = _f32(get_config(ARCH))
-    with pytest.raises(ValueError, match="Training on a model axis"):
-        Trainer(cfg, RunConfig(), mesh=_dm_mesh(), device="cpu")
-    with pytest.raises(ValueError, match="Training on a model axis"):
+    for mode in ("param_bcast", "tuned_allreduce", "overlap_allreduce", "compressed_allreduce"):
+        with pytest.raises(ValueError, match="pure data-parallel"):
+            Trainer(cfg, RunConfig(sync_mode=mode), mesh=_dm_mesh(), device="cpu")
+    with pytest.raises(ValueError, match="pure data-parallel"):
+        Trainer(cfg, RunConfig(), mesh=_dm_mesh(), device="cpu",
+                health=MeshHealth(n=2, dead_ranks=(1,)))
+    with pytest.raises(ValueError, match="pure data-parallel"):
         tmesh.refuse_model_axis(SPEC_MESHES["production"](), "param_bcast")
-    with pytest.raises(ValueError, match="Training on a model axis"):
-        tp_lib.apply_lm_tp([{}, {}], cfg, tokens=torch.as_tensor(TOKENS), mode="train")
+    hist = Trainer(cfg, RunConfig(total_steps=2, warmup_steps=0), mesh=_dm_mesh(),
+                   device="cpu").train(batch=4, seq=8, steps=2, log_every=1)[2]
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    params = Model(cfg).init(0, device="cpu")
+    tokens = torch.as_tensor(TOKENS)
+    want = Model(cfg).forward(params, {"tokens": tokens})[0]
+    got, caches = tp_lib.apply_lm_tp([params], cfg, tokens=tokens, mode="train")
+    assert caches is None and torch.equal(got, want)
+    with pytest.raises(ValueError, match="Tensor-parallel remainder"):
+        Trainer(_f32(get_config("mixtral-8x7b-smoke")), RunConfig(), mesh=_dm_mesh(),
+                device="cpu")
     tmesh.refuse_model_axis(tmesh.make_local_mesh(1, n=4, device="cpu"), "the trainer")
 
 
