@@ -319,6 +319,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (``serve_tp_shard`` in the sm90 kernel's JSON line); (d)
    minitron-8b-smoke in f32 on (2, 2), card against CPU (prefill logits
    within 1e-3, greedy tokens equal).
+16. tensor-parallel serving of the other families on phase 15's (2, 2)
+   ('data', 'model') mesh, each at full width, bf16, seeded random
+   weights, distributed staged (``Engine(distribute=True,
+   double_buffer=True)``) and by the compiled pipelined chain, both with
+   ``specs=``, every shard bit-equal to its ``param_specs`` block: (a)
+   mixtral-8x7b, 2 of 32 layers (phase 10's cut), 4 experts a model rank,
+   batch 4 (2 a data rank), prompt 128, 32 steps, and a third distribution
+   through a tuner table built on the card for the data level's buckets
+   (``exec_path='inkernel'``: the device-initiated replay); (b)
+   paligemma-3b, 18 layers, one request a data rank of 256 patches + 3840
+   tokens and 32 steps: its one kv head takes the head-dim split and the
+   sequence-split cache (4128 slots, half a model rank), 36 sm90 flash
+   launches a data rank's prefill pass and none of the CUDA-core kernel;
+   (c) whisper-large-v3, 32 + 32 layers, one request a data rank of 1500
+   stub frames + 4 tokens, 32 steps. Each prints its distributions' s, the
+   peak (under 70 GiB), the warm prefill ms a data rank and decode tok/s
+   beside its one-axis phase (10, 4d, 13a); tokens in the vocab, log-probs
+   finite and at most 0. Then, after the path's counts are read, the
+   greedy tokens beside the one-axis engine's on the same weights, and
+   every TP layer (the encoder's too) held against the layer in f32, fed
+   the one-axis hidden state: its largest error at most the one-axis
+   layer's plus one bf16 rounding of its largest output. (d)
+   mixtral-8x7b-, moonshot-v1-16b-a3b-, paligemma-3b- and
+   whisper-large-v3-smoke in f32 on (2, 2), card against CPU (prefill
+   logits within 1e-3, greedy tokens equal).
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -340,7 +365,10 @@ path), phase 11 (the fault runtime), phases 12a and 12b (the hybrid and
 the recurrent serving paths) and phases 13a and 13b (the encoder-decoder
 and the MHA serving paths), phase 14 (the hierarchical mesh's path) and
 phases 15a-15c's own runs (the tensor-parallel serving path,
-``serve_tp``, without 15b's references and 15c's kernel check); the launches that compare
+``serve_tp``, without 15b's references and 15c's kernel check), phases
+16a-16c's own runs, each a path of its own (``tp_moe``, ``tp_vlm``,
+``tp_encdec``: the distributions and the served requests, without the
+one-axis references, the layer checks and 16a's table recording); the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
 JSON, the card, and ``{"ok": true, "device": ...}``.
@@ -557,6 +585,15 @@ TP_MESH, TP_LONG_PROMPT = (2, 2), 4096
 # through the compiled replay (the merge in every round)
 TP_TRAIN_FIELDS = {"sync_mode": "grad_allreduce", "compiled_collectives": True}
 TP_REL, TP_ABS, TP_LAYER_REL = 2.0**-7, 1e-2, 2.0**-8
+# phase 16: the MoE, vision-prefix and encoder-decoder families on phase 15's
+# mesh. (path, arch, layers (None: all), requests a data rank, prompt tokens,
+# sm90 flash launches a data rank's prefill pass, the one-axis phase)
+TP_FAMILY_RUNS = (("tp_moe", "mixtral-8x7b", MOE_LAYERS, BATCH // TP_MESH[0], PROMPT, 0, "10"),
+                  ("tp_vlm", "paligemma-3b", None, 1, VLM_TEXT, 36, "4d"),
+                  ("tp_encdec", "whisper-large-v3", None, 1, ENCDEC_PROMPT, 0, "13a"))
+TP_FAMILY_SMOKE = ("mixtral-8x7b-smoke", "moonshot-v1-16b-a3b-smoke", "paligemma-3b-smoke",
+                   "whisper-large-v3-smoke")
+TP_PEAK_LIMIT = 70 * 2**30
 TP_RATIO_MULT, TP_SHARE_MULT = 2.0, 10.0
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
@@ -2076,26 +2113,28 @@ def compiled_replay(torch, root, mesh) -> tuple[dict, dict]:
     return {"distribute_s": secs, "fused_combine_launches": launched, "rounds": rounds}, out
 
 
-def record_inkernel_table(torch, tuner, buckets, op: str, extras: list[dict]) -> list:
+def record_inkernel_table(torch, tuner, buckets, op: str, extras: list[dict],
+                          n: int = RANKS) -> list:
     """For each bucket ``(bytes, elements, dtype)``: the analytic plan's
-    algo and chunk count, one timed in-kernel replay of it (the
-    device-initiated kernel, which ``execute_inkernel`` runs) on a scratch
-    buffer of the bucket's chunked shape (after one warm-up replay), and a
-    ``record`` into each tuner of ``tuner`` with the matching ``extras``.
-    Returns ``(algo, chunks, rounds, classes, ms)`` per bucket."""
+    algo and chunk count on ``n`` ranks, one timed in-kernel replay of it
+    (the device-initiated kernel, which ``execute_inkernel`` runs) on a
+    scratch buffer of the bucket's chunked shape (after one warm-up
+    replay), and a ``record`` into each tuner of ``tuner`` with the
+    matching ``extras``. Returns ``(algo, chunks, rounds, classes, ms)``
+    per bucket."""
     from repro_torch.comm import plan_cached
     from repro_torch.kernels.inkernel_collective import rdma_replay
 
     rows = []
     for M, elems, dtype in buckets:
-        plan = plan_cached(op, M, RANKS)
+        plan = plan_cached(op, M, n)
         low = plan.lowered()
-        buf = torch.zeros((RANKS, low.num_chunks, -(-elems // low.num_chunks)), dtype=dtype,
+        buf = torch.zeros((n, low.num_chunks, -(-elems // low.num_chunks)), dtype=dtype,
                           device="cuda")
         ms = time_ms(torch, lambda: rdma_replay(low, buf), reps=1, warmup=1)
         del buf
         for t, ex in zip(tuner, extras):
-            t.record(M, RANKS, plan.algo, plan.num_chunks, ms * 1e-3, op=op, extras=ex)
+            t.record(M, n, plan.algo, plan.num_chunks, ms * 1e-3, op=op, extras=ex)
         rows.append((plan.algo, plan.num_chunks, low.num_rounds, low.num_classes, ms))
     torch.cuda.empty_cache()
     return rows
@@ -5002,45 +5041,6 @@ def tp_distribution(torch, phase3: dict) -> tuple[dict, object, object]:
     return out, engine, params
 
 
-def _layer_check(torch, engine, one, batch) -> tuple[float, float]:
-    """Every layer of the TP engine on data rank 0's shards and the
-    one-axis engine's layer, each on the same input (the one-axis hidden
-    state entering it), against that layer computed in f32 from the same
-    bf16 input and weights (TF32 off): the TP layer's largest error may
-    exceed the one-axis layer's by one bf16 rounding of the layer's largest
-    output (TP_LAYER_REL max |out|, the extra rounding of the partials
-    before the model-axis sum). Returns the largest ratio of the TP
-    layer's largest error to that limit, and of its mean error to the
-    one-axis layer's, over the layers."""
-    from repro_torch.core.tree import tree_map
-    from repro_torch.models import tensor_parallel as tp_lib
-    from repro_torch.models.blocks import apply_block
-    from repro_torch.models.layers import embed_tokens
-    from repro_torch.models.transformer import _dtype
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = engine.cfg
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    full, shards = one.replica(0), engine.replica(0)
-    x = embed_tokens(full["embed"], batch["tokens"]) * torch.tensor(
-        cfg.d_model**0.5, dtype=_dtype(cfg), device=batch["tokens"].device)
-    worst, worst_mean = 0.0, 0.0
-    for l in range(cfg.num_layers):
-        p = tree_map(lambda t, l=l: t[l], full["decoder"]["blocks"][0])
-        ps = [tree_map(lambda t, l=l: t[l], s["decoder"]["blocks"][0]) for s in shards]
-        want = apply_block(p, x, cfg, "attn", None, mode="prefill")[0]
-        got = tp_lib._block(ps, x, cfg, "attn", None, mode="prefill")[0]
-        exact = apply_block(tree_map(lambda t: t.float(), p), x.float(), cfg32, "attn", None,
-                            mode="prefill")[0]
-        e_tp, e_one = (got.float() - exact).abs(), (want.float() - exact).abs()
-        limit = float(e_one.max()) + TP_LAYER_REL * float(want.abs().max())
-        worst = max(worst, float(e_tp.max()) / limit)
-        worst_mean = max(worst_mean, float(e_tp.mean()) / float(e_one.mean()))
-        x = want
-        del got, exact, e_tp, e_one
-    return worst, worst_mean
-
-
 def _logit_diff(got, want) -> tuple[float, float, float]:
     """Max abs difference, its largest ratio to TP_REL |ref| + TP_ABS and
     the share of logits beyond that limit."""
@@ -5119,7 +5119,7 @@ def tp_against_one_axis(torch, engine, params, tokens, tp_tokens) -> dict:
                                                 max_len=PROMPT + STEPS)[0], want)
                 w[12345] = keep
             del got, want
-        layer_ratio, mean_ratio = _layer_check(torch, engine, one, batches[0])
+        layer_ratio, mean_ratio, _ = _layer_check(torch, engine, one, batches[0])
     assert layer_ratio <= 1.0, f"a TP layer lies off the f32 layer: {layer_ratio}"
     worst = max(bf16, key=lambda r: r[1])
     share = max(r[2] for r in bf16)
@@ -5313,6 +5313,282 @@ def tensor_parallel(torch, phase3: dict) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     out = {"distribution": dist_rec, "serving": serve_rec, "long": long_rec,
            "smoke_err": tp_smoke(torch)}
+    return out, counts
+
+
+def _layer_params(stack: dict, layout, l: int):
+    """Layer ``l``'s parameters (or its model ranks' list of them) from a
+    stack in the superblock layout: row ``l // period`` of slot
+    ``l % period``, or its tail entry."""
+    from repro_torch.core.tree import tree_map
+
+    i, s = l % layout.period, l // layout.period
+    if s < layout.num_super:
+        return tree_map(lambda t: t[s], stack["blocks"][i])
+    return stack["tail"][l - layout.num_super * layout.period]
+
+
+def _layer_check(torch, engine, one, batch) -> tuple[float, float, int]:
+    """The layer check of phases 15b and 16: each layer of the TP engine on
+    data rank 0's shards and the one-axis engine's layer, each fed the
+    one-axis hidden state (an encoder-decoder's encoder layers
+    first, in train mode and bidirectional, then its decoder layers on the
+    one-axis encoder's normed output; a vision config's decoder over the
+    patches and the text, the prefix-LM mask), against that layer in f32
+    from the same bf16 input and weights (TF32 off). Returns the largest
+    ratio of the TP layer's largest error to the one-axis layer's plus
+    TP_LAYER_REL times its largest output, the largest ratio of the mean
+    errors, and the layers checked."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import tensor_parallel as tp_lib
+    from repro_torch.models.blocks import apply_block
+    from repro_torch.models.layers import embed_tokens, rms_norm
+    from repro_torch.models.transformer import StackLayout, _dtype
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = engine.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    full, shards = one.replica(0), engine.replica(0)
+    dt = _dtype(cfg)
+    x = embed_tokens(full["embed"], batch["tokens"]) * torch.tensor(
+        cfg.d_model**0.5, dtype=dt, device=batch["tokens"].device)
+    prefix_len, cross = 0, None
+    if cfg.frontend == "vision":
+        x = torch.cat([batch["embeds"].to(dt), x], dim=1)
+        prefix_len = batch["embeds"].shape[1]
+    passes = [("decoder", StackLayout(cfg), "prefill", True)]
+    if cfg.arch_type == "encdec":
+        passes.insert(0, ("encoder", StackLayout(cfg, encoder=True), "train", False))
+    worst, worst_mean, n = 0.0, 0.0, 0
+    for name, layout, mode, causal in passes:
+        h = batch["embeds"].to(dt) if name == "encoder" else x
+        xi = None if name == "encoder" else cross
+        for l in range(layout.num_layers):
+            p = _layer_params(full[name], layout, l)
+            ps = [_layer_params(s[name], layout, l) for s in shards]
+            kind, win = layout.kinds[l], layout.windows[l]
+            kw = {"mode": mode, "prefix_len": prefix_len, "causal": causal}
+            want = apply_block(p, h, cfg, kind, win, cross_inputs=xi, **kw)[0]
+            got = tp_lib._block(ps, h, cfg, kind, win, cross_inputs=xi, **kw)[0]
+            exact = apply_block(tree_map(lambda t: t.float(), p), h.float(), cfg32, kind, win,
+                                cross_inputs=None if xi is None else xi.float(), **kw)[0]
+            e_tp, e_one = (got.float() - exact).abs(), (want.float() - exact).abs()
+            limit = float(e_one.max()) + TP_LAYER_REL * float(want.abs().max())
+            worst = max(worst, float(e_tp.max()) / limit)
+            worst_mean = max(worst_mean, float(e_tp.mean()) / float(e_one.mean()))
+            h, n = want, n + 1
+            del got, exact, e_tp, e_one
+        if name == "encoder":
+            cross = rms_norm(full["enc_norm"], h, cfg.norm_eps)
+    return worst, worst_mean, n
+
+
+def _inkernel_serve_table(torch, cfg, mesh):
+    """Phase 16a's tuner table, built on the card as phase 4b builds its own:
+    each of the data level's buckets (the full tree's, the broadcast runs
+    before the cut) planned on the data axis's ranks, timed as one
+    in-kernel replay, recorded with ``exec_path='inkernel'``, saved and
+    loaded back."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.core.tuner import Tuner
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import plan_distribution
+
+    stacked = tree_map(lambda t: torch.empty((mesh.size,) + tuple(t.shape), device="meta",
+                                             dtype=t.dtype), Model(cfg).param_shapes())
+    spec, _plans = plan_distribution(stacked, mesh)
+    tuner = Tuner()
+    buckets = list(zip(spec.bucket_bytes(), spec.bucket_sizes, spec.bucket_dtypes))
+    rows = record_inkernel_table(torch, [tuner], buckets, "bcast", [{"exec_path": "inkernel"}],
+                                 n=TP_MESH[0])
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tp_serve_table.json")
+        tuner.save(path)
+        return Tuner.load(path), rows
+
+
+def tp_family(torch, path: str, arch: str, layers, per_rank: int, prompt: int,
+              flash_per_pass: int, one_axis: dict, phase: str) -> dict:
+    """Phase 16a, 16b or 16c (see the module docstring). Returns the
+    numbers, with the path's launch counts under ``counts``: zeroed after
+    16a's table is recorded and read before the one-axis references and
+    the layer check."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batches, make_source
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, distribute_weights, replicate
+    from repro_torch.serve.engine import rank_rows
+
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    mesh = _tp_mesh()
+    table = None
+    if path == "tp_moe":
+        table, table_rows = _inkernel_serve_table(torch, cfg, mesh)
+    params = Model(cfg).init(seed=0, device="cuda")
+    specs = param_specs(Model(cfg).param_shapes(), mesh, fsdp=False, attn_fallback="head_dim")
+    roots = rank_rows(mesh)[0]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, params, mesh=mesh, distribute=True, double_buffer=True)
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    assert _shards_equal(torch, engine.params, params, specs, mesh), f"a staged {arch} shard differs"
+    dists = {}
+    for how, kw in (("compiled", {"algo": "pipelined_chain", "compiled": True}),
+                    ("inkernel", {"tuner": table})):
+        if how == "inkernel" and table is None:
+            continue
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, plans = distribute_weights(
+            replicate(params, mesh.size, fill_root_only=True, roots=roots), mesh, specs=specs,
+            double_buffer=True, return_plans=True, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        assert _shards_equal(torch, out, params, specs, mesh), f"a {how} {arch} shard differs"
+        del out
+        torch.cuda.empty_cache()
+        dists[how] = {"s": secs, **{k: after[k] - before[k]
+                                    for k in ("fused_combine", "inkernel_rdma")}}
+        if how == "inkernel":
+            assert all(p.decision.exec_path == "inkernel" for p in plans["data"]), plans
+            assert dists[how]["fused_combine"] == 0 < dists[how]["inkernel_rdma"], dists[how]
+    tokens = np.random.RandomState(16).randint(0, cfg.vocab_size - 1,
+                                               size=(per_rank * engine.n, prompt))
+    embeds = None
+    if cfg.frontend == "vision" or cfg.arch_type == "encdec":
+        embeds = next(batches(make_source(cfg, seed=16), cfg, batch=per_rank * engine.n,
+                              seq=prompt, device="cuda"))["embeds"]
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate({"tokens": tokens, "embeds": embeds}, steps=STEPS)
+    gen_s = time.perf_counter() - t0
+    cold = kernels.launch_counts()["flash_attention_sm90"] - before["flash_attention_sm90"]
+    assert res.tokens.shape == (len(tokens), STEPS)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
+    assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
+    prefill_s, decode_s = time_prefill_decode(torch, engine, tokens, STEPS, embeds)
+    counts = kernels.launch_counts()
+    warm = counts["flash_attention_sm90"] - before["flash_attention_sm90"] - cold
+    want = flash_per_pass * engine.n
+    assert cold == warm == want and counts["flash_attention"] == 0, (cold, warm, want, counts)
+    peak = torch.cuda.max_memory_allocated()
+    assert peak < TP_PEAK_LIMIT, f"phase 16 {arch} peaked at {peak / 2**30:.2f} GiB"
+    serve_s = time.perf_counter() - t_start
+
+    # uncounted: the one-axis engine on the same weights, and the layer check
+    one = Engine(cfg, params)
+    agree = 0
+    rank_batches = _rank_batches(torch, tokens, embeds, ranks=engine.n)
+    for d, batch in enumerate(rank_batches):
+        ref = one.generate(batch, steps=STEPS)
+        agree += int((ref.tokens == res.tokens[d * per_rank:(d + 1) * per_rank]).sum())
+    with torch.no_grad():
+        layer_ratio, mean_ratio, checked = _layer_check(torch, engine, one,
+                                                                rank_batches[0])
+    assert layer_ratio <= 1.0, f"a TP {arch} layer lies off the f32 layer: {layer_ratio}"
+    del one, engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"layers": cfg.num_layers, "staged_s": staged_s,
+           **{f"{how}_s": r["s"] for how, r in dists.items()}, "distributions": dists,
+           "peak_gib": peak / 2**30, "generate_s": gen_s,
+           "prefill_ms_per_data_rank": prefill_s / TP_MESH[0] * 1e3,
+           "decode_tokens_per_s": len(tokens) * STEPS / decode_s,
+           "decode_ms_a_step": decode_s / (TP_MESH[0] * STEPS) * 1e3,
+           "flash_sm90_a_pass": cold, "tokens_agree": agree, "tokens": int(res.tokens.size),
+           "layer_limit_ratio": layer_ratio, "layer_mean_err_ratio": mean_ratio,
+           "layers_checked": checked, "one_axis": {k: one_axis[k] for k in (
+               "distribute_s", "prefill_ms_per_rank", "decode_tokens_per_s")},
+           "serve_s": serve_s, "phase_s": time.perf_counter() - t_start, "counts": counts}
+    if table is not None:
+        out["table_buckets"] = table_rows
+    frames = f" + {cfg.frontend_len} frames" if cfg.arch_type == "encdec" else ""
+    enc = f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else ""
+    patches = f"{cfg.prefix_len} patches + " if cfg.frontend == "vision" else ""
+    log(f"serve {path}: {arch} {cfg.num_layers}{enc} layers on (2, 2) ('data', 'model'), "
+        f"distribution staged {staged_s:.3f} s, "
+        + ", ".join(f"{how} {r['s']:.3f} s ({r['fused_combine']} fused_combine, "
+                    f"{r['inkernel_rdma']} inkernel_rdma)" for how, r in dists.items())
+        + f", every shard bit-equal, beside phase {phase}'s one-axis "
+        f"{one_axis['distribute_s']:.3f} s; peak {peak / 2**30:.2f} GiB; {per_rank} request(s) "
+        f"a data rank of {patches}{prompt} tokens{frames}, {STEPS} steps: warm prefill "
+        f"{out['prefill_ms_per_data_rank']:.2f} ms a data rank (phase {phase}: "
+        f"{one_axis['prefill_ms_per_rank']:.2f} ms a rank), decode "
+        f"{out['decode_tokens_per_s']:.1f} tok/s, {out['decode_ms_a_step']:.2f} ms a data "
+        f"rank's step (phase {phase}: {one_axis['decode_tokens_per_s']:.1f} tok/s, "
+        f"{1e3 / one_axis['decode_tokens_per_s']:.2f} ms a rank's step); flash_attention_sm90 "
+        f"{cold} a pass ({flash_per_pass} a data rank), flash_attention 0; greedy tokens "
+        f"agree {agree} / {res.tokens.size} with the one-axis engine; {checked} layers against the layer in f32: the TP layer's largest error within "
+        f"{layer_ratio:.3f} of the one-axis layer's plus one bf16 rounding of its largest "
+        f"output, mean error at most {mean_ratio:.3f} x the one-axis layer's; phase "
+        f"{out['phase_s']:.1f} s (served {serve_s:.1f})")
+    return out
+
+
+def tp_family_smoke(torch) -> dict:
+    """Phase 16d: the four smoke configs in f32 on (2, 2) ('data', 'model'),
+    distributed and served on the card and on the CPU from one tree: each
+    data rank's prefill logits within 1e-3, the greedy tokens equal."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for name in TP_FAMILY_SMOKE:
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        params = Model(cfg).init(seed=0, device="cpu")
+        tokens = np.random.RandomState(0).randint(0, cfg.vocab_size - 1, size=(BATCH, 16))
+        n = cfg.prefix_len if cfg.frontend == "vision" else cfg.frontend_len
+        embeds = None if not n else torch.as_tensor(
+            np.random.RandomState(1).randn(BATCH, n, cfg.d_model).astype(np.float32))
+        logits, toks = {}, {}
+        for dev in ("cpu", "cuda"):
+            engine = Engine(cfg, tree_map(lambda t: t.to(dev), params), mesh=_tp_mesh(dev),
+                            distribute=True, device=dev)
+            emb = None if embeds is None else embeds.to(dev)
+            with torch.no_grad():
+                logits[dev] = torch.cat([
+                    engine.prefill(engine.replica(d), {"tokens": b["tokens"].to(dev),
+                                                       "embeds": b["embeds"]},
+                                   max_len=24)[0].cpu()
+                    for d, b in enumerate(_rank_batches(torch, tokens, emb, ranks=engine.n))])
+            toks[dev] = engine.generate({"tokens": tokens, "embeds": emb}, steps=8).tokens
+        errs[name] = float((logits["cpu"] - logits["cuda"]).abs().max())
+        assert errs[name] <= 1e-3 and (toks["cpu"] == toks["cuda"]).all(), (name, errs, toks)
+    log(f"serve tp families smoke: f32 on (2, 2) ('data', 'model'), card vs CPU, max abs "
+        f"prefill logit diff {errs} (tol 1e-3), greedy tokens equal")
+    return errs
+
+
+def tp_families(torch, one_axis: dict) -> tuple[dict, dict]:
+    """Phase 16: 16a-16c, each its own path, then 16d. ``one_axis`` holds
+    phases 10, 4d and 13a's numbers by phase. Returns the numbers and the
+    paths' launch counts."""
+    t0 = time.perf_counter()
+    out, counts = {}, {}
+    for path, arch, layers, per_rank, prompt, flash, phase in TP_FAMILY_RUNS:
+        out[path] = tp_family(torch, path, arch, layers, per_rank, prompt, flash,
+                              one_axis[phase], phase)
+        counts[path] = out[path].pop("counts")
+    out["smoke_err"] = tp_family_smoke(torch)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"serve tp families: phase 16 {out['phase_s']:.1f} s")
     return out, counts
 
 
@@ -5513,6 +5789,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp, tp_counts = tensor_parallel(torch, serving)
     mark("tensor-parallel serving (15)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_fam, tp_fam_counts = tp_families(torch, {"10": moe_serving, "4d": vlm, "13a": encdec})
+    mark("tensor-parallel families (16)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
     # and the four families' of 6f too) and the streams phase, the staging
@@ -5540,25 +5820,29 @@ def main() -> int:
     # merge and the in-kernel replay on the model-axis training path (phase 6t:
     # its compiled and its in-kernel-table run's gathers); the merge, the
     # staging copy and the sm90 flash kernel on the tensor-parallel serving path (phase 15:
-    # its two distributions and the long prompt's prefills); and the shared-buffer
+    # its two distributions and the long prompt's prefills); the merge and the
+    # staging copy on each of phase 16's three paths (tp_moe, tp_vlm, tp_encdec:
+    # their distributions), the in-kernel replay on tp_moe (its table-routed
+    # distribution) and the sm90 flash kernel on tp_vlm (paligemma's prefills on
+    # the head-dim split); and the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("train_tp", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
+    paths = {"fused_combine": ("tp_moe", "tp_vlm", "tp_encdec", "train_tp", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                                "serve_hybrid", "serve_recurrent",
                                "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
                                "train_vlm", *family_counts, "algorithms", "online",
                                "streams"),
-             "chunked_copy": ("serve_tp", "hierarchical", "serve_encdec", "serve_mha",
+             "chunked_copy": ("tp_moe", "tp_vlm", "tp_encdec", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                               "serve_hybrid", "serve_recurrent",
                               "faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
                               "streams"),
              "quantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
              "dequantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
              "inkernel_replay": (),
-             "inkernel_rdma": ("train_tp", "hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
+             "inkernel_rdma": ("tp_moe", "train_tp", "hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
-             "flash_attention_sm90": ("serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
+             "flash_attention_sm90": ("tp_vlm", "serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
                                       "serve_mha"),
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
@@ -5572,7 +5856,7 @@ def main() -> int:
               "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
               "serve_mha": mha_counts, "hierarchical": hier_counts, "serve_tp": tp_counts,
               "train_tp": train_tp_counts,
-              **family_counts}
+              **family_counts, **tp_fam_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     assert hybrid_counts["flash_attention"] == 0, hybrid_counts
@@ -5616,6 +5900,7 @@ def main() -> int:
         f"{json.dumps({'serve_encdec': encdec, 'serve_mha': mha})}")
     log(f"hierarchical numbers: {json.dumps(hier)}")
     log(f"tensor-parallel numbers: {json.dumps(tp)}")
+    log(f"tensor-parallel family numbers: {json.dumps(tp_fam)}")
     check_trap(torch)
     mark("trap check")
     log("phase ends, s from the build's start: "

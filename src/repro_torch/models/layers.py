@@ -31,7 +31,9 @@ __all__ = [
     "init_dense",
     "dense",
     "init_attention",
+    "attend",
     "attention",
+    "decode_shard",
     "init_attn_cache",
     "init_mlp",
     "mlp",
@@ -256,6 +258,24 @@ def full_mask(T: int, spec: AttnSpec, device, prefix_len: int = 0):
     return _mask_block(spec, prefix_len, i, i)[None]
 
 
+def attend(q, k, v, spec: AttnSpec, *, mode: str, prefix_len: int = 0) -> torch.Tensor:
+    """Train or prefill attention of rotated ``q`` (B, T, H, hd) over ``k``,
+    ``v`` (B, T, KV, hd): dense below CHUNKED_ATTN_MIN_S keys, else the
+    ``flash_attention`` kernel in prefill and the differentiable block loop
+    in train."""
+    T = q.shape[1]
+    if k.shape[1] < CHUNKED_ATTN_MIN_S:
+        return _sdpa(q, k, v, full_mask(T, spec, q.device, prefix_len), spec)
+    if mode == "prefill":
+        bq, bk = prefill_tiles(T, prefix_len)
+        return flash.flash_attention(q, k, v, causal=spec.causal, window=spec.window,
+                                     prefix=prefix_len, bq=bq, bk=bk)
+    # the kernel has no backward (neither has the reference's Pallas
+    # kernel, whose training takes this XLA twin): train keeps the
+    # differentiable block loop
+    return _chunked_sdpa(q, k, v, spec, prefix_len)
+
+
 def attention(
     p,
     x: torch.Tensor,
@@ -293,17 +313,7 @@ def attention(
         if spec.use_rope:
             q = rope(q, positions, spec.rope_theta)
             k = rope(k, positions, spec.rope_theta)
-        if k.shape[1] < CHUNKED_ATTN_MIN_S:
-            out = _sdpa(q, k, v, full_mask(T, spec, x.device, prefix_len), spec)
-        elif mode == "prefill":
-            bq, bk = prefill_tiles(T, prefix_len)
-            out = flash.flash_attention(q, k, v, causal=spec.causal, window=spec.window,
-                                        prefix=prefix_len, bq=bq, bk=bk)
-        else:
-            # the kernel has no backward (neither has the reference's Pallas
-            # kernel, whose training takes this XLA twin): train keeps the
-            # differentiable block loop
-            out = _chunked_sdpa(q, k, v, spec, prefix_len)
+        out = attend(q, k, v, spec, mode=mode, prefix_len=prefix_len)
         return _out_proj(out, p["wo"]), (_fill_cache(k, v, spec, T) if mode == "prefill"
                                          else None)
 
@@ -357,6 +367,30 @@ def _decode_sdpa_headblocked(q, k, v, mask, spec: AttnSpec, heads_per_block: int
         vb = v[:, :, k0:k0 + hb].to(q.dtype)
         outs.append(_sdpa(qb, kb, vb, mask, spec).reshape(B, T, hb, G, hd))
     return torch.cat(outs, dim=2).reshape(B, T, H, hd)
+
+
+def decode_shard(q, k, v, valid) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode attention of ``q`` (B, 1, H, hd) over one shard of a cache,
+    ``k``/``v`` (B, S_shard, KV, hd) with ``valid`` (S_shard,) its slots
+    that hold a key: (out (B, 1, H, hd), lse (B, 1, H)), both f32, the
+    softmax over the shard's valid keys alone and its log-sum-exp. The
+    scores are ``_sdpa``'s (the product in q's dtype, then f32); the
+    weights and the values are summed in f32. A shard with no valid slot
+    gives out 0 and lse -inf, so a merge (``tensor_parallel.merge_shards``)
+    adds nothing from it."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, T, KV, H // KV, hd)
+    s = torch.einsum("btkgh,bskh->bkgts", qg, k.to(q.dtype)).float() * (hd**-0.5)
+    s = torch.where(valid, s, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.exp(s - m)
+    l = w.sum(dim=-1)
+    o = torch.einsum("bkgts,bskh->btkgh", w, v.float())
+    o = o / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l), -math.inf)
+    return o.reshape(B, T, H, hd), lse.permute(0, 3, 1, 2).reshape(B, T, H)
 
 
 def _fill_cache(k, v, spec: AttnSpec, T: int) -> dict:

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from ..comm.api import palltoallv
 from .layers import _norm_init, down_proj
 
-__all__ = ["init_moe", "moe_ffn", "expert_partition"]
+__all__ = ["init_moe", "moe_ffn", "expert_partition", "expert_shard_outs", "ffn_shard_outs",
+           "group_tokens", "route_logits", "router_logits"]
 
 
 def init_moe(gen: torch.Generator, cfg, dtype=torch.bfloat16, lead: tuple = ()) -> dict:
@@ -93,10 +94,25 @@ def _route(p, xg: torch.Tensor, cfg, ranks: int = 1):
     a uniform router every probability ties, and the order decides which
     tokens overflow an expert's capacity).
     """
-    B, nG, S, D = xg.shape
-    E, k = cfg.num_experts, cfg.experts_per_token
+    return route_logits(router_logits(p, xg), cfg, xg.dtype, ranks)
 
-    logits = torch.einsum("bgsd,de->bgse", xg.float(), p["router"])
+
+def router_logits(p, xg: torch.Tensor) -> torch.Tensor:
+    """The f32 router logits (B, nG, S, E') of grouped tokens ``xg`` against
+    ``p['router']`` (D, E'): every expert's, or on a model rank its
+    expert columns' (the reference's ``router`` cut on ``model``)."""
+    return torch.einsum("bgsd,de->bgse", xg.float(), p["router"])
+
+
+def route_logits(logits: torch.Tensor, cfg, dtype, ranks: int = 1):
+    """:func:`_route` from the router's f32 ``logits`` (B, nG, S, E) over
+    all experts: the seam the one-axis path and the tensor-parallel one
+    (whose model ranks' logits are concatenated in expert order) share, so
+    top-k, its ties and the capacity are decided by one code. ``dtype``
+    is the tokens' (the dispatch and combine tensors')."""
+    B, nG, S, E = logits.shape
+    k = cfg.experts_per_token
+
     probs = torch.softmax(logits, dim=-1)
     vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = vals[..., :k], order[..., :k]               # (B,nG,S,k)
@@ -113,8 +129,8 @@ def _route(p, xg: torch.Tensor, cfg, ranks: int = 1):
     onehot_c = _one_hot(pos_in_e.to(torch.int64), C)
 
     combine = torch.einsum("bgske,bgsk,bgskc->bgsec", onehot_e, gate_vals, onehot_c)
-    dispatch = (combine > 0).to(xg.dtype)                               # (B,nG,S,E,C)
-    combine = combine.to(xg.dtype)
+    dispatch = (combine > 0).to(dtype)                                  # (B,nG,S,E,C)
+    combine = combine.to(dtype)
 
     # GShard load-balancing statistics (each a length-E batch mean)
     if ranks == 1:
@@ -138,6 +154,30 @@ def _experts(din: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     h = F.silu(torch.einsum("ebgcd,edf->ebgcf", din, w_gate))
     h = h * torch.einsum("ebgcd,edf->ebgcf", din, w_up)
     return torch.einsum("ebgcf,efd->ebgcd", h, w_down)
+
+
+def expert_shard_outs(ps: list, dispatch: torch.Tensor, xg: torch.Tensor) -> list:
+    """Expert shards (E divides the model ranks): each model rank's experts,
+    ``ps[r]`` holding its E / M of them, run on their slice of the expert
+    inputs. Returns the ranks' outputs (E / M, B, nG, C, D), in model-rank
+    order, which concatenate along E to every expert's."""
+    n = ps[0]["w_up"].shape[0]
+    return [_experts(torch.einsum("bgsec,bgsd->ebgcd", dispatch[..., r * n:(r + 1) * n, :], xg),
+                     p["w_gate"], p["w_up"], p["w_down"]) for r, p in enumerate(ps)]
+
+
+def ffn_shard_outs(ps: list, expert_in: torch.Tensor) -> list:
+    """Expert-FFN shards (E does not divide the model ranks): each model
+    rank runs every expert on its slice of the FFN width. Returns the
+    ranks' partial outputs (E, B, nG, C, D), which sum to the experts'."""
+    return [_experts(expert_in, p["w_gate"], p["w_up"], p["w_down"]) for p in ps]
+
+
+def group_tokens(x: torch.Tensor, cfg) -> torch.Tensor:
+    """``x`` (B, T, D) as dispatch groups (B, nG, S, D) (:func:`_group_size`)."""
+    B, T, D = x.shape
+    S = _group_size(T, cfg)
+    return x.reshape(B, T // S, S, D)
 
 
 def expert_partition(E: int, n: int) -> tuple[int, ...]:
@@ -166,9 +206,7 @@ def moe_ffn(p, x: torch.Tensor, cfg, *, mesh=None, transport=None):
         raise ValueError(f"expert-parallel dispatch splits the batch over the mesh's {n} "
                          f"ranks; a batch of {B} does not divide")
     E = cfg.num_experts
-    S = _group_size(T, cfg)
-    nG = T // S
-    xg = x.reshape(B, nG, S, D)
+    xg = group_tokens(x, cfg)
 
     combine, dispatch, me, ce = _route(p, xg, cfg, ranks=n)
 

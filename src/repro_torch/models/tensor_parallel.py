@@ -3,14 +3,15 @@ or training together, each from its own shard of every weight.
 
 The shards are the reference's TP layout on the model axis: each rank holds
 its query and kv heads of ``wq``/``wk``/``wv`` (and the QKV biases), its
-rows of ``wo``, its columns of ``w_up``/``w_gate``, its rows of ``w_down``
-and its vocab rows of the embedding; norm scales are replicated. Serving
-reads them under ``param_specs(fsdp=False, attn_fallback='head_dim')``;
-training gathers them from the FSDP blocks of ``param_specs(fsdp=True,
-attn_fallback='replicate')`` (:mod:`repro_torch.train.train_step`), which
-for the families covered here cut the model axis the same way. The math is
-the unsharded model's, cut at the four points where GSPMD inserts the
-reference's model-axis all-reduce or gather:
+rows of ``wo``, its columns of ``w_up``/``w_gate``, its rows of ``w_down``,
+its experts (or, when they do not divide, every expert's slice of the FFN
+width) and their router columns, and its vocab rows of the embedding; norm
+scales are replicated. Serving reads them under ``param_specs(fsdp=False,
+attn_fallback='head_dim')``; training gathers them from the FSDP blocks of
+``param_specs(fsdp=True, attn_fallback='replicate')``
+(:mod:`repro_torch.train.train_step`), which for the families it covers cut
+the model axis the same way. The math is the unsharded model's, cut where
+GSPMD inserts the reference's model-axis all-reduce or all-gather:
 
   * the embedding lookup: each rank looks up the tokens of its vocab
     slice, and zero rows for the others (partial rows); in training its
@@ -18,25 +19,44 @@ reference's model-axis all-reduce or gather:
     as the one-axis embedding does (:func:`.layers.row_grad`);
   * attention: each rank attends on its heads, giving a partial of the
     output projection (``layers._out_proj``), its cache holding its kv
-    heads (``cache_specs``' share);
+    heads (``cache_specs``' share). Where the kv heads do not divide
+    (``attn_fallback='head_dim'``: paligemma's one kv head, and the query
+    heads too when they do not divide), each rank projects head-width
+    slices, which are gathered into full-width heads; prefill attends on
+    the rank's query heads (all of them when they do not divide) and keeps
+    ``cache_specs``' sequence split (slots ``[m S/M, (m+1) S/M)`` on rank
+    ``m`` when S divides, else the whole cache); decode writes the new
+    token into the rank that owns its slot, attends with every query head
+    over each rank's slots and merges the ranks' partials by their f32
+    log-sum-exp (flash decoding, :func:`merge_shards`);
+  * a decoder block's cross attention, on the rank's heads of the
+    encoder's keys and values, which prefill keeps as its cache;
   * the MLP: a partial of ``down_proj`` from each rank's width slice;
+  * MoE: the ranks' f32 router logits concatenated in expert order and
+    routed by the one-axis code (``moe.route_logits``), the expert shards'
+    outputs gathered along the experts, or the expert-FFN shards' partials
+    summed; shared experts as the MLP;
   * the unembedding: each rank's vocab slice of the f32 logits,
     concatenated in model-rank order.
 
 Partials are summed by :func:`model_axis_sum`, the plain sum over the rank
-rows in model-rank order: two runs give the same bits. Its backward hands
+rows in model-rank order: two runs give the same bits, and pieces are
+concatenated by :func:`model_axis_gather`. The sum's backward hands
 every rank's partial the whole upstream gradient, GSPMD's model-axis
 all-reduce in reverse. The emulation is a loop over the model ranks inside
 each layer (all ranks on one device); no rank reads another's shard, and no
 layer's full weight is ever assembled. A replicated value (the residual
-stream, a norm's output) is the same on every rank, so it is computed once,
-from rank 0's copy of a replicated weight.
+stream, a norm's output, the gathered heads) is the same on every rank, so
+it is computed once, from rank 0's copy of a replicated weight.
 
-The families covered are the dense decoders whose heads, kv heads,
-``d_ff`` and padded vocab divide the model axis (minitron-8b, gemma3-27b,
-qwen1.5-32b and their smoke configs at M = 2). Everything else on a model
-axis raises a ``ValueError`` naming the ROADMAP item "Tensor-parallel
-remainder" (:func:`check_tensor_parallel`).
+Serving covers the decoders over text and over a vision prefix (the
+prefix-LM mask, the prefix dropped before the unembedding) and the
+encoder-decoder (the encoder's blocks through the same TP block,
+bidirectional), with attention and MoE blocks; training covers the dense
+decoders whose heads, kv heads, ``d_ff`` and padded vocab divide the model
+axis. Everything else on a model axis (the SSM mixers, and in training
+every other family) raises a ``ValueError`` naming the ROADMAP item
+"Tensor-parallel remainder" (:func:`check_tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -45,31 +65,70 @@ import dataclasses
 import torch
 
 from ..dist.hints import hint
+from . import moe as moe_lib
 from .blocks import attn_spec_for, prefill_cache
-from .layers import attention, cross_entropy_loss, mlp, rms_norm, row_grad, unembed
+from .layers import (
+    _fill_cache,
+    _out_proj,
+    _qkv,
+    attend,
+    attention,
+    cross_entropy_loss,
+    decode_shard,
+    mlp,
+    rms_norm,
+    rope,
+    row_grad,
+    unembed,
+)
 from .transformer import StackLayout, _apply_stack, _dtype
 
-__all__ = ["TP_REMAINDER", "apply_lm_tp", "check_tensor_parallel", "model_axis_sum", "tp_loss"]
+__all__ = ["TP_REMAINDER", "apply_lm_tp", "check_tensor_parallel", "merge_shards",
+           "model_axis_gather", "model_axis_sum", "tp_loss"]
 
 TP_REMAINDER = 'ROADMAP item "Tensor-parallel remainder"'
 
 
-def check_tensor_parallel(cfg, m: int) -> None:
-    """Raise unless ``cfg`` serves or trains on a model axis of ``m`` ranks: a dense
-    decoder over text whose heads, kv heads, ``d_ff`` and padded vocab
-    divide ``m``."""
+def check_tensor_parallel(cfg, m: int, *, mode: str = "train") -> None:
+    """Raise unless ``cfg`` runs on a model axis of ``m`` ranks in ``mode``.
+
+    ``'train'``: a dense decoder over text whose heads, kv heads, ``d_ff``
+    and padded vocab divide ``m``. ``'serve'``: a decoder (over text or a
+    vision prefix) or the encoder-decoder whose blocks are attention or MoE
+    blocks, whose query and kv heads or else their head width divide ``m``
+    (``attn_fallback='head_dim'``; an encoder-decoder's heads must divide,
+    or its cross caches' sequence would split), whose experts or expert
+    width divide, and whose dense and shared-expert MLP widths and padded
+    vocab divide."""
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode {mode!r}: a model axis trains or serves")
     why = []
-    if cfg.arch_type != "decoder" or cfg.frontend is not None:
-        why.append("the encoder-decoder and the vision prefix")
     kinds = set(cfg.layer_kinds()) - {"attn"}
-    if "moe" in kinds:
-        why.append("MoE expert or expert-FFN shards")
     if kinds - {"moe"}:
         why.append(f"the SSM mixers ({', '.join(sorted(kinds - {'moe'}))} blocks)")
-    if cfg.num_heads % m or cfg.num_kv_heads % m:
-        why.append(f"attn_fallback's head-dim split and the sequence-split cache "
-                   f"({cfg.num_heads} query and {cfg.num_kv_heads} kv heads)")
-    if not cfg.d_ff or cfg.d_ff % m:
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if mode == "train":
+        if cfg.arch_type != "decoder" or cfg.frontend is not None:
+            why.append("training the encoder-decoder and the vision prefix")
+        if "moe" in kinds:
+            why.append("training MoE expert or expert-FFN shards")
+        if H % m or KV % m:
+            why.append(f"training with attn_fallback's head-dim split ({H} query and {KV} kv "
+                       f"heads)")
+        dense = True
+    else:
+        cuts = (_head_cut(H, hd, m), _head_cut(KV, hd, m))
+        if None in cuts:
+            why.append(f"{H} query and {KV} kv heads of width {hd}, neither dividing")
+        elif cfg.arch_type == "encdec" and cuts != ("heads", "heads"):
+            why.append(f"an encoder-decoder's cross caches over {KV} kv heads")
+        E, f = cfg.num_experts, cfg.d_ff
+        if "moe" in kinds and E % m and f % m:
+            why.append(f"{E} experts of width {f}, neither dividing")
+        if "moe" in kinds and cfg.num_shared_experts and (f * cfg.num_shared_experts) % m:
+            why.append(f"shared experts of width {f * cfg.num_shared_experts}")
+        dense = "attn" in cfg.layer_kinds() or cfg.arch_type == "encdec"
+    if dense and (not cfg.d_ff or cfg.d_ff % m):
         why.append(f"an MLP of width {cfg.d_ff}")
     if cfg.padded_vocab % m:
         why.append(f"a padded vocab of {cfg.padded_vocab}")
@@ -83,6 +142,13 @@ def model_axis_sum(parts: list) -> torch.Tensor:
     the rank rows, in model-rank order (the counterpart of the reference's
     GSPMD all-reduce)."""
     return torch.stack(parts).sum(0)
+
+
+def model_axis_gather(parts, dim: int) -> torch.Tensor:
+    """The model-axis all-gather of the ranks' pieces: concatenated along
+    ``dim`` in model-rank order (the counterpart of the reference's GSPMD
+    all-gather)."""
+    return torch.cat(list(parts), dim=dim)
 
 
 class _ShardRowGather(torch.autograd.Function):
@@ -116,29 +182,236 @@ def _embed_shard(table: torch.Tensor, tokens: torch.Tensor, rank: int) -> torch.
     return _ShardRowGather.apply(table, tokens, rank)
 
 
-def _block(ps: list, x: torch.Tensor, cfg, kind: str, window, *, mode: str,
-           cache: list | None = None, cur_pos: int | None = None, max_len: int = 0, **_):
-    """A dense attention block over the model ranks' shards ``ps`` (and
-    their caches, a list of as many); the block interface of
-    ``transformer._apply_stack``. Returns (x, the ranks' caches, aux 0);
-    the caches are None in train mode."""
+def _head_cut(heads: int, hd: int, m: int) -> str | None:
+    """Where ``param_specs(attn_fallback='head_dim')`` cuts an attention
+    projection over ``m`` model ranks: its heads when they divide, else its
+    head width when that divides, else nowhere (replicated)."""
+    if heads % m == 0:
+        return "heads"
+    return "head_dim" if hd % m == 0 else None
+
+
+def merge_shards(parts: list) -> torch.Tensor:
+    """The flash-decoding merge of the cache shards' ``(out, lse)`` pairs
+    (:func:`.layers.decode_shard`, in model-rank order): ``sum_r exp(lse_r -
+    lse) out_r`` with ``lse = logsumexp_r lse_r``, in f32. A shard with no
+    valid slot (lse -inf, out 0) adds exactly nothing."""
+    lse = torch.logsumexp(torch.stack([l for _, l in parts]), dim=0)
+    lse = torch.where(torch.isfinite(lse), lse, 0.0)
+    return model_axis_sum([torch.exp(l - lse)[..., None] * o for o, l in parts])
+
+
+def _decode_over_shards(q: torch.Tensor, caches: list, valid: torch.Tensor) -> torch.Tensor:
+    """Decode attention of all query heads ``q`` (B, 1, H, hd) over the
+    ranks' caches as :func:`_cut_cache` lays them out, ``valid`` (S,) the
+    slots that hold a key: each rank over its own slots, merged
+    (:func:`merge_shards`), or over the whole cache once when every rank
+    keeps it. Returns f32 (B, 1, H, hd)."""
+    n = caches[0]["k"].shape[1]
+    if n == valid.shape[0]:
+        return decode_shard(q, caches[0]["k"], caches[0]["v"], valid)[0]
+    return merge_shards([decode_shard(q, c["k"], c["v"], valid[r * n:(r + 1) * n])
+                         for r, c in enumerate(caches)])
+
+
+def _heads_kv(k, v, r: int, hq: int, group: int):
+    """The kv heads that rank ``r``'s query heads ``[r hq, (r+1) hq)`` read
+    (query head ``h`` reads kv head ``h // group``), as a (k, v) pair GQA
+    maps them onto: a slice of kv heads when the rank's heads fill whole
+    groups or share one, else every query head's kv head repeated."""
+    if hq % group == 0 or group % hq == 0:
+        k0 = r * hq // group
+        k1 = k0 + max(1, hq // group)
+        return k[:, :, k0:k1], v[:, :, k0:k1]
+    pick = lambda t: t.repeat_interleave(group, dim=2)[:, :, r * hq:(r + 1) * hq]  # noqa: E731
+    return pick(k), pick(v)
+
+
+def _cut_cache(cache: dict, m: int) -> list:
+    """A full-width attention cache cut as ``cache_specs`` places it when
+    its kv heads do not divide the model ranks: rank ``r`` keeps slots
+    ``[r S/M, (r+1) S/M)`` when S divides, else the whole cache; ``pos``
+    is replicated."""
+    S = cache["k"].shape[1]
+    if S % m:
+        return [cache] * m
+    n = S // m
+    return [{"k": cache["k"][:, r * n:(r + 1) * n], "v": cache["v"][:, r * n:(r + 1) * n],
+             "pos": cache["pos"]} for r in range(m)]
+
+
+def _fallback_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, caches, cur_pos,
+                        max_len: int, prefix_len: int):
+    """Attention under ``attn_fallback='head_dim'`` (the kv heads, and maybe
+    the query heads, do not divide the model ranks): each rank projects its
+    head-width slices (``wk``/``wv``, and ``wq`` when the query heads do not
+    divide), which are gathered along the head width into full-width heads.
+
+    Train and prefill: each rank attends with its own query heads, or, when
+    they do not divide, all of them (computed once: every rank's inputs are
+    the same), and takes its part of the output for its block of ``wo``;
+    prefill cuts the full-width cache per :func:`_cut_cache`. Decode: the
+    new token's k/v go into the rank that owns slot ``cur_pos % S``, every
+    rank attends with all query heads over its own slots
+    (:func:`.layers.decode_shard`) and the ranks' partials are merged
+    (:func:`merge_shards`). Returns (the model-axis sum of the ranks'
+    output-projection partials, the ranks' attention caches)."""
     m = len(ps)
-    spec = attn_spec_for(cfg, window)
+    H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    q_cut = _head_cut(H, hd, m)
+    qs, ks, vs = zip(*(_qkv(p["attn"], spec, h) for p in ps))
+    k, v = model_axis_gather(ks, -1), model_axis_gather(vs, -1)
+    B, T = h.shape[:2]
+    if mode == "decode":
+        pos = torch.full((B, 1), cur_pos, dtype=torch.int32, device=h.device)
+    else:
+        pos = torch.arange(T, device=h.device)[None, :]
+    rot = (lambda t: rope(t, pos, spec.rope_theta)) if spec.use_rope else (lambda t: t)
+    k = rot(k)
+    if mode == "decode":
+        q = rot(model_axis_gather(qs, 2 if q_cut == "heads" else -1))
+        S, n = caches[0]["pos"].shape[0], caches[0]["k"].shape[1]
+        slot = cur_pos % S
+        for r, c in enumerate(caches):
+            c["pos"][slot] = cur_pos
+            if n == S or slot // n == r:
+                c["k"][:, slot % n] = k[:, 0].to(c["k"].dtype)
+                c["v"][:, slot % n] = v[:, 0].to(c["v"].dtype)
+        valid = caches[0]["pos"] >= 0
+        if spec.window is not None:
+            valid = valid & (caches[0]["pos"] > cur_pos - spec.window)
+        out = _decode_over_shards(q, caches, valid).to(q.dtype)
+        outs = out.chunk(m, dim=2 if q_cut == "heads" else -1)
+    elif q_cut == "heads":
+        hq = H // m
+        outs = [attend(rot(qr), *_heads_kv(k, v, r, hq, H // KV), spec, mode=mode,
+                       prefix_len=prefix_len) for r, qr in enumerate(qs)]
+    else:
+        out = attend(rot(model_axis_gather(qs, -1)), k, v, spec, mode=mode,
+                     prefix_len=prefix_len)
+        outs = out.chunk(m, dim=-1)
+    y = model_axis_sum([_out_proj(o, p["attn"]["wo"]) for o, p in zip(outs, ps)])
+    if mode == "prefill":
+        caches = _cut_cache(prefill_cache(_fill_cache(k, v, spec, T), max_len, spec, cfg), m)
+    return y, (None if mode == "train" else caches)
+
+
+def _self_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, caches, cur_pos,
+                    max_len: int, prefix_len: int):
+    """The block's self-attention over the model ranks: on each rank's heads
+    when the heads and kv heads divide (each rank's cache its kv heads),
+    else :func:`_fallback_attention`. Returns (the summed output, the
+    ranks' attention caches, None in train mode)."""
+    m = len(ps)
+    if _head_cut(spec.num_kv_heads, spec.head_dim, m) != "heads":
+        return _fallback_attention(ps, h, cfg, spec, mode=mode, caches=caches, cur_pos=cur_pos,
+                                   max_len=max_len, prefix_len=prefix_len)
     spec = dataclasses.replace(spec, num_heads=spec.num_heads // m,
                                num_kv_heads=spec.num_kv_heads // m)
-    h = rms_norm(ps[0]["norm1"], x, cfg.norm_eps)
-    ys, caches = [], []
+    ys, out = [], []
     for r, p in enumerate(ps):
-        y, ac = attention(p["attn"], h, spec, mode=mode, cur_pos=cur_pos,
-                          cache=None if cache is None else cache[r]["attn"])
+        y, ac = attention(p["attn"], h, spec, mode=mode, cur_pos=cur_pos, prefix_len=prefix_len,
+                          cache=None if caches is None else caches[r])
         ys.append(y)
-        caches.append({"attn": prefill_cache(ac, max_len, spec, cfg) if mode == "prefill"
-                       else ac})
-    x = x + model_axis_sum(ys)
-    h = rms_norm(ps[0]["norm2"], x, cfg.norm_eps)
-    x = x + model_axis_sum([mlp(p["mlp"], h, cfg.act) for p in ps])
-    return (x, None if mode == "train" else caches,
-            torch.zeros((), dtype=torch.float32, device=x.device))
+        out.append(prefill_cache(ac, max_len, spec, cfg) if mode == "prefill" else ac)
+    return model_axis_sum(ys), (None if mode == "train" else out)
+
+
+def _cross_attention(ps: list, h: torch.Tensor, cross_inputs, spec, *, mode: str, caches):
+    """A decoder block's cross attention on each rank's heads of
+    ``cross.wq/wk/wv/wo`` (and biases): train and prefill project the
+    encoder's normed output ``cross_inputs`` to the rank's K/V heads, which
+    prefill keeps; decode reads them from ``caches`` and hands them back,
+    the same tensors. Returns (the summed output, the ranks' cross caches)."""
+    m = len(ps)
+    spec = dataclasses.replace(spec, num_heads=spec.num_heads // m,
+                               num_kv_heads=spec.num_kv_heads // m)
+    ys, out = [], []
+    for r, p in enumerate(ps):
+        cp = p["cross"]
+        if mode == "decode":
+            cc = caches[r]
+        else:
+            ck = torch.einsum("bsd,dhk->bshk", cross_inputs, cp["wk"])
+            cv = torch.einsum("bsd,dhk->bshk", cross_inputs, cp["wv"])
+            if spec.qkv_bias:
+                ck, cv = ck + cp["bk"], cv + cp["bv"]
+            cc = {"k": ck, "v": cv}
+        ys.append(attention(cp, h, spec, cross_kv=(cc["k"], cc["v"]))[0])
+        out.append(cc)
+    return model_axis_sum(ys), out
+
+
+def _moe(ps: list, h: torch.Tensor, cfg):
+    """The MoE FFN over the model ranks' shards (``moe_ffn``'s einsum
+    dispatch): the ranks' f32 router logits concatenated in expert order
+    (the router replicated when E does not divide: one rank's), routed by
+    ``moe.route_logits``; the experts run as expert shards, their outputs
+    gathered along E, or as expert-FFN shards, their partials summed; the
+    shared experts by the dense-MLP rule. Returns (out, aux)."""
+    E = cfg.num_experts
+    xg = moe_lib.group_tokens(h, cfg)
+    mps = [p["moe"] for p in ps]
+    if mps[0]["router"].shape[-1] == E:
+        logits = moe_lib.router_logits(mps[0], xg)
+    else:
+        logits = model_axis_gather([moe_lib.router_logits(p, xg) for p in mps], -1)
+    combine, dispatch, me, ce = moe_lib.route_logits(logits, cfg, xg.dtype)
+    if E % len(ps) == 0:
+        expert_out = model_axis_gather(moe_lib.expert_shard_outs(mps, dispatch, xg), 0)
+    else:
+        expert_in = torch.einsum("bgsec,bgsd->ebgcd", dispatch, xg)
+        expert_out = model_axis_sum(moe_lib.ffn_shard_outs(mps, expert_in))
+    y = torch.einsum("bgsec,ebgcd->bgsd", combine, expert_out).reshape(h.shape)
+    if "shared" in mps[0]:
+        y = y + model_axis_sum([moe_lib._shared_out(p, h) for p in mps])
+    return y, E * torch.sum(me * ce) * cfg.router_aux_coef
+
+
+def _block(ps: list, x: torch.Tensor, cfg, kind: str, window, *, mode: str,
+           cache: list | None = None, cur_pos: int | None = None, max_len: int = 0,
+           prefix_len: int = 0, causal: bool = True, cross_inputs=None, mesh=None,
+           transport=None):
+    """An attention or MoE block over the model ranks' shards ``ps`` (and
+    their caches, a list of as many); the block interface of
+    ``transformer._apply_stack`` and the counterpart of
+    ``blocks.apply_block``: ``prefix_len`` (the vision prefix's
+    bidirectional keys), ``causal`` (False in an encoder) and
+    ``cross_inputs`` (a decoder block's cross attention) as there. Returns
+    (x, the ranks' caches, aux); the caches are None in train mode. The
+    recurrent kinds and the expert-parallel dispatch (``mesh``,
+    ``transport``) raise ``ValueError``."""
+    if kind not in ("attn", "moe"):
+        raise ValueError(f"a {kind} block on a model axis: the tensor-parallel forward does "
+                         f"not cover the SSM mixers ({TP_REMAINDER})")
+    if mesh is not None or transport is not None:
+        raise ValueError("the tensor-parallel forward keeps the einsum dispatch: no mesh= or "
+                         "transport= for its MoE blocks")
+    spec = attn_spec_for(cfg, window, causal)
+    p0 = ps[0]
+    h = rms_norm(p0["norm1"], x, cfg.norm_eps)
+    y, attn_caches = _self_attention(
+        ps, h, cfg, spec, mode=mode, caches=None if cache is None else [c["attn"] for c in cache],
+        cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len)
+    x = x + y
+    caches = None if mode == "train" else [{"attn": c} for c in attn_caches]
+    if "cross" in p0:
+        y, cross = _cross_attention(ps, rms_norm(p0["norm_x"], x, cfg.norm_eps), cross_inputs,
+                                    spec, mode=mode,
+                                    caches=None if cache is None else [c["cross"] for c in cache])
+        x = x + y
+        if caches is not None:
+            for c, cc in zip(caches, cross):
+                c["cross"] = cc
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "mlp" in p0:
+        h = rms_norm(p0["norm2"], x, cfg.norm_eps)
+        x = x + model_axis_sum([mlp(p["mlp"], h, cfg.act) for p in ps])
+    elif "moe" in p0:
+        y, a = _moe(ps, rms_norm(p0["norm2"], x, cfg.norm_eps), cfg)
+        x = x + y
+        aux = aux + a
+    return x, caches, aux
 
 
 def _zip_ranks(stacks: list) -> dict:
@@ -148,12 +421,19 @@ def _zip_ranks(stacks: list) -> dict:
             for key in ("blocks", "tail")}
 
 
-def apply_lm_tp(shards: list, cfg, *, tokens: torch.Tensor, mode: str, caches=None,
-                cur_pos: int | None = None, max_len: int = 0, remat: bool = False):
+def apply_lm_tp(shards: list, cfg, *, tokens: torch.Tensor, embeds: torch.Tensor | None = None,
+                mode: str, caches=None, cur_pos: int | None = None, max_len: int = 0,
+                remat: bool = False):
     """Train, prefill or decode of one data rank on its model ranks'
     parameter shards ``shards`` (a list in model-rank order, each a tree
     shaped like the model's, with every leaf cut to its rank's block on the
-    model axis). Returns (logits (B, T, V) f32, caches): the caches are the
+    model axis). ``embeds`` as ``transformer.apply_lm``'s: a vision
+    config's patch embeddings (replicated, in front of the text unscaled, a
+    bidirectional prefix, dropped before the unembedding) or an
+    encoder-decoder's frame embeddings, which the encoder's blocks read
+    through the tensor-parallel block, bidirectional, normed by the
+    replicated ``enc_norm`` for the decoder's cross attention. Returns
+    (logits (B, T, V) f32 of the text positions, caches): the caches are the
     unsharded structure with a list of the ranks' caches, in model-rank
     order, at each block; decode updates them in place; train mode returns
     None for them, and ``remat`` recomputes each superblock in the backward
@@ -163,17 +443,36 @@ def apply_lm_tp(shards: list, cfg, *, tokens: torch.Tensor, mode: str, caches=No
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the tensor-parallel forward trains, prefills and "
                          "decodes")
-    check_tensor_parallel(cfg, len(shards))
-    scale = torch.tensor(cfg.d_model**0.5, dtype=_dtype(cfg), device=tokens.device)
+    check_tensor_parallel(cfg, len(shards), mode="train" if mode == "train" else "serve")
+    dt = _dtype(cfg)
+    scale = torch.tensor(cfg.d_model**0.5, dtype=dt, device=tokens.device)
     x = model_axis_sum([_embed_shard(s["embed"]["tokens"], tokens, r)
                         for r, s in enumerate(shards)]) * scale
+    prefix_len, cross_inputs = 0, None
+    if cfg.arch_type == "encdec" and mode != "decode":
+        if embeds is None:
+            raise ValueError(f"{cfg.name}: train and prefill need the frame embeddings")
+        h, _, _ = _apply_stack(_zip_ranks([s["encoder"] for s in shards]), embeds.to(dt), cfg,
+                               StackLayout(cfg, encoder=True), mode="train", causal=False,
+                               remat=remat, block=_block)
+        cross_inputs = rms_norm(shards[0]["enc_norm"], h, cfg.norm_eps)
+    elif cfg.frontend == "vision":
+        if mode == "decode":
+            prefix_len = cfg.prefix_len
+        else:
+            if embeds is None:
+                raise ValueError(f"{cfg.name}: train and prefill need the patch embeddings")
+            x = torch.cat([embeds.to(dt), x], dim=1)
+            prefix_len = embeds.shape[1]
     x = hint(x, "btd")
     x, new_caches, _ = _apply_stack(_zip_ranks([s["decoder"] for s in shards]), x, cfg,
                                     StackLayout(cfg), mode=mode, caches=caches,
-                                    cur_pos=cur_pos, max_len=max_len, remat=remat,
-                                    block=_block)
+                                    cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
+                                    cross_inputs=cross_inputs, remat=remat, block=_block)
     x = rms_norm(shards[0]["final_norm"], x, cfg.norm_eps)
-    logits = torch.cat([unembed(s["embed"], x) for s in shards], dim=-1)
+    if mode != "decode" and prefix_len:
+        x = x[:, prefix_len:]
+    logits = model_axis_gather([unembed(s["embed"], x) for s in shards], -1)
     return hint(logits, "btv"), new_caches
 
 

@@ -21,7 +21,10 @@ row-major, so a data rank's M model ranks are consecutive rows); with
 axes, from the rows of data coordinate 0, and are then cut to the specs
 (``distribute_weights(specs=)``). Each data rank's requests are computed by
 its M model ranks together (:mod:`repro_torch.models.tensor_parallel`),
-whose caches hold their kv heads, as ``cache_specs`` places them.
+whose caches hold their kv heads, or, when the kv heads do not divide M,
+their slots of the sequence (the whole cache when its length does not
+divide), as ``cache_specs`` places them. The dense, MoE, vision-prefix and
+encoder-decoder families serve so; the SSM mixers raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -110,7 +113,7 @@ class Engine:
         self.n = 1 if mesh is None else topology.dp_size(mesh)  # data ranks
         self.tp = 1 if mesh is None else topology.tp_size(mesh)  # model ranks
         if self.tp > 1:
-            tp_lib.check_tensor_parallel(cfg, self.tp)
+            tp_lib.check_tensor_parallel(cfg, self.tp, mode="serve")
             self.rows = rank_rows(mesh)
             pspecs = param_specs(self.model.param_shapes(), mesh, fsdp=False,
                                  attn_fallback="head_dim")
@@ -140,10 +143,13 @@ class Engine:
 
     def prefill(self, params, batch: dict, *, max_len: int):
         """One data rank's prefill on its :meth:`replica` (``Model.prefill``,
-        or the tensor-parallel forward)."""
+        or the tensor-parallel forward, whose caches, as ``Model.prefill``'s,
+        hold a vision prefix's slots beside ``max_len``)."""
         if self.tp > 1:
-            return tp_lib.apply_lm_tp(params, self.cfg, tokens=batch["tokens"], mode="prefill",
-                                      max_len=max_len)
+            if self.cfg.frontend == "vision":
+                max_len = max_len + self.cfg.prefix_len
+            return tp_lib.apply_lm_tp(params, self.cfg, tokens=batch["tokens"],
+                                      embeds=batch.get("embeds"), mode="prefill", max_len=max_len)
         return self.model.prefill(params, batch, max_len=max_len)
 
     def decode_step(self, params, tokens: torch.Tensor, caches, cur_pos: int):

@@ -455,12 +455,11 @@ def test_tp_forward_on_one_model_rank_is_apply_lm(name, dtype):
             same(gc, wc)
 
 
+# paligemma's one kv head, mixtral's experts and whisper's encoder serve on a
+# model axis: tests/test_torch_tp_families.py holds those cases
 REMAINDER = {
     "hymba_25_heads": ("hymba-1.5b", None),
-    "paligemma_one_kv_head": ("paligemma-3b-smoke", None),
-    "mixtral_moe": ("mixtral-8x7b-smoke", None),
     "xlstm_ssm": ("xlstm-350m-smoke", None),
-    "whisper_encdec": ("whisper-large-v3-smoke", None),
     "sequence_split_cache": (ARCH, 3),
 }
 
