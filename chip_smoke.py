@@ -344,6 +344,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    mixtral-8x7b-, moonshot-v1-16b-a3b-, paligemma-3b- and
    whisper-large-v3-smoke in f32 on (2, 2), card against CPU (prefill
    logits within 1e-3, greedy tokens equal).
+17. tensor-parallel serving of the recurrent and hybrid families on phase
+   15's (2, 2) ('data', 'model') mesh, as phase 16 serves (staged and
+   compiled distribution with ``specs=``, every shard bit-equal; one
+   request a data rank, 32 steps; beside the one-axis phase), each model
+   rank's recurrent state its ``cache_specs`` block: (a) hymba-1.5b, 32
+   layers, a 4096-token prompt (12a's): its 25 / 5 heads of 64 on the
+   head-dim split, all 25 query heads attending once over the gathered kv
+   heads (32 sm90 launches a data rank's pass, none of the CUDA-core
+   kernel), the ring of 1024 slots split 512 a model rank, Mamba on 1600
+   channels a rank; (b) xlstm-350m, 24 layers, a 2048-token prompt (12b's):
+   mLSTM on 256 key dims a head a rank, sLSTM on 512 of d a rank. Each
+   prints 16's numbers, then, after the path's counts are read, the tokens
+   against the one-axis engine, every layer against the layer in f32 (as
+   16, asserted), one data rank's prefill under ``torch.profiler`` (busy
+   share), and for (b) the sLSTM loop's launches and host ms a token beside
+   the one-axis loop's (``serve tp_recurrent slstm loop:``). (c)
+   xlstm-350m-smoke, hymba-1.5b-smoke and hymba-1.5b-smoke with 5 query and
+   1 kv heads in f32 on (2, 2) at 80-token prompts, card against CPU.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -368,7 +386,9 @@ phases 15a-15c's own runs (the tensor-parallel serving path,
 ``serve_tp``, without 15b's references and 15c's kernel check), phases
 16a-16c's own runs, each a path of its own (``tp_moe``, ``tp_vlm``,
 ``tp_encdec``: the distributions and the served requests, without the
-one-axis references, the layer checks and 16a's table recording); the launches that compare
+one-axis references, the layer checks and 16a's table recording), and
+phases 17a-17b's likewise (``tp_hybrid``, ``tp_recurrent``; without the
+profiled prefill and the sLSTM count either); the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
 JSON, the card, and ``{"ok": true, "device": ...}``.
@@ -595,6 +615,16 @@ TP_FAMILY_SMOKE = ("mixtral-8x7b-smoke", "moonshot-v1-16b-a3b-smoke", "paligemma
                    "whisper-large-v3-smoke")
 TP_PEAK_LIMIT = 70 * 2**30
 TP_RATIO_MULT, TP_SHARE_MULT = 2.0, 10.0
+# phase 17: the recurrent and hybrid families on phase 15's mesh, as phase
+# 16's runs, beside phase 12's one-axis runs at their prompts (hymba's one
+# attention a layer on the head-dim split: one sm90 launch a layer a pass)
+TP_SSM_RUNS = (("tp_hybrid", "hymba-1.5b", None, 1, HYBRID_PROMPT, 32, "12a"),
+               ("tp_recurrent", "xlstm-350m", None, 1, RECURRENT_PROMPT, 0, "12b"))
+TP_SSM_SMOKE = (("xlstm-350m-smoke", {}), ("hymba-1.5b-smoke", {}),
+                ("hymba-1.5b-smoke", {"num_heads": 5, "num_kv_heads": 1}))
+TP_SSM_SMOKE_PROMPT = 80  # past the smoke configs' chunk of 16 and window of 64
+# the sLSTM loop's launches a token: the difference of two prompts' counts
+SLSTM_TOKENS = (16, 48)
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -1878,6 +1908,22 @@ def _kernel_class(name: str) -> str:
     return "elementwise" if "elementwise" in name else "other"
 
 
+def device_rows(prof) -> list:
+    """``(name, device ms, launches)`` of every kernel and copy a
+    ``torch.profiler`` run recorded on the card, by name, largest first:
+    read from the profiler's raw device events, where ``key_averages()``
+    first turns every event into a Python object, which took most of a
+    profiled prefill of 10^5 launches."""
+    from torch.autograd import DeviceType
+
+    rows: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = rows.get(e.name(), (0.0, 0))
+            rows[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((name, ms, n) for name, (ms, n) in rows.items()), key=lambda r: -r[1])
+
+
 def profile_prefill(torch, engine, tokens, top: int = 8, embeds=None,
                     label: str = "serve long", ranks: int = RANKS) -> list[dict]:
     """One warm prefill of the prompt of each of the first ``ranks`` ranks
@@ -1886,9 +1932,10 @@ def profile_prefill(torch, engine, tokens, top: int = 8, embeds=None,
     stream do not overlap, so their sum is the busy time), the flash
     kernels' ms (both names, ``flash_fwd`` and ``flash_fwd_sm90``), the
     device ms by kernel class (:func:`_kernel_class`) and the ``top``
-    kernels as ``(name, ms, launches)``. The profiler records the device
-    activity alone: with the host's operators too, its own processing of a
-    prefill of about 10^5 launches takes longer than the phase's serving."""
+    kernels as ``(name, ms, launches)`` (:func:`device_rows`). The profiler
+    records the device activity alone: with the host's operators too, its
+    own processing of a prefill of about 10^5 launches takes longer than the
+    phase's serving."""
     from torch.profiler import ProfilerActivity, profile
 
     max_len = tokens.shape[1] + STEPS
@@ -1904,9 +1951,7 @@ def profile_prefill(torch, engine, tokens, top: int = 8, embeds=None,
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             del logits
-        kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                       if e.device_time_total > 0 and not e.key.startswith("aten::")),
-                      key=lambda row: -row[1])
+        kern = device_rows(prof)
         by_class: dict = {}
         for name, ms, _n in kern:
             by_class[_kernel_class(name)] = by_class.get(_kernel_class(name), 0.0) + ms
@@ -5408,11 +5453,12 @@ def _inkernel_serve_table(torch, cfg, mesh):
 
 
 def tp_family(torch, path: str, arch: str, layers, per_rank: int, prompt: int,
-              flash_per_pass: int, one_axis: dict, phase: str) -> dict:
-    """Phase 16a, 16b or 16c (see the module docstring). Returns the
-    numbers, with the path's launch counts under ``counts``: zeroed after
-    16a's table is recorded and read before the one-axis references and
-    the layer check."""
+              flash_per_pass: int, one_axis: dict, phase: str, then=None) -> dict:
+    """Phase 16a, 16b, 16c, 17a or 17b (see the module docstring). Returns
+    the numbers, with the path's launch counts under ``counts``: zeroed
+    after 16a's table is recorded and read before the one-axis references,
+    the layer check and ``then(engine, one, tokens)``, whose dict joins
+    the numbers (``one``: the one-axis engine on the same weights)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -5498,6 +5544,7 @@ def tp_family(torch, path: str, arch: str, layers, per_rank: int, prompt: int,
         layer_ratio, mean_ratio, checked = _layer_check(torch, engine, one,
                                                                 rank_batches[0])
     assert layer_ratio <= 1.0, f"a TP {arch} layer lies off the f32 layer: {layer_ratio}"
+    extra = {} if then is None else then(engine, one, tokens)
     del one, engine, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5512,6 +5559,7 @@ def tp_family(torch, path: str, arch: str, layers, per_rank: int, prompt: int,
            "layers_checked": checked, "one_axis": {k: one_axis[k] for k in (
                "distribute_s", "prefill_ms_per_rank", "decode_tokens_per_s")},
            "serve_s": serve_s, "phase_s": time.perf_counter() - t_start, "counts": counts}
+    out.update(extra)
     if table is not None:
         out["table_buckets"] = table_rows
     frames = f" + {cfg.frontend_len} frames" if cfg.arch_type == "encdec" else ""
@@ -5537,10 +5585,13 @@ def tp_family(torch, path: str, arch: str, layers, per_rank: int, prompt: int,
     return out
 
 
-def tp_family_smoke(torch) -> dict:
-    """Phase 16d: the four smoke configs in f32 on (2, 2) ('data', 'model'),
-    distributed and served on the card and on the CPU from one tree: each
-    data rank's prefill logits within 1e-3, the greedy tokens equal."""
+def tp_family_smoke(torch, cases=tuple((name, {}) for name in TP_FAMILY_SMOKE),
+                    prompt: int = 16, label: str = "serve tp families smoke") -> dict:
+    """Phase 16d (the four smoke configs) or 17c (``cases``: (config,
+    overrides of its fields) pairs, ``prompt`` tokens a request) in f32 on
+    (2, 2) ('data', 'model'), distributed and served on the card and on the
+    CPU from one tree: each data rank's prefill logits within 1e-3, the
+    greedy tokens of 8 steps equal."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -5550,10 +5601,11 @@ def tp_family_smoke(torch) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = {}
-    for name in TP_FAMILY_SMOKE:
-        cfg = dataclasses.replace(get_config(name), dtype="float32")
+    for name, over in cases:
+        cfg = dataclasses.replace(get_config(name), dtype="float32", **over)
+        key = name + "".join(f" {k}={v}" for k, v in over.items())
         params = Model(cfg).init(seed=0, device="cpu")
-        tokens = np.random.RandomState(0).randint(0, cfg.vocab_size - 1, size=(BATCH, 16))
+        tokens = np.random.RandomState(0).randint(0, cfg.vocab_size - 1, size=(BATCH, prompt))
         n = cfg.prefix_len if cfg.frontend == "vision" else cfg.frontend_len
         embeds = None if not n else torch.as_tensor(
             np.random.RandomState(1).randn(BATCH, n, cfg.d_model).astype(np.float32))
@@ -5566,13 +5618,13 @@ def tp_family_smoke(torch) -> dict:
                 logits[dev] = torch.cat([
                     engine.prefill(engine.replica(d), {"tokens": b["tokens"].to(dev),
                                                        "embeds": b["embeds"]},
-                                   max_len=24)[0].cpu()
+                                   max_len=prompt + 8)[0].cpu()
                     for d, b in enumerate(_rank_batches(torch, tokens, emb, ranks=engine.n))])
             toks[dev] = engine.generate({"tokens": tokens, "embeds": emb}, steps=8).tokens
-        errs[name] = float((logits["cpu"] - logits["cuda"]).abs().max())
-        assert errs[name] <= 1e-3 and (toks["cpu"] == toks["cuda"]).all(), (name, errs, toks)
-    log(f"serve tp families smoke: f32 on (2, 2) ('data', 'model'), card vs CPU, max abs "
-        f"prefill logit diff {errs} (tol 1e-3), greedy tokens equal")
+        errs[key] = float((logits["cpu"] - logits["cuda"]).abs().max())
+        assert errs[key] <= 1e-3 and (toks["cpu"] == toks["cuda"]).all(), (key, errs, toks)
+    log(f"{label}: f32 on (2, 2) ('data', 'model'), {prompt}-token prompts, card vs CPU, max "
+        f"abs prefill logit diff {errs} (tol 1e-3), greedy tokens equal")
     return errs
 
 
@@ -5589,6 +5641,83 @@ def tp_families(torch, one_axis: dict) -> tuple[dict, dict]:
     out["smoke_err"] = tp_family_smoke(torch)
     out["phase_s"] = time.perf_counter() - t0
     log(f"serve tp families: phase 16 {out['phase_s']:.1f} s")
+    return out, counts
+
+
+def slstm_launches(torch, engine, one) -> dict:
+    """17b's sLSTM loop, host-bound: on data rank 0's first sLSTM layer, the
+    device launches a token and the host-clock ms a token of the
+    tensor-parallel loop (two model ranks' shards) and of the one-axis loop
+    (the same layer of ``one``), each the difference between prefills of
+    SLSTM_TOKENS[1] and SLSTM_TOKENS[0] random bf16 tokens over the tokens
+    between: launches counted by ``torch.profiler`` (kernels and copies,
+    :func:`device_rows`), each prefill warmed up once and timed alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+    from repro_torch.models import tensor_parallel as tp_lib
+    from repro_torch.models.transformer import StackLayout
+
+    cfg = engine.cfg
+    layout = StackLayout(cfg)
+    l = cfg.layer_kinds().index("slstm")
+    ps = [{"ssm": _layer_params(s["decoder"], layout, l)["ssm"]} for s in engine.replica(0)]
+    p1 = _layer_params(one.replica(0)["decoder"], layout, l)["ssm"]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    runs = {"tp": lambda x: tp_lib._slstm_tp(ps, x, cfg, mode="prefill", caches=None),
+            "one_axis": lambda x: ssm.slstm_seq(p1, x, cfg)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in runs.items():
+            n, secs = [], []
+            for T in SLSTM_TOKENS:
+                x = torch.randn((1, T, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+                fn(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn(x)
+                    torch.cuda.synchronize()
+                n.append(sum(row[2] for row in device_rows(prof)))
+            span = SLSTM_TOKENS[1] - SLSTM_TOKENS[0]
+            out[name] = {"launches_a_token": (n[1] - n[0]) / span,
+                         "ms_a_token": (secs[1] - secs[0]) / span * 1e3, "launches": n}
+    log(f"serve tp_recurrent slstm loop: layer {l}, {out['tp']['launches_a_token']:.2f} launches "
+        f"and {out['tp']['ms_a_token']:.4f} ms a token on 2 model ranks beside the one-axis "
+        f"loop's {out['one_axis']['launches_a_token']:.2f} and "
+        f"{out['one_axis']['ms_a_token']:.4f} ms (launches at {SLSTM_TOKENS} tokens: "
+        f"{out['tp']['launches']} / {out['one_axis']['launches']})")
+    return out
+
+
+def tp_ssm_after(torch, path: str, engine, one, tokens) -> dict:
+    """17a and 17b after their path's counts: one data rank's warm prefill
+    under ``torch.profiler`` (device busy share, launches, ms by kernel
+    class), and for xlstm the sLSTM loop's launches a token."""
+    out = {"profile": profile_prefill(torch, engine, tokens, label=f"serve {path}", ranks=1)}
+    if "slstm" in engine.cfg.layer_kinds():
+        out["slstm_loop"] = slstm_launches(torch, engine, one)
+    return out
+
+
+def tp_ssm(torch, one_axis: dict) -> tuple[dict, dict]:
+    """Phase 17: 17a and 17b, each its own path, then 17c. ``one_axis``
+    holds phases 12a and 12b's numbers by phase. Returns the numbers and the
+    paths' launch counts."""
+    t0 = time.perf_counter()
+    out, counts = {}, {}
+    for path, arch, layers, per_rank, prompt, flash, phase in TP_SSM_RUNS:
+        out[path] = tp_family(torch, path, arch, layers, per_rank, prompt, flash,
+                              one_axis[phase], phase,
+                              then=lambda *a, path=path: tp_ssm_after(torch, path, *a))
+        counts[path] = out[path].pop("counts")
+    out["smoke_err"] = tp_family_smoke(torch, TP_SSM_SMOKE, TP_SSM_SMOKE_PROMPT,
+                                       label="serve tp ssm smoke")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"serve tp ssm: phase 17 {out['phase_s']:.1f} s")
     return out, counts
 
 
@@ -5793,6 +5922,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_fam, tp_fam_counts = tp_families(torch, {"10": moe_serving, "4d": vlm, "13a": encdec})
     mark("tensor-parallel families (16)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_rec, tp_rec_counts = tp_ssm(torch, {"12a": hybrid, "12b": recurrent})
+    mark("tensor-parallel recurrent and hybrid (17)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
     # and the four families' of 6f too) and the streams phase, the staging
@@ -5824,16 +5957,21 @@ def main() -> int:
     # staging copy on each of phase 16's three paths (tp_moe, tp_vlm, tp_encdec:
     # their distributions), the in-kernel replay on tp_moe (its table-routed
     # distribution) and the sm90 flash kernel on tp_vlm (paligemma's prefills on
-    # the head-dim split); and the shared-buffer
+    # the head-dim split); the merge and the staging copy on both of phase 17's
+    # paths (tp_hybrid, tp_recurrent: their distributions) and the sm90 flash
+    # kernel on tp_hybrid (hymba's prefills on the head-dim split); and the
+    # shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("tp_moe", "tp_vlm", "tp_encdec", "train_tp", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
+    paths = {"fused_combine": ("tp_hybrid", "tp_recurrent", "tp_moe", "tp_vlm", "tp_encdec",
+                               "train_tp", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                                "serve_hybrid", "serve_recurrent",
                                "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
                                "train_vlm", *family_counts, "algorithms", "online",
                                "streams"),
-             "chunked_copy": ("tp_moe", "tp_vlm", "tp_encdec", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
+             "chunked_copy": ("tp_hybrid", "tp_recurrent", "tp_moe", "tp_vlm", "tp_encdec",
+                              "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                               "serve_hybrid", "serve_recurrent",
                               "faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
                               "streams"),
@@ -5842,7 +5980,7 @@ def main() -> int:
              "inkernel_replay": (),
              "inkernel_rdma": ("tp_moe", "train_tp", "hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
-             "flash_attention_sm90": ("tp_vlm", "serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
+             "flash_attention_sm90": ("tp_hybrid", "tp_vlm", "serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
                                       "serve_mha"),
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
@@ -5856,7 +5994,7 @@ def main() -> int:
               "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
               "serve_mha": mha_counts, "hierarchical": hier_counts, "serve_tp": tp_counts,
               "train_tp": train_tp_counts,
-              **family_counts, **tp_fam_counts}
+              **family_counts, **tp_fam_counts, **tp_rec_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
     assert hybrid_counts["flash_attention"] == 0, hybrid_counts
@@ -5901,6 +6039,7 @@ def main() -> int:
     log(f"hierarchical numbers: {json.dumps(hier)}")
     log(f"tensor-parallel numbers: {json.dumps(tp)}")
     log(f"tensor-parallel family numbers: {json.dumps(tp_fam)}")
+    log(f"tensor-parallel recurrent and hybrid numbers: {json.dumps(tp_rec)}")
     check_trap(torch)
     mark("trap check")
     log("phase ends, s from the build's start: "

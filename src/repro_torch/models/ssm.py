@@ -132,6 +132,57 @@ def _mlstm_qkvg(p, x, cfg):
     return q, k, v, g, lf, li
 
 
+def _mlstm_decay(lf, li, causal):
+    """A chunk's gate terms, each (B, H, L, ...): the inclusive log-decay
+    sums ``Fc``, their exponentials and the intra-chunk weights ``E``
+    (``E_ts = exp(F_t - F_s + li_s)``, s <= t, else 0)."""
+    Fc = torch.cumsum(lf, dim=-1)  # inclusive decay sums
+    dec = Fc[..., :, None] - Fc[..., None, :] + li[..., None, :]
+    return Fc, torch.exp(Fc), torch.exp(torch.where(causal, dec, -math.inf))
+
+
+def _mlstm_partial(qf, kf, vf, eF, E, C, n):
+    """A chunk's numerator (B, H, L, hd) and normalizer (B, H, L) over the
+    key dims that ``qf``/``kf`` (B, H, L, k), ``C`` (B, H, k, hd) and ``n``
+    (B, H, k) hold: linear in them, so the partials of disjoint key slices
+    sum to the whole's."""
+    # intra-chunk: scores_ts = (q_t.k_s) exp(F_t - F_s + li_s), s <= t
+    scores = (qf @ kf.transpose(-1, -2)) * E
+    num = scores @ vf
+    # inter-chunk: exp(F_t) * (C q_t, n q_t)
+    qe = qf * eF[..., None]
+    num = num + qe @ C
+    nq = (qe @ n[..., None])[..., 0]
+    # intra normalizer: sum_s exp(F_t - F_s + li_s) (k_s . q_t)
+    nq = nq + ((E @ kf) * qf).sum(-1)
+    return num, nq
+
+
+def _mlstm_carry(kf, vf, Fc, li, C, n):
+    """The state's key rows that ``kf`` holds, carried over a chunk."""
+    eL = torch.exp(Fc[..., -1])[..., None]  # (B,H,1)
+    w_s = torch.exp(Fc[..., -1:] - Fc + li)  # (B,H,L)
+    C = C * eL[..., None] + (kf * w_s[..., None]).transpose(-1, -2) @ vf
+    n = n * eL + (w_s[..., None, :] @ kf)[..., 0, :]
+    return C, n
+
+
+def _mlstm_step_partial(qf, kf, vf, f, i, C, n):
+    """One decode token over the key dims that ``qf``/``kf`` (B, H, k),
+    ``C`` and ``n`` hold: (num (B, H, hd), nq (B, H), C, n)."""
+    C = C * f[..., None] + i[..., None] * kf[..., :, None] * vf[..., None, :]
+    n = n * f + i * kf
+    num = (qf[..., None, :] @ C)[..., 0, :]
+    nq = (qf * n).sum(-1)
+    return num, nq, C, n
+
+
+def _mlstm_normalize(num, nq):
+    """``num / (|nq| + 1)`` of the whole key range's sums: the abs comes
+    after the sum, so key slices' partials are summed before it."""
+    return num / (torch.abs(nq)[..., None] + 1.0)
+
+
 def mlstm_seq(p, x: torch.Tensor, cfg, state=None):
     """Chunkwise mLSTM. Returns (y, (C, n)) with C (B,H,hd,hd), n (B,H,hd)."""
     B, T, d = x.shape
@@ -150,26 +201,11 @@ def mlstm_seq(p, x: torch.Tensor, cfg, state=None):
     for c0 in range(0, T, L):
         # (B, L, H, ...) -> heads before the chunk's positions
         qf, kf, vf = (a[:, c0:c0 + L].transpose(1, 2).float() for a in (q, k, v))
-        lff = lf[:, c0:c0 + L].transpose(1, 2)  # (B,H,L)
-        lii = li[:, c0:c0 + L].transpose(1, 2)
-        Fc = torch.cumsum(lff, dim=-1)  # inclusive decay sums
-        # intra-chunk: scores_ts = (q_t.k_s) exp(F_t - F_s + li_s), s <= t
-        dec = Fc[..., :, None] - Fc[..., None, :] + lii[..., None, :]
-        E = torch.exp(torch.where(causal, dec, -math.inf))
-        scores = (qf @ kf.transpose(-1, -2)) * E
-        num = scores @ vf
-        # inter-chunk: exp(F_t) * (C q_t, n q_t)
-        qe = qf * torch.exp(Fc)[..., None]
-        num = num + qe @ C
-        nq = (qe @ n[..., None])[..., 0]
-        # intra normalizer: sum_s exp(F_t - F_s + li_s) (k_s . q_t)
-        nq = nq + ((E @ kf) * qf).sum(-1)
-        hs[:, c0:c0 + L] = (num / (torch.abs(nq)[..., None] + 1.0)).transpose(1, 2)
-        # carry updates
-        eL = torch.exp(Fc[..., -1])[..., None]  # (B,H,1)
-        w_s = torch.exp(Fc[..., -1:] - Fc + lii)  # (B,H,L)
-        C = C * eL[..., None] + (kf * w_s[..., None]).transpose(-1, -2) @ vf
-        n = n * eL + (w_s[..., None, :] @ kf)[..., 0, :]
+        lii = li[:, c0:c0 + L].transpose(1, 2)  # (B,H,L)
+        Fc, eF, E = _mlstm_decay(lf[:, c0:c0 + L].transpose(1, 2), lii, causal)
+        num, nq = _mlstm_partial(qf, kf, vf, eF, E, C, n)
+        hs[:, c0:c0 + L] = _mlstm_normalize(num, nq).transpose(1, 2)
+        C, n = _mlstm_carry(kf, vf, Fc, lii, C, n)
     h = hs.reshape(B, T, di).to(x.dtype)
     return down_proj(g * h, p["wo"]), (C, n)
 
@@ -184,12 +220,8 @@ def mlstm_step(p, x: torch.Tensor, state, cfg):
     qf, kf, vf = (a[:, 0].reshape(B, H, hd).float() for a in (q, k, v))
     f = torch.exp(lf[:, 0])[..., None]  # (B,H,1)
     i = torch.exp(li[:, 0])[..., None]
-    C, n = state
-    C = C * f[..., None] + i[..., None] * kf[..., :, None] * vf[..., None, :]
-    n = n * f + i * kf
-    num = (qf[..., None, :] @ C)[..., 0, :]
-    nq = (qf * n).sum(-1)
-    h = (num / (torch.abs(nq)[..., None] + 1.0)).reshape(B, 1, di).to(x.dtype)
+    num, nq, C, n = _mlstm_step_partial(qf, kf, vf, f, i, *state)
+    h = _mlstm_normalize(num, nq).reshape(B, 1, di).to(x.dtype)
     return down_proj(g * h, p["wo"]), (C, n)
 
 
@@ -214,6 +246,19 @@ def init_slstm(gen: torch.Generator, cfg, dtype=torch.bfloat16, lead: tuple = ()
     }
 
 
+def _slstm_update(z, i, f, o, c, n):
+    """The cell on the pre-activations of its gates z, i, f, o and its state
+    (c, n), each (B, k) over the same k units: returns (c, n, h)."""
+    z = torch.tanh(z)
+    i = torch.sigmoid(i)
+    f = torch.sigmoid(f)
+    o = torch.sigmoid(o)
+    c = f * c + i * z
+    n = f * n + i
+    h = o * c / (torch.abs(n) + 1.0)
+    return (c, n, h)
+
+
 def _slstm_cell(p, xt, carry, cfg):
     """xt: (B, 4d) pre-projected input; carry: (c, n, h) each (B, d)."""
     d = cfg.d_model
@@ -223,14 +268,7 @@ def _slstm_cell(p, xt, carry, cfg):
     hr = h.reshape(-1, H, hd)
     rec = torch.einsum("bhk,hkm->bhm", hr, p["r"]).reshape(-1, 4 * d)
     z, i, f, o = torch.split(xt + rec + p["b"], d, dim=-1)
-    z = torch.tanh(z)
-    i = torch.sigmoid(i)
-    f = torch.sigmoid(f)
-    o = torch.sigmoid(o)
-    c = f * c + i * z
-    n = f * n + i
-    h = o * c / (torch.abs(n) + 1.0)
-    return (c, n, h)
+    return _slstm_update(z, i, f, o, c, n)
 
 
 def slstm_seq(p, x: torch.Tensor, cfg, state=None):
@@ -293,6 +331,35 @@ def _mamba_conv(p, xb, conv_state=None):
     return F.silu(out), new_state
 
 
+def _mamba_scan(dt, xc, Bm, Cm, A, h, L: int):
+    """The selective scan of the channels that ``dt``/``xc`` (B, T, c), ``A``
+    (c, N) and the state ``h`` (B, c, N) hold, over B/C ``Bm``/``Cm`` (B, T,
+    N), chunks of ``L``: returns (y (B, T, c) f32, the final h).
+
+    Fused chunkwise, as in the reference: the (B, T, c, N) state sequence
+    never materializes; each chunk's scan and its C projection run in one
+    step of the loop (peak state memory O(B * L * c * N))."""
+    B, T = dt.shape[:2]
+    y = torch.empty((B, T, dt.shape[-1]), dtype=torch.float32, device=dt.device)
+    for c0 in range(0, T, L):
+        dt_c, xc_c = dt[:, c0:c0 + L], xc[:, c0:c0 + L]
+        bu = (dt_c * xc_c)[..., None] * Bm[:, c0:c0 + L, None, :]  # (B,L,c,N)
+        # log decay of a window: (its dt's sum) * A
+        s_cum, h_intra = _doubling_scan(dt_c, bu, lambda s: s[..., None] * A)
+        h_c = h_intra + torch.exp(s_cum[..., None] * A) * h[:, None]
+        y[:, c0:c0 + L] = torch.einsum("bldn,bln->bld", h_c, Cm[:, c0:c0 + L])
+        h = h_c[:, -1]
+    return y, h
+
+
+def _mamba_step_scan(dt, xc, Bm, Cm, A, h0):
+    """One decode token of the channels that ``dt``/``xc`` (B, 1, c), ``A``
+    and ``h0`` (B, c, N) hold: returns (y (B, c) before the skip, h)."""
+    a = torch.exp(dt[:, 0, :, None] * A)  # (B,c,N)
+    h = h0 * a + (dt[:, 0] * xc[:, 0])[..., None] * Bm[:, 0, None, :]
+    return (h @ Cm[:, 0, :, None])[..., 0], h
+
+
 def mamba_seq(p, x: torch.Tensor, cfg, state=None):
     """Returns (y, (ssm_state (B,di,N), conv_state (B,W-1,di)))."""
     B, T, d = x.shape
@@ -305,20 +372,7 @@ def mamba_seq(p, x: torch.Tensor, cfg, state=None):
     A = -torch.exp(p["a_log"])  # (di,N)
     h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device) if state is None \
         else state[0]
-
-    # Fused chunkwise scan, as in the reference: the (B, T, di, N) state
-    # sequence never materializes; each chunk's scan and its C projection
-    # run in one step of the loop (peak state memory O(B * chunk * di * N)).
-    L = _pick_chunk(T, cfg.ssm_chunk)
-    y = torch.empty((B, T, di), dtype=torch.float32, device=x.device)
-    for c0 in range(0, T, L):
-        dt_c, xc_c = dt[:, c0:c0 + L], xc[:, c0:c0 + L]
-        bu = (dt_c * xc_c)[..., None] * Bm[:, c0:c0 + L, None, :]  # (B,L,di,N)
-        # log decay of a window: (its dt's sum) * A
-        s_cum, h_intra = _doubling_scan(dt_c, bu, lambda s: s[..., None] * A)
-        h_c = h_intra + torch.exp(s_cum[..., None] * A) * h[:, None]
-        y[:, c0:c0 + L] = torch.einsum("bldn,bln->bld", h_c, Cm[:, c0:c0 + L])
-        h = h_c[:, -1]
+    y, h = _mamba_scan(dt, xc, Bm, Cm, A, h, _pick_chunk(T, cfg.ssm_chunk))
     y = y + p["d_skip"] * xc
     y = down_proj(y.to(x.dtype) * F.silu(z), p["w_out"])
     return y, (h, conv_state)
@@ -331,9 +385,7 @@ def mamba_step(p, x: torch.Tensor, state, cfg):
     xc, conv_state = _mamba_conv(p, xb.float(), conv_state)
     dt = _softplus(xc @ p["w_dt"] + p["b_dt"])
     Bm, Cm = torch.chunk(xc @ p["w_bc"], 2, dim=-1)
-    A = -torch.exp(p["a_log"])
-    a = torch.exp(dt[:, 0, :, None] * A)  # (B,di,N)
-    h = h0 * a + (dt[:, 0] * xc[:, 0])[..., None] * Bm[:, 0, None, :]
-    y = (h @ Cm[:, 0, :, None])[..., 0] + p["d_skip"] * xc[:, 0]
+    y, h = _mamba_step_scan(dt, xc, Bm, Cm, -torch.exp(p["a_log"]), h0)
+    y = y + p["d_skip"] * xc[:, 0]
     y = down_proj(y[:, None].to(x.dtype) * F.silu(z), p["w_out"])
     return y, (h, conv_state)

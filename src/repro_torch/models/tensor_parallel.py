@@ -36,12 +36,30 @@ GSPMD inserts the reference's model-axis all-reduce or all-gather:
     routed by the one-axis code (``moe.route_logits``), the expert shards'
     outputs gathered along the experts, or the expert-FFN shards' partials
     summed; shared experts as the MLP;
+  * the recurrent mixers, each rank's state its ``cache_specs`` block of
+    the one-axis state, kept and updated in place by prefill and every
+    decode step, never another rank's: Mamba (a hybrid block's, beside its
+    attention) on the rank's channels, which own its conv, dt, scan, skip
+    and state; it takes its channels of xb and z from whichever ranks
+    projected them, gathers B and C and the conv output, reads A's rows
+    for its channels from every rank's ``a_log`` block (cut on N), and
+    ``y * silu(z)`` is gathered along the channels for the ranks' ``w_out``
+    columns. mLSTM on the rank's key dims of every head (its rows of ``C``
+    and ``n``): q and k cut so from the ranks' head-cut projections, v, g
+    and the gates whole; its partial numerator and normalizer are summed
+    over the ranks before ``num / (|nq| + 1)``. sLSTM on the rank's slice
+    of d (its c, n, h): the prompt's input projection gathered once, then a
+    token at a time h gathered, each rank's columns of the head-major
+    recurrent mixing gathered, each rank's cell on its slice of the four
+    gates. Each output projection's columns are gathered along d;
   * the unembedding: each rank's vocab slice of the f32 logits,
     concatenated in model-rank order.
 
 Partials are summed by :func:`model_axis_sum`, the plain sum over the rank
 rows in model-rank order: two runs give the same bits, and pieces are
-concatenated by :func:`model_axis_gather`. The sum's backward hands
+concatenated by :func:`model_axis_gather`; where a rank needs only its part
+of other ranks' pieces it takes that part (:func:`model_axis_take`, the
+all-to-all). The sum's backward hands
 every rank's partial the whole upstream gradient, GSPMD's model-axis
 all-reduce in reverse. The emulation is a loop over the model ranks inside
 each layer (all ranks on one device); no rank reads another's shard, and no
@@ -50,12 +68,13 @@ stream, a norm's output, the gathered heads) is the same on every rank, so
 it is computed once, from rank 0's copy of a replicated weight.
 
 Serving covers the decoders over text and over a vision prefix (the
-prefix-LM mask, the prefix dropped before the unembedding) and the
+prefix-LM mask, the prefix dropped before the unembedding), the
 encoder-decoder (the encoder's blocks through the same TP block,
-bidirectional), with attention and MoE blocks; training covers the dense
-decoders whose heads, kv heads, ``d_ff`` and padded vocab divide the model
-axis. Everything else on a model axis (the SSM mixers, and in training
-every other family) raises a ``ValueError`` naming the ROADMAP item
+bidirectional), and the recurrent and hybrid families, with attention, MoE,
+mLSTM, sLSTM and hybrid blocks; training covers the dense decoders whose
+heads, kv heads, ``d_ff`` and padded vocab divide the model axis.
+Everything else on a model axis (in training every other family, the SSM
+mixers included) raises a ``ValueError`` naming the ROADMAP item
 "Tensor-parallel remainder" (:func:`check_tensor_parallel`).
 """
 from __future__ import annotations
@@ -63,9 +82,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from ..dist.hints import hint
 from . import moe as moe_lib
+from . import ssm
 from .blocks import attn_spec_for, prefill_cache
 from .layers import (
     _fill_cache,
@@ -75,6 +96,7 @@ from .layers import (
     attention,
     cross_entropy_loss,
     decode_shard,
+    down_proj,
     mlp,
     rms_norm,
     rope,
@@ -84,7 +106,7 @@ from .layers import (
 from .transformer import StackLayout, _apply_stack, _dtype
 
 __all__ = ["TP_REMAINDER", "apply_lm_tp", "check_tensor_parallel", "merge_shards",
-           "model_axis_gather", "model_axis_sum", "tp_loss"]
+           "model_axis_gather", "model_axis_sum", "model_axis_take", "tp_loss"]
 
 TP_REMAINDER = 'ROADMAP item "Tensor-parallel remainder"'
 
@@ -94,20 +116,22 @@ def check_tensor_parallel(cfg, m: int, *, mode: str = "train") -> None:
 
     ``'train'``: a dense decoder over text whose heads, kv heads, ``d_ff``
     and padded vocab divide ``m``. ``'serve'``: a decoder (over text or a
-    vision prefix) or the encoder-decoder whose blocks are attention or MoE
-    blocks, whose query and kv heads or else their head width divide ``m``
+    vision prefix) or the encoder-decoder whose attention's query and kv
+    heads or else their head width divide ``m``
     (``attn_fallback='head_dim'``; an encoder-decoder's heads must divide,
     or its cross caches' sequence would split), whose experts or expert
-    width divide, and whose dense and shared-expert MLP widths and padded
-    vocab divide."""
+    width divide, whose recurrent mixers are cut where the TP mixers read
+    them (:func:`_mixer_cuts`), and whose dense and shared-expert MLP
+    widths and padded vocab divide."""
     if mode not in ("train", "serve"):
         raise ValueError(f"mode {mode!r}: a model axis trains or serves")
     why = []
-    kinds = set(cfg.layer_kinds()) - {"attn"}
-    if kinds - {"moe"}:
-        why.append(f"the SSM mixers ({', '.join(sorted(kinds - {'moe'}))} blocks)")
+    kinds = set(cfg.layer_kinds())
+    mixers = kinds & set(_MIXERS)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if mode == "train":
+        if mixers:
+            why.append(f"training the SSM mixers ({', '.join(sorted(mixers))} blocks)")
         if cfg.arch_type != "decoder" or cfg.frontend is not None:
             why.append("training the encoder-decoder and the vision prefix")
         if "moe" in kinds:
@@ -117,17 +141,19 @@ def check_tensor_parallel(cfg, m: int, *, mode: str = "train") -> None:
                        f"heads)")
         dense = True
     else:
+        why += _mixer_cuts(cfg, m, mixers)
+        attends = bool(kinds & {"attn", "moe", "hybrid"}) or cfg.arch_type == "encdec"
         cuts = (_head_cut(H, hd, m), _head_cut(KV, hd, m))
-        if None in cuts:
+        if attends and None in cuts:
             why.append(f"{H} query and {KV} kv heads of width {hd}, neither dividing")
-        elif cfg.arch_type == "encdec" and cuts != ("heads", "heads"):
+        elif attends and cfg.arch_type == "encdec" and cuts != ("heads", "heads"):
             why.append(f"an encoder-decoder's cross caches over {KV} kv heads")
         E, f = cfg.num_experts, cfg.d_ff
         if "moe" in kinds and E % m and f % m:
             why.append(f"{E} experts of width {f}, neither dividing")
         if "moe" in kinds and cfg.num_shared_experts and (f * cfg.num_shared_experts) % m:
             why.append(f"shared experts of width {f * cfg.num_shared_experts}")
-        dense = "attn" in cfg.layer_kinds() or cfg.arch_type == "encdec"
+        dense = bool(kinds & {"attn", "hybrid"}) or cfg.arch_type == "encdec"
     if dense and (not cfg.d_ff or cfg.d_ff % m):
         why.append(f"an MLP of width {cfg.d_ff}")
     if cfg.padded_vocab % m:
@@ -135,6 +161,38 @@ def check_tensor_parallel(cfg, m: int, *, mode: str = "train") -> None:
     if why:
         raise ValueError(f"{cfg.name} on a model axis of {m} ranks: the tensor-parallel "
                          f"forward does not cover {'; '.join(why)} ({TP_REMAINDER})")
+
+
+def _state_cut(dims, m: int):
+    """The dim of a recurrent state's trailing ``dims`` (the batch's left
+    out) that ``cache_specs`` puts the model axis on: the widest that
+    divides ``m``, the first of equals; None when none does."""
+    return next((i for i in sorted(range(len(dims)), key=lambda i: -dims[i])
+                 if dims[i] % m == 0), None)
+
+
+def _mixer_cuts(cfg, m: int, kinds) -> list:
+    """Why the recurrent mixers ``kinds`` of ``cfg`` do not serve on ``m``
+    model ranks: each TP mixer reads its leaves cut on their last dim
+    (``param_specs``' rule for them) and keeps its states cut on the dim
+    that ``cache_specs`` picks: mLSTM's ``C`` and ``n`` on the key dim, sLSTM's
+    c, n, h on d, Mamba's ``h`` and ``conv`` on the channels."""
+    why = []
+    d, H = cfg.d_model, cfg.num_heads
+    di = cfg.ssm_expand * d
+    if "mlstm" in kinds:
+        hd = di // H
+        if (di % m or H % m or hd % m or d % m or _state_cut((H, hd, hd), m) != 1
+                or _state_cut((H, hd), m) != 1):
+            why.append(f"an mLSTM of {H} heads of {hd} (its state cut off the key dim)")
+    if "slstm" in kinds and (d % m or (4 * d // H) % m):
+        why.append(f"an sLSTM of width {d} over {H} heads")
+    if "hybrid" in kinds:
+        N, W = cfg.ssm_state, cfg.ssm_conv
+        if (di % m or N % m or d % m or _state_cut((di, N), m) != 0
+                or _state_cut((W - 1, di), m) != 1):
+            why.append(f"a Mamba of {di} channels and state {N}")
+    return why
 
 
 def model_axis_sum(parts: list) -> torch.Tensor:
@@ -149,6 +207,27 @@ def model_axis_gather(parts, dim: int) -> torch.Tensor:
     ``dim`` in model-rank order (the counterpart of the reference's GSPMD
     all-gather)."""
     return torch.cat(list(parts), dim=dim)
+
+
+def model_axis_take(parts, dim: int, spans, fn=None) -> torch.Tensor:
+    """The model-axis all-to-all: of the whole that the ranks' pieces
+    ``parts`` form concatenated along ``dim`` in model-rank order, the
+    ``(start, stop)`` ranges ``spans``, concatenated in their order, each
+    read from the pieces that hold it: the whole is never assembled (the
+    counterpart of the all-to-all GSPMD inserts where a rank needs only its
+    part of another rank's piece). ``fn``, an element-wise function, is
+    applied to each view read, before the concatenation, as the one-axis
+    code applies it to the same view of its whole."""
+    n = parts[0].shape[dim]
+    out = []
+    for a, b in spans:
+        while a < b:
+            r = a // n
+            e = min(b, (r + 1) * n)
+            piece = parts[r].narrow(dim, a - r * n, e - a)
+            out.append(piece if fn is None else fn(piece))
+            a = e
+    return torch.cat(out, dim=dim)
 
 
 class _ShardRowGather(torch.autograd.Function):
@@ -368,33 +447,236 @@ def _moe(ps: list, h: torch.Tensor, cfg):
     return y, E * torch.sum(me * ce) * cfg.router_aux_coef
 
 
+# --------------------------------------------------------------------------
+# the recurrent mixers: each rank's state its cache_specs block, in place
+# --------------------------------------------------------------------------
+
+
+def _mlstm_proj(p, x: torch.Tensor):
+    """A model rank's mLSTM projections from its blocks: its columns of q,
+    k, v and g and of the f32 input and forget gates' logits."""
+    xf = x.float()
+    return x @ p["wq"], x @ p["wk"], x @ p["wv"], x @ p["wg"], xf @ p["wi"], xf @ p["wf"]
+
+
+def _mlstm_tp(ps: list, x: torch.Tensor, cfg, *, mode: str, caches):
+    """The mLSTM over the model ranks, each rank's state (``C`` (B, H, hd /
+    M, hd), ``n`` (B, H, hd / M)) its key rows of every head: rank ``r``
+    takes its key dims of every head of q and k from the ranks' head-cut
+    projections (:func:`model_axis_take`), v, g and the gates whole, and
+    computes its partial numerator and normalizer (linear in its key
+    slice); the partials are summed before ``num / (|nq| + 1)``, whose abs
+    is not linear. Each rank carries its own rows. The output ``g * h``
+    goes through each rank's ``wo`` columns, gathered along d. Returns (y,
+    the ranks' states: prefill's new ones, decode's written in place)."""
+    m = len(ps)
+    B, T, d = x.shape
+    H = cfg.num_heads
+    di = cfg.ssm_expand * d
+    hd = di // H
+    kd = hd // m
+    qs, ks, vs, gs, lis, lfs = zip(*(_mlstm_proj(p["ssm"], x) for p in ps))
+    keys = [[(h * hd + r * kd, h * hd + (r + 1) * kd) for h in range(H)] for r in range(m)]
+    q = [model_axis_take(qs, -1, sp).reshape(B, T, H, kd) * hd**-0.5 for sp in keys]
+    k = [model_axis_take(ks, -1, sp).reshape(B, T, H, kd) * hd**-0.5 for sp in keys]
+    v = model_axis_gather(vs, -1).reshape(B, T, H, hd)
+    g = torch.sigmoid(model_axis_gather(gs, -1))
+    lf = F.logsigmoid(model_axis_gather(lfs, -1) + ps[0]["ssm"]["bf"])  # (B,T,H)
+    li = F.logsigmoid(model_axis_gather(lis, -1))
+    if mode == "decode":
+        states = [c["ssm"] for c in caches]
+        vf = v[:, 0].reshape(B, H, hd).float()
+        f = torch.exp(lf[:, 0])[..., None]  # (B,H,1)
+        i = torch.exp(li[:, 0])[..., None]
+        nums, nqs = [], []
+        for qr, kr, st in zip(q, k, states):
+            num, nq, C, n = ssm._mlstm_step_partial(qr[:, 0].reshape(B, H, kd).float(),
+                                                    kr[:, 0].reshape(B, H, kd).float(), vf, f,
+                                                    i, st["C"], st["n"])
+            st["C"].copy_(C)
+            st["n"].copy_(n)
+            nums.append(num)
+            nqs.append(nq)
+        h = ssm._mlstm_normalize(model_axis_sum(nums), model_axis_sum(nqs))
+        h = h.reshape(B, 1, di).to(x.dtype)
+    else:
+        L = ssm._pick_chunk(T, cfg.ssm_chunk)
+        Cs = [torch.zeros((B, H, kd, hd), dtype=torch.float32, device=x.device) for _ in ps]
+        ns = [torch.zeros((B, H, kd), dtype=torch.float32, device=x.device) for _ in ps]
+        causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+        hs = torch.empty((B, T, H, hd), dtype=torch.float32, device=x.device)
+        for c0 in range(0, T, L):
+            vf = v[:, c0:c0 + L].transpose(1, 2).float()
+            qf = [a[:, c0:c0 + L].transpose(1, 2).float() for a in q]
+            kf = [a[:, c0:c0 + L].transpose(1, 2).float() for a in k]
+            lii = li[:, c0:c0 + L].transpose(1, 2)  # (B,H,L)
+            Fc, eF, E = ssm._mlstm_decay(lf[:, c0:c0 + L].transpose(1, 2), lii, causal)
+            nums, nqs = zip(*(ssm._mlstm_partial(qr, kr, vf, eF, E, C, n)
+                              for qr, kr, C, n in zip(qf, kf, Cs, ns)))
+            hs[:, c0:c0 + L] = ssm._mlstm_normalize(model_axis_sum(nums),
+                                                    model_axis_sum(nqs)).transpose(1, 2)
+            Cs, ns = zip(*(ssm._mlstm_carry(kr, vf, Fc, lii, C, n)
+                           for kr, C, n in zip(kf, Cs, ns)))
+        h = hs.reshape(B, T, di).to(x.dtype)
+        states = [{"C": C, "n": n} for C, n in zip(Cs, ns)]
+    gh = g * h
+    return model_axis_gather([down_proj(gh, p["ssm"]["wo"]) for p in ps], -1), states
+
+
+def _slstm_in(p, x: torch.Tensor) -> torch.Tensor:
+    """A model rank's columns of the sLSTM's f32 input projection."""
+    return x.float() @ p["w"]
+
+
+def _slstm_rec(p, hr: torch.Tensor) -> torch.Tensor:
+    """A model rank's columns of every head's recurrent mixing of the whole
+    ``hr`` (B, H, hd): (B, H, its 4 hd / M columns)."""
+    return torch.einsum("bhk,hkm->bhm", hr, p["r"])
+
+
+def _slstm_tp(ps: list, x: torch.Tensor, cfg, *, mode: str, caches):
+    """The sLSTM over the model ranks, each rank's state (c, n, h) its
+    d-slice: the prompt's input projection once, each rank's columns
+    gathered to (B, T, 4d) f32; then a token at a time, ``h`` gathered from
+    the ranks' slices, each rank's columns of ``r`` mixing it, gathered to
+    (B, 4d) in the head-major layout, and each rank's cell on its slice of
+    z, i, f and o. The ``h`` sequence goes through each rank's ``wo_r``
+    columns, gathered along d. Returns (y, the ranks' states)."""
+    m = len(ps)
+    B, T, d = x.shape
+    H = cfg.num_heads
+    dm = d // m
+    if mode == "decode":
+        states = [c["ssm"] for c in caches]
+        carry = [(st["c"], st["n"], st["h"]) for st in states]
+        xp = model_axis_gather([_slstm_in(p["ssm"], x[:, 0]) for p in ps], -1)[:, None]
+    else:
+        carry = [tuple(torch.zeros((B, dm), dtype=torch.float32, device=x.device)
+                       for _ in range(3)) for _ in ps]
+        xp = model_axis_gather([_slstm_in(p["ssm"], x) for p in ps], -1)  # (B,T,4d)
+    h = model_axis_gather([c[2] for c in carry], -1)
+    hs = []
+    for t in range(T):
+        hr = h.reshape(-1, H, d // H)
+        rec = model_axis_gather([_slstm_rec(p["ssm"], hr) for p in ps], -1).reshape(-1, 4 * d)
+        pre = (xp[:, t] + rec + ps[0]["ssm"]["b"]).reshape(-1, 4, d)
+        carry = [ssm._slstm_update(*pre[:, :, r * dm:(r + 1) * dm].unbind(1), c, n)
+                 for r, (c, n, _) in enumerate(carry)]
+        h = model_axis_gather([c[2] for c in carry], -1)
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype)
+    if mode == "decode":
+        for st, new in zip(states, carry):
+            for key, t in zip(("c", "n", "h"), new):
+                st[key].copy_(t)
+    else:
+        states = [dict(zip(("c", "n", "h"), c)) for c in carry]
+    return model_axis_gather([down_proj(y, p["ssm"]["wo_r"]) for p in ps], -1), states
+
+
+def _mamba_in(p, x: torch.Tensor) -> torch.Tensor:
+    """A model rank's columns of Mamba's input projection (of xb | z)."""
+    return x @ p["w_in"]
+
+
+def _mamba_xproj(p, xc: torch.Tensor):
+    """A model rank's columns of dt's and of B/C's projections of the
+    gathered f32 conv output ``xc``."""
+    return xc @ p["w_dt"], xc @ p["w_bc"]
+
+
+def _a_rows(blocks: list, lo: int, hi: int) -> torch.Tensor:
+    """A's rows ``[lo, hi)`` (a rank's channels, every N): each rank's
+    ``a_log`` block (di, N / M) read for those rows only, gathered along N;
+    the (di, N) leaf is never assembled."""
+    return -torch.exp(model_axis_gather([a[lo:hi] for a in blocks], -1))
+
+
+def _mamba_tp(ps: list, x: torch.Tensor, cfg, *, mode: str, caches):
+    """Mamba over the model ranks, rank ``r`` owning channels ``[r di / M,
+    (r+1) di / M)``, its state (``h`` (B, di / M, N), ``conv`` (B, W-1, di /
+    M)) theirs: it takes its channels of xb and z from whichever ranks
+    projected them (:func:`model_axis_take`), runs its conv, its columns of
+    dt over the gathered conv output, B and C gathered whole, A's rows
+    (:func:`_a_rows`), the scan and the skip on its channels; ``y *
+    silu(z)`` is gathered along the channels, each rank's ``w_out`` columns
+    gathered along d. Returns (y, the ranks' states)."""
+    m = len(ps)
+    B, T, d = x.shape
+    di, N = cfg.ssm_expand * d, cfg.ssm_state
+    chans = [(r * di // m, (r + 1) * di // m) for r in range(m)]
+    us = [_mamba_in(p["ssm"], x) for p in ps]
+    states = [c["ssm"] for c in caches] if mode == "decode" else None
+    convs = [ssm._mamba_conv(p["ssm"], model_axis_take(us, -1, [c]).float(),
+                             None if states is None else states[r]["conv"])
+             for r, (p, c) in enumerate(zip(ps, chans))]
+    xc = model_axis_gather([c[0] for c in convs], -1)
+    dts, bcs = zip(*(_mamba_xproj(p["ssm"], xc) for p in ps))
+    Bm, Cm = torch.chunk(model_axis_gather(bcs, -1), 2, dim=-1)  # (B,T,N)
+    blocks = [p["ssm"]["a_log"] for p in ps]
+    ys, new = [], []
+    for r, (p, (lo, hi)) in enumerate(zip(ps, chans)):
+        pr, (xr, conv) = p["ssm"], convs[r]
+        dt = ssm._softplus(dts[r] + pr["b_dt"][lo:hi])
+        A = _a_rows(blocks, lo, hi)
+        if mode == "decode":
+            y, h = ssm._mamba_step_scan(dt, xr, Bm, Cm, A, states[r]["h"])
+            y = (y + pr["d_skip"][lo:hi] * xr[:, 0])[:, None]
+            states[r]["h"].copy_(h)
+            states[r]["conv"].copy_(conv)
+        else:
+            h = torch.zeros((B, hi - lo, N), dtype=torch.float32, device=x.device)
+            y, h = ssm._mamba_scan(dt, xr, Bm, Cm, A, h, ssm._pick_chunk(T, cfg.ssm_chunk))
+            y = y + pr["d_skip"][lo:hi] * xr
+            new.append({"h": h, "conv": conv})
+        ys.append(y.to(x.dtype) * model_axis_take(us, -1, [(di + lo, di + hi)], F.silu))
+    g = model_axis_gather(ys, -1)
+    return (model_axis_gather([down_proj(g, p["ssm"]["w_out"]) for p in ps], -1),
+            states if mode == "decode" else new)
+
+
+_MIXERS = {"hybrid": _mamba_tp, "mlstm": _mlstm_tp, "slstm": _slstm_tp}
+
+
 def _block(ps: list, x: torch.Tensor, cfg, kind: str, window, *, mode: str,
            cache: list | None = None, cur_pos: int | None = None, max_len: int = 0,
            prefix_len: int = 0, causal: bool = True, cross_inputs=None, mesh=None,
            transport=None):
-    """An attention or MoE block over the model ranks' shards ``ps`` (and
-    their caches, a list of as many); the block interface of
-    ``transformer._apply_stack`` and the counterpart of
-    ``blocks.apply_block``: ``prefix_len`` (the vision prefix's
-    bidirectional keys), ``causal`` (False in an encoder) and
-    ``cross_inputs`` (a decoder block's cross attention) as there. Returns
-    (x, the ranks' caches, aux); the caches are None in train mode. The
-    recurrent kinds and the expert-parallel dispatch (``mesh``,
-    ``transport``) raise ``ValueError``."""
-    if kind not in ("attn", "moe"):
-        raise ValueError(f"a {kind} block on a model axis: the tensor-parallel forward does "
-                         f"not cover the SSM mixers ({TP_REMAINDER})")
+    """A block over the model ranks' shards ``ps`` (and their caches, a
+    list of as many); the block interface of ``transformer._apply_stack``
+    and the counterpart of ``blocks.apply_block``: ``prefix_len`` (the
+    vision prefix's bidirectional keys), ``causal`` (False in an encoder)
+    and ``cross_inputs`` (a decoder block's cross attention) as there; a
+    hybrid block's attention and Mamba on the same normed input, mixed by
+    its replicated ``mix_a``/``mix_m``. Returns (x, the ranks' caches,
+    aux); the caches are None in train mode. The recurrent kinds in train
+    mode and the expert-parallel dispatch (``mesh``, ``transport``) raise
+    ``ValueError``."""
+    if kind in _MIXERS and mode == "train":
+        raise ValueError(f"a {kind} block in train mode on a model axis: the tensor-parallel "
+                         f"forward serves the SSM mixers only ({TP_REMAINDER})")
     if mesh is not None or transport is not None:
         raise ValueError("the tensor-parallel forward keeps the einsum dispatch: no mesh= or "
                          "transport= for its MoE blocks")
     spec = attn_spec_for(cfg, window, causal)
     p0 = ps[0]
     h = rms_norm(p0["norm1"], x, cfg.norm_eps)
-    y, attn_caches = _self_attention(
-        ps, h, cfg, spec, mode=mode, caches=None if cache is None else [c["attn"] for c in cache],
-        cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len)
+    caches = None if mode == "train" else [{} for _ in ps]
+    if kind in ("attn", "moe", "hybrid"):
+        y, attn_caches = _self_attention(
+            ps, h, cfg, spec, mode=mode,
+            caches=None if cache is None else [c["attn"] for c in cache], cur_pos=cur_pos,
+            max_len=max_len, prefix_len=prefix_len)
+        if caches is not None:
+            for c, ac in zip(caches, attn_caches):
+                c["attn"] = ac
+    if kind in _MIXERS:
+        mixed, states = _MIXERS[kind](ps, h, cfg, mode=mode, caches=cache)
+        y = mixed if kind != "hybrid" else (p0["mix_a"].to(x.dtype) * y
+                                            + p0["mix_m"].to(x.dtype) * mixed)
+        for c, st in zip(caches, states):
+            c["ssm"] = st
     x = x + y
-    caches = None if mode == "train" else [{"attn": c} for c in attn_caches]
     if "cross" in p0:
         y, cross = _cross_attention(ps, rms_norm(p0["norm_x"], x, cfg.norm_eps), cross_inputs,
                                     spec, mode=mode,

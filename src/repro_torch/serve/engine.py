@@ -23,8 +23,9 @@ axes, from the rows of data coordinate 0, and are then cut to the specs
 its M model ranks together (:mod:`repro_torch.models.tensor_parallel`),
 whose caches hold their kv heads, or, when the kv heads do not divide M,
 their slots of the sequence (the whole cache when its length does not
-divide), as ``cache_specs`` places them. The dense, MoE, vision-prefix and
-encoder-decoder families serve so; the SSM mixers raise ``ValueError``.
+divide), as ``cache_specs`` places them, and whose recurrent states hold
+their ``cache_specs`` blocks (mLSTM's key rows, sLSTM's slice of d,
+Mamba's channels). Every family serves so.
 """
 from __future__ import annotations
 

@@ -456,28 +456,31 @@ def test_tp_forward_on_one_model_rank_is_apply_lm(name, dtype):
 
 
 # paligemma's one kv head, mixtral's experts and whisper's encoder serve on a
-# model axis: tests/test_torch_tp_families.py holds those cases
+# model axis (tests/test_torch_tp_families.py), and so do hymba's and xlstm's
+# mixers (tests/test_torch_tp_ssm.py): training them there stays refused
 REMAINDER = {
-    "hymba_25_heads": ("hymba-1.5b", None),
-    "xlstm_ssm": ("xlstm-350m-smoke", None),
+    "hymba_25_heads": ("hymba-1.5b", "train"),
+    "xlstm_ssm": ("xlstm-350m-smoke", "train"),
     "sequence_split_cache": (ARCH, 3),
 }
 
 
 @pytest.mark.parametrize("case", REMAINDER)
 def test_outside_the_slice_raises_naming_tensor_parallel_remainder(case):
-    """A config the tensor-parallel forward does not cover, and a batch that
-    does not divide the data ranks (``cache_specs`` would then split the
-    caches' sequence), raise ``ValueError`` naming the ROADMAP item."""
-    name, batch = REMAINDER[case]
+    """What the tensor-parallel forward does not cover raises ``ValueError``
+    naming the ROADMAP item: training the recurrent and hybrid families on
+    a model axis (hymba-1.5b: its 25 heads and its Mamba; xlstm-350m-smoke:
+    its mLSTM and sLSTM), and serving a batch that does not divide the data
+    ranks (``cache_specs`` would then split the caches' sequence)."""
+    name, how = REMAINDER[case]
     cfg = _f32(get_config(name))
     with pytest.raises(ValueError, match="Tensor-parallel remainder"):
-        if batch is None:
-            Engine(cfg, {}, mesh=_dm_mesh(), device="cpu")
+        if how == "train":
+            Trainer(cfg, RunConfig(), mesh=_dm_mesh(), device="cpu")
         else:
             engine = Engine(cfg, Model(cfg).init(0, device="cpu"), mesh=_dm_mesh(),
                             device="cpu")
-            engine.generate({"tokens": TOKENS[:batch]}, steps=1)
+            engine.generate({"tokens": TOKENS[:how]}, steps=1)
 
 
 def test_training_on_a_model_axis_is_refused():

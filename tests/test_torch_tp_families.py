@@ -273,7 +273,7 @@ def test_engine_on_pod_data_model_mesh_matches_reference(reference):
 # --------------------------------------------------------------------------
 
 ONE_RANK = ("mixtral-8x7b-smoke", "moonshot-v1-16b-a3b-smoke", "paligemma-3b-smoke",
-            "whisper-large-v3-smoke")
+            "whisper-large-v3-smoke", "xlstm-350m-smoke", "hymba-1.5b-smoke")
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -281,8 +281,9 @@ ONE_RANK = ("mixtral-8x7b-smoke", "moonshot-v1-16b-a3b-smoke", "paligemma-3b-smo
 def test_tp_forward_on_one_model_rank_is_the_model(name, dtype):
     """The tensor-parallel forward on one model rank gives the one-axis
     model's bits, prefill logits and caches, then decode steps past
-    mixtral's smoke window of 64: holds the MoE, cross-attention and
-    prefix-aware TP block to ``blocks.apply_block``."""
+    mixtral's and hymba's smoke window of 64: holds the MoE,
+    cross-attention, prefix-aware and recurrent TP block (mLSTM, sLSTM,
+    hybrid attention beside Mamba) to ``blocks.apply_block``."""
     cfg = dataclasses.replace(get_config(name), dtype=dtype)
     model = Model(cfg)
     params = model.init(0, device="cpu")
@@ -315,12 +316,13 @@ def test_tp_forward_on_one_model_rank_is_the_model(name, dtype):
 
 
 def test_tp_block_rejects_what_it_does_not_serve():
-    """The TP block names the SSM mixers' ROADMAP item for a recurrent
-    block, refuses the expert-parallel dispatch's ``mesh=``, and the serving
-    check refuses heads whose count and width both do not divide."""
+    """The TP block names the ROADMAP item for a recurrent block in train
+    mode (training the SSM mixers on a model axis), refuses the
+    expert-parallel dispatch's ``mesh=``, and the serving check refuses
+    heads whose count and width both do not divide."""
     cfg = get_config("xlstm-350m-smoke")
     with pytest.raises(ValueError, match="Tensor-parallel remainder"):
-        tp_lib._block([{}], torch.zeros(1, 2, cfg.d_model), cfg, "mlstm", None, mode="prefill")
+        tp_lib._block([{}], torch.zeros(1, 2, cfg.d_model), cfg, "mlstm", None, mode="train")
     cfg = get_config("mixtral-8x7b-smoke")
     with pytest.raises(ValueError, match="einsum dispatch"):
         tp_lib._block([{}], torch.zeros(1, 2, cfg.d_model), cfg, "moe", None, mode="prefill",
