@@ -362,6 +362,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the one-axis loop's (``serve tp_recurrent slstm loop:``). (c)
    xlstm-350m-smoke, hymba-1.5b-smoke and hymba-1.5b-smoke with 5 query and
    1 kv heads in f32 on (2, 2) at 80-token prompts, card against CPU.
+18. tensor-parallel serving in the reference's remaining layouts, on the
+   engines of phases 15-17 while they live (bf16, full width): a batch
+   that divides no data axis is one serving group, its forward run once on
+   the model ranks of data coordinate 0, every cache cut over all its
+   (data, model) ranks as ``cache_specs`` places it (the sequence on
+   'data'). (a) phase 15's minitron-8b served from the compiled chain with
+   ``specs=`` (every shard bit-equal), one 4096-token request (2064 slots
+   a data rank, 16 sm90 launches a pass) and 3 requests of 128, beside
+   15c's and 15b's numbers; (b) paligemma-3b, one request of 256 patches +
+   3840 tokens (1032 slots a (data, model) rank); (c) hymba-1.5b, one
+   4096-token request (its ring 256 slots a rank, Mamba's state kept
+   once); (d) whisper-large-v3, 1500 frames + 4 tokens (750 cross frames a
+   data rank). (e) a model axis of 8: minitron-8b (8 layers, 4096 tokens,
+   64 sm90 launches a pass) and whisper-large-v3 (32 + 32 layers) on (1,
+   8), cut by ``shard_stacked``; xlstm-350m (24 layers, 512 tokens) on (2,
+   8) after the staged and the compiled distribution with ``specs=``, its
+   sLSTM loop's launches a token beside 17b's. Each run prints the warm
+   prefill ms a group, the decode ms a step and tok/s, the cache layout
+   and the peak; then, after its counts, the greedy tokens equal to the
+   one-axis engine's (asserted), (a)'s decode logits against 15b's
+   control, (e)'s layers against the layer in f32. (f) the CPU tests'
+   cases (``tests/test_torch_tp_layouts.py``) in f32, card against CPU.
 Last, the trap check: a subprocess launches the device-initiated replay
 with one wait target raised by one and must exit with code 3, which it
 gives only when the synchronize right after the launch raises, within 60 s.
@@ -388,7 +410,10 @@ phases 15a-15c's own runs (the tensor-parallel serving path,
 ``tp_encdec``: the distributions and the served requests, without the
 one-axis references, the layer checks and 16a's table recording), and
 phases 17a-17b's likewise (``tp_hybrid``, ``tp_recurrent``; without the
-profiled prefill and the sLSTM count either); the launches that compare
+profiled prefill and the sLSTM count either), phases 18a-18d's runs (one
+path, ``tp_seq``, each run zeroed before and added after, 18a's compiled
+distribution included) and 18e's (``tp_m8``, xlstm's distributions
+included), without their one-axis references and checks; the launches that compare
 kernels with their plain versions, the replays timed to fill the tuner
 tables and the calibrate phase's replays are not counted. The last three lines of output are the kernels
 JSON, the card, and ``{"ok": true, "device": ...}``.
@@ -625,6 +650,28 @@ TP_SSM_SMOKE = (("xlstm-350m-smoke", {}), ("hymba-1.5b-smoke", {}),
 TP_SSM_SMOKE_PROMPT = 80  # past the smoke configs' chunk of 16 and window of 64
 # the sLSTM loop's launches a token: the difference of two prompts' counts
 SLSTM_TOKENS = (16, 48)
+# phase 18: the reference's remaining serving layouts. 18a-18d (the ``tp_seq``
+# path) serve batches that divide no data axis on phases 15-17's (2, 2)
+# engines: one request over both data ranks, the caches' sequence on 'data';
+# 18a also TP_SEQ_BATCH requests at PROMPT tokens. 18e (``tp_m8``) serves on a
+# model axis of 8: minitron-8b (phase 15's 8 layers, one TP_LONG_PROMPT-token
+# request) and whisper-large-v3 (32 + 32 layers) on (1, 8), cut by
+# ``shard_stacked``; xlstm-350m (24 layers, one TP_M8_PROMPT-token request:
+# the sLSTM loop's launches grow with M) on (2, 8) after the staged and the
+# compiled distribution. Each run's warm re-run times TP_TIMED_STEPS decode
+# steps; 18a holds TP_SEQ_DECODE steps of decode logits against phase 15's
+# control; 18f serves the CPU tests' cases (tests/test_torch_tp_layouts.py):
+# (config, overrides, mesh, requests, prompt) in f32, card against CPU
+TP_SEQ_BATCH, TP_M8, TP_M8_PROMPT, TP_TIMED_STEPS, TP_SEQ_DECODE = 3, 8, 512, 8, 8
+TP_SEQ_RUNS = {"tp_vlm": "16b", "tp_encdec": "16c", "tp_hybrid": "17a"}  # 18b, 18d, 18c
+TP_LAYOUT_SMOKE = (
+    ("minitron-8b-smoke", {}, (2, 2), 1, 64), ("minitron-8b-smoke", {}, (2, 2), 3, 64),
+    ("minitron-8b-smoke", {}, (2, 2), 1, 63), ("minitron-8b-smoke", {}, (2, 2, 2), 2, 64),
+    ("paligemma-3b-smoke", {}, (2, 2), 1, 64),
+    ("hymba-1.5b-smoke", {"num_heads": 5, "num_kv_heads": 1}, (2, 2), 1, 80),
+    ("whisper-large-v3-smoke", {}, (2, 2), 1, 8), ("xlstm-350m-smoke", {}, (1, 8), 2, 40),
+    ("whisper-large-v3-smoke", {"frontend_len": 24}, (1, 8), 2, 8),
+    ("whisper-large-v3-smoke", {"frontend_len": 20}, (1, 8), 2, 8))
 SWEEPS = ("staging_sweep", "combine_sweep")  # tools/<name>.cu, built into build/<name>
 
 
@@ -5336,11 +5383,12 @@ def tp_smoke(torch) -> float:
     return err
 
 
-def tensor_parallel(torch, phase3: dict) -> tuple[dict, dict]:
+def tensor_parallel(torch, phase3: dict, seq_counts: dict) -> tuple[dict, dict]:
     """Phase 15, TP serving: 15a to 15c, the TP engine's own runs, counted
     as the ``serve_tp`` path; then, uncounted, 15b's one-axis and f32
-    references and 15c's flash check; then 15d. Returns the numbers and the
-    path's launch counts."""
+    references; then phase 18a on the same engine and weights, counted into
+    the ``tp_seq`` path's ``seq_counts``; then 15c's flash check and 15d.
+    Returns the numbers and the path's launch counts."""
     from repro_torch import kernels
 
     kernels.reset_launch_counts()
@@ -5349,6 +5397,8 @@ def tensor_parallel(torch, phase3: dict) -> tuple[dict, dict]:
     long_rec = tp_long(torch, engine)
     counts = kernels.launch_counts()
     serve_rec.update(tp_against_one_axis(torch, engine, params, tokens, tp_tokens))
+    seq_rec = tp_seq_minitron(torch, engine, params, {"long": long_rec, "serving": serve_rec},
+                              seq_counts)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5357,7 +5407,7 @@ def tensor_parallel(torch, phase3: dict) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     out = {"distribution": dist_rec, "serving": serve_rec, "long": long_rec,
-           "smoke_err": tp_smoke(torch)}
+           "tp_seq": seq_rec, "smoke_err": tp_smoke(torch)}
     return out, counts
 
 
@@ -5457,8 +5507,9 @@ def tp_family(torch, path: str, arch: str, layers, per_rank: int, prompt: int,
     """Phase 16a, 16b, 16c, 17a or 17b (see the module docstring). Returns
     the numbers, with the path's launch counts under ``counts``: zeroed
     after 16a's table is recorded and read before the one-axis references,
-    the layer check and ``then(engine, one, tokens)``, whose dict joins
-    the numbers (``one``: the one-axis engine on the same weights)."""
+    the layer check and ``then(engine, one, tokens, numbers)``, whose dict
+    joins the numbers (``one``: the one-axis engine on the same weights,
+    ``numbers`` the run's so far)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -5544,10 +5595,6 @@ def tp_family(torch, path: str, arch: str, layers, per_rank: int, prompt: int,
         layer_ratio, mean_ratio, checked = _layer_check(torch, engine, one,
                                                                 rank_batches[0])
     assert layer_ratio <= 1.0, f"a TP {arch} layer lies off the f32 layer: {layer_ratio}"
-    extra = {} if then is None else then(engine, one, tokens)
-    del one, engine, params
-    gc.collect()
-    torch.cuda.empty_cache()
     out = {"layers": cfg.num_layers, "staged_s": staged_s,
            **{f"{how}_s": r["s"] for how, r in dists.items()}, "distributions": dists,
            "peak_gib": peak / 2**30, "generate_s": gen_s,
@@ -5558,8 +5605,13 @@ def tp_family(torch, path: str, arch: str, layers, per_rank: int, prompt: int,
            "layer_limit_ratio": layer_ratio, "layer_mean_err_ratio": mean_ratio,
            "layers_checked": checked, "one_axis": {k: one_axis[k] for k in (
                "distribute_s", "prefill_ms_per_rank", "decode_tokens_per_s")},
-           "serve_s": serve_s, "phase_s": time.perf_counter() - t_start, "counts": counts}
-    out.update(extra)
+           "serve_s": serve_s, "counts": counts}
+    if then is not None:
+        out.update(then(engine, one, tokens, dict(out)))
+    del one, engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_start
     if table is not None:
         out["table_buckets"] = table_rows
     frames = f" + {cfg.frontend_len} frames" if cfg.arch_type == "encdec" else ""
@@ -5628,15 +5680,28 @@ def tp_family_smoke(torch, cases=tuple((name, {}) for name in TP_FAMILY_SMOKE),
     return errs
 
 
-def tp_families(torch, one_axis: dict) -> tuple[dict, dict]:
-    """Phase 16: 16a-16c, each its own path, then 16d. ``one_axis`` holds
-    phases 10, 4d and 13a's numbers by phase. Returns the numbers and the
-    paths' launch counts."""
+def _tp_seq_then(torch, path: str, arch: str, flash: int, seq_counts: dict):
+    """The ``then`` of 16b, 16c and 17a: phase 18b, 18d or 18c on the
+    phase's engine (:func:`tp_seq_family`), its counts added to the
+    ``tp_seq`` path's ``seq_counts``; None for the other runs."""
+    if path not in TP_SEQ_RUNS:
+        return None
+    return lambda engine, one, tokens, rec: {"tp_seq": tp_seq_family(
+        torch, engine, one, tokens, seq_counts, flash, f"serve tp_seq {arch}",
+        TP_SEQ_RUNS[path], rec)}
+
+
+def tp_families(torch, one_axis: dict, seq_counts: dict) -> tuple[dict, dict]:
+    """Phase 16: 16a-16c, each its own path, then 16d; 16b's and 16c's
+    engines serve 18b and 18d, into the ``tp_seq`` path's ``seq_counts``.
+    ``one_axis`` holds phases 10, 4d and 13a's numbers by phase. Returns the
+    numbers and the paths' launch counts."""
     t0 = time.perf_counter()
     out, counts = {}, {}
     for path, arch, layers, per_rank, prompt, flash, phase in TP_FAMILY_RUNS:
         out[path] = tp_family(torch, path, arch, layers, per_rank, prompt, flash,
-                              one_axis[phase], phase)
+                              one_axis[phase], phase,
+                              then=_tp_seq_then(torch, path, arch, flash, seq_counts))
         counts[path] = out[path].pop("counts")
     out["smoke_err"] = tp_family_smoke(torch)
     out["phase_s"] = time.perf_counter() - t0
@@ -5703,22 +5768,407 @@ def tp_ssm_after(torch, path: str, engine, one, tokens) -> dict:
     return out
 
 
-def tp_ssm(torch, one_axis: dict) -> tuple[dict, dict]:
-    """Phase 17: 17a and 17b, each its own path, then 17c. ``one_axis``
+def tp_ssm(torch, one_axis: dict, seq_counts: dict) -> tuple[dict, dict]:
+    """Phase 17: 17a and 17b, each its own path, then 17c; 17a's engine
+    serves 18c, into the ``tp_seq`` path's ``seq_counts``. ``one_axis``
     holds phases 12a and 12b's numbers by phase. Returns the numbers and the
     paths' launch counts."""
     t0 = time.perf_counter()
     out, counts = {}, {}
     for path, arch, layers, per_rank, prompt, flash, phase in TP_SSM_RUNS:
+        seq = _tp_seq_then(torch, path, arch, flash, seq_counts)
+
+        def then(engine, one, tokens, rec, path=path, seq=seq):
+            extra = tp_ssm_after(torch, path, engine, one, tokens)
+            return extra if seq is None else {**extra, **seq(engine, one, tokens, rec)}
         out[path] = tp_family(torch, path, arch, layers, per_rank, prompt, flash,
-                              one_axis[phase], phase,
-                              then=lambda *a, path=path: tp_ssm_after(torch, path, *a))
+                              one_axis[phase], phase, then=then)
         counts[path] = out[path].pop("counts")
     out["smoke_err"] = tp_family_smoke(torch, TP_SSM_SMOKE, TP_SSM_SMOKE_PROMPT,
                                        label="serve tp ssm smoke")
     out["phase_s"] = time.perf_counter() - t0
     log(f"serve tp ssm: phase 17 {out['phase_s']:.1f} s")
     return out, counts
+
+
+def _group_batches(torch, engine, tokens, embeds=None) -> list:
+    """Each serving group of ``engine`` (``Engine.groups``, as
+    ``batch_specs`` places the batch) with its share of the requests."""
+    tok = torch.as_tensor(tokens, device=engine.device)
+    return [(g, {"tokens": tok[g.lo:g.hi], "embeds": None if embeds is None else embeds[g.lo:g.hi]})
+            for g in engine.groups(len(tokens))]
+
+
+def time_groups(torch, engine, tokens, steps: int, embeds=None) -> tuple[float, float, str]:
+    """:func:`time_prefill_decode` over the serving groups: each group's
+    prefill on the shards of its data coordinate 0, its caches cut over the
+    group's mesh, then ``steps`` decode steps, in separate windows closed by
+    a synchronize. Returns the seconds of all groups' prefills and of all
+    their decode steps, and the first group's cache layout
+    (:func:`_cache_slots`)."""
+    T = tokens.shape[1]
+    offset = engine.cfg.prefix_len if engine.cfg.frontend == "vision" else 0
+    prefill_s = decode_s = 0.0
+    layout = None
+    with torch.no_grad():
+        for g, batch in _group_batches(torch, engine, tokens, embeds):
+            params = engine.shards(g.ranks[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = engine.prefill(params, batch, max_len=T + STEPS, mesh=g.mesh)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+            del logits
+            for i in range(steps):
+                logits, caches = engine.decode_step(params, nxt[:, None], caches, T + offset + i)
+                nxt = torch.argmax(logits[:, 0], dim=-1)
+            torch.cuda.synchronize()
+            prefill_s += t1 - t0
+            decode_s += time.perf_counter() - t1
+            layout = layout or _cache_slots(caches)
+            del caches
+    return prefill_s, decode_s, layout
+
+
+def _cache_slots(caches) -> str:
+    """The layout the run served from: the first block's attention and
+    cross caches as the serving group's ranks hold them, each distinct
+    block (slots or frames x kv heads) held once however many ranks list
+    it."""
+    blk = (caches["blocks"] or caches["tail"])[0]
+    parts = []
+    for key in ("attn", "cross"):
+        if key in blk[0]:
+            held = {c[key]["k"].data_ptr(): tuple(c[key]["k"].shape[-3:-1]) for c in blk}
+            parts.append(f"{key} in {len(held)} block(s) of {sorted(set(held.values()))} "
+                         f"(slots, kv heads) over {len(blk)} ranks")
+    return "; ".join(parts) or "no attention cache"
+
+
+def tp_layout_run(torch, label: str, engine, one, tokens, embeds=None, *, flash_per_pass: int,
+                  counts, beside: str = "") -> dict:
+    """One run of phase 18 on ``engine``: ``generate`` (cold), then a warm
+    re-run of its loop group by group (TP_TIMED_STEPS decode steps), the
+    sm90 flash launches of each prefill pass (``flash_per_pass`` a serving
+    group, cold and warm alike) and none of the CUDA-core kernel, the
+    peak; its launch counts added to ``counts``. Then, uncounted: the
+    greedy tokens equal to the one-axis engine ``one``'s on the same
+    weights. Returns the numbers."""
+    import numpy as np
+
+    from repro_torch import kernels
+
+    cfg = engine.cfg
+    groups = engine.groups(len(tokens))
+    prompt = tokens.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate({"tokens": tokens, "embeds": embeds}, steps=STEPS)
+    gen_s = time.perf_counter() - t0
+    cold = kernels.launch_counts()["flash_attention_sm90"]
+    assert res.tokens.shape == (len(tokens), STEPS)
+    assert ((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()
+    assert np.isfinite(res.logprobs).all() and (res.logprobs <= 0).all()
+    prefill_s, decode_s, layout = time_groups(torch, engine, tokens, TP_TIMED_STEPS, embeds)
+    c = kernels.launch_counts()
+    warm = c["flash_attention_sm90"] - cold
+    want = flash_per_pass * len(groups)
+    assert cold == warm == want and c["flash_attention"] == 0, (label, cold, warm, want, c)
+    peak = torch.cuda.max_memory_allocated()
+    assert peak < TP_PEAK_LIMIT, f"{label} peaked at {peak / 2**30:.2f} GiB"
+    for k, n in c.items():
+        counts[k] = counts.get(k, 0) + n
+    ref = one.generate({"tokens": tokens, "embeds": embeds}, steps=STEPS)
+    agree = int((ref.tokens == res.tokens).sum())
+    assert agree == res.tokens.size, (f"{label}: greedy tokens off the one-axis engine's",
+                                      res.tokens, ref.tokens)
+    out = {"requests": len(tokens), "prompt": prompt, "groups": len(groups),
+           "group_ranks": [list(map(int, g.ranks.shape)) for g in groups],
+           "generate_s": gen_s, "prefill_ms": prefill_s / len(groups) * 1e3,
+           "decode_ms_a_step": decode_s / (len(groups) * TP_TIMED_STEPS) * 1e3,
+           "decode_tokens_per_s": len(tokens) * TP_TIMED_STEPS / decode_s,
+           "flash_sm90_a_pass": cold, "peak_gib": peak / 2**30, "layout": layout,
+           "tokens_agree": agree, "tokens": int(res.tokens.size)}
+    log(f"{label}: {len(tokens)} request(s) of {prompt} tokens, {len(groups)} serving "
+        f"group(s) of {out['group_ranks'][0]} (data, model) ranks; caches: {layout}; generate "
+        f"{gen_s:.3f} s (cold); warm prefill {out['prefill_ms']:.2f} ms a group, decode "
+        f"{out['decode_ms_a_step']:.2f} ms a group's step, {out['decode_tokens_per_s']:.1f} "
+        f"tok/s{beside}; flash_attention_sm90 {cold} a pass ({flash_per_pass} a group), "
+        f"flash_attention 0; peak {peak / 2**30:.2f} GiB; greedy tokens equal to the one-axis "
+        f"engine's ({agree} / {res.tokens.size})")
+    return out
+
+
+def tp_seq_logits(torch, engine, one, tokens, control: dict) -> dict:
+    """18a's decode check, after the path's counts: one TP_LONG_PROMPT-token
+    request over both data ranks (the caches' sequence on 'data') and the
+    one-axis engine, both fed the one-axis engine's greedy tokens for
+    TP_SEQ_DECODE decode steps; the decode logits' largest ratio to TP_REL
+    |ref| + TP_ABS and their share over it held within TP_RATIO_MULT and
+    TP_SHARE_MULT of phase 15b's control (one weight element one bf16 step
+    up in the one-axis engine)."""
+    T = tokens.shape[1]
+    (g, batch), = _group_batches(torch, engine, tokens)
+    params, got, want = engine.shards(g.ranks[0]), [], []
+    with torch.no_grad():
+        lt, ct = engine.prefill(params, batch, max_len=T + STEPS, mesh=g.mesh)
+        lo, co = one.prefill(one.replica(0), batch, max_len=T + STEPS)
+        nxt = torch.argmax(lo[:, -1], dim=-1)[:, None]
+        del lt, lo
+        for i in range(TP_SEQ_DECODE):
+            lt, ct = engine.decode_step(params, nxt, ct, T + i)
+            lo, co = one.decode_step(one.replica(0), nxt, co, T + i)
+            got.append(lt[:, 0])
+            want.append(lo[:, 0])
+            nxt = torch.argmax(lo[:, 0], dim=-1)[:, None]
+    err, ratio, share = _logit_diff(torch.cat(got), torch.cat(want))
+    moved = control["one_ulp_weight_logits"]
+    assert ratio <= TP_RATIO_MULT * moved["limit_ratio"] \
+        and share <= TP_SHARE_MULT * moved["share_over_limit"], \
+        ("18a's bf16 decode logits lie farther from the one-axis engine's than the control "
+         "allows", err, ratio, share, moved)
+    log(f"serve tp_seq logits: {TP_SEQ_DECODE} decode steps after one {T}-token request over "
+        f"both data ranks, against the one-axis engine fed the same tokens: max abs diff "
+        f"{err:.4f}, {ratio:.2f} x the limit, {share:.2%} of logits over it, beside phase 15b's "
+        f"control {moved['limit_ratio']:.2f} x, {moved['share_over_limit']:.2%} (held within "
+        f"{TP_RATIO_MULT:g} x and {TP_SHARE_MULT:g} x)")
+    return {"max_abs_err": err, "limit_ratio": ratio, "share_over_limit": share}
+
+
+def _serve_compiled_distribution(torch, engine, params, specs) -> float:
+    """The compiled pipelined chain with ``specs=`` from the rows of data
+    coordinate 0 of ``engine``'s mesh; the engine then serves from its
+    result, every shard bit-equal to its block of ``params``. Returns the
+    host-clock s."""
+    from repro_torch.serve import distribute_weights, replicate
+    from repro_torch.serve.engine import rank_rows
+
+    mesh = engine.mesh
+    engine.params = None  # the rows the chain replaces
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.params = distribute_weights(
+        replicate(params, mesh.size, fill_root_only=True, roots=rank_rows(mesh)[0]), mesh,
+        specs=specs, algo="pipelined_chain", compiled=True, double_buffer=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert _shards_equal(torch, engine.params, params, specs, mesh), "a compiled shard differs"
+    return secs
+
+
+def tp_seq_minitron(torch, engine, params, phase15: dict, counts: dict) -> dict:
+    """Phase 18a on phase 15's engine and weights: the compiled pipelined
+    chain with ``specs=`` (every shard bit-equal to its block) serves the
+    runs, then one TP_LONG_PROMPT-token request over both data ranks (the
+    caches' sequence on 'data', 2064 slots a data rank, the kv heads on
+    'model'; LAYERS x 2 model ranks sm90 launches a pass, computed once) and
+    TP_SEQ_BATCH requests at PROMPT tokens (a batch on no data axis), each
+    beside 15c's and 15b's numbers (:func:`tp_layout_run`); then, after the
+    counts, the decode logits' check (:func:`tp_seq_logits`)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    cfg = engine.cfg
+    specs = param_specs(Model(cfg).param_shapes(), engine.mesh, fsdp=False,
+                        attn_fallback="head_dim")
+    kernels.reset_launch_counts()
+    dist_s = _serve_compiled_distribution(torch, engine, params, specs)
+    c = kernels.launch_counts()
+    for k, n in c.items():
+        counts[k] = counts.get(k, 0) + n
+    one = Engine(cfg, params)
+    rng = np.random.RandomState(18)
+    long_tokens = rng.randint(0, cfg.vocab_size - 1, size=(1, TP_LONG_PROMPT))
+    batch_tokens = rng.randint(0, cfg.vocab_size - 1, size=(TP_SEQ_BATCH, PROMPT))
+    p15, s15 = phase15["long"], phase15["serving"]
+    out = {"compiled_s": dist_s, "distribution_launches": {k: c[k] for k in (
+        "fused_combine", "chunked_copy")}}
+    out["long"] = tp_layout_run(
+        torch, "serve tp_seq minitron-8b long", engine, one, long_tokens,
+        flash_per_pass=LAYERS * engine.tp, counts=counts,
+        beside=f" (15c, one request a data rank: {p15['prefill_ms_per_data_rank']:.2f} ms a data "
+               f"rank)")
+    out["batch"] = tp_layout_run(
+        torch, "serve tp_seq minitron-8b batch", engine, one, batch_tokens, flash_per_pass=0,
+        counts=counts,
+        beside=f" (15b, {BATCH // engine.n} requests a data rank: "
+               f"{s15['prefill_ms_per_data_rank']:.2f} ms a data rank, "
+               f"{s15['decode_tokens_per_s']:.1f} tok/s)")
+    out["logits"] = tp_seq_logits(torch, engine, one, long_tokens, s15)
+    del one
+    log(f"serve tp_seq: phase 18a compiled distribution {dist_s:.3f} s "
+        f"({out['distribution_launches']}), every shard bit-equal")
+    return out
+
+
+def tp_seq_family(torch, engine, one, tokens, counts: dict, flash_per_pass: int,
+                  label: str, phase: str, prior: dict) -> dict:
+    """Phase 18b, 18c or 18d, the ``then`` of 16b, 17a or 16c: one request
+    of the phase's prompt (its first) over both data ranks of its engine
+    (:func:`tp_layout_run`), beside the phase's own numbers ``prior`` (one
+    request a data rank)."""
+    from repro_torch.data.pipeline import batches, make_source
+
+    cfg = engine.cfg
+    embeds = None
+    if cfg.frontend == "vision" or cfg.arch_type == "encdec":
+        embeds = next(batches(make_source(cfg, seed=18), cfg, batch=1, seq=tokens.shape[1],
+                              device="cuda"))["embeds"]
+    return tp_layout_run(
+        torch, label, engine, one, tokens[:1], embeds, flash_per_pass=flash_per_pass,
+        counts=counts,
+        beside=f" (phase {phase}, one request a data rank: "
+               f"{prior['prefill_ms_per_data_rank']:.2f} ms a data rank, "
+               f"{prior['decode_ms_a_step']:.2f} ms a step)")
+
+
+def tp_m8(torch, one_axis: dict) -> tuple[dict, dict]:
+    """Phase 18e, the ``tp_m8`` path: a model axis of TP_M8 ranks, one
+    request each (:func:`tp_layout_run`), every layer against the layer in
+    f32 as phases 16-17 hold it (:func:`_layer_check`, uncounted):
+    minitron-8b (phase 15's LAYERS layers and seed) on (1, 8) with a
+    TP_LONG_PROMPT-token prompt (4 query / 1 kv heads a rank: LAYERS x 8
+    sm90 launches a pass); whisper-large-v3 on (1, 8) with 1500 frames + 4
+    tokens (20 heads of 64: the head-width split, 8 wide a rank; the cross
+    caches' 1500 frames whole); both cut by ``shard_stacked`` (no data
+    level to broadcast over); xlstm-350m on (2, 8) after the staged and the
+    compiled distribution with ``specs=`` (every shard bit-equal), one
+    TP_M8_PROMPT-token request over both data ranks (4 mLSTM heads over 8
+    ranks: 64 of 512 key rows a head a rank, the gates computed once; the
+    states kept once), and its sLSTM loop's launches a token beside phase
+    17b's. ``one_axis``: phases 15c, 16c and 17b's numbers (on 2 model
+    ranks). Returns the numbers and the path's launch counts."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batches, make_source
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    t_start = time.perf_counter()
+    counts, out = {}, {}
+    runs = (("minitron-8b", LAYERS, TP_LONG_PROMPT, LAYERS * TP_M8, "15c"),
+            ("whisper-large-v3", None, ENCDEC_PROMPT, 0, "16c"),
+            ("xlstm-350m", None, TP_M8_PROMPT, 0, "17b"))
+    for arch, layers, prompt, flash, phase in runs:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        params = Model(cfg).init(seed=0, device="cuda")
+        rec = {}
+        if arch == "xlstm-350m":
+            mesh = make_mesh((2, TP_M8), axis_names=("data", "model"), device="cuda")
+            specs = param_specs(Model(cfg).param_shapes(), mesh, fsdp=False,
+                                attn_fallback="head_dim")
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine = Engine(cfg, params, mesh=mesh, distribute=True, double_buffer=True)
+            torch.cuda.synchronize()
+            rec["staged_s"] = time.perf_counter() - t0
+            assert _shards_equal(torch, engine.params, params, specs, mesh), "a staged shard differs"
+            rec["compiled_s"] = _serve_compiled_distribution(torch, engine, params, specs)
+            c = kernels.launch_counts()
+            rec["distribution_launches"] = {k: c[k] for k in ("fused_combine", "chunked_copy")}
+            for k, n in c.items():
+                counts[k] = counts.get(k, 0) + n
+        else:
+            engine = Engine(cfg, params, mesh=make_local_mesh(TP_M8, n=TP_M8, device="cuda"))
+        one = Engine(cfg, params)
+        tokens = np.random.RandomState(18).randint(0, cfg.vocab_size - 1, size=(1, prompt))
+        embeds = None
+        if cfg.arch_type == "encdec":
+            embeds = next(batches(make_source(cfg, seed=18), cfg, batch=1, seq=prompt,
+                                  device="cuda"))["embeds"]
+        prior = one_axis[phase]
+        rec.update(tp_layout_run(
+            torch, f"serve tp_m8 {arch}", engine, one, tokens, embeds, flash_per_pass=flash,
+            counts=counts,
+            beside=f" (phase {phase} on 2 model ranks: "
+                   f"{prior['prefill_ms_per_data_rank']:.2f} ms a data rank)"))
+        # the layer check at a short prompt (the layers' math does not depend on the length)
+        check = {"tokens": torch.as_tensor(tokens[:, :min(prompt, PROMPT)], device="cuda"),
+                 "embeds": embeds}
+        with torch.no_grad():
+            ratio, mean_ratio, checked = _layer_check(torch, engine, one, check)
+        assert ratio <= 1.0, f"a TP {arch} layer on {TP_M8} ranks lies off the f32 layer: {ratio}"
+        rec.update({"layer_limit_ratio": ratio, "layer_mean_err_ratio": mean_ratio,
+                    "layers_checked": checked})
+        log(f"serve tp_m8 {arch} layers: {checked} layers on {TP_M8} model ranks against the "
+            f"layer in f32: the TP layer's largest error within {ratio:.3f} of the one-axis "
+            f"layer's plus one bf16 rounding of its largest output, mean error at most "
+            f"{mean_ratio:.3f} x the one-axis layer's")
+        if arch == "xlstm-350m":
+            rec["slstm_loop"] = slstm_launches(torch, engine, one)
+            prior17 = one_axis["17b"].get("slstm_loop", {}).get("tp", {})
+            log(f"serve tp_m8 slstm loop: {rec['slstm_loop']['tp']['launches_a_token']:.2f} "
+                f"launches and {rec['slstm_loop']['tp']['ms_a_token']:.4f} ms a token on "
+                f"{TP_M8} model ranks beside phase 17b's on 2: "
+                f"{prior17.get('launches_a_token', math.nan):.2f} and "
+                f"{prior17.get('ms_a_token', math.nan):.4f} ms")
+        out[arch] = rec
+        del engine, one, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"serve tp_m8: phase 18e {out['phase_s']:.1f} s")
+    return out, counts
+
+
+def tp_layout_smoke(torch) -> dict:
+    """Phase 18f: the CPU tests' cases (TP_LAYOUT_SMOKE) in f32, distributed
+    and served on the card and on the CPU from one tree: each serving
+    group's prefill logits within 1e-3, the greedy tokens of 8 steps
+    equal."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for i, (name, over, shape, B, T) in enumerate(TP_LAYOUT_SMOKE):
+        cfg = dataclasses.replace(get_config(name), dtype="float32", **over)
+        key = f"{name}{''.join(f' {k}={v}' for k, v in over.items())} {shape} {B}x{T}"
+        params = Model(cfg).init(seed=0, device="cpu")
+        tokens = np.random.RandomState(i).randint(0, 500, size=(B, T))
+        n = cfg.prefix_len if cfg.frontend == "vision" else cfg.frontend_len
+        embeds = None if not n else torch.as_tensor(
+            np.random.RandomState(i + 1).randn(B, n, cfg.d_model).astype(np.float32))
+        names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+        logits, toks = {}, {}
+        for dev in ("cpu", "cuda"):
+            engine = Engine(cfg, tree_map(lambda t: t.to(dev), params),
+                            mesh=make_mesh(shape, axis_names=names, device=dev),
+                            distribute=True, device=dev)
+            emb = None if embeds is None else embeds.to(dev)
+            tok = torch.as_tensor(tokens, device=dev)
+            with torch.no_grad():
+                logits[dev] = torch.cat([
+                    engine.prefill(engine.shards(g.ranks[0]),
+                                   {"tokens": tok[g.lo:g.hi],
+                                    "embeds": None if emb is None else emb[g.lo:g.hi]},
+                                   max_len=T + 8, mesh=g.mesh)[0].cpu()
+                    for g in engine.groups(B)])
+            toks[dev] = engine.generate({"tokens": tokens, "embeds": emb}, steps=8).tokens
+        errs[key] = float((logits["cpu"] - logits["cuda"]).abs().max())
+        assert errs[key] <= 1e-3 and (toks["cpu"] == toks["cuda"]).all(), (key, errs, toks)
+    log(f"serve tp layouts smoke: f32, the CPU tests' cases, card vs CPU, max abs prefill "
+        f"logit diff {errs} (tol 1e-3), greedy tokens equal")
+    return errs
 
 
 def main() -> int:
@@ -5916,16 +6366,25 @@ def main() -> int:
     mark("hierarchical mesh (14)")
     gc.collect()
     torch.cuda.empty_cache()
-    tp, tp_counts = tensor_parallel(torch, serving)
-    mark("tensor-parallel serving (15)")
+    seq_counts = {}  # the tp_seq path: phase 18a-18d's runs inside phases 15-17
+    tp, tp_counts = tensor_parallel(torch, serving, seq_counts)
+    mark("tensor-parallel serving (15, 18a)")
     gc.collect()
     torch.cuda.empty_cache()
-    tp_fam, tp_fam_counts = tp_families(torch, {"10": moe_serving, "4d": vlm, "13a": encdec})
-    mark("tensor-parallel families (16)")
+    tp_fam, tp_fam_counts = tp_families(torch, {"10": moe_serving, "4d": vlm, "13a": encdec},
+                                        seq_counts)
+    mark("tensor-parallel families (16, 18b, 18d)")
     gc.collect()
     torch.cuda.empty_cache()
-    tp_rec, tp_rec_counts = tp_ssm(torch, {"12a": hybrid, "12b": recurrent})
-    mark("tensor-parallel recurrent and hybrid (17)")
+    tp_rec, tp_rec_counts = tp_ssm(torch, {"12a": hybrid, "12b": recurrent}, seq_counts)
+    mark("tensor-parallel recurrent and hybrid (17, 18c)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp8, tp8_counts = tp_m8(torch, {"15c": tp["long"], "16c": tp_fam["tp_encdec"],
+                                    "17b": tp_rec["tp_recurrent"]})
+    mark("a model axis of 8 (18e)")
+    tp8["smoke_err"] = tp_layout_smoke(torch)
+    mark("tensor-parallel layouts smoke, card against CPU (18f)")
     # each kernel on the path that runs it: the merge on the serving and
     # training paths (the MoE and vision-prefix trainings of phases 6m and 6v
     # and the four families' of 6f too) and the streams phase, the staging
@@ -5959,18 +6418,21 @@ def main() -> int:
     # distribution) and the sm90 flash kernel on tp_vlm (paligemma's prefills on
     # the head-dim split); the merge and the staging copy on both of phase 17's
     # paths (tp_hybrid, tp_recurrent: their distributions) and the sm90 flash
-    # kernel on tp_hybrid (hymba's prefills on the head-dim split); and the
-    # shared-buffer
+    # kernel on tp_hybrid (hymba's prefills on the head-dim split); the merge,
+    # the staging copy and the sm90 flash kernel on phase 18's two paths (tp_seq:
+    # 18a's compiled distribution and the long prompts' prefills; tp_m8: xlstm's
+    # two distributions on (2, 8) and minitron's prefills on 8 model ranks); and
+    # the shared-buffer
     # replay on none of the port's (the reference, too, reaches it only off
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
-    paths = {"fused_combine": ("tp_hybrid", "tp_recurrent", "tp_moe", "tp_vlm", "tp_encdec",
+    paths = {"fused_combine": ("tp_seq", "tp_m8", "tp_hybrid", "tp_recurrent", "tp_moe", "tp_vlm", "tp_encdec",
                                "train_tp", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                                "serve_hybrid", "serve_recurrent",
                                "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
                                "train_vlm", *family_counts, "algorithms", "online",
                                "streams"),
-             "chunked_copy": ("tp_hybrid", "tp_recurrent", "tp_moe", "tp_vlm", "tp_encdec",
+             "chunked_copy": ("tp_seq", "tp_m8", "tp_hybrid", "tp_recurrent", "tp_moe", "tp_vlm", "tp_encdec",
                               "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
                               "serve_hybrid", "serve_recurrent",
                               "faults", "serve_moe", "serve", "serve_long", "serve_vlm", "trees",
@@ -5980,7 +6442,7 @@ def main() -> int:
              "inkernel_replay": (),
              "inkernel_rdma": ("tp_moe", "train_tp", "hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
-             "flash_attention_sm90": ("tp_hybrid", "tp_vlm", "serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
+             "flash_attention_sm90": ("tp_seq", "tp_m8", "tp_hybrid", "tp_vlm", "serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
                                       "serve_mha"),
              "flash_attention": ("reference_long",),
              "mix": (), "scaled_add": ()}
@@ -5993,7 +6455,7 @@ def main() -> int:
               "faults": fault_counts, "serve_hybrid": hybrid_counts,
               "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
               "serve_mha": mha_counts, "hierarchical": hier_counts, "serve_tp": tp_counts,
-              "train_tp": train_tp_counts,
+              "train_tp": train_tp_counts, "tp_seq": seq_counts, "tp_m8": tp8_counts,
               **family_counts, **tp_fam_counts, **tp_rec_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
@@ -6040,6 +6502,7 @@ def main() -> int:
     log(f"tensor-parallel numbers: {json.dumps(tp)}")
     log(f"tensor-parallel family numbers: {json.dumps(tp_fam)}")
     log(f"tensor-parallel recurrent and hybrid numbers: {json.dumps(tp_rec)}")
+    log(f"tensor-parallel model axis of 8 numbers: {json.dumps(tp8)}")
     check_trap(torch)
     mark("trap check")
     log("phase ends, s from the build's start: "

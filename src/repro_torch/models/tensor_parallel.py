@@ -18,19 +18,31 @@ GSPMD inserts the reference's model-axis all-reduce or all-gather:
     slice's gradient sums each row's occurrences in f32 and rounds once,
     as the one-axis embedding does (:func:`.layers.row_grad`);
   * attention: each rank attends on its heads, giving a partial of the
-    output projection (``layers._out_proj``), its cache holding its kv
-    heads (``cache_specs``' share). Where the kv heads do not divide
-    (``attn_fallback='head_dim'``: paligemma's one kv head, and the query
-    heads too when they do not divide), each rank projects head-width
-    slices, which are gathered into full-width heads; prefill attends on
-    the rank's query heads (all of them when they do not divide) and keeps
-    ``cache_specs``' sequence split (slots ``[m S/M, (m+1) S/M)`` on rank
-    ``m`` when S divides, else the whole cache); decode writes the new
-    token into the rank that owns its slot, attends with every query head
-    over each rank's slots and merges the ranks' partials by their f32
-    log-sum-exp (flash decoding, :func:`merge_shards`);
-  * a decoder block's cross attention, on the rank's heads of the
-    encoder's keys and values, which prefill keeps as its cache;
+    output projection (``layers._out_proj``). Where the kv heads do not
+    divide (``attn_fallback='head_dim'``: paligemma's one kv head, and the
+    query heads too when they do not divide), each rank projects
+    head-width slices, which are gathered into full-width heads, and
+    prefill attends on the rank's query heads (all of them when they do
+    not divide);
+  * the caches, in one place (:func:`_cut_cache`): prefill computes each
+    attention and cross cache once and cuts it over the serving group's
+    ('data', 'model') mesh as ``cache_specs`` places it there
+    (``shard_slices``), so every (data, model) rank holds exactly its
+    block: its kv heads on 'model' when they divide, else the sequence
+    (or a cross cache's frames) on 'model' when it divides; for a batch
+    that divides no data axis, the sequence on 'data' too where it
+    divides (on ('data', 'model') jointly, data-major, over one kv head);
+    a block several ranks hold (a cache whole on an axis, ``pos``) is one
+    tensor. Decode writes the new token into the one block that owns slot
+    ``cur_pos % S``, attends over each block's slots and merges the blocks'
+    partials in slot order by their f32 log-sum-exp (flash decoding,
+    :func:`merge_shards`): every query head over every block on the
+    head-dim split, each rank's heads over its kv heads' blocks (one a
+    data rank) on the heads;
+  * a decoder block's cross attention to the encoder's keys and values,
+    which prefill keeps as its cache: on the rank's heads, or on its
+    head-width slices of q, k and v, gathered into full-width heads, when
+    the kv heads do not divide (whisper-large-v3's 20 on 8 ranks);
   * the MLP: a partial of ``down_proj`` from each rank's width slice;
   * MoE: the ranks' f32 router logits concatenated in expert order and
     routed by the one-axis code (``moe.route_logits``), the expert shards'
@@ -45,9 +57,11 @@ GSPMD inserts the reference's model-axis all-reduce or all-gather:
     for its channels from every rank's ``a_log`` block (cut on N), and
     ``y * silu(z)`` is gathered along the channels for the ranks' ``w_out``
     columns. mLSTM on the rank's key dims of every head (its rows of ``C``
-    and ``n``): q and k cut so from the ranks' head-cut projections, v, g
-    and the gates whole; its partial numerator and normalizer are summed
-    over the ranks before ``num / (|nq| + 1)``. sLSTM on the rank's slice
+    and ``n``): q and k cut so from the ranks' head-cut projections (a
+    piece may hold part of a head: xlstm-350m's 4 heads on 8 ranks), v, g
+    and the gates whole (the gates computed once from rank 0's copy where
+    ``param_specs`` replicates them); its partial numerator and normalizer
+    are summed over the ranks before ``num / (|nq| + 1)``. sLSTM on the rank's slice
     of d (its c, n, h): the prompt's input projection gathered once, then a
     token at a time h gathered, each rank's columns of the head-major
     recurrent mixing gathered, each rank's cell on its slice of the four
@@ -71,7 +85,12 @@ Serving covers the decoders over text and over a vision prefix (the
 prefix-LM mask, the prefix dropped before the unembedding), the
 encoder-decoder (the encoder's blocks through the same TP block,
 bidirectional), and the recurrent and hybrid families, with attention, MoE,
-mLSTM, sLSTM and hybrid blocks; training covers the dense decoders whose
+mLSTM, sLSTM and hybrid blocks, for any batch: one serving group's
+requests (``serve.engine.serving_groups``, as ``batch_specs`` places the
+batch) are computed once, on the model ranks of its data coordinate 0, and
+its caches are cut over all its ranks; a recurrent state's batch is
+replicated over the data axes, so each model rank's is kept once, listed
+at every data rank of the group. Training covers the dense decoders whose
 heads, kv heads, ``d_ff`` and padded vocab divide the model axis.
 Everything else on a model axis (in training every other family, the SSM
 mixers included) raises a ``ValueError`` naming the ROADMAP item
@@ -80,11 +99,15 @@ mixers included) raises a ``ValueError`` naming the ROADMAP item
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..dist.hints import hint
+from ..dist.sharding import cache_specs, shard_slices
+from ..dist.topology import DP_AXES, TP_AXIS
+from ..launch.mesh import EmulatedMesh
 from . import moe as moe_lib
 from . import ssm
 from .blocks import attn_spec_for, prefill_cache
@@ -92,6 +115,7 @@ from .layers import (
     _fill_cache,
     _out_proj,
     _qkv,
+    _sdpa,
     attend,
     attention,
     cross_entropy_loss,
@@ -117,12 +141,13 @@ def check_tensor_parallel(cfg, m: int, *, mode: str = "train") -> None:
     ``'train'``: a dense decoder over text whose heads, kv heads, ``d_ff``
     and padded vocab divide ``m``. ``'serve'``: a decoder (over text or a
     vision prefix) or the encoder-decoder whose attention's query and kv
-    heads or else their head width divide ``m``
-    (``attn_fallback='head_dim'``; an encoder-decoder's heads must divide,
-    or its cross caches' sequence would split), whose experts or expert
-    width divide, whose recurrent mixers are cut where the TP mixers read
-    them (:func:`_mixer_cuts`), and whose dense and shared-expert MLP
-    widths and padded vocab divide."""
+    heads, self and cross, or else their head width divide ``m``
+    (``attn_fallback='head_dim'``), whose experts or expert width divide,
+    whose recurrent mixers are cut where the TP mixers read them
+    (:func:`_mixer_cuts`: an mLSTM's heads need not divide, its state's key
+    rows must), and whose dense and shared-expert MLP widths and padded
+    vocab divide. Any batch serves: :func:`apply_lm_tp` cuts each cache as
+    ``cache_specs`` places it on the serving group's mesh."""
     if mode not in ("train", "serve"):
         raise ValueError(f"mode {mode!r}: a model axis trains or serves")
     why = []
@@ -146,8 +171,6 @@ def check_tensor_parallel(cfg, m: int, *, mode: str = "train") -> None:
         cuts = (_head_cut(H, hd, m), _head_cut(KV, hd, m))
         if attends and None in cuts:
             why.append(f"{H} query and {KV} kv heads of width {hd}, neither dividing")
-        elif attends and cfg.arch_type == "encdec" and cuts != ("heads", "heads"):
-            why.append(f"an encoder-decoder's cross caches over {KV} kv heads")
         E, f = cfg.num_experts, cfg.d_ff
         if "moe" in kinds and E % m and f % m:
             why.append(f"{E} experts of width {f}, neither dividing")
@@ -182,7 +205,7 @@ def _mixer_cuts(cfg, m: int, kinds) -> list:
     di = cfg.ssm_expand * d
     if "mlstm" in kinds:
         hd = di // H
-        if (di % m or H % m or hd % m or d % m or _state_cut((H, hd, hd), m) != 1
+        if (di % m or hd % m or d % m or _state_cut((H, hd, hd), m) != 1
                 or _state_cut((H, hd), m) != 1):
             why.append(f"an mLSTM of {H} heads of {hd} (its state cut off the key dim)")
     if "slstm" in kinds and (d % m or (4 * d // H) % m):
@@ -280,19 +303,6 @@ def merge_shards(parts: list) -> torch.Tensor:
     return model_axis_sum([torch.exp(l - lse)[..., None] * o for o, l in parts])
 
 
-def _decode_over_shards(q: torch.Tensor, caches: list, valid: torch.Tensor) -> torch.Tensor:
-    """Decode attention of all query heads ``q`` (B, 1, H, hd) over the
-    ranks' caches as :func:`_cut_cache` lays them out, ``valid`` (S,) the
-    slots that hold a key: each rank over its own slots, merged
-    (:func:`merge_shards`), or over the whole cache once when every rank
-    keeps it. Returns f32 (B, 1, H, hd)."""
-    n = caches[0]["k"].shape[1]
-    if n == valid.shape[0]:
-        return decode_shard(q, caches[0]["k"], caches[0]["v"], valid)[0]
-    return merge_shards([decode_shard(q, c["k"], c["v"], valid[r * n:(r + 1) * n])
-                         for r, c in enumerate(caches)])
-
-
 def _heads_kv(k, v, r: int, hq: int, group: int):
     """The kv heads that rank ``r``'s query heads ``[r hq, (r+1) hq)`` read
     (query head ``h`` reads kv head ``h // group``), as a (k, v) pair GQA
@@ -306,21 +316,117 @@ def _heads_kv(k, v, r: int, hq: int, group: int):
     return pick(k), pick(v)
 
 
-def _cut_cache(cache: dict, m: int) -> list:
-    """A full-width attention cache cut as ``cache_specs`` places it when
-    its kv heads do not divide the model ranks: rank ``r`` keeps slots
-    ``[r S/M, (r+1) S/M)`` when S divides, else the whole cache; ``pos``
-    is replicated."""
-    S = cache["k"].shape[1]
-    if S % m:
-        return [cache] * m
-    n = S // m
-    return [{"k": cache["k"][:, r * n:(r + 1) * n], "v": cache["v"][:, r * n:(r + 1) * n],
-             "pos": cache["pos"]} for r in range(m)]
+def one_data_rank(m: int) -> EmulatedMesh:
+    """The ('data', 'model') mesh of one data rank's ``m`` model ranks: the
+    serving group of :func:`apply_lm_tp` called without ``cache_mesh``
+    (only its axes and shape are read)."""
+    return EmulatedMesh((1, m), torch.device("meta"), (DP_AXES[-1], TP_AXIS))
+
+
+@functools.lru_cache(maxsize=None)
+def _cache_blocks(shape: tuple, mesh) -> tuple:
+    """Each rank of ``mesh``'s block of an attention or cross cache whose
+    ``k``/``v`` are ``shape`` (B, S, KV, hd): ``(its slices of k and v, of
+    pos (S,))`` a rank, as ``cache_specs`` places the cache on ``mesh``."""
+    specs = cache_specs({"k": torch.empty(shape, device="meta"),
+                         "pos": torch.empty(shape[1:2], device="meta")}, mesh, None)
+    return tuple((shard_slices(specs["k"], shape, mesh, r),
+                  shard_slices(specs["pos"], shape[1:2], mesh, r)) for r in range(mesh.size))
+
+
+def _block_of(pieces: list, sl: tuple, dim: int) -> torch.Tensor:
+    """The block ``sl`` (a slice a dim) of the whole that ``pieces`` form
+    concatenated along ``dim``, read from the one piece that holds it (the
+    whole is never assembled): the piece itself when the block is all of
+    it, else a copy of its part."""
+    j, lo = divmod(sl[dim].start, pieces[0].shape[dim])
+    piece = pieces[j]
+    local = sl[:dim] + (slice(lo, lo + sl[dim].stop - sl[dim].start),) + sl[dim + 1:]
+    if all(s.start == 0 and s.stop == n for s, n in zip(local, piece.shape)):
+        return piece
+    return piece[local].clone(memory_format=torch.contiguous_format)
+
+
+def _cut_cache(cache, mesh) -> list:
+    """An attention or cross cache cut over the ranks of ``mesh`` (a
+    serving group's ('data', 'model') mesh, ranks data-major; an int M: one
+    data rank's M model ranks) as ``cache_specs`` places it: rank ``r``'s
+    dict holds its block of ``k`` and ``v`` and the replicated ``pos``.
+    ``cache`` is the whole cache, or the model ranks' caches of their kv
+    heads in model-rank order (the spec then cuts the kv heads on 'model').
+    A block that several ranks hold (a cache whole on an axis, ``pos``) is
+    one tensor, held once."""
+    if isinstance(mesh, int):
+        mesh = one_data_rank(mesh)
+    parts = cache if isinstance(cache, list) else [cache]
+    shape = list(parts[0]["k"].shape)
+    shape[2] *= len(parts)
+    held, out = {}, []
+    for kv_sl, pos_sl in _cache_blocks(tuple(shape), mesh):
+        block = {}
+        for key in parts[0]:
+            sl = pos_sl if key == "pos" else kv_sl
+            tag = (key,) + tuple((s.start, s.stop) for s in sl)
+            if tag not in held:
+                pieces = [parts[0][key]] if key == "pos" else [p[key] for p in parts]
+                held[tag] = _block_of(pieces, sl, 0 if key == "pos" else 2)
+            block[key] = held[tag]
+        out.append(block)
+    return out
+
+
+def _distinct(caches: list) -> list:
+    """The caches of ``caches`` (the ranks' blocks of one cache, in rank
+    order) that hold distinct blocks: a block held once is listed at every
+    rank that holds it, and read once. In rank order they are in slot
+    order."""
+    seen, out = set(), []
+    for c in caches:
+        if c["k"].data_ptr() not in seen:
+            seen.add(c["k"].data_ptr())
+            out.append(c)
+    return out
+
+
+def _decode_over_shards(q: torch.Tensor, caches: list, valid: torch.Tensor) -> torch.Tensor:
+    """Decode attention of the query heads ``q`` (B, 1, H, hd) over the
+    ranks' blocks ``caches`` of one cache, cut on the sequence as
+    :func:`_cut_cache` cuts it, ``valid`` (S,) the slots that hold a key:
+    over each distinct block's slots, the blocks' partials merged in slot
+    order (:func:`merge_shards`), or over the whole cache once when one
+    block holds it. Returns f32 (B, 1, H, hd)."""
+    blocks = _distinct(caches)
+    if len(blocks) == 1:
+        return decode_shard(q, blocks[0]["k"], blocks[0]["v"], valid)[0]
+    n = blocks[0]["k"].shape[1]
+    return merge_shards([decode_shard(q, c["k"], c["v"], valid[i * n:(i + 1) * n])
+                         for i, c in enumerate(blocks)])
+
+
+def _write_token(caches: list, k: torch.Tensor, v: torch.Tensor, cur_pos: int) -> None:
+    """Decode's new token: its ``k``/``v`` (B, 1, KV, hd) into the one block
+    of ``caches`` that owns slot ``cur_pos % S``, and ``cur_pos`` into the
+    replicated ``pos`` (once each, however many ranks hold them)."""
+    blocks = _distinct(caches)
+    S, n = caches[0]["pos"].shape[0], blocks[0]["k"].shape[1]
+    slot = cur_pos % S
+    c = blocks[slot // n]
+    c["k"][:, slot % n] = k[:, 0].to(c["k"].dtype)
+    c["v"][:, slot % n] = v[:, 0].to(c["v"].dtype)
+    for pos in {c["pos"].data_ptr(): c["pos"] for c in caches}.values():
+        pos[slot] = cur_pos
+
+
+def _valid(cache: dict, cur_pos: int, spec) -> torch.Tensor:
+    """The slots of a cache's ``pos`` that decode at ``cur_pos`` attends."""
+    valid = cache["pos"] >= 0
+    if spec.window is not None:
+        valid = valid & (cache["pos"] > cur_pos - spec.window)
+    return valid
 
 
 def _fallback_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, caches, cur_pos,
-                        max_len: int, prefix_len: int):
+                        max_len: int, prefix_len: int, mesh):
     """Attention under ``attn_fallback='head_dim'`` (the kv heads, and maybe
     the query heads, do not divide the model ranks): each rank projects its
     head-width slices (``wk``/``wv``, and ``wq`` when the query heads do not
@@ -329,10 +435,12 @@ def _fallback_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, cach
     Train and prefill: each rank attends with its own query heads, or, when
     they do not divide, all of them (computed once: every rank's inputs are
     the same), and takes its part of the output for its block of ``wo``;
-    prefill cuts the full-width cache per :func:`_cut_cache`. Decode: the
-    new token's k/v go into the rank that owns slot ``cur_pos % S``, every
-    rank attends with all query heads over its own slots
-    (:func:`.layers.decode_shard`) and the ranks' partials are merged
+    prefill cuts the full-width cache over the group's ranks ``mesh``
+    (:func:`_cut_cache`: the sequence on 'model', on 'data' or on both when
+    they divide it, else whole). Decode: the new token's k/v go into the
+    block that owns slot ``cur_pos % S`` (:func:`_write_token`), all query
+    heads attend over each block's slots (:func:`.layers.decode_shard`) and
+    the partials are merged in (data, model) rank order
     (:func:`merge_shards`). Returns (the model-axis sum of the ranks'
     output-projection partials, the ranks' attention caches)."""
     m = len(ps)
@@ -349,17 +457,8 @@ def _fallback_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, cach
     k = rot(k)
     if mode == "decode":
         q = rot(model_axis_gather(qs, 2 if q_cut == "heads" else -1))
-        S, n = caches[0]["pos"].shape[0], caches[0]["k"].shape[1]
-        slot = cur_pos % S
-        for r, c in enumerate(caches):
-            c["pos"][slot] = cur_pos
-            if n == S or slot // n == r:
-                c["k"][:, slot % n] = k[:, 0].to(c["k"].dtype)
-                c["v"][:, slot % n] = v[:, 0].to(c["v"].dtype)
-        valid = caches[0]["pos"] >= 0
-        if spec.window is not None:
-            valid = valid & (caches[0]["pos"] > cur_pos - spec.window)
-        out = _decode_over_shards(q, caches, valid).to(q.dtype)
+        _write_token(caches, k, v, cur_pos)
+        out = _decode_over_shards(q, caches, _valid(caches[0], cur_pos, spec)).to(q.dtype)
         outs = out.chunk(m, dim=2 if q_cut == "heads" else -1)
     elif q_cut == "heads":
         hq = H // m
@@ -371,54 +470,128 @@ def _fallback_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, cach
         outs = out.chunk(m, dim=-1)
     y = model_axis_sum([_out_proj(o, p["attn"]["wo"]) for o, p in zip(outs, ps)])
     if mode == "prefill":
-        caches = _cut_cache(prefill_cache(_fill_cache(k, v, spec, T), max_len, spec, cfg), m)
+        caches = _cut_cache(prefill_cache(_fill_cache(k, v, spec, T), max_len, spec, cfg), mesh)
     return y, (None if mode == "train" else caches)
 
 
+def _decode_heads(p, h: torch.Tensor, spec, blocks: list, cur_pos: int) -> torch.Tensor:
+    """Decode on one model rank's heads (``spec`` cut to them) over its kv
+    heads' blocks ``blocks``, one a data rank (the cache's sequence on
+    'data'): the new token into the block that owns its slot, the partials
+    of each block's slots merged in data-rank order. Returns the rank's
+    output-projection partial."""
+    q, k, v = _qkv(p, spec, h)
+    if spec.use_rope:
+        pos = torch.full((h.shape[0], 1), cur_pos, dtype=torch.int32, device=h.device)
+        q, k = rope(q, pos, spec.rope_theta), rope(k, pos, spec.rope_theta)
+    _write_token(blocks, k, v, cur_pos)
+    out = _decode_over_shards(q, blocks, _valid(blocks[0], cur_pos, spec))
+    return _out_proj(out.to(q.dtype), p["wo"])
+
+
 def _self_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, caches, cur_pos,
-                    max_len: int, prefix_len: int):
+                    max_len: int, prefix_len: int, mesh):
     """The block's self-attention over the model ranks: on each rank's heads
-    when the heads and kv heads divide (each rank's cache its kv heads),
-    else :func:`_fallback_attention`. Returns (the summed output, the
-    ranks' attention caches, None in train mode)."""
+    when the heads and kv heads divide, else :func:`_fallback_attention`.
+    On the heads, prefill cuts the model ranks' caches of their kv heads
+    over the group's ranks ``mesh`` (:func:`_cut_cache`: the sequence on
+    'data' too when the group spans data ranks and it divides), and decode
+    runs each rank's heads over its kv heads' blocks: through
+    ``layers.attention`` when one block holds its whole sequence, else
+    :func:`_decode_heads`. Returns (the summed output, the ranks' attention
+    caches, None in train mode)."""
     m = len(ps)
     if _head_cut(spec.num_kv_heads, spec.head_dim, m) != "heads":
         return _fallback_attention(ps, h, cfg, spec, mode=mode, caches=caches, cur_pos=cur_pos,
-                                   max_len=max_len, prefix_len=prefix_len)
+                                   max_len=max_len, prefix_len=prefix_len, mesh=mesh)
     spec = dataclasses.replace(spec, num_heads=spec.num_heads // m,
                                num_kv_heads=spec.num_kv_heads // m)
     ys, out = [], []
     for r, p in enumerate(ps):
+        if mode == "decode" and len(_distinct(caches[r::m])) > 1:
+            ys.append(_decode_heads(p["attn"], h, spec, caches[r::m], cur_pos))
+            continue
         y, ac = attention(p["attn"], h, spec, mode=mode, cur_pos=cur_pos, prefix_len=prefix_len,
                           cache=None if caches is None else caches[r])
         ys.append(y)
-        out.append(prefill_cache(ac, max_len, spec, cfg) if mode == "prefill" else ac)
-    return model_axis_sum(ys), (None if mode == "train" else out)
+        if mode == "prefill":
+            out.append(prefill_cache(ac, max_len, spec, cfg))
+    if mode == "prefill":
+        caches = _cut_cache(out, mesh)
+    return model_axis_sum(ys), (None if mode == "train" else caches)
 
 
-def _cross_attention(ps: list, h: torch.Tensor, cross_inputs, spec, *, mode: str, caches):
-    """A decoder block's cross attention on each rank's heads of
-    ``cross.wq/wk/wv/wo`` (and biases): train and prefill project the
-    encoder's normed output ``cross_inputs`` to the rank's K/V heads, which
-    prefill keeps; decode reads them from ``caches`` and hands them back,
-    the same tensors. Returns (the summed output, the ranks' cross caches)."""
+def _cross_proj(cp, x: torch.Tensor, name: str) -> torch.Tensor:
+    """A model rank's heads or head-width slices of the cross attention's
+    ``name`` ('q', 'k' or 'v') projection of ``x``, its bias added."""
+    y = torch.einsum("btd,dhk->bthk", x, cp["w" + name])
+    return y + cp["b" + name] if "b" + name in cp else y
+
+
+def _attend_frames(q: torch.Tensor, caches: list, spec) -> torch.Tensor:
+    """Cross attention of ``q`` (B, T, H, hd) over every frame of the
+    ranks' blocks ``caches`` of the cross keys and values, no mask: over the
+    one block that holds them all as the one-axis cross attention attends
+    (``_sdpa``), else each block's partial merged in rank order. Returns
+    q's dtype."""
+    blocks = _distinct(caches)
+    frames = sum(c["k"].shape[1] for c in blocks)
+    if len(blocks) == 1:
+        mask = torch.ones((1, q.shape[1], frames), dtype=torch.bool, device=q.device)
+        return _sdpa(q, blocks[0]["k"], blocks[0]["v"], mask, spec)
+    valid = torch.ones(frames, dtype=torch.bool, device=q.device)
+    return _decode_over_shards(q, blocks, valid).to(q.dtype)
+
+
+def _cross_attention(ps: list, h: torch.Tensor, cross_inputs, spec, *, mode: str, caches, mesh):
+    """A decoder block's cross attention over the model ranks. Train and
+    prefill project the encoder's normed output ``cross_inputs`` to keys
+    and values, which prefill cuts over the group's ranks ``mesh`` as its
+    cross cache (:func:`_cut_cache`: the kv heads on 'model' when they
+    divide, the frames on 'model' when they do not and the frames divide,
+    on 'data' when the group spans data ranks and they divide, else
+    whole); decode reads the blocks from ``caches`` and hands them back, the
+    same tensors. On each rank's heads when the kv heads divide (through
+    ``layers.attention`` when one block holds a rank's frames); else, under
+    ``attn_fallback='head_dim'``, each rank projects its head-width slices
+    of q, k and v, gathered into full-width heads, and takes its slice of
+    the output for its rows of ``wo``. Decode over blocks of the frames
+    merges each block's partial (:func:`_attend_frames`). Returns (the
+    summed output, the ranks' cross caches)."""
     m = len(ps)
-    spec = dataclasses.replace(spec, num_heads=spec.num_heads // m,
-                               num_kv_heads=spec.num_kv_heads // m)
-    ys, out = [], []
-    for r, p in enumerate(ps):
-        cp = p["cross"]
-        if mode == "decode":
-            cc = caches[r]
-        else:
-            ck = torch.einsum("bsd,dhk->bshk", cross_inputs, cp["wk"])
-            cv = torch.einsum("bsd,dhk->bshk", cross_inputs, cp["wv"])
-            if spec.qkv_bias:
-                ck, cv = ck + cp["bk"], cv + cp["bv"]
-            cc = {"k": ck, "v": cv}
-        ys.append(attention(cp, h, spec, cross_kv=(cc["k"], cc["v"]))[0])
-        out.append(cc)
-    return model_axis_sum(ys), out
+    cps = [p["cross"] for p in ps]
+    H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    if _head_cut(KV, hd, m) == "heads":
+        spec = dataclasses.replace(spec, num_heads=H // m, num_kv_heads=KV // m)
+        ys, out = [], []
+        for r, cp in enumerate(cps):
+            if mode == "decode":
+                mine = caches[r::m]
+                if len(_distinct(mine)) > 1:
+                    ys.append(_out_proj(_attend_frames(_cross_proj(cp, h, "q"), mine, spec),
+                                        cp["wo"]))
+                    continue
+                cc = mine[0]
+            else:
+                cc = {"k": _cross_proj(cp, cross_inputs, "k"),
+                      "v": _cross_proj(cp, cross_inputs, "v")}
+                out.append(cc)
+            ys.append(attention(cp, h, spec, cross_kv=(cc["k"], cc["v"]))[0])
+        if mode == "prefill":
+            caches = _cut_cache(out, mesh)
+        return model_axis_sum(ys), caches
+    q_dim = 2 if _head_cut(H, hd, m) == "heads" else -1
+    q = model_axis_gather([_cross_proj(cp, h, "q") for cp in cps], q_dim)
+    if mode == "decode":
+        out = _attend_frames(q, caches, spec)
+    else:
+        whole = {key: model_axis_gather([_cross_proj(cp, cross_inputs, key) for cp in cps], -1)
+                 for key in ("k", "v")}
+        out = _attend_frames(q, [whole], spec)
+        if mode == "prefill":
+            caches = _cut_cache(whole, mesh)
+    y = model_axis_sum([_out_proj(o, cp["wo"]) for o, cp in zip(out.chunk(m, dim=q_dim), cps)])
+    return y, caches
 
 
 def _moe(ps: list, h: torch.Tensor, cfg):
@@ -454,19 +627,28 @@ def _moe(ps: list, h: torch.Tensor, cfg):
 
 def _mlstm_proj(p, x: torch.Tensor):
     """A model rank's mLSTM projections from its blocks: its columns of q,
-    k, v and g and of the f32 input and forget gates' logits."""
+    k, v and g."""
+    return x @ p["wq"], x @ p["wk"], x @ p["wv"], x @ p["wg"]
+
+
+def _mlstm_gates(p, x: torch.Tensor):
+    """The f32 input and forget gates' logits of ``p``'s columns of ``wi``
+    and ``wf``."""
     xf = x.float()
-    return x @ p["wq"], x @ p["wk"], x @ p["wv"], x @ p["wg"], xf @ p["wi"], xf @ p["wf"]
+    return xf @ p["wi"], xf @ p["wf"]
 
 
 def _mlstm_tp(ps: list, x: torch.Tensor, cfg, *, mode: str, caches):
     """The mLSTM over the model ranks, each rank's state (``C`` (B, H, hd /
     M, hd), ``n`` (B, H, hd / M)) its key rows of every head: rank ``r``
     takes its key dims of every head of q and k from the ranks' head-cut
-    projections (:func:`model_axis_take`), v, g and the gates whole, and
-    computes its partial numerator and normalizer (linear in its key
-    slice); the partials are summed before ``num / (|nq| + 1)``, whose abs
-    is not linear. Each rank carries its own rows. The output ``g * h``
+    projections (:func:`model_axis_take`; a piece may hold part of a head
+    when H does not divide M), v, g and the gates whole (the gates' logits
+    gathered from the ranks' columns, or, when H does not divide and
+    ``param_specs`` replicates ``wi``/``wf``, computed once from rank 0's
+    copy), and computes its partial numerator and normalizer (linear in its
+    key slice); the partials are summed before ``num / (|nq| + 1)``, whose
+    abs is not linear. Each rank carries its own rows. The output ``g * h``
     goes through each rank's ``wo`` columns, gathered along d. Returns (y,
     the ranks' states: prefill's new ones, decode's written in place)."""
     m = len(ps)
@@ -475,14 +657,19 @@ def _mlstm_tp(ps: list, x: torch.Tensor, cfg, *, mode: str, caches):
     di = cfg.ssm_expand * d
     hd = di // H
     kd = hd // m
-    qs, ks, vs, gs, lis, lfs = zip(*(_mlstm_proj(p["ssm"], x) for p in ps))
+    qs, ks, vs, gs = zip(*(_mlstm_proj(p["ssm"], x) for p in ps))
     keys = [[(h * hd + r * kd, h * hd + (r + 1) * kd) for h in range(H)] for r in range(m)]
     q = [model_axis_take(qs, -1, sp).reshape(B, T, H, kd) * hd**-0.5 for sp in keys]
     k = [model_axis_take(ks, -1, sp).reshape(B, T, H, kd) * hd**-0.5 for sp in keys]
     v = model_axis_gather(vs, -1).reshape(B, T, H, hd)
     g = torch.sigmoid(model_axis_gather(gs, -1))
-    lf = F.logsigmoid(model_axis_gather(lfs, -1) + ps[0]["ssm"]["bf"])  # (B,T,H)
-    li = F.logsigmoid(model_axis_gather(lis, -1))
+    if ps[0]["ssm"]["wi"].shape[-1] == H:  # replicated: one rank's
+        li, lf = _mlstm_gates(ps[0]["ssm"], x)
+    else:
+        li, lf = (model_axis_gather(t, -1) for t in zip(*(_mlstm_gates(p["ssm"], x)
+                                                          for p in ps)))
+    lf = F.logsigmoid(lf + ps[0]["ssm"]["bf"])  # (B,T,H)
+    li = F.logsigmoid(li)
     if mode == "decode":
         states = [c["ssm"] for c in caches]
         vf = v[:, 0].reshape(B, H, hd).float()
@@ -641,49 +828,60 @@ _MIXERS = {"hybrid": _mamba_tp, "mlstm": _mlstm_tp, "slstm": _slstm_tp}
 def _block(ps: list, x: torch.Tensor, cfg, kind: str, window, *, mode: str,
            cache: list | None = None, cur_pos: int | None = None, max_len: int = 0,
            prefix_len: int = 0, causal: bool = True, cross_inputs=None, mesh=None,
-           transport=None):
-    """A block over the model ranks' shards ``ps`` (and their caches, a
-    list of as many); the block interface of ``transformer._apply_stack``
-    and the counterpart of ``blocks.apply_block``: ``prefix_len`` (the
-    vision prefix's bidirectional keys), ``causal`` (False in an encoder)
-    and ``cross_inputs`` (a decoder block's cross attention) as there; a
-    hybrid block's attention and Mamba on the same normed input, mixed by
-    its replicated ``mix_a``/``mix_m``. Returns (x, the ranks' caches,
-    aux); the caches are None in train mode. The recurrent kinds in train
-    mode and the expert-parallel dispatch (``mesh``, ``transport``) raise
-    ``ValueError``."""
+           transport=None, cache_mesh=None):
+    """A block over the model ranks' shards ``ps``; the block interface of
+    ``transformer._apply_stack`` and the counterpart of
+    ``blocks.apply_block``: ``prefix_len`` (the vision prefix's
+    bidirectional keys), ``causal`` (False in an encoder) and
+    ``cross_inputs`` (a decoder block's cross attention) as there; a hybrid
+    block's attention and Mamba on the same normed input, mixed by its
+    replicated ``mix_a``/``mix_m``. The caches are a list of the serving
+    group's ranks' caches, data-major: prefill cuts them over
+    ``cache_mesh`` (the group's ('data', 'model') mesh; default one data
+    rank's), decode reads them from ``cache``; a recurrent state is each
+    model rank's, held once, the group's data ranks all listing it. Returns
+    (x, the ranks' caches, aux); the caches are None in train mode. The
+    recurrent kinds in train mode and the expert-parallel dispatch
+    (``mesh``, ``transport``) raise ``ValueError``."""
     if kind in _MIXERS and mode == "train":
         raise ValueError(f"a {kind} block in train mode on a model axis: the tensor-parallel "
                          f"forward serves the SSM mixers only ({TP_REMAINDER})")
     if mesh is not None or transport is not None:
         raise ValueError("the tensor-parallel forward keeps the einsum dispatch: no mesh= or "
                          "transport= for its MoE blocks")
+    m = len(ps)
+    if cache_mesh is None:
+        cache_mesh = one_data_rank(m)
     spec = attn_spec_for(cfg, window, causal)
     p0 = ps[0]
     h = rms_norm(p0["norm1"], x, cfg.norm_eps)
-    caches = None if mode == "train" else [{} for _ in ps]
+    caches = None
+    if mode != "train":
+        caches = [{} for _ in range(cache_mesh.size if cache is None else len(cache))]
     if kind in ("attn", "moe", "hybrid"):
         y, attn_caches = _self_attention(
             ps, h, cfg, spec, mode=mode,
             caches=None if cache is None else [c["attn"] for c in cache], cur_pos=cur_pos,
-            max_len=max_len, prefix_len=prefix_len)
+            max_len=max_len, prefix_len=prefix_len, mesh=cache_mesh)
         if caches is not None:
-            for c, ac in zip(caches, attn_caches):
+            for c, ac in zip(caches, attn_caches, strict=True):
                 c["attn"] = ac
     if kind in _MIXERS:
-        mixed, states = _MIXERS[kind](ps, h, cfg, mode=mode, caches=cache)
+        mixed, states = _MIXERS[kind](ps, h, cfg, mode=mode,
+                                      caches=None if cache is None else cache[:m])
         y = mixed if kind != "hybrid" else (p0["mix_a"].to(x.dtype) * y
                                             + p0["mix_m"].to(x.dtype) * mixed)
-        for c, st in zip(caches, states):
-            c["ssm"] = st
+        for i, c in enumerate(caches):
+            c["ssm"] = states[i % m]
     x = x + y
     if "cross" in p0:
         y, cross = _cross_attention(ps, rms_norm(p0["norm_x"], x, cfg.norm_eps), cross_inputs,
                                     spec, mode=mode,
-                                    caches=None if cache is None else [c["cross"] for c in cache])
+                                    caches=None if cache is None else [c["cross"] for c in cache],
+                                    mesh=cache_mesh)
         x = x + y
         if caches is not None:
-            for c, cc in zip(caches, cross):
+            for c, cc in zip(caches, cross, strict=True):
                 c["cross"] = cc
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "mlp" in p0:
@@ -705,19 +903,25 @@ def _zip_ranks(stacks: list) -> dict:
 
 def apply_lm_tp(shards: list, cfg, *, tokens: torch.Tensor, embeds: torch.Tensor | None = None,
                 mode: str, caches=None, cur_pos: int | None = None, max_len: int = 0,
-                remat: bool = False):
-    """Train, prefill or decode of one data rank on its model ranks'
-    parameter shards ``shards`` (a list in model-rank order, each a tree
-    shaped like the model's, with every leaf cut to its rank's block on the
-    model axis). ``embeds`` as ``transformer.apply_lm``'s: a vision
+                remat: bool = False, cache_mesh=None):
+    """Train, prefill or decode of one serving group's requests on the model
+    ranks' parameter shards ``shards`` (a list in model-rank order, each a
+    tree shaped like the model's, with every leaf cut to its rank's block
+    on the model axis). The group is ``cache_mesh``, a ('data', 'model')
+    mesh of D data ranks of ``len(shards)`` model ranks (default: one data
+    rank): the forward, replicated over its data ranks, runs once, on the
+    shards of its data rank 0, and each rank of the group holds its
+    ``cache_specs`` block of every attention and cross cache (with D > 1,
+    the sequence on 'data' where it divides). ``embeds`` as ``transformer.apply_lm``'s: a vision
     config's patch embeddings (replicated, in front of the text unscaled, a
     bidirectional prefix, dropped before the unembedding) or an
     encoder-decoder's frame embeddings, which the encoder's blocks read
     through the tensor-parallel block, bidirectional, normed by the
     replicated ``enc_norm`` for the decoder's cross attention. Returns
     (logits (B, T, V) f32 of the text positions, caches): the caches are the
-    unsharded structure with a list of the ranks' caches, in model-rank
-    order, at each block; decode updates them in place; train mode returns
+    unsharded structure with a list of the group's ranks' caches, data-major
+    (model-rank order within a data rank), at each block; decode updates
+    them in place; train mode returns
     None for them, and ``remat`` recomputes each superblock in the backward
     pass (``transformer._apply_stack``). A leaf the ranks hold replicated
     may be one tensor in every shard: its gradient is then the sum of the
@@ -726,6 +930,11 @@ def apply_lm_tp(shards: list, cfg, *, tokens: torch.Tensor, embeds: torch.Tensor
         raise ValueError(f"mode {mode!r}: the tensor-parallel forward trains, prefills and "
                          "decodes")
     check_tensor_parallel(cfg, len(shards), mode="train" if mode == "train" else "serve")
+    if cache_mesh is not None and (tuple(cache_mesh.axis_names) != (DP_AXES[-1], TP_AXIS)
+                                   or cache_mesh.devices.shape[1] != len(shards)):
+        raise ValueError(f"cache_mesh {tuple(cache_mesh.axis_names)} "
+                         f"{tuple(cache_mesh.devices.shape)}: a ('data', 'model') mesh of "
+                         f"{len(shards)} model ranks")
     dt = _dtype(cfg)
     scale = torch.tensor(cfg.d_model**0.5, dtype=dt, device=tokens.device)
     x = model_axis_sum([_embed_shard(s["embed"]["tokens"], tokens, r)
@@ -750,7 +959,8 @@ def apply_lm_tp(shards: list, cfg, *, tokens: torch.Tensor, embeds: torch.Tensor
     x, new_caches, _ = _apply_stack(_zip_ranks([s["decoder"] for s in shards]), x, cfg,
                                     StackLayout(cfg), mode=mode, caches=caches,
                                     cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
-                                    cross_inputs=cross_inputs, remat=remat, block=_block)
+                                    cross_inputs=cross_inputs, remat=remat,
+                                    block=functools.partial(_block, cache_mesh=cache_mesh))
     x = rms_norm(shards[0]["final_norm"], x, cfg.norm_eps)
     if mode != "decode" and prefix_len:
         x = x[:, prefix_len:]

@@ -117,6 +117,18 @@ def _train_superblock(x, stack, l: int, cfg, layout: StackLayout, prefix_len: in
     return x, aux
 
 
+def _stack_once(held: dict):
+    """``torch.stack`` of the layers' leaves, once for each distinct tuple
+    of tensors: a cache held once that several ranks list (the
+    tensor-parallel group's, :mod:`.tensor_parallel`) stays one tensor."""
+    def stack(*ts):
+        key = tuple(id(t) for t in ts)
+        if key not in held:
+            held[key] = torch.stack(ts)
+        return held[key]
+    return stack
+
+
 def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
                  cur_pos=None, max_len: int = 0, prefix_len: int = 0, causal: bool = True,
                  cross_inputs=None, remat: bool = False, mesh=None, transport=None,
@@ -176,8 +188,7 @@ def _apply_stack(stack, x, cfg, layout: StackLayout, *, mode: str, caches=None,
     if layout.num_super:
         aux_total = aux_total + torch.stack(auxs).sum()
         if mode == "prefill":
-            new_caches["blocks"] = [tree_map(lambda *ts: torch.stack(ts), *cs)
-                                    for cs in slot_caches]
+            new_caches["blocks"] = [tree_map(_stack_once({}), *cs) for cs in slot_caches]
         else:  # decode wrote its token and recurrent states into the stacked caches in place
             new_caches["blocks"] = caches["blocks"]
     for j, tp in enumerate(stack["tail"]):

@@ -19,17 +19,27 @@ reference's TP serving layout: the weights land on
 row-major, so a data rank's M model ranks are consecutive rows); with
 ``distribute=True`` they arrive by the tuned broadcast along the data
 axes, from the rows of data coordinate 0, and are then cut to the specs
-(``distribute_weights(specs=)``). Each data rank's requests are computed by
-its M model ranks together (:mod:`repro_torch.models.tensor_parallel`),
-whose caches hold their kv heads, or, when the kv heads do not divide M,
-their slots of the sequence (the whole cache when its length does not
-divide), as ``cache_specs`` places them, and whose recurrent states hold
-their ``cache_specs`` blocks (mLSTM's key rows, sLSTM's slice of d,
-Mamba's channels). Every family serves so.
+(``distribute_weights(specs=)``). Any batch serves, split as
+``batch_specs`` places it (:func:`serving_groups`): over the joint data
+axes when it divides them, each data rank's requests computed by its M
+model ranks together (:mod:`repro_torch.models.tensor_parallel`); over
+'data' alone when only that divides, each data coordinate's requests by
+the model ranks at pod 0 (the other pods' replicas would compute the same
+values, so they are not run again); over no data axis, the whole batch by
+one group of every data rank at pod 0, its replicated forward run once, on
+the model ranks of data coordinate 0, and its caches cut over all the
+group's ranks, the sequence on 'data' where it divides (one long prompt
+over a node's data ranks). Every (data, model) rank's attention and cross
+caches are its ``cache_specs`` block on the mesh (its kv heads, or its
+slots of the sequence, or the whole cache where nothing divides), and each
+model rank's recurrent state its block (mLSTM's key rows, sLSTM's slice of
+d, Mamba's channels), kept once over the data ranks of a group. Every
+family serves so.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -41,7 +51,8 @@ from ..configs.base import ModelConfig
 from ..core import bucketing
 from ..core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..dist import topology
-from ..dist.sharding import cut_leaves, param_specs, shard_stacked
+from ..dist.sharding import batch_specs, cut_leaves, param_specs, shard_stacked, spec_axes
+from ..dist.topology import DP_AXES, TP_AXIS
 from ..launch.mesh import EmulatedMesh, resolve_device
 from ..models import Model
 from ..models import tensor_parallel as tp_lib
@@ -49,10 +60,12 @@ from ..models import tensor_parallel as tp_lib
 __all__ = [
     "Engine",
     "GenerationResult",
+    "ServingGroup",
     "distribute_weights",
     "distribution_stream_graph",
     "plan_distribution",
     "replicate",
+    "serving_groups",
 ]
 
 
@@ -88,6 +101,43 @@ def rank_rows(mesh) -> np.ndarray:
     if topology.tp_axis(mesh):
         order.append(names.index(topology.tp_axis(mesh)))
     return rows.transpose(order).reshape(topology.dp_size(mesh), topology.tp_size(mesh))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingGroup:
+    """Ranks that serve one share of a batch on a model axis: the requests
+    ``[lo, hi)``, the rank rows ``ranks`` ((D, M): D data ranks of M model
+    ranks, data-major) and ``mesh``, the ('data', 'model') mesh of that
+    shape over which their caches are cut."""
+    lo: int
+    hi: int
+    ranks: np.ndarray
+    mesh: EmulatedMesh
+
+
+def serving_groups(mesh, batch: int) -> list:
+    """The groups that serve a batch of ``batch`` requests on ``mesh`` (a
+    mesh with a model axis), as ``batch_specs`` places the batch: one group
+    for each coordinate of the data axes the batch is on, its requests that
+    coordinate's share, at coordinate 0 of every other data axis (whose
+    replicas would compute the same values: they are not run again); a
+    batch on no data axis is one group over the 'data' axis's ranks at
+    coordinate 0 of 'pod', whose caches ``cache_specs`` cuts on the
+    sequence over 'data'."""
+    on = spec_axes(batch_specs({"tokens": torch.empty((batch,), device="meta")},
+                               mesh)["tokens"])
+    names, sizes = tuple(mesh.axis_names), topology.axis_sizes(mesh)
+    tp = topology.tp_axis(mesh)
+    keep = on + (() if on else (DP_AXES[-1],)) + (tp,)
+    grid = np.arange(mesh.size).reshape(tuple(mesh.devices.shape))
+    grid = grid[tuple(slice(None) if a in keep else 0 for a in names)]
+    grid = grid.transpose([[a for a in names if a in keep].index(a) for a in keep])
+    n = math.prod(sizes[a] for a in on)
+    grid = grid.reshape(n, -1, sizes[tp])
+    per = batch // n
+    return [ServingGroup(i * per, (i + 1) * per, ranks,
+                         EmulatedMesh(ranks.shape, mesh.device, (DP_AXES[-1], TP_AXIS)))
+            for i, ranks in enumerate(grid)]
 
 
 class Engine:
@@ -139,23 +189,37 @@ class Engine:
         replica, or on a model axis its model ranks' shards (a list in
         model-rank order)."""
         if self.tp > 1:
-            return [tree_map(lambda t, r=r: t[r], self.params) for r in self.rows[rank]]
+            return self.shards(self.rows[rank])
         return tree_map(lambda t: t[rank], self.params)
 
-    def prefill(self, params, batch: dict, *, max_len: int):
+    def shards(self, rows) -> list:
+        """The model-rank shards of the rank rows ``rows`` (one data rank's
+        M rows), views of the stacked tree in model-rank order."""
+        return [tree_map(lambda t, r=r: t[r], self.params) for r in rows]
+
+    def groups(self, batch: int) -> list:
+        """On a model axis, the :class:`ServingGroup` s that serve a batch of
+        ``batch`` requests (:func:`serving_groups`)."""
+        return serving_groups(self.mesh, batch)
+
+    def prefill(self, params, batch: dict, *, max_len: int, mesh=None):
         """One data rank's prefill on its :meth:`replica` (``Model.prefill``,
         or the tensor-parallel forward, whose caches, as ``Model.prefill``'s,
-        hold a vision prefix's slots beside ``max_len``)."""
+        hold a vision prefix's slots beside ``max_len``); on a model axis
+        ``mesh`` is the serving group's (:attr:`ServingGroup.mesh`; default
+        one data rank), over whose ranks the caches are cut."""
         if self.tp > 1:
             if self.cfg.frontend == "vision":
                 max_len = max_len + self.cfg.prefix_len
             return tp_lib.apply_lm_tp(params, self.cfg, tokens=batch["tokens"],
-                                      embeds=batch.get("embeds"), mode="prefill", max_len=max_len)
+                                      embeds=batch.get("embeds"), mode="prefill", max_len=max_len,
+                                      cache_mesh=mesh)
         return self.model.prefill(params, batch, max_len=max_len)
 
     def decode_step(self, params, tokens: torch.Tensor, caches, cur_pos: int):
-        """One data rank's decode step (``Model.decode_step``, or the
-        tensor-parallel forward); the caches are updated in place."""
+        """One data rank's (or serving group's) decode step
+        (``Model.decode_step``, or the tensor-parallel forward); the caches
+        are updated in place."""
         if self.tp > 1:
             return tp_lib.apply_lm_tp(params, self.cfg, tokens=tokens, mode="decode",
                                       caches=caches, cur_pos=int(cur_pos))
@@ -168,18 +232,14 @@ class Engine:
         ``batch['embeds']``: for a vision config (B, prefix, D), the stub
         patch embeddings, for an encoder-decoder (B, frames, D), the stub
         frame embeddings. The batch is split over the data ranks
-        (``tensor_split``, as even as B allows; on a model axis B must
-        divide, or ``cache_specs`` would split the caches' sequence);
-        decode positions follow the text, and a vision prefix (audio frames
-        take no position)."""
+        (``tensor_split``, as even as B allows), or on a model axis over the
+        serving groups (:func:`serving_groups`, as ``batch_specs`` places
+        it: any B); decode positions follow the text, and a vision prefix
+        (audio frames take no position)."""
         tokens = batch["tokens"]
         if not torch.is_tensor(tokens):
             tokens = torch.as_tensor(np.asarray(tokens))
         tokens = tokens.to(self.device).long()
-        if self.tp > 1 and tokens.shape[0] % self.n:
-            raise ValueError(
-                f"a batch of {tokens.shape[0]} over {self.n} data ranks on a model axis: "
-                f"cache_specs would split the caches' sequence ({tp_lib.TP_REMAINDER})")
         T = tokens.shape[1]
         max_len = self.max_len or (T + steps)
         offset = self.cfg.prefix_len if self.cfg.frontend == "vision" else 0
@@ -189,14 +249,20 @@ class Engine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         toks, lps = [], []
-        parts = torch.tensor_split(tokens, self.n)
-        emb_parts = [None] * self.n if embeds is None else torch.tensor_split(embeds, self.n)
-        for rank, (part, emb) in enumerate(zip(parts, emb_parts)):
-            if not part.shape[0]:
+        if self.tp > 1:
+            shares = [((g.lo, g.hi), self.shards(g.ranks[0]), g.mesh)
+                      for g in self.groups(tokens.shape[0])]
+        else:
+            bounds = np.cumsum([0] + [len(p) for p in np.array_split(
+                np.arange(tokens.shape[0]), self.n)])
+            shares = [((lo, hi), self.replica(r), None)
+                      for r, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))]
+        for (lo, hi), params, mesh in shares:
+            if hi == lo:
                 continue
-            params = self.replica(rank)
-            logits, caches = self.prefill(params, {"tokens": part, "embeds": emb},
-                                          max_len=max_len)
+            emb = None if embeds is None else embeds[lo:hi]
+            logits, caches = self.prefill(params, {"tokens": tokens[lo:hi], "embeds": emb},
+                                          max_len=max_len, mesh=mesh)
             cur = logits[:, -1]
             rt, rl = [], []
             for i in range(steps):

@@ -461,7 +461,6 @@ def test_tp_forward_on_one_model_rank_is_apply_lm(name, dtype):
 REMAINDER = {
     "hymba_25_heads": ("hymba-1.5b", "train"),
     "xlstm_ssm": ("xlstm-350m-smoke", "train"),
-    "sequence_split_cache": (ARCH, 3),
 }
 
 
@@ -470,17 +469,13 @@ def test_outside_the_slice_raises_naming_tensor_parallel_remainder(case):
     """What the tensor-parallel forward does not cover raises ``ValueError``
     naming the ROADMAP item: training the recurrent and hybrid families on
     a model axis (hymba-1.5b: its 25 heads and its Mamba; xlstm-350m-smoke:
-    its mLSTM and sLSTM), and serving a batch that does not divide the data
-    ranks (``cache_specs`` would then split the caches' sequence)."""
+    its mLSTM and sLSTM). A batch that does not divide the data ranks
+    serves (tests/test_torch_tp_layouts.py)."""
     name, how = REMAINDER[case]
     cfg = _f32(get_config(name))
+    assert how == "train"
     with pytest.raises(ValueError, match="Tensor-parallel remainder"):
-        if how == "train":
-            Trainer(cfg, RunConfig(), mesh=_dm_mesh(), device="cpu")
-        else:
-            engine = Engine(cfg, Model(cfg).init(0, device="cpu"), mesh=_dm_mesh(),
-                            device="cpu")
-            engine.generate({"tokens": TOKENS[:how]}, steps=1)
+        Trainer(cfg, RunConfig(), mesh=_dm_mesh(), device="cpu")
 
 
 def test_training_on_a_model_axis_is_refused():

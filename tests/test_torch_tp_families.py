@@ -332,6 +332,8 @@ def test_tp_block_rejects_what_it_does_not_serve():
     with pytest.raises(ValueError, match="Tensor-parallel remainder"):
         tp_lib.check_tensor_parallel(odd, 2, mode="serve")
     tp_lib.check_tensor_parallel(get_config("paligemma-3b"), 16, mode="serve")
+    for m in (2, 4, 8):  # whisper's 20 heads of 64 over 8 ranks: the head-width split
+        tp_lib.check_tensor_parallel(get_config("whisper-large-v3"), m, mode="serve")
 
 
 # --------------------------------------------------------------------------
@@ -340,12 +342,14 @@ def test_tp_block_rejects_what_it_does_not_serve():
 
 
 def _decode_case(S: int, filled: int, dtype, seed: int = 0):
-    """One decode query (B 2, 4 query heads over 2 kv heads of 32) and a
-    full-width cache of S slots whose first ``filled`` hold keys."""
+    """One decode query (B 2, 4 query heads over 1 kv head of 32: the kv
+    heads do not divide 2 model ranks, so ``cache_specs`` cuts the
+    sequence) and a full-width cache of S slots whose first ``filled`` hold
+    keys."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((2, 1, 4, 32), generator=g).to(dtype)
-    cache = {"k": torch.randn((2, S, 2, 32), generator=g).to(dtype),
-             "v": torch.randn((2, S, 2, 32), generator=g).to(dtype),
+    cache = {"k": torch.randn((2, S, 1, 32), generator=g).to(dtype),
+             "v": torch.randn((2, S, 1, 32), generator=g).to(dtype),
              "pos": torch.where(torch.arange(S) < filled, torch.arange(S), -1).to(torch.int32)}
     return q, cache, cache["pos"] >= 0
 
@@ -359,7 +363,7 @@ def test_merge_matches_softmax_over_the_whole_cache(S):
     shards = tp_lib._cut_cache(cache, 2)
     assert [c["k"].shape[1] for c in shards] == ([6, 6] if S == 12 else [11, 11])
     got = tp_lib._decode_over_shards(q, shards, valid)
-    want = _sdpa(q, cache["k"], cache["v"], valid[None, None, :], AttnSpec(4, 2, 32))
+    want = _sdpa(q, cache["k"], cache["v"], valid[None, None, :], AttnSpec(4, 1, 32))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 

@@ -447,13 +447,14 @@ def test_windowed_ring_cut_over_model_ranks_after_it_wraps():
 
 
 def test_serving_check_admits_the_mixers_and_training_stays_refused():
-    """Serving admits xlstm-350m and hymba-1.5b (its 25 / 5 heads through
-    the head-dim split) on 2 and 4 model ranks; an mLSTM whose state
+    """Serving admits xlstm-350m (on 8: its 4 mLSTM heads cut on their key
+    rows) and hymba-1.5b (its 25 / 5 heads through the head-dim split) on
+    2, 4 and 8 model ranks; an mLSTM whose state
     ``cache_specs`` would cut off the key dim, a Mamba state whose N does
     not divide, and training either family on a model axis raise naming
     "Tensor-parallel remainder"."""
     for name in ("xlstm-350m", "hymba-1.5b", "xlstm-350m-smoke", "hymba-1.5b-smoke"):
-        for m in (2, 4):
+        for m in (2, 4, 8):
             tp_lib.check_tensor_parallel(get_config(name), m, mode="serve")
         with pytest.raises(ValueError, match="Tensor-parallel remainder"):
             tp_lib.check_tensor_parallel(get_config(name), 2, mode="train")
