@@ -172,6 +172,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parameters and both moments), the same run in f32 within 1e-4 (last
    loss) and 1e-5 (grad norms, relative) of the one-axis f32 run, and
    minitron-8b-smoke in f32 on (2, 2), card against CPU, within 1e-4.
+6u. model-axis training of the other families (after 6f, whose one-axis
+   runs it reads): ``grad_allreduce`` on 6t's (2, 2) mesh in the blocked
+   FSDP + TP layout (``param_specs(fsdp=True, attn_fallback='replicate')``),
+   full width, bf16, 3 steps, each config beside its one-axis run earlier in
+   the script on the same data: mixtral-8x7b at 6m's cut (1 of 32 layers, 8
+   x 512 tokens; its 8 experts cut 4 a model rank, the f32 router's columns
+   too), compiled and through an in-kernel tuner table (``rdma_replay``
+   gathers, the parameters bit-equal to the compiled run's), beside 6m's
+   grad_allreduce; whisper-large-v3 at 6f's shapes (32 + 32 layers, 8 x
+   (1500 stub frames + 512 tokens); self and cross attention on 10 heads a
+   rank) beside 6f's grad_allreduce; paligemma-3b at 6v's shapes (18
+   layers, 4 x (256 patches + 3840 tokens); its one kv head whole in every
+   shard, 4 query heads a rank over it) in 4 microbatches, a sequence a
+   pass as 6v's ranks pass (one pass over the 4 sequences holds their f32
+   logits over 257,280 words several times over), beside 6v's
+   tuned_allreduce. Each prints its step seconds, peak GiB and the
+   gathers' ms a step beside the one-axis run's step and peak, each rank
+   row's held bytes of parameters + AdamW state, and the merge and
+   ``inkernel_rdma`` launches. Checks: the last loss and grad norms within
+   the larger of phase 6's limits (1e-3, 2e-4 relative) and 3x a control's
+   distance from the one-axis run (that run with every element of its
+   first attention output projection moved by at most one bf16 step: a
+   MoE's routing moves on one rounding); after the last step, before the
+   full trees are assembled (outside the steps' times), every rank row
+   holding a copy of a block bit-equal to the block's owner (parameters and
+   both moments); peaks under 70 GiB; no flash launch; each config at one
+   layer (encoder too) in f32, TF32 off, the TP run within 1e-4 (last loss)
+   and 1e-5 (grad norms, relative) of the one-axis grad_allreduce; then
+   mixtral-, whisper- and paligemma-3b-smoke in f32 on (2, 2) (every QKV
+   bias drawn nonzero), card against CPU, within 1e-4.
 7. collectives: ``pallgather``, ``preduce_scatter``, ``preduce`` and
    ``pallreduce`` at minitron-8b's training embedding bucket (1,048,576,000
    bf16 elements a rank) on the 4 emulated ranks, each with
@@ -393,7 +423,9 @@ phases 3-4 (the serving path), phase 4b's distribution (the tuned serving
 path), phase 4c (the long-prompt serving path), phase 4d (the
 vision-prefix serving path), phase 5's two long-prompt references (the
 f32 flash route), phase 6's runs (the training path), phase 6t's two timed
-runs (the model-axis training path, ``train_tp``), phase 6m (the MoE
+runs (the model-axis training path, ``train_tp``), phase 6u's four timed
+runs (``train_tp_fam``: the sum of their own counts, without the tuner
+table's timed gathers or the smoke runs), phase 6m (the MoE
 training path), phase 6v (the vision-prefix training path), phase 6f's
 four families' runs, each a path of its own (``train_recurrent``,
 ``train_hybrid``, ``train_encdec``, ``train_mha``; not their controls or
@@ -629,6 +661,36 @@ TP_MESH, TP_LONG_PROMPT = (2, 2), 4096
 # phase 6t: grad_allreduce on the (2, 2) ('data', 'model') mesh, the gathers
 # through the compiled replay (the merge in every round)
 TP_TRAIN_FIELDS = {"sync_mode": "grad_allreduce", "compiled_collectives": True}
+# phase 6u: the MoE, encoder-decoder and vision-prefix families trained as
+# phase 6t trains minitron-8b, on its (2, 2) mesh, each beside the one-axis
+# run of the same config and data earlier in the script: (arch, layers (None:
+# all), global batch, text tokens a sequence, microbatches, the one-axis
+# phase, its RunConfig fields). mixtral-8x7b also runs through an in-kernel
+# tuner table (TP_TRAIN_INKERNEL). paligemma-3b passes its 4 sequences one at
+# a time (4 microbatches, the passes 6v's ranks make, the same mean loss: its
+# aux is 0): one pass over the 4 ran out of memory (76.83 GiB allocated, a
+# 14.72 GiB request, tools/train_tp_families.py --one-pass on NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md §6). The bf16 hold is 6f's: the last loss
+# and grad norms within the larger of phase 6's limits and
+# FAMILY_CONTROL_MULT times a control's distance from the one-axis run, the
+# control that run with every element of its first attention output
+# projection moved by at most one bf16 step (one rounding of the attention's
+# output, as the partial sums make). A MoE's routing moves on such a
+# rounding: mixtral-8x7b's bf16 TP forward dispatched 420 of 4096 tokens
+# otherwise (tools/tp_routing.py), its run's last loss 3.657e-3 and grad
+# norms 2.874e-3 from 6m's, while in f32 at the same cut it dispatched every
+# token alike, 8.2e-8 apart (PERF.md §6); each family in f32 at one layer
+# (encoder too) within FAMILY_F32_LOSS / FAMILY_F32_NORM of the one-axis
+# grad_allreduce
+TP_TRAIN_FAMILIES = (
+    ("mixtral-8x7b", MOE_TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, 1, "6m",
+     {"sync_mode": "grad_allreduce"}),
+    ("whisper-large-v3", None, TRAIN_BATCH, TRAIN_SEQ, 1, "6f", {"sync_mode": "grad_allreduce"}),
+    ("paligemma-3b", VLM_TRAIN_LAYERS, RANKS, VLM_TEXT, RANKS, "6v",
+     {"sync_mode": "tuned_allreduce", "compiled_collectives": True}),
+)
+TP_TRAIN_INKERNEL = "mixtral-8x7b"
+TP_TRAIN_SMOKE = ("mixtral-8x7b-smoke", "whisper-large-v3-smoke", "paligemma-3b-smoke")
 TP_REL, TP_ABS, TP_LAYER_REL = 2.0**-7, 1e-2, 2.0**-8
 # phase 16: the MoE, vision-prefix and encoder-decoder families on phase 15's
 # mesh. (path, arch, layers (None: all), requests a data rank, prompt tokens,
@@ -3257,14 +3319,14 @@ def small_long_reference(torch) -> float:
 
 
 def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=None,
-               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ, inspect=None):
+               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ, inspect=None, prepare=None):
     """One Trainer run of TRAIN_STEPS steps from the seeded weights (on a
     mesh in ``health``'s state, when given) on a global batch of ``batch``
     x ``seq`` text tokens (and a vision config's prefix). Returns the final
     parameters and the run's record; its tokens/s count every position the
     model runs, the prefix included. ``inspect(params, opt_state, trainer)``, when
     given, returns entries for the record, read before the state is
-    dropped."""
+    dropped; ``prepare(trainer)``, when given, runs before the first step."""
     from repro_torch import kernels
     from repro_torch.configs import RunConfig
     from repro_torch.core.tree import tree_leaves
@@ -3276,6 +3338,8 @@ def train_mode(torch, cfg, mesh, fields: dict, check_rows: bool = False, health=
     before = kernels.launch_counts()
     trainer = Trainer(cfg, RunConfig(**TRAIN_RUN, **fields), mesh=mesh, check_rows=check_rows,
                       health=health)
+    if prepare is not None:
+        prepare(trainer)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params, opt, hist = trainer.train(batch=batch, seq=seq, steps=TRAIN_STEPS, log_every=1)
@@ -3480,8 +3544,8 @@ def _tp_train_mesh(dev: str = "cuda"):
     return make_local_mesh(TP_MESH[1], n=RANKS, device=dev)
 
 
-def _held_bytes(trainer) -> tuple[int, int]:
-    """Bytes one rank row holds of the parameters and AdamW's two f32
+def _held_bytes(trainer, rank: int = 0) -> tuple[int, int]:
+    """Bytes rank row ``rank`` holds of the parameters and AdamW's two f32
     moments in the trainer's blocked layout, and the one-axis total."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.dist import sharding
@@ -3490,7 +3554,7 @@ def _held_bytes(trainer) -> tuple[int, int]:
     specs = tree_flatten(trainer.specs, sharding.is_spec)[0]
     row = one = 0
     for t, spec in zip(shapes, specs):
-        block = sharding.shard_slices(spec, tuple(t.shape), trainer.mesh, 0)
+        block = sharding.shard_slices(spec, tuple(t.shape), trainer.mesh, rank)
         n = math.prod(sl.stop - sl.start for sl in block)
         row += n * (t.element_size() + 8)
         one += t.numel() * (t.element_size() + 8)
@@ -3557,7 +3621,7 @@ def _tp_copies_and_gather(torch, cfg) -> dict:
     trainer = Trainer(cfg, RunConfig(**TRAIN_RUN, **TP_TRAIN_FIELDS), mesh=mesh)
     params, opt = trainer.init_state()
     specs = tree_flatten(trainer.specs, sharding.is_spec)[0]
-    shape, names = tuple(mesh.devices.shape), tuple(mesh.axis_names)
+    shape = tuple(mesh.devices.shape)
     def gather(frame, axis):
         return comm.pallgather(frame, compiled=True)
 
@@ -3572,8 +3636,24 @@ def _tp_copies_and_gather(torch, cfg) -> dict:
             del g, want
     it = batches(trainer.source, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device="cuda")
     params, opt, _ = trainer._step_fn(params, opt, next(it))
+    copies = _copies_bit_equal(torch, (params, opt["m"], opt["v"]), specs, mesh)
+    del params, opt, trainer
+    return {"gathered_elements": gathered, "copied_elements_equal": copies}
+
+
+def _copies_bit_equal(torch, trees, specs, mesh) -> int:
+    """Every rank row of the blocked ``trees`` (leaves beside ``specs``)
+    that holds a copy of a block bit-equal to the row of the block's owner
+    (its coordinates on the axes the spec names, 0 on the others),
+    asserted. Returns the elements compared."""
+    import numpy as np
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist import sharding
+
+    shape, names = tuple(mesh.devices.shape), tuple(mesh.axis_names)
     copies = 0
-    for tree in (params, opt["m"], opt["v"]):
+    for tree in trees:
         for leaf, spec in zip(tree_leaves(tree), specs):
             named = set(sharding.spec_axes(spec))
             for r in range(mesh.size):
@@ -3583,8 +3663,7 @@ def _tp_copies_and_gather(torch, cfg) -> dict:
                 if owner != r:
                     assert same_bits(torch, leaf[r], leaf[owner]), ("copy", spec, r)
                     copies += leaf[r].numel()
-    del params, opt, trainer
-    return {"gathered_elements": gathered, "copied_elements_equal": copies}
+    return copies
 
 
 def train_tp(torch, training: dict) -> tuple[dict, dict]:
@@ -3687,6 +3766,231 @@ def train_tp(torch, training: dict) -> tuple[dict, dict]:
         f"{losses['cuda']} and {losses['cpu']}, max abs diff {err:.3e} (tol 1e-4)")
     assert len(losses["cuda"]) == 2 and err <= 1e-4, losses
     out["smoke_err"] = err
+    return out, counts
+
+
+def _hold_copies(torch, trainer, into: dict) -> None:
+    """Hooks ``trainer`` so that after its last step, when ``train`` first
+    assembles the full parameters (outside the steps' times), every rank
+    row holding a copy of a block is asserted bit-equal to the block's
+    owner in the parameters and both AdamW moments
+    (:func:`_copies_bit_equal`); the elements compared land in
+    ``into['copied_elements_equal']``."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.dist import sharding
+
+    step, full, last = trainer._step_fn, trainer._full, {}
+    specs = tree_flatten(trainer.specs, sharding.is_spec)[0]
+
+    def stepped(params, opt, batch):
+        out = step(params, opt, batch)
+        last["state"] = out[:2]
+        return out
+
+    def assembled(tree, **kw):
+        if "state" in last:
+            params, opt = last.pop("state")
+            into["copied_elements_equal"] = _copies_bit_equal(
+                torch, (params, opt["m"], opt["v"]), specs, trainer.mesh)
+        return full(tree, **kw)
+
+    stepped.gather_events = step.gather_events
+    trainer._step_fn, trainer._full = stepped, assembled
+
+
+def _tp_family_smoke(torch) -> dict:
+    """TP_TRAIN_SMOKE in f32 on (2, 2) under grad_allreduce, card against
+    CPU: 2 steps of 8 x 32 from one initial state (the CPU trainer's, every
+    QKV bias drawn nonzero from a seed, saved as a checkpoint that both
+    restore), per-step losses within 1e-4. Returns each config's largest
+    difference."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = RunConfig(**TRAIN_RUN, **TP_TRAIN_FIELDS)
+    errs = {}
+    for arch in TP_TRAIN_SMOKE:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        losses = {}
+        with tempfile.TemporaryDirectory() as d:
+            for dev in ("cpu", "cuda"):
+                tr = Trainer(cfg, run, mesh=_tp_train_mesh(dev), ckpt_dir=d, device=dev)
+                if dev == "cpu":
+                    params, opt = tr.init_state()
+                    params = tr._full(params)
+                    gen = torch.Generator().manual_seed(50)
+                    for path, t in zip(tree_paths(params), tree_leaves(params)):
+                        if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"):
+                            t.copy_(torch.randn(t.shape, generator=gen) * 0.5)
+                    checkpoint.save_checkpoint(d, 0, params)
+                    checkpoint.save_checkpoint(os.path.join(d, "opt"), 0,
+                                               tr._opt_map(tr._full, opt))
+                losses[dev] = [h["loss"] for h in tr.train(batch=8, seq=32, steps=2,
+                                                           log_every=1)[2]]
+        err = [abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"])]
+        assert len(err) == 2 and max(err) <= 1e-4, (arch, losses)
+        errs[arch] = max(err)
+    log(f"train tp_fam smoke: f32 on (2, 2), card against CPU, losses' max abs diff "
+        f"{ {k: '%.3e' % v for k, v in errs.items()} } (tol 1e-4)")
+    return errs
+
+
+def _jittered(torch, trainer) -> None:
+    """Hooks ``trainer`` so that in its initial state every element of its
+    first attention output projection ``wo`` is moved by at most one bf16
+    step, at random (times ``1 + 2^-8 u``, ``u`` uniform in [-1, 1) from a
+    seeded generator, rounded back): phase 6u's bf16 control, one rounding
+    of every element of the attention's output, as the model axis's bf16
+    partial sums make."""
+    from repro_torch.core.tree import tree_leaves, tree_paths
+
+    init = trainer.restore_or_init
+
+    def jittered():
+        params, opt, step = init()
+        w = next(t for p, t in zip(tree_paths(params), tree_leaves(params))
+                 if p.endswith("attn/wo"))
+        gen = torch.Generator(device=w.device).manual_seed(0)
+        u = torch.rand(w.shape, generator=gen, device=w.device) * 2 - 1
+        w.copy_((w.float() * (1 + 2.0**-8 * u)).to(w.dtype))
+        return params, opt, step
+
+    trainer.restore_or_init = jittered
+
+
+def _tp_family_f32(torch, cfg, micro: int) -> dict:
+    """``cfg`` at FAMILY_F32_LAYERS layers (encoder too) in f32, TF32 off:
+    the TP trainer on (2, 2) against the one-axis grad_allreduce on 4
+    ranks, both in ``micro`` microbatches, last loss within
+    FAMILY_F32_LOSS and grad norms within FAMILY_F32_NORM relative."""
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, num_layers=FAMILY_F32_LAYERS, dtype="float32",
+                              encoder_layers=FAMILY_F32_LAYERS if cfg.encoder_layers else 0)
+    batch = RANKS if cfg.frontend == "vision" else TRAIN_BATCH
+    seq = VLM_TEXT if cfg.frontend == "vision" else TRAIN_SEQ
+    runs = {}
+    for label, mesh, fields in (
+            ("one-axis", make_mesh(RANKS, device="cuda"), {"sync_mode": "grad_allreduce"}),
+            ("tp", _tp_train_mesh(), TP_TRAIN_FIELDS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, runs[label] = train_mode(torch, f32, mesh, {**fields, "num_microbatches": micro},
+                                         batch=batch, seq=seq)
+        del params
+    d_loss, d_norm = _deviation(runs["tp"], runs["one-axis"])
+    log(f"train tp_fam {cfg.name} f32 ({FAMILY_F32_LAYERS} layer): losses "
+        f"{['%.6f' % x for x in runs['tp']['losses']]} beside the one-axis "
+        f"{['%.6f' % x for x in runs['one-axis']['losses']]}; last loss {d_loss:.3e} (bound "
+        f"{FAMILY_F32_LOSS}), grad norms {d_norm:.3e} relative (bound {FAMILY_F32_NORM})")
+    assert d_loss <= FAMILY_F32_LOSS and d_norm <= FAMILY_F32_NORM, (cfg.name, runs)
+    return {"d_loss": d_loss, "d_norm": d_norm}
+
+
+def train_tp_families(torch, one_axis: dict) -> tuple[dict, dict]:
+    """Phase 6u (see the module's docstring). ``one_axis``: the one-axis
+    run of each config by phase ('6m', '6f', '6v'). Returns the phase's
+    numbers and the launch counts of its timed runs (the ``train_tp_fam``
+    path: the sum of their own counts, without the tuner table's timed
+    gathers, the controls, the f32 runs or the smoke runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = _tp_train_mesh()
+    out, counts = {}, None
+    for arch, layers, batch, seq, micro, phase, one_fields in TP_TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        one = one_axis[phase]
+        rec = out[arch] = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, control = train_mode(torch, cfg, make_mesh(RANKS, device="cuda"), one_fields,
+                                     batch=batch, seq=seq,
+                                     prepare=lambda tr: _jittered(torch, tr))
+        del params
+        c_loss, c_norm = _deviation(control, one)
+        lim_loss, lim_norm = (max(1e-3, FAMILY_CONTROL_MULT * c_loss),
+                              max(2e-4, FAMILY_CONTROL_MULT * c_norm))
+        rec["control"] = {"d_loss": c_loss, "d_norm": c_norm, "losses": control["losses"],
+                          "grad_norms": control["grad_norms"]}
+        log(f"train tp_fam {arch} control (phase {phase}'s one-axis run, every element of the "
+            f"first attention wo moved by at most one bf16 step): last loss {c_loss:.3e} and "
+            f"grad norms "
+            f"{c_norm:.3e} relative from the one-axis run; the TP runs' bound {lim_loss:.3e} / "
+            f"{lim_norm:.3e} (phase 6's 1e-3 / 2e-4 or {FAMILY_CONTROL_MULT:g}x the control)")
+        with tempfile.TemporaryDirectory() as d:
+            runs = [("compiled", {**TP_TRAIN_FIELDS, "num_microbatches": micro})]
+            if arch == TP_TRAIN_INKERNEL:
+                table, table_rows = _gather_table(torch, cfg, mesh, d)
+                log(f"train tp_fam {arch} table: in-kernel gathers (bytes, algo, chunks, ms) "
+                    f"{table_rows}")
+                runs.append(("inkernel", {"sync_mode": "grad_allreduce", "tuner_table": table,
+                                          "num_microbatches": micro}))
+            held = None
+            for label, fields in runs:
+                gc.collect()
+                torch.cuda.empty_cache()
+                copies = {}
+
+                def inspect(_params, _opt, trainer):
+                    torch.cuda.synchronize()
+                    return {"gather_ms": [a.elapsed_time(b)
+                                          for a, b in trainer._step_fn.gather_events],
+                            "held": [_held_bytes(trainer, r) for r in range(mesh.size)]}
+
+                params, r = train_mode(torch, cfg, mesh, fields, batch=batch, seq=seq,
+                                       inspect=inspect,
+                                       prepare=lambda tr: _hold_copies(torch, tr, copies))
+                r.update(copies)
+                if label == "compiled" and len(runs) > 1:
+                    held = [t.cpu() for t in tree_leaves(params)]
+                elif held is not None:
+                    assert all(same_bits(torch, a, b.cpu()) for a, b in
+                               zip(held, tree_leaves(params))), \
+                        f"{arch}: the in-kernel gathers' parameters differ from the compiled ones'"
+                    held = None
+                del params
+                counts = ({k: counts[k] + v for k, v in r["launches"].items()} if counts
+                          else dict(r["launches"]))
+                d_loss, d_norm = _deviation(r, one)
+                rows = [b for b, _ in r["held"]]
+                log(f"train tp_fam {arch} {label} ({cfg.num_layers} layers, {r['params']} "
+                    f"params, {batch} x {seq} tokens, {micro} microbatch(es)): " + _train_line(r)
+                    + f"; beside phase {phase}'s one-axis run: step {one['step_s']:.4f} s, peak "
+                    f"{one['max_memory_allocated'] / 2**30:.2f} GiB; gather ms a step "
+                    f"{['%.3f' % x for x in r['gather_ms']]}; held bytes a rank row {rows} "
+                    f"({rows[0] / r['held'][0][1]:.4f} of the one-axis {r['held'][0][1]}); "
+                    f"{r['copied_elements_equal']} copied elements bit-equal to their owners; "
+                    f"merge {r['launches']['fused_combine']} and inkernel_rdma "
+                    f"{r['launches']['inkernel_rdma']} launches; last loss {d_loss:.3e} from "
+                    f"the one-axis run, grad norms {d_norm:.3e} relative (bound {lim_loss:.3e} "
+                    f"/ {lim_norm:.3e})")
+                assert d_loss <= lim_loss and d_norm <= lim_norm, (arch, label, r, one)
+                assert r["max_memory_allocated"] < 70 * 2**30, (arch, label,
+                                                                r["max_memory_allocated"])
+                assert r["copied_elements_equal"] > 0, (arch, label)
+                launches = r["launches"]
+                if label == "compiled":
+                    assert launches["fused_combine"] > 0 == launches["inkernel_rdma"], launches
+                else:
+                    assert launches["inkernel_rdma"] > 0 == launches["fused_combine"], launches
+                flash = launches["flash_attention"] + launches["flash_attention_sm90"]
+                assert flash == 0, f"training launched a flash kernel: {launches}"
+                r["d_loss"], r["d_norm"] = d_loss, d_norm
+                rec[label] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["f32"] = _tp_family_f32(torch, cfg, micro)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smoke_err"] = _tp_family_smoke(torch)
     return out, counts
 
 
@@ -6290,6 +6594,12 @@ def main() -> int:
     mark("family training and the hybrid probe (6f)")
     gc.collect()
     torch.cuda.empty_cache()
+    tp_fam_training, train_tp_fam_counts = train_tp_families(
+        torch, {"6m": moe_training["grad_allreduce"],
+                "6f": family_training["train_encdec"]["grad_allreduce"], "6v": vlm_training})
+    mark("model-axis training of the other families (6u)")
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     colls = collectives(torch)
     coll_counts = kernels.launch_counts()
@@ -6410,7 +6720,9 @@ def main() -> int:
     # copy, the quantize pair and the in-kernel replay on the hierarchical
     # mesh's path (phase 14: its collectives, trainings and distributions); the
     # merge and the in-kernel replay on the model-axis training path (phase 6t:
-    # its compiled and its in-kernel-table run's gathers); the merge, the
+    # its compiled and its in-kernel-table run's gathers) and on the other
+    # families' (train_tp_fam, phase 6u: the compiled runs' gathers, mixtral's
+    # table run's); the merge, the
     # staging copy and the sm90 flash kernel on the tensor-parallel serving path (phase 15:
     # its two distributions and the long prompt's prefills); the merge and the
     # staging copy on each of phase 16's three paths (tp_moe, tp_vlm, tp_encdec:
@@ -6427,7 +6739,8 @@ def main() -> int:
     # its accelerator; phase 2 holds it at the path plans). A line's
     # ``launches`` are those of its last path.
     paths = {"fused_combine": ("tp_seq", "tp_m8", "tp_hybrid", "tp_recurrent", "tp_moe", "tp_vlm", "tp_encdec",
-                               "train_tp", "serve_tp", "hierarchical", "serve_encdec", "serve_mha",
+                               "train_tp", "train_tp_fam", "serve_tp", "hierarchical",
+                               "serve_encdec", "serve_mha",
                                "serve_hybrid", "serve_recurrent",
                                "faults", "serve_moe", "moe_ep", "serve", "train", "train_moe",
                                "train_vlm", *family_counts, "algorithms", "online",
@@ -6440,7 +6753,7 @@ def main() -> int:
              "quantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
              "dequantize_blocks": ("hierarchical", "faults", "online", "train_moe", "train"),
              "inkernel_replay": (),
-             "inkernel_rdma": ("tp_moe", "train_tp", "hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
+             "inkernel_rdma": ("tp_moe", "train_tp", "train_tp_fam", "hierarchical", "faults", "moe_ep", "serve_tuned", "collectives", "algorithms",
                                "train"),
              "flash_attention_sm90": ("tp_seq", "tp_m8", "tp_hybrid", "tp_vlm", "serve_tp", "moe_ep", "serve_long", "serve_vlm", "serve_hybrid",
                                       "serve_mha"),
@@ -6455,7 +6768,8 @@ def main() -> int:
               "faults": fault_counts, "serve_hybrid": hybrid_counts,
               "serve_recurrent": recurrent_counts, "serve_encdec": encdec_counts,
               "serve_mha": mha_counts, "hierarchical": hier_counts, "serve_tp": tp_counts,
-              "train_tp": train_tp_counts, "tp_seq": seq_counts, "tp_m8": tp8_counts,
+              "train_tp": train_tp_counts, "train_tp_fam": train_tp_fam_counts,
+              "tp_seq": seq_counts, "tp_m8": tp8_counts,
               **family_counts, **tp_fam_counts, **tp_rec_counts}
     assert long_counts["flash_attention"] == 0, long_counts
     assert vlm_counts["flash_attention"] == 0, vlm_counts
@@ -6483,6 +6797,7 @@ def main() -> int:
     mark("training references (6, 6m, 6v, 6f)")
     log(f"training numbers: {json.dumps(training)}")
     log(f"model-axis training numbers: {json.dumps(tp_training)}")
+    log(f"model-axis family training numbers: {json.dumps(tp_fam_training)}")
     log(f"moe and vlm training numbers: "
         f"{json.dumps({'train_moe': moe_training, 'train_vlm': vlm_training})}")
     log(f"family training numbers: {json.dumps(family_training)}")

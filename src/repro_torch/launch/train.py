@@ -37,16 +37,20 @@ the reference's ``Trainer``.
 
 ``--model-parallel M`` trains on the reference's local mesh,
 ``(ranks // M, M)`` over ('data', 'model'): ``grad_allreduce`` in the
-reference's FSDP + tensor-parallel layout, for the dense decoders whose
-heads, kv heads, MLP width and padded vocab divide ``M`` (minitron-8b,
-gemma3-27b, qwen1.5-32b); the other sync modes stay data-parallel and
+reference's FSDP + tensor-parallel layout, for every family but the
+recurrent and hybrid ones (xlstm-350m, hymba-1.5b, which it refuses):
+the dense decoders, the MoE (its experts or their FFN width cut on
+'model'), the vision prefix (heads that do not divide ``M`` replicated)
+and the encoder-decoder; the other sync modes stay data-parallel and
 refuse it, as the reference's do:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b-smoke \
         --model-parallel 2 --ranks 8 --device cpu --steps 2 --log-every 1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b-smoke \
+        --model-parallel 2 --ranks 8 --device cpu --steps 2 --log-every 1
 
-``tests/test_torch_train_tp.py`` holds it against the reference's
-model-axis ``Trainer``.
+``tests/test_torch_train_tp.py`` and ``tests/test_torch_train_tp_families.py``
+hold it against the reference's model-axis ``Trainer``.
 """
 from __future__ import annotations
 

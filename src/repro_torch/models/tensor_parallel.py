@@ -23,7 +23,11 @@ GSPMD inserts the reference's model-axis all-reduce or all-gather:
     query heads too when they do not divide), each rank projects
     head-width slices, which are gathered into full-width heads, and
     prefill attends on the rank's query heads (all of them when they do
-    not divide);
+    not divide). Training's ``attn_fallback='replicate'`` leaves such
+    projections whole in every shard: the keys and values are projected
+    once, each rank's query heads attend over them and the partials are
+    summed, or, when the query heads do not divide either, the whole
+    attention is computed once;
   * the caches, in one place (:func:`_cut_cache`): prefill computes each
     attention and cross cache once and cuts it over the serving group's
     ('data', 'model') mesh as ``cache_specs`` places it there
@@ -42,12 +46,15 @@ GSPMD inserts the reference's model-axis all-reduce or all-gather:
   * a decoder block's cross attention to the encoder's keys and values,
     which prefill keeps as its cache: on the rank's heads, or on its
     head-width slices of q, k and v, gathered into full-width heads, when
-    the kv heads do not divide (whisper-large-v3's 20 on 8 ranks);
+    the kv heads do not divide (whisper-large-v3's 20 on 8 ranks); in
+    training, where they do not divide, as the self-attention's replicated
+    projections;
   * the MLP: a partial of ``down_proj`` from each rank's width slice;
   * MoE: the ranks' f32 router logits concatenated in expert order and
     routed by the one-axis code (``moe.route_logits``), the expert shards'
     outputs gathered along the experts, or the expert-FFN shards' partials
-    summed; shared experts as the MLP;
+    summed; shared experts as the MLP; the router's aux loss over the whole
+    batch, summed over the blocks as the one-axis stack sums it;
   * the recurrent mixers, each rank's state its ``cache_specs`` block of
     the one-axis state, kept and updated in place by prefill and every
     decode step, never another rank's: Mamba (a hybrid block's, beside its
@@ -90,11 +97,14 @@ requests (``serve.engine.serving_groups``, as ``batch_specs`` places the
 batch) are computed once, on the model ranks of its data coordinate 0, and
 its caches are cut over all its ranks; a recurrent state's batch is
 replicated over the data axes, so each model rank's is kept once, listed
-at every data rank of the group. Training covers the dense decoders whose
-heads, kv heads, ``d_ff`` and padded vocab divide the model axis.
-Everything else on a model axis (in training every other family, the SSM
-mixers included) raises a ``ValueError`` naming the ROADMAP item
-"Tensor-parallel remainder" (:func:`check_tensor_parallel`).
+at every data rank of the group. Training covers the decoders over text
+and over a vision prefix and the encoder-decoder, with attention and MoE
+blocks, whatever their heads, under training's layout: the train-mode
+forward returns the blocks' aux loss beside the logits, and
+:func:`tp_loss` is ``Model.loss``'s ``nll + aux``. Everything else on a
+model axis (in training the SSM mixers, xlstm-350m's and hymba-1.5b's)
+raises a ``ValueError`` naming the ROADMAP item "Tensor-parallel
+remainder" (:func:`check_tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -138,45 +148,40 @@ TP_REMAINDER = 'ROADMAP item "Tensor-parallel remainder"'
 def check_tensor_parallel(cfg, m: int, *, mode: str = "train") -> None:
     """Raise unless ``cfg`` runs on a model axis of ``m`` ranks in ``mode``.
 
-    ``'train'``: a dense decoder over text whose heads, kv heads, ``d_ff``
-    and padded vocab divide ``m``. ``'serve'``: a decoder (over text or a
-    vision prefix) or the encoder-decoder whose attention's query and kv
-    heads, self and cross, or else their head width divide ``m``
-    (``attn_fallback='head_dim'``), whose experts or expert width divide,
-    whose recurrent mixers are cut where the TP mixers read them
-    (:func:`_mixer_cuts`: an mLSTM's heads need not divide, its state's key
-    rows must), and whose dense and shared-expert MLP widths and padded
-    vocab divide. Any batch serves: :func:`apply_lm_tp` cuts each cache as
-    ``cache_specs`` places it on the serving group's mesh."""
+    Both modes: a decoder (over text or a vision prefix) or the
+    encoder-decoder whose experts or expert width divide ``m``, whose dense
+    and shared-expert MLP widths and padded vocab divide. ``'train'``
+    (under ``param_specs(fsdp=True, attn_fallback='replicate')``): any
+    attention, an attention projection whose heads do not divide whole in
+    every shard; no recurrent mixer (:func:`_block`'s train mode), whose
+    families keep the MLP-width reason too. ``'serve'`` (under
+    ``attn_fallback='head_dim'``): attention whose query and kv heads, self
+    and cross, or else their head width divide ``m``, and recurrent mixers
+    cut where the TP mixers read them (:func:`_mixer_cuts`: an mLSTM's
+    heads need not divide, its state's key rows must). Any batch serves:
+    :func:`apply_lm_tp` cuts each cache as ``cache_specs`` places it on the
+    serving group's mesh."""
     if mode not in ("train", "serve"):
         raise ValueError(f"mode {mode!r}: a model axis trains or serves")
     why = []
     kinds = set(cfg.layer_kinds())
     mixers = kinds & set(_MIXERS)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if mode == "train":
-        if mixers:
-            why.append(f"training the SSM mixers ({', '.join(sorted(mixers))} blocks)")
-        if cfg.arch_type != "decoder" or cfg.frontend is not None:
-            why.append("training the encoder-decoder and the vision prefix")
-        if "moe" in kinds:
-            why.append("training MoE expert or expert-FFN shards")
-        if H % m or KV % m:
-            why.append(f"training with attn_fallback's head-dim split ({H} query and {KV} kv "
-                       f"heads)")
-        dense = True
-    else:
+    if mode == "train" and mixers:
+        why.append(f"training the SSM mixers ({', '.join(sorted(mixers))} blocks)")
+    if mode == "serve":
         why += _mixer_cuts(cfg, m, mixers)
         attends = bool(kinds & {"attn", "moe", "hybrid"}) or cfg.arch_type == "encdec"
         cuts = (_head_cut(H, hd, m), _head_cut(KV, hd, m))
         if attends and None in cuts:
             why.append(f"{H} query and {KV} kv heads of width {hd}, neither dividing")
-        E, f = cfg.num_experts, cfg.d_ff
-        if "moe" in kinds and E % m and f % m:
-            why.append(f"{E} experts of width {f}, neither dividing")
-        if "moe" in kinds and cfg.num_shared_experts and (f * cfg.num_shared_experts) % m:
-            why.append(f"shared experts of width {f * cfg.num_shared_experts}")
-        dense = bool(kinds & {"attn", "hybrid"}) or cfg.arch_type == "encdec"
+    E, f = cfg.num_experts, cfg.d_ff
+    if "moe" in kinds and E % m and f % m:
+        why.append(f"{E} experts of width {f}, neither dividing")
+    if "moe" in kinds and cfg.num_shared_experts and (f * cfg.num_shared_experts) % m:
+        why.append(f"shared experts of width {f * cfg.num_shared_experts}")
+    dense = (bool(kinds & {"attn", "hybrid"}) or cfg.arch_type == "encdec"
+             or (mode == "train" and bool(mixers)))
     if dense and (not cfg.d_ff or cfg.d_ff % m):
         why.append(f"an MLP of width {cfg.d_ff}")
     if cfg.padded_vocab % m:
@@ -492,7 +497,9 @@ def _decode_heads(p, h: torch.Tensor, spec, blocks: list, cur_pos: int) -> torch
 def _self_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, caches, cur_pos,
                     max_len: int, prefix_len: int, mesh):
     """The block's self-attention over the model ranks: on each rank's heads
-    when the heads and kv heads divide, else :func:`_fallback_attention`.
+    when the heads and kv heads divide, else :func:`_fallback_attention`
+    (serving's head-dim split) or :func:`_replicated_attention` (training's
+    whole projections).
     On the heads, prefill cuts the model ranks' caches of their kv heads
     over the group's ranks ``mesh`` (:func:`_cut_cache`: the sequence on
     'data' too when the group spans data ranks and it divides), and decode
@@ -501,6 +508,9 @@ def _self_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, caches, 
     :func:`_decode_heads`. Returns (the summed output, the ranks' attention
     caches, None in train mode)."""
     m = len(ps)
+    if _replicated([p["attn"] for p in ps], spec):
+        return _replicated_attention([p["attn"] for p in ps], h, spec,
+                                     prefix_len=prefix_len), None
     if _head_cut(spec.num_kv_heads, spec.head_dim, m) != "heads":
         return _fallback_attention(ps, h, cfg, spec, mode=mode, caches=caches, cur_pos=cur_pos,
                                    max_len=max_len, prefix_len=prefix_len, mesh=mesh)
@@ -521,11 +531,59 @@ def _self_attention(ps: list, h: torch.Tensor, cfg, spec, *, mode: str, caches, 
     return model_axis_sum(ys), (None if mode == "train" else caches)
 
 
-def _cross_proj(cp, x: torch.Tensor, name: str) -> torch.Tensor:
+def _cross_proj(p, x: torch.Tensor, name: str) -> torch.Tensor:
     """A model rank's heads or head-width slices of the cross attention's
-    ``name`` ('q', 'k' or 'v') projection of ``x``, its bias added."""
-    y = torch.einsum("btd,dhk->bthk", x, cp["w" + name])
-    return y + cp["b" + name] if "b" + name in cp else y
+    ``name`` ('q', 'k' or 'v') projection of ``x``, its bias added; also
+    the projections of a training attention that ``attn_fallback=
+    'replicate'`` leaves whole (:func:`_replicated_attention`)."""
+    y = torch.einsum("btd,dhk->bthk", x, p["w" + name])
+    return y + p["b" + name] if "b" + name in p else y
+
+
+def _replicated(ps: list, spec) -> bool:
+    """Whether the attention shards ``ps`` hold ``wk``/``wv`` whole: the kv
+    heads do not divide the model ranks and training's
+    ``attn_fallback='replicate'`` leaves the projections uncut (the
+    head-dim split cuts their head width)."""
+    return (_head_cut(spec.num_kv_heads, spec.head_dim, len(ps)) != "heads"
+            and ps[0]["wk"].shape[-1] == spec.head_dim)
+
+
+def _replicated_attention(ps: list, h: torch.Tensor, spec, *, prefix_len: int = 0,
+                          kv_inputs=None) -> torch.Tensor:
+    """Training's attention under ``attn_fallback='replicate'`` (the kv heads
+    do not divide the model ranks ``ps``, each a rank's attention or cross
+    attention leaves): ``wk``/``wv`` are whole in every shard, so the keys and
+    values are projected once, from rank 0's copy. When the query heads
+    divide, each rank attends with its own query heads (its ``wq`` heads)
+    over the kv heads they read and the output projections' partials are
+    summed; when they do not, ``wq`` and ``wo`` are whole too and the whole
+    attention is computed once, from rank 0's, with no sum. ``kv_inputs``,
+    the encoder's normed output, makes it a cross attention: no rotation,
+    no mask. A replicated leaf is one tensor in every shard, so its
+    gradient is the sum of the ranks' uses."""
+    m, p0 = len(ps), ps[0]
+    src = h if kv_inputs is None else kv_inputs
+    k, v = _cross_proj(p0, src, "k"), _cross_proj(p0, src, "v")
+    T = h.shape[1]
+    rot = lambda t: t  # noqa: E731
+    if kv_inputs is None and spec.use_rope:
+        pos = torch.arange(T, device=h.device)[None, :]
+        rot = lambda t: rope(t, pos, spec.rope_theta)  # noqa: E731
+        k = rot(k)
+
+    def attend_heads(q, kr, vr):
+        if kv_inputs is not None:
+            mask = torch.ones((1, T, kr.shape[1]), dtype=torch.bool, device=h.device)
+            return _sdpa(q, kr, vr, mask, spec)
+        return attend(rot(q), kr, vr, spec, mode="train", prefix_len=prefix_len)
+
+    if p0["wq"].shape[-2] == spec.num_heads:  # every projection whole
+        return _out_proj(attend_heads(_cross_proj(p0, h, "q"), k, v), p0["wo"])
+    hq, group = spec.num_heads // m, spec.num_heads // spec.num_kv_heads
+    return model_axis_sum([_out_proj(attend_heads(_cross_proj(p, h, "q"),
+                                                  *_heads_kv(k, v, r, hq, group)), p["wo"])
+                           for r, p in enumerate(ps)])
 
 
 def _attend_frames(q: torch.Tensor, caches: list, spec) -> torch.Tensor:
@@ -555,12 +613,16 @@ def _cross_attention(ps: list, h: torch.Tensor, cross_inputs, spec, *, mode: str
     ``layers.attention`` when one block holds a rank's frames); else, under
     ``attn_fallback='head_dim'``, each rank projects its head-width slices
     of q, k and v, gathered into full-width heads, and takes its slice of
-    the output for its rows of ``wo``. Decode over blocks of the frames
-    merges each block's partial (:func:`_attend_frames`). Returns (the
-    summed output, the ranks' cross caches)."""
+    the output for its rows of ``wo``; in training, under
+    ``attn_fallback='replicate'``, :func:`_replicated_attention`. Decode
+    over blocks of the frames merges each block's partial
+    (:func:`_attend_frames`). Returns (the summed output, the ranks' cross
+    caches)."""
     m = len(ps)
     cps = [p["cross"] for p in ps]
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    if _replicated(cps, spec):
+        return _replicated_attention(cps, h, spec, kv_inputs=cross_inputs), None
     if _head_cut(KV, hd, m) == "heads":
         spec = dataclasses.replace(spec, num_heads=H // m, num_kv_heads=KV // m)
         ys, out = [], []
@@ -921,11 +983,13 @@ def apply_lm_tp(shards: list, cfg, *, tokens: torch.Tensor, embeds: torch.Tensor
     (logits (B, T, V) f32 of the text positions, caches): the caches are the
     unsharded structure with a list of the group's ranks' caches, data-major
     (model-rank order within a data rank), at each block; decode updates
-    them in place; train mode returns
-    None for them, and ``remat`` recomputes each superblock in the backward
-    pass (``transformer._apply_stack``). A leaf the ranks hold replicated
-    may be one tensor in every shard: its gradient is then the sum of the
-    ranks' uses."""
+    them in place. Train mode has no caches and returns (logits, aux)
+    instead, aux the decoder blocks' summed auxiliary loss (0-d f32: the
+    MoE router's load-balancing loss over the whole batch, 0 for a dense
+    model), as ``transformer.apply_lm`` sums it; ``remat`` recomputes each
+    superblock in the backward pass (``transformer._apply_stack``). A leaf
+    the ranks hold replicated may be one tensor in every shard: its
+    gradient is then the sum of the ranks' uses."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the tensor-parallel forward trains, prefills and "
                          "decodes")
@@ -956,25 +1020,28 @@ def apply_lm_tp(shards: list, cfg, *, tokens: torch.Tensor, embeds: torch.Tensor
             x = torch.cat([embeds.to(dt), x], dim=1)
             prefix_len = embeds.shape[1]
     x = hint(x, "btd")
-    x, new_caches, _ = _apply_stack(_zip_ranks([s["decoder"] for s in shards]), x, cfg,
-                                    StackLayout(cfg), mode=mode, caches=caches,
-                                    cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
-                                    cross_inputs=cross_inputs, remat=remat,
-                                    block=functools.partial(_block, cache_mesh=cache_mesh))
+    x, new_caches, aux = _apply_stack(_zip_ranks([s["decoder"] for s in shards]), x, cfg,
+                                      StackLayout(cfg), mode=mode, caches=caches,
+                                      cur_pos=cur_pos, max_len=max_len, prefix_len=prefix_len,
+                                      cross_inputs=cross_inputs, remat=remat,
+                                      block=functools.partial(_block, cache_mesh=cache_mesh))
     x = rms_norm(shards[0]["final_norm"], x, cfg.norm_eps)
     if mode != "decode" and prefix_len:
         x = x[:, prefix_len:]
-    logits = model_axis_gather([unembed(s["embed"], x) for s in shards], -1)
-    return hint(logits, "btv"), new_caches
+    logits = hint(model_axis_gather([unembed(s["embed"], x) for s in shards], -1), "btv")
+    return logits, (aux if mode == "train" else new_caches)
 
 
 def tp_loss(shards: list, cfg, batch: dict, *, remat: bool = False):
     """``Model.loss`` on the model ranks' shards: ``(nll + aux, {"nll":
-    nll, "aux": aux})`` over ``batch['tokens']`` and ``batch['labels']``,
-    the labels clamped to the padded vocab, the nll over the concatenated
-    f32 logits; aux is 0, as for every dense family."""
-    logits, _ = apply_lm_tp(shards, cfg, tokens=batch["tokens"], mode="train", remat=remat)
+    nll, "aux": aux})`` over ``batch['tokens']`` (and ``batch['embeds']``,
+    a vision config's patches or an encoder-decoder's frames) and
+    ``batch['labels']`` of the text positions, the labels clamped to the
+    padded vocab, the nll over the concatenated f32 logits; aux the
+    blocks' summed router loss over the whole batch, as one pass computes
+    it (exactly 0 for a dense family)."""
+    logits, aux = apply_lm_tp(shards, cfg, tokens=batch["tokens"], embeds=batch.get("embeds"),
+                              mode="train", remat=remat)
     labels = torch.clamp(batch["labels"], max=cfg.padded_vocab - 1)
     nll = cross_entropy_loss(logits, labels, batch.get("loss_mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
     return nll + aux, {"nll": nll, "aux": aux}

@@ -341,14 +341,19 @@ def make_tp_train_step(model, run_cfg: RunConfig, optimizer: Optimizer, lr_fn: C
     1. gathers each model rank's shard of every leaf from its data ranks'
        FSDP blocks (:func:`gather_model_shards`), through ``pallgather`` on
        each model rank's data group with the run's tuner table and
-       ``compiled_collectives``: the all-gather GSPMD inserts;
+       ``compiled_collectives``, each leaf a frame of its own dtype (a
+       router's f32 among bf16 ones): the all-gather GSPMD inserts;
     2. runs the tensor-parallel forward and backward
        (:func:`~repro_torch.models.tensor_parallel.tp_loss`, ``remat`` as
-       the run says) over the global batch and takes
-       ``torch.autograd.grad`` over the shards (the f32 mean over
-       microbatches, as :func:`_grad_fn`); a leaf the model axis does not
-       split is one tensor in every rank's tree, so its gradient is the sum
-       of the ranks' uses;
+       the run says) over the global batch (a vision config's stub patch
+       ``embeds`` and an encoder-decoder's stub frames ride in it, cut into
+       microbatches with the tokens; a MoE's loss carries the router's aux
+       over the whole batch a pass sees) and takes ``torch.autograd.grad``
+       over the shards (the f32 mean over microbatches, as
+       :func:`_grad_fn`); a leaf the model axis does not split (a norm
+       scale, a router whose experts do not divide, a kv projection
+       ``attn_fallback='replicate'`` leaves whole) is one tensor in every
+       rank's tree, so its gradient is the sum of the ranks' uses;
     3. keeps each rank's FSDP block of its model rank's gradient (the
        reduce-scatter: the pass already took the data mean), clips by the
        global norm over the blocks their owners hold, each element of the

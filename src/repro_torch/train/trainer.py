@@ -87,8 +87,10 @@ class Trainer:
     rank ``grad_allreduce`` trains tensor-parallel, in the blocked layout
     (see the module); the other sync modes and a dead-rank ``health``
     raise ``ValueError``, and so does a family the tensor-parallel forward
-    does not cover (naming the ROADMAP item "Tensor-parallel
-    remainder")."""
+    does not cover in training, the recurrent and hybrid ones (naming the
+    ROADMAP item "Tensor-parallel remainder"). The MoE, vision-prefix and
+    encoder-decoder families train there as the dense decoders do, the
+    aux over the whole global batch."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, *, mesh=None,
                  data_path: Optional[str] = None, ckpt_dir: Optional[str] = None,
